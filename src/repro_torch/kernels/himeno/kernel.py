@@ -3,10 +3,9 @@
 Replaces the JAX package's Pallas TPU kernel (``src/repro/kernels/himeno/
 kernel.py`` ``_jacobi_kernel`` via ``himeno_jacobi_pallas``). The source is
 ``src/repro_torch/csrc/himeno.cu``; its header note gives the kernel's bound
-on an H100 and the design that follows from it. It is compiled with ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface at first use
-(into ``build/kernels/`` at the repo root, named by the source's hash) and
-loaded with ctypes.
+on an H100 and the design that follows from it. It is built and loaded by
+``kernels/_build.py`` (``nvcc`` for ``sm_90a``, a plain C interface, ctypes),
+with ``--fmad=false``.
 
 Two wrappers share the kernel body:
 
@@ -22,78 +21,31 @@ counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._build import KernelLibrary
 from repro_torch.kernels.himeno.ref import jacobi_ref, stencil_parts_ref
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "himeno.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.himeno_sweep_f32.argtypes = [ptr] * 8 + [i32] * 3 + [ctypes.c_float,
+                                                             ptr]
+    lib.himeno_stencil_f32.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
+    for fn in (lib.himeno_sweep_f32, lib.himeno_stencil_f32):
+        fn.restype = i32
+    lib.himeno_num_partials.argtypes = [i32] * 3
+    lib.himeno_num_partials.restype = i32
+
+
 # --fmad=false: ss = s0*a3 - p cancels to about 1e-4 of p, so a fused
 # multiply-add, rounding once where the plain version rounds twice, moves gosa
 # by about 1e-4 relative. Unfused, each product and sum rounds as the plain
 # PyTorch and NumPy versions round; the sweep is memory-bound either way.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-
-_lib = None
-_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found: the Himeno kernel is built from "
-                           f"{SOURCE} with the CUDA toolkit")
-    return path
-
-
-def build() -> Path:
-    """Compile ``csrc/himeno.cu`` into ``BUILD_DIR`` unless a library of the
-    same source and flags is there already; return the library's path."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libhimeno-{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library; raises without CUDA."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    if not torch.cuda.is_available():
-        raise RuntimeError("the Himeno CUDA kernel needs a CUDA device")
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.himeno_sweep_f32.argtypes = [ptr] * 8 + [i32] * 3 + [
-                ctypes.c_float, ptr]
-            lib.himeno_stencil_f32.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
-            for fn in (lib.himeno_sweep_f32, lib.himeno_stencil_f32):
-                fn.restype = i32
-            lib.himeno_num_partials.argtypes = [i32] * 3
-            lib.himeno_num_partials.restype = i32
-            lib.himeno_error_string.argtypes = [i32]
-            lib.himeno_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+LIBRARY = KernelLibrary("himeno", "himeno.cu", flags=("--fmad=false",),
+                        declare=_declare)
+load_library = LIBRARY.load
 
 
 def _on_card(p, a, b, c, bnd, wrk1) -> bool:
@@ -133,9 +85,7 @@ def _launch(fn_name: str, out, p, a, b, c, bnd, wrk1, *extra):
             p.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
             bnd.data_ptr(), wrk1.data_ptr(), out.data_ptr(), parts.data_ptr(),
             I, J, K, *extra, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{lib.himeno_error_string(err).decode()}")
+    LIBRARY.check(err, fn_name)
     return parts
 
 

@@ -53,6 +53,32 @@ meta = {k: v.to("meta") for k, v in st.items()}
 args = [meta[k] for k in ("p", "a", "b", "c", "bnd", "wrk1")]
 raises(lambda: himeno_sweep(*args), ValueError)
 raises(lambda: himeno_stencil(*args), ValueError)
+
+from repro_torch.configs import get_config, reduced, smoke_shape
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (
+    load_library as flash_library)
+from repro_torch.kernels.rmsnorm import rms_norm
+from repro_torch.kernels.rmsnorm.kernel import load_library as rms_library
+from repro_torch.launch.serve import serve
+from repro_torch.models import (
+    init_decode_state, init_params, params_from_reference, synthetic_batch)
+from repro_torch.runtime import ServingEngine
+
+cfg = reduced(get_config("llama3.2-3b"))
+raises(lambda: init_params(cfg), RuntimeError)
+model = init_params(cfg, device="cpu")
+raises(lambda: ServingEngine(cfg, model), RuntimeError)
+raises(lambda: init_decode_state(cfg, 2, 8), RuntimeError)
+raises(lambda: synthetic_batch(cfg, smoke_shape("prefill")), RuntimeError)
+raises(lambda: params_from_reference(cfg, {}, None), RuntimeError)
+raises(serve, RuntimeError)
+raises(rms_library, RuntimeError)
+raises(flash_library, RuntimeError)
+raises(lambda: rms_norm(torch.zeros(2, 64, device="meta"),
+                        torch.ones(64, device="meta")), ValueError)
+raises(lambda: flash_attention(*(torch.zeros(1, 2, 16, 16, device="meta"),)
+                               * 3), ValueError)
 print("ISOLATED", len(mods))
 """
 
