@@ -4,8 +4,8 @@ on one card.
 
 Counterpart of the JAX package's ``launch/serve.py`` for one engine.
 ``--full`` serves the published config (``python -m repro_torch.launch.serve
---full`` serves llama3.2-3b at full width and depth on the card); without
-it the reduced config is served. The weights are random, drawn from a
+--full`` serves llama3.2-3b at full width and depth on the card, ``--arch
+rwkv6-1.6b --full`` rwkv6-1.6b); without it the reduced config is served. The weights are random, drawn from a
 generator seeded 0 on the device.
 
 No placement epoch is applied: ``static_placements`` (``runtime/

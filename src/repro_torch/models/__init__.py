@@ -1,4 +1,5 @@
-"""The dense LM of the port: parameters, forward (prefill) and decode."""
+"""The port's LMs (dense and RWKV families): parameters, forward (prefill)
+and decode."""
 from repro_torch.models.inputs import batch_structure, synthetic_batch
 from repro_torch.models.transformer import (
     TransformerLM,

@@ -1,11 +1,13 @@
-"""Model assembly, dense family: a decoder-only LM over per-layer blocks.
+"""Model assembly, dense and RWKV families: a decoder-only LM over
+per-layer blocks.
 
-Counterpart of the dense branch of the JAX package's
-``models/transformer.py``. The parameters live in a :class:`TransformerLM`
-(an ``nn.Module``) under the reference's names and layouts (``wq`` stays
-``(d, h, hd)``), with the reference's stacked layer axis split into one
-entry of ``layers`` per layer. The module-level functions keep the
-reference's public signatures, with the module in the place of ``params``.
+Counterpart of the dense and RWKV (``family == "ssm"``) branches of the JAX
+package's ``models/transformer.py``. The parameters live in a
+:class:`TransformerLM` (an ``nn.Module``) under the reference's names and
+layouts (``wq`` stays ``(d, h, hd)``), with the reference's stacked layer
+axis split into one entry of ``layers`` per layer. The module-level
+functions keep the reference's public signatures, with the module in the
+place of ``params``.
 
 Public surface:
     model_defs(cfg)                   -> PDef tree (single source of truth)
@@ -15,10 +17,12 @@ Public surface:
     decode_step(cfg, model, state, tokens)   -> (logits, state) [serve]
 
 The decode state is updated in place: ``decode_step`` writes each layer's
-new K/V rows into the stacked cache and replaces ``state["pos"]``, and
-returns the same dict. MoE, RWKV, Mamba, hybrid, enc-dec and VLM configs
-raise ``NotImplementedError``: they wait for slice 3 of the port, with
-``extract_decode_slot``/``restore_decode_slot`` (migration).
+new K/V rows into the stacked cache (dense), or its WKV state, ``tm_x`` and
+``cm_x`` into the stacked recurrent leaves (RWKV), replaces
+``state["pos"]``, and returns the same dict. MoE, Mamba, hybrid, enc-dec
+and VLM configs raise ``NotImplementedError``: they wait for the rest of
+slice 3 of the port, with ``extract_decode_slot``/``restore_decode_slot``
+(migration).
 """
 from __future__ import annotations
 
@@ -31,18 +35,20 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.parallel.sharding import init_from_defs, stack_defs
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    """The dense family is this slice; the others raise."""
-    if (cfg.family != "dense" or cfg.num_experts or cfg.is_encdec
-            or cfg.frontend != "none"):
+def require_ported(cfg: ArchConfig) -> None:
+    """The dense and RWKV families are ported; the others raise."""
+    if (cfg.family not in ("dense", "ssm") or cfg.num_experts
+            or cfg.is_encdec or cfg.frontend != "none"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense family is ported; "
-            "MoE, RWKV, Mamba, hybrid, enc-dec and VLM wait for slice 3")
+            f"{cfg.name} ({cfg.family}): only the dense and RWKV families "
+            "are ported; MoE, Mamba, hybrid, enc-dec and VLM wait for the "
+            "rest of slice 3")
 
 
 # ---------------------------------------------------------------------------
@@ -60,12 +66,22 @@ def _dense_layer_defs(cfg: ArchConfig) -> dict:
     }
 
 
+def _rwkv_layer_defs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "ln1": L.rms_norm_defs(d),
+        "tm": rwkv_mod.rwkv_defs(cfg),
+        "ln2": L.rms_norm_defs(d),
+    }
+
+
 def model_defs(cfg: ArchConfig) -> dict:
-    require_dense(cfg)
+    require_ported(cfg)
+    layer = _rwkv_layer_defs if cfg.family == "ssm" else _dense_layer_defs
     return {
         "embedding": L.embedding_defs(cfg),
         "final_norm": L.rms_norm_defs(cfg.d_model),
-        "layers": stack_defs(_dense_layer_defs(cfg), cfg.num_layers),
+        "layers": stack_defs(layer(cfg), cfg.num_layers),
     }
 
 
@@ -84,16 +100,17 @@ def _tree_map(fn, tree):
 
 
 class TransformerLM(nn.Module):
-    """A dense decoder LM's parameters: ``embedding`` (``embed``, and
-    ``unembed`` unless tied), ``final_norm`` and ``layers[i]`` (``ln1``,
-    ``attn``, ``ln2``, ``mlp``), each leaf under the reference's name and
-    layout. Built from ``init_params`` or from the reference's weights
+    """A decoder LM's parameters: ``embedding`` (``embed``, and
+    ``unembed`` unless tied), ``final_norm`` and ``layers[i]`` (dense:
+    ``ln1``, ``attn``, ``ln2``, ``mlp``; RWKV: ``ln1``, ``tm``, ``ln2``),
+    each leaf under the reference's name and layout. Built from
+    ``init_params`` or from the reference's weights
     (``models/weights.py``)."""
 
     def __init__(self, cfg: ArchConfig, embedding: dict, final_norm: dict,
                  layers: list[dict]):
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         if len(layers) != cfg.num_layers:
             raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, got "
                              f"{len(layers)}")
@@ -140,18 +157,26 @@ def _dense_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
     return x + L.mlp_apply(cfg, p["mlp"], xn)
 
 
+def _rwkv_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
+    x = x + rwkv_mod.rwkv_time_mix(
+        cfg, p["tm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode)
+    return x + rwkv_mod.rwkv_channel_mix(
+        cfg, p["tm"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
 @torch.no_grad()
 def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
             mode: str = "exec", remat: Optional[str] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits, aux): logits (B, S, padded vocab) in the model's
-    dtype, aux the reference's MoE auxiliary loss, 0 for the dense family.
+    dtype, aux the reference's MoE auxiliary loss, 0 for these families.
     ``remat`` is accepted for the reference's signature; nothing here keeps
     activations for a backward pass."""
-    require_dense(cfg)
+    require_ported(cfg)
+    block = _rwkv_block if cfg.family == "ssm" else _dense_block
     x = L.embed_tokens(cfg, model.embedding, batch["tokens"])
     for p_l in model.layers:
-        x = _dense_block(cfg, p_l, x, mode=mode)
+        x = block(cfg, p_l, x, mode=mode)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = L.lm_logits(cfg, model.embedding, x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -165,17 +190,24 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
                       device=None) -> dict:
     """``{"pos": (batch,) int32, "kv": {"k", "v": (L, batch, len, K, hd)
-    bf16}}`` on ``device`` (None: the card). Every slot carries its own
-    position stream, so a serving slot can be reset and re-admitted
-    mid-stream without aliasing cache positions across requests."""
-    require_dense(cfg)
+    bf16}}`` (dense) or ``{"pos", "rwkv": {"wkv": (L, batch, H, hd, hd)
+    f32, "tm_x", "cm_x": (L, batch, D) bf16}}`` (RWKV, no cache length) on
+    ``device`` (None: the card). Every slot carries its own position
+    stream, so a serving slot can be reset and re-admitted mid-stream
+    without aliasing cache positions across requests."""
+    require_ported(cfg)
     device = resolve_device(device)
-    kv = attn.init_kv_cache(cfg, batch, cache_len, window=cfg.sliding_window,
-                            device=device)
+    if cfg.family == "ssm":
+        per = rwkv_mod.init_rwkv_state(cfg, batch, device=device)
+        key = "rwkv"
+    else:
+        per = attn.init_kv_cache(cfg, batch, cache_len,
+                                 window=cfg.sliding_window, device=device)
+        key = "kv"
     return {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "kv": {name: buf[None].repeat((cfg.num_layers,) + (1,) * buf.dim())
-               for name, buf in kv.items()},
+        key: {name: buf[None].repeat((cfg.num_layers,) + (1,) * buf.dim())
+              for name, buf in per.items()},
     }
 
 
@@ -186,11 +218,18 @@ def reset_decode_slots(cfg: ArchConfig, state: dict, reset_mask) -> dict:
     only exposes cache rows a slot has written since its last reset,
     including the sliding-window ring buffer, whose "fully wrapped" clause
     only unlocks after the new stream has itself written the whole ring.
-    Only ``pos`` changes for the dense family; returns ``state``."""
-    require_dense(cfg)
+    Only ``pos`` changes for the dense family. RWKV carries its history
+    densely in its state, so its three leaves are zeroed in place under the
+    mask (the fresh state of ``init_rwkv_state``). Returns ``state``."""
+    require_ported(cfg)
     pos = state["pos"]
     reset = torch.as_tensor(reset_mask, dtype=torch.bool, device=pos.device)
     state["pos"] = torch.where(reset, torch.zeros_like(pos), pos)
+    if cfg.family == "ssm":
+        for leaf in state["rwkv"].values():
+            # batch is axis 1 of every stacked leaf
+            leaf.masked_fill_(reset.view((1, -1) + (1,) * (leaf.dim() - 2)),
+                              0)
     return state
 
 
@@ -217,11 +256,44 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, state: dict,
     ``state["pos"]`` is a per-slot (B,) position vector (a scalar is
     broadcast); each batch row attends within its own stream only. The
     state is updated in place and returned."""
-    require_dense(cfg)
+    require_ported(cfg)
     pos = torch.as_tensor(state["pos"], dtype=torch.int32,
                           device=tokens.device).expand(tokens.shape[0])
     x = L.embed_tokens(cfg, model.embedding, tokens[:, None])
-    kv = state["kv"]
+    if cfg.family == "ssm":
+        x = _rwkv_decode_layers(cfg, model, state["rwkv"], x)
+    else:
+        x = _dense_decode_layers(cfg, model, state["kv"], pos, x)
+    state["pos"] = pos + 1
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = L.lm_logits(cfg, model.embedding, x)
+    return logits[:, 0], state
+
+
+def _rwkv_decode_layers(cfg: ArchConfig, model: TransformerLM, rw: dict,
+                        x: torch.Tensor) -> torch.Tensor:
+    """One token through every RWKV layer; layer i's WKV state is updated in
+    place by B4, its ``tm_x``/``cm_x`` rows overwritten (rounded to bf16,
+    as the reference stores them)."""
+    for i, p_l in enumerate(model.layers):
+        xn = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+        y, _, tm_x = rwkv_mod.rwkv_time_mix(
+            cfg, p_l["tm"], xn, mode="probe", state=rw["wkv"][i],
+            last_x=rw["tm_x"][i].to(xn.dtype))
+        x = x + y
+        xn = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+        y, cm_x = rwkv_mod.rwkv_channel_mix(
+            cfg, p_l["tm"], xn, last_x=rw["cm_x"][i].to(xn.dtype))
+        x = x + y
+        rw["tm_x"][i].copy_(tm_x)
+        rw["cm_x"][i].copy_(cm_x)
+    return x
+
+
+def _dense_decode_layers(cfg: ArchConfig, model: TransformerLM, kv: dict,
+                         pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One token through every dense layer; each layer's new K/V rows are
+    written into its cache."""
     for i, p_l in enumerate(model.layers):
         cache = {"k": kv["k"][i], "v": kv["v"][i]}
         xn = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
@@ -230,7 +302,4 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, state: dict,
         x = x + y
         xn = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(cfg, p_l["mlp"], xn)
-    state["pos"] = pos + 1
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = L.lm_logits(cfg, model.embedding, x)
-    return logits[:, 0], state
+    return x

@@ -1,13 +1,14 @@
 """Batched serving loop — slot-stream continuous batching (default) with the
 legacy wave scheduler kept behind ``scheduler="wave"``.
 
-Counterpart of the JAX package's ``runtime/serving.py``, dense family. The
-schedulers, power states, ``reconfigure`` and the energy, idle and SLO
-ledgers are the reference's, line for line. What differs: the engine holds
-a ``TransformerLM`` and a ``device`` (None: the card; the model must lie
-there), and its step is an eager ``decode_step`` that **updates the decode
-state in place** — each layer's new K/V rows are written by index assignment
-into the existing cache tensors — where the reference jits the step and
+Counterpart of the JAX package's ``runtime/serving.py``, for the families
+the port's model serves (dense and RWKV). The schedulers, power states,
+``reconfigure`` and the energy, idle and SLO ledgers are the reference's,
+line for line. What differs: the engine holds a ``TransformerLM`` and a
+``device`` (None: the card; the model must lie there), and its step is an
+eager ``decode_step`` that **updates the decode state in place** — each
+layer's new K/V rows, or its WKV state and token-shift rows, are written
+into the existing state tensors — where the reference jits the step and
 donates the state buffer. The per-step argmax stays one host sync a step.
 ``snapshot_slot``/``restore_slot`` (mid-flight migration) wait for slice 3;
 placements come from the caller, since ``runtime/placement.py`` waits for

@@ -9,17 +9,26 @@ package and in the port on the same weights (``params_from_reference``) and
 the same numpy-seeded tokens; the two must agree, since both round the same
 values into the cache.
 
-The tier-1 test runs a reduced config. Run as a script, the file measures
-the gap at ``chip_smoke.py``'s model check (llama3.2-3b at full width,
-float32, 4 layers, 2 x 512 tokens) on the CPU and prints one JSON line:
+The tier-1 test runs reduced configs. Run as a script, the file measures
+the gap at one of ``chip_smoke.py``'s model checks (full width, float32,
+4 layers, 2 x 512 tokens) on the CPU and prints one JSON line:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py \
+        rwkv6-1.6b
 
-That needs about 6 GiB of host memory and about 5 minutes.
+llama3.2-3b (the default) needs about 6 GiB of host memory and about 5
+minutes. RWKV's decode keeps ``tm_x`` and ``cm_x`` in bf16 where forward
+keeps the token shift in the config's dtype; the reference runs its chunked
+WKV at ``ssm_chunk`` 16 there (8 in the reduced config), where it is finite.
+Random init leaves RWKV's token-shift mixes and bonus at 0, so those bf16
+leaves would not reach the logits: the script, as the smoke, runs RWKV on
+``shift_rwkv``'s weights.
 """
 import dataclasses
 import functools
 import json
+import sys
 import time
 
 import jax
@@ -40,12 +49,29 @@ def _cfgs(arch, layers, small):
     if small:
         rcfg, cfg = ref_reduced(rcfg), reduced(cfg)
     changes = dict(dtype="float32", num_layers=layers)
+    if cfg.family == "ssm":  # where the reference's chunked WKV is finite
+        changes["ssm_chunk"] = min(cfg.ssm_chunk, 16)
     return (dataclasses.replace(rcfg, **changes),
             dataclasses.replace(cfg, **changes))
 
 
 def _rel(out, ref):
     return float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
+
+
+def shift_rwkv(params, seed=7):
+    """mu, mu_c, bonus_u and ln_wkv from a numpy seed, decay_base near -4
+    (``chip_smoke.py`` ``shift_rwkv``: the same draws in the same order)."""
+    rng = np.random.default_rng(seed)
+    tm = dict(params["layers"]["tm"])
+    for name, draw in (("mu", lambda sh: rng.uniform(0, 1, sh)),
+                       ("mu_c", lambda sh: rng.uniform(0, 1, sh)),
+                       ("bonus_u", lambda sh: rng.standard_normal(sh) * 0.5),
+                       ("ln_wkv", lambda sh: rng.uniform(0.5, 1.5, sh)),
+                       ("decay_base", lambda sh: rng.uniform(-4.5, -3.5, sh))):
+        tm[name] = jnp.asarray(draw(tm[name].shape).astype(
+            np.float32)).astype(tm[name].dtype)
+    return dict(params, layers=dict(params["layers"], tm=tm))
 
 
 def reference_gap(rcfg, params, tokens):
@@ -76,11 +102,13 @@ def port_gap(cfg, model, tokens):
     return worst / float(full.abs().max()), full.numpy()
 
 
-def measure(arch, layers, seq, small):
+def measure(arch, layers, seq, small, shifted=False):
     rcfg, cfg = _cfgs(arch, layers, small)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, seq),
                                                dtype=np.int32)
     params = RM.init_params(rcfg, jax.random.PRNGKey(0))
+    if shifted:
+        params = shift_rwkv(params)
     ref, ref_full = reference_gap(rcfg, params, tokens)
     model = M.params_from_reference(cfg, jax.tree.map(np.asarray, params),
                                     "cpu")
@@ -88,13 +116,18 @@ def measure(arch, layers, seq, small):
     port, port_full = port_gap(cfg, model, tokens)
     return {"arch": arch, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
             "layers": layers, "batch": 2, "tokens": seq, "dtype": "float32",
+            "shifted": shifted,
             "reference_gap": ref, "port_gap": port,
             "port_vs_reference_forward": _rel(port_full, ref_full)}
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "stablelm-1.6b"])
-def test_port_gap_equals_reference_gap(arch):
-    out = measure(arch, 2, 32, small=True)
+@pytest.mark.parametrize("arch,shifted", [
+    *(pytest.param(a, False, id=a)
+      for a in ("llama3.2-3b", "stablelm-1.6b", "rwkv6-1.6b")),
+    # where decode's bf16 tm_x/cm_x and the bonus reach the logits
+    pytest.param("rwkv6-1.6b", True, id="rwkv6-1.6b-shifted")])
+def test_port_gap_equals_reference_gap(arch, shifted):
+    out = measure(arch, 2, 32, small=True, shifted=shifted)
     assert out["port_vs_reference_forward"] < 1e-4
     assert abs(out["port_gap"] - out["reference_gap"]) \
         <= 0.05 * out["reference_gap"] + 1e-6
@@ -103,6 +136,8 @@ def test_port_gap_equals_reference_gap(arch):
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    out = measure("llama3.2-3b", 4, 512, small=False)
+    arch = sys.argv[1] if len(sys.argv) > 1 else "llama3.2-3b"
+    out = measure(arch, 4, 512, small=False,
+                  shifted=get_config(arch).family == "ssm")
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)

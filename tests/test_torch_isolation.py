@@ -79,6 +79,19 @@ raises(lambda: rms_norm(torch.zeros(2, 64, device="meta"),
                         torch.ones(64, device="meta")), ValueError)
 raises(lambda: flash_attention(*(torch.zeros(1, 2, 16, 16, device="meta"),)
                                * 3), ValueError)
+
+from repro_torch.kernels.wkv import wkv
+from repro_torch.kernels.wkv.kernel import load_library as wkv_library
+
+rwkv = reduced(get_config("rwkv6-1.6b"))
+raises(lambda: init_params(rwkv), RuntimeError)
+raises(lambda: init_decode_state(rwkv, 2, 8), RuntimeError)
+init_params(rwkv, device="cpu")
+init_decode_state(rwkv, 2, 8, device="cpu")
+raises(lambda: serve("rwkv6-1.6b"), RuntimeError)
+raises(wkv_library, RuntimeError)
+raises(lambda: wkv(*(torch.zeros(1, 2, 4, 16, device="meta"),) * 4,
+                   torch.zeros(2, 16, device="meta")), ValueError)
 print("ISOLATED", len(mods))
 """
 

@@ -3,9 +3,10 @@
 The scenarios of ``tests/test_slot_stream.py`` (ragged lengths, finish
 reasons, the length cap, placement-epoch attribution, energy correction,
 SLO-aware admission, a mid-run submit) run through both packages on the
-same weights (the reduced llama3.2-3b at float32, drawn by the reference's
-``init_params`` and carried across), under both schedulers. The greedy
-outputs must be token-identical and every field of ``EngineStats`` equal.
+same weights (the reduced llama3.2-3b, and the reduced rwkv6-1.6b, at
+float32, drawn by the reference's ``init_params`` and carried across), under
+both schedulers. The greedy outputs must be token-identical and every field
+of ``EngineStats`` equal.
 """
 import dataclasses
 import functools
@@ -25,20 +26,22 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch.serve import serve
 
 
+DENSE, RWKV = "llama3.2-3b", "rwkv6-1.6b"
+
+
 @functools.lru_cache(maxsize=None)
-def _models():
-    rcfg = dataclasses.replace(ref_reduced(ref_get_config("llama3.2-3b")),
+def _models(arch=DENSE):
+    rcfg = dataclasses.replace(ref_reduced(ref_get_config(arch)),
                                dtype="float32")
-    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
-                              dtype="float32")
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
     params = RM.init_params(rcfg, jax.random.PRNGKey(0))
     model = M.params_from_reference(cfg, jax.tree.map(np.asarray, params),
                                     "cpu")
     return {RR: (rcfg, params), PR: (cfg, model)}
 
 
-def _engine(pkg, **kw):
-    cfg, weights = _models()[pkg]
+def _engine(pkg, arch=DENSE, **kw):
+    cfg, weights = _models(arch)[pkg]
     if pkg is PR:
         kw["device"] = "cpu"
     return pkg.ServingEngine(cfg, weights, **kw)
@@ -61,29 +64,29 @@ def _placement(pkg, kind, e, t=0.0):
 # Each scenario builds an engine in one package, feeds it and returns it
 # with its finished requests: (pkg, scheduler) -> (engine, done).
 
-def _ragged_six(pkg, scheduler):
-    eng = _engine(pkg, slots=3, max_len=32, scheduler=scheduler)
+def _ragged_six(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=3, max_len=32, scheduler=scheduler)
     for r in _ragged(pkg, 6):
         eng.submit(r)
     return eng, eng.run()
 
 
-def _ragged_five(pkg, scheduler):
-    eng = _engine(pkg, slots=2, max_len=24, scheduler=scheduler)
+def _ragged_five(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=2, max_len=24, scheduler=scheduler)
     for r in _ragged(pkg, 5):
         eng.submit(r)
     return eng, eng.run()
 
 
-def _length_cap(pkg, scheduler):
-    eng = _engine(pkg, slots=1, max_len=16, scheduler=scheduler)
+def _length_cap(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=1, max_len=16, scheduler=scheduler)
     eng.submit(pkg.Request(rid=0, prompt=list(range(1, 11)),
                            max_new_tokens=32))
     return eng, eng.run()
 
 
-def _max_new_then_eos(pkg, scheduler):
-    eng = _engine(pkg, slots=1, max_len=32, scheduler=scheduler)
+def _max_new_then_eos(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=1, max_len=32, scheduler=scheduler)
     eng.submit(pkg.Request(rid=0, prompt=[3, 4], max_new_tokens=3))
     first = eng.run()[0].output[0]
     eng.submit(pkg.Request(rid=1, prompt=[3, 4], max_new_tokens=3,
@@ -92,8 +95,8 @@ def _max_new_then_eos(pkg, scheduler):
     return eng, eng.run()
 
 
-def _epoch_swap(pkg, scheduler):
-    eng = _engine(pkg, slots=1, max_len=32, scheduler=scheduler)
+def _epoch_swap(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=1, max_len=32, scheduler=scheduler)
     eng.reconfigure({"prefill": _placement(pkg, "prefill", 2.0),
                      "decode": _placement(pkg, "decode", 1.0)})
     epoch_b = {"prefill": _placement(pkg, "prefill", 20.0),
@@ -109,8 +112,8 @@ def _epoch_swap(pkg, scheduler):
     return eng, eng.run()
 
 
-def _energy_correction(pkg, scheduler):
-    eng = _engine(pkg, slots=1, max_len=32, scheduler=scheduler)
+def _energy_correction(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=1, max_len=32, scheduler=scheduler)
     eng.reconfigure({"prefill": _placement(pkg, "prefill", 2.0),
                      "decode": _placement(pkg, "decode", 1.0)})
     eng.energy_correction["decode"] = 2.0
@@ -118,8 +121,8 @@ def _energy_correction(pkg, scheduler):
     return eng, eng.run()
 
 
-def _slo_admission(pkg, scheduler):
-    eng = _engine(pkg, slots=2, max_len=32, scheduler=scheduler)
+def _slo_admission(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=2, max_len=32, scheduler=scheduler)
     eng.reconfigure({"prefill": _placement(pkg, "prefill", 1.0, t=0.1),
                      "decode": _placement(pkg, "decode", 1.0, t=0.2)})
     eng.submit(pkg.Request(rid=0, prompt=[1, 2, 3, 4], max_new_tokens=3,
@@ -129,8 +132,8 @@ def _slo_admission(pkg, scheduler):
     return eng, eng.run()
 
 
-def _mid_run_submit(pkg, scheduler):
-    eng = _engine(pkg, slots=2, max_len=32, scheduler=scheduler)
+def _mid_run_submit(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=2, max_len=32, scheduler=scheduler)
     late = pkg.Request(rid=99, prompt=[7, 8], max_new_tokens=2)
 
     def submit_late(engine):
@@ -144,8 +147,8 @@ def _mid_run_submit(pkg, scheduler):
     return eng, eng.run()
 
 
-def _overflow_truncate(pkg, scheduler):
-    eng = _engine(pkg, slots=2, max_len=12, scheduler=scheduler,
+def _overflow_truncate(pkg, scheduler, arch=DENSE):
+    eng = _engine(pkg, arch, slots=2, max_len=12, scheduler=scheduler,
                   overflow="truncate")
     eng.submit(pkg.Request(rid=0, prompt=list(range(1, 20)),
                            max_new_tokens=4))
@@ -175,11 +178,32 @@ def test_engine_matches_reference(scenario, scheduler):
     assert reqs  # every scenario finishes something
 
 
+@pytest.mark.parametrize("scheduler", ["stream", "wave"])
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_rwkv_engine_matches_reference(scenario, scheduler):
+    """The same scenarios on the recurrent family, whose slots carry their
+    history in the decode state that admission resets."""
+    ref_reqs, ref_stats = _record(*SCENARIOS[scenario](RR, scheduler, RWKV))
+    reqs, stats = _record(*SCENARIOS[scenario](PR, scheduler, RWKV))
+    assert reqs == ref_reqs
+    assert stats == ref_stats
+    assert reqs
+
+
 @pytest.mark.parametrize("n,slots,max_len", [(5, 2, 24), (8, 3, 32)])
 def test_stream_matches_wave_in_the_port(n, slots, max_len):
+    _stream_matches_wave(DENSE, n, slots, max_len)
+
+
+def test_rwkv_stream_matches_wave_in_the_port():
+    _stream_matches_wave(RWKV, 8, 3, 32)
+
+
+def _stream_matches_wave(arch, n, slots, max_len):
     out = {}
     for scheduler in ("stream", "wave"):
-        eng = _engine(PR, slots=slots, max_len=max_len, scheduler=scheduler)
+        eng = _engine(PR, arch, slots=slots, max_len=max_len,
+                      scheduler=scheduler)
         for r in _ragged(PR, n):
             eng.submit(r)
         out[scheduler] = ({r.rid: r.output for r in eng.run()}, eng.stats)
@@ -218,3 +242,12 @@ def test_serve_on_cpu_completes_every_request():
     assert out["energy_ws"] == 0.0 and "slice 4" in out["energy_note"]
     with pytest.raises(NotImplementedError, match="slice 4"):
         serve("llama3.2-3b", adaptive=True, device="cpu")
+
+
+@pytest.mark.parametrize("scheduler", ["stream", "wave"])
+def test_serve_rwkv_on_cpu_completes_every_request(scheduler):
+    out = serve(RWKV, num_requests=5, slots=2, max_new_tokens=4,
+                scheduler=scheduler, device="cpu")
+    assert out["completed"] == 5 and out["rejected"] == 0
+    assert out["decode_tokens"] == 5 * 3
+    assert all(len(o) == 4 for o in out["outputs"].values())

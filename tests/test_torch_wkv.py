@@ -1,0 +1,160 @@
+"""The port's WKV6 (kernel B4's plain version and entry point) against the
+JAX package's oracle and Pallas kernel, on the CPU.
+
+Inputs come from numpy seeds and go to both packages as the same arrays.
+On the CPU the port's ``wkv`` takes the plain version (``wkv_ref``); the
+kernel itself is held against it on the card
+(``tests/test_torch_rwkv_card.py``).
+
+Tolerances: the port's sequential scan against the reference's within 1e-5
+of max |out| (both f32 step by step, only the order of the sums differs);
+against ``wkv_pallas`` in interpret mode within 5e-5 absolute, the
+reference's own bound between its chunked kernel and its oracle
+(``tests/test_kernels.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.wkv.kernel import wkv_pallas
+from repro.kernels.wkv.ref import wkv_ref as ref_wkv_ref
+from repro_torch.kernels import wkv
+from repro_torch.kernels.wkv import wkv_cuda, wkv_ref
+
+RTOL = 1e-5
+PALLAS_ATOL = 5e-5
+# the shapes of the reference's kernel test: (B, H, S, D, chunk)
+REF_SHAPES = [(1, 1, 32, 8, 8), (2, 2, 64, 16, 16), (1, 2, 128, 16, 64)]
+
+
+def _inputs(b, h, s, d, seed, lw=None, state=False):
+    """r, k, v ~ N(0, 0.5^2); lw = -exp(N(0, 0.5^2)) unless a (lo, hi)
+    range is given; u ~ N(0, 0.1^2); as the reference's kernel test."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) * 0.5
+               for _ in range(3))
+    if lw is None:
+        lw = -np.exp(rng.standard_normal((b, h, s, d)) * 0.5)
+    else:
+        lw = rng.uniform(*lw, (b, h, s, d))
+    u = rng.standard_normal((h, d)) * 0.1
+    arrs = [r, k, v, lw.astype(np.float32), u.astype(np.float32)]
+    if state:
+        arrs.append(rng.standard_normal((b, h, d, d)).astype(np.float32))
+    return arrs
+
+
+def _port(arrs, **kw):
+    return wkv(*map(torch.from_numpy, arrs[:5]), **kw)
+
+
+def _reference(arrs):
+    out, st = ref_wkv_ref(*map(jnp.asarray, arrs[:5]),
+                          state=jnp.asarray(arrs[5]) if len(arrs) > 5
+                          else None)
+    return np.asarray(out), np.asarray(st)
+
+
+def _close(got, ref, rtol=RTOL):
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    return float(np.max(np.abs(got - ref))) <= rtol * float(
+        np.max(np.abs(ref)))
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk", REF_SHAPES)
+def test_plain_matches_reference_oracle(b, h, s, d, chunk):
+    arrs = _inputs(b, h, s, d, seed=b + h + s)
+    out, st = wkv_ref(*map(torch.from_numpy, arrs))
+    ref_out, ref_st = _reference(arrs)
+    assert out.dtype == torch.float32 and st.shape == (b, h, d, d)
+    assert _close(out, ref_out) and _close(st, ref_st)
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk", REF_SHAPES)
+def test_entry_matches_pallas_interpret(b, h, s, d, chunk):
+    arrs = _inputs(b, h, s, d, seed=b + h + s)
+    before = wkv_cuda.launches
+    out, st = _port(arrs, chunk=chunk)
+    assert wkv_cuda.launches == before  # CPU tensors launch nothing
+    p_out, p_st = wkv_pallas(*map(jnp.asarray, arrs), chunk=chunk,
+                             interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(p_out),
+                               atol=PALLAS_ATOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(p_st),
+                               atol=PALLAS_ATOL)
+
+
+@pytest.mark.parametrize("s", [1, 7, 64])
+def test_initial_state_matches_reference(s):
+    """S = 1 with a state is the decode call."""
+    arrs = _inputs(3, 2, s, 16, seed=s, state=True)
+    out, st = _port(arrs, state=torch.from_numpy(arrs[5].copy()))
+    ref_out, ref_st = _reference(arrs)
+    assert _close(out, ref_out) and _close(st, ref_st)
+
+
+def test_state_updated_in_place():
+    arrs = _inputs(2, 2, 1, 16, seed=5, state=True)
+    buf = torch.from_numpy(arrs[5].copy())
+    out, st = _port(arrs, state=buf)
+    ref_out, ref_st = _reference(arrs)
+    assert st is buf
+    assert _close(out, ref_out) and _close(buf, ref_st)
+
+
+@pytest.mark.parametrize("lw,s", [((-0.01, 0.0), 256), ((-20.0, 0.0), 128)])
+def test_weak_and_strong_decays_match_reference(lw, s):
+    """Weak decays keep the state growing with t; strong ones drive exp(lw)
+    to 0. Both packages' scans agree everywhere."""
+    arrs = _inputs(1, 2, s, 16, seed=11, lw=lw, state=True)
+    out, st = _port(arrs, state=torch.from_numpy(arrs[5].copy()))
+    ref_out, ref_st = _reference(arrs)
+    assert np.isfinite(out.numpy()).all()
+    assert _close(out, ref_out) and _close(st, ref_st)
+
+
+def test_strong_decay_where_pallas_is_not_finite():
+    """The chunked Pallas form takes exp(-cum) of a chunk's summed
+    log-decays and overflows; the port follows the oracle."""
+    arrs = _inputs(1, 2, 128, 16, seed=12, lw=(-20.0, 0.0))
+    p_out, _ = wkv_pallas(*map(jnp.asarray, arrs), chunk=64, interpret=True)
+    assert not np.isfinite(np.asarray(p_out)).all()
+    out, st = _port(arrs)
+    ref_out, ref_st = _reference(arrs)
+    assert np.isfinite(out.numpy()).all()
+    assert _close(out, ref_out) and _close(st, ref_st)
+
+
+def test_chunk_changes_nothing():
+    arrs = _inputs(1, 2, 40, 8, seed=3)
+    a, sa = _port(arrs, chunk=8)
+    b, sb = _port(arrs, chunk=64)
+    assert torch.equal(a, b) and torch.equal(sa, sb)
+    with pytest.raises(ValueError, match="chunk"):
+        _port(arrs, chunk=0)
+
+
+def test_views_of_the_models_layout():
+    """The model hands over (B, S, H, D) products viewed as (B, H, S, D)."""
+    arrs = _inputs(2, 3, 9, 8, seed=4)
+    views = [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                              ).transpose(1, 2) for a in arrs[:4]]
+    out, st = wkv(*views, torch.from_numpy(arrs[4]))
+    ref_out, ref_st = _reference(arrs)
+    assert _close(out, ref_out) and _close(st, ref_st)
+
+
+def test_operands_are_checked():
+    arrs = [torch.from_numpy(a) for a in _inputs(1, 2, 4, 8, seed=0)]
+    r, k, v, lw, u = arrs
+    with pytest.raises(ValueError, match="one shape"):
+        wkv(r, k[:, :, :2], v, lw, u)
+    with pytest.raises(ValueError, match="u must be"):
+        wkv(r, k, v, lw, u[:1])
+    with pytest.raises(ValueError, match="state must be"):
+        wkv(r, k, v, lw, u, state=torch.zeros(1, 2, 8, 4))
+    with pytest.raises(TypeError, match="float32"):
+        wkv(r.double(), k, v, lw, u)
+    with pytest.raises(ValueError, match="device"):
+        wkv(*(t.to("meta") for t in arrs))
