@@ -6,16 +6,19 @@
 Builds the port's four kernels with nvcc for sm_90a, one nvcc each, all
 started together: B1, the Himeno Jacobi sweep (``csrc/himeno.cu``), B2,
 RMSNorm (``csrc/rmsnorm.cu``), B3, the flash-attention forward
-(``csrc/flash_attention.cu``) and B4, the RWKV6 WKV recurrence
-(``csrc/wkv.cu``). Holds every kernel against its plain PyTorch version on
-the card at its main path's shapes and at ragged ones, timing it beside its
-bound, its plain version and, where one exists, the PyTorch library call
-that computes the same function. Then:
+(``csrc/flash_attention.cu``: a tensor-core kernel for bf16, a scalar one
+for f32) and B4, the RWKV6 WKV recurrence (``csrc/wkv.cu``). Holds every
+kernel against its plain PyTorch version on the card at its main path's
+shapes and at ragged ones, and B3's tensor-core kernel also against the
+bound that rounding P and o to bf16 allows, timing each beside its bound,
+its plain version and, where one exists, the PyTorch library call that
+computes the same function; times each step of B2's launch path at the
+decode shape. Then:
 
 * slices 2 and 3a, the dense LM at llama3.2-3b's full width and the RWKV
   LM at rwkv6-1.6b's: a float32 check of B3 (B4) inside a 4-layer model
   against the plain attention (WKV), and of forward against teacher-forced
-  decode; then each main path at full width and depth in bf16 —
+  decode, and a bfloat16 one of B3's tensor-core kernel; then each main path at full width and depth in bf16 —
   ``launch.serve.serve``, a ragged run through ``ServingEngine`` and one
   forward of 2x2048 tokens, each metered on the GPU's power counter, and
   then a profiled window of decode steps;
@@ -105,13 +108,23 @@ RAGGED = dict(slots=8, max_len=1024, requests=16, prompt=(64, 512),
 PREFILL = (2, 2048)  # batch x tokens of the main path's forward
 RMS_SHAPES = (((8, 1, 3072), "bfloat16"), ((2, 2048, 3072), "bfloat16"),
               ((37, 5632), "float32"))
-# (B, H, K, S, D, dtype, causal, window); the main path's shape also in
-# f32, where F32_ATOL can catch a dropped or misplaced key tile that
-# FLASH_BF16_ATOL, near the size of a typical |o| at S=2048, cannot
+# (B, H, K, S, D, dtype, causal, window); bf16 at D = 64 and 128 takes the
+# tensor-core kernel, the rest the scalar one. The main path's shape also
+# in f32, where F32_ATOL can catch a dropped or misplaced key tile that
+# FLASH_BF16_ATOL, near the size of a typical |o| at S=2048, cannot; in
+# bf16 the tensor-core kernel is held, element by element, to the bound
+# that rounding P and o to bf16 allows against the f32 attention of the
+# same bf16 values (``bf16_error_bound``), which such a tile breaks.
 FLASH_SHAPES = ((2, 24, 8, 2048, 128, "bfloat16", True, 0),
                 (2, 24, 8, 2048, 128, "float32", True, 0),
+                (1, 8, 2, 1000, 64, "bfloat16", True, 256),
                 (1, 8, 2, 1000, 64, "float32", True, 256),
                 (1, 4, 4, 333, 16, "float32", False, 0))
+# B3 (tensor cores) inside the bf16 llama3.2-3b at full width, CHECK_LAYERS
+# deep, against the plain attention, as a share of max |logits|: the bf16
+# bound between the two packages' models on the CPU (PERF.md section 7)
+MODEL_B3_BF16_RTOL = 2e-2
+HOST_CALLS = 10_000  # calls each step of B2's launch path is timed over
 
 # Slice 3a: the RWKV LM path (rwkv6-1.6b) through kernels B2 and B4.
 RWKV_ARCH = "rwkv6-1.6b"
@@ -147,7 +160,10 @@ def lm_wrappers():
 
 
 def lm_launches() -> dict[str, int]:
-    return {name: fn.launches for name, fn in lm_wrappers().items()}
+    """Each LM kernel's launches, and the tensor-core B3 kernel's apart."""
+    counts = {name: fn.launches for name, fn in lm_wrappers().items()}
+    counts["flash_attention_tc"] = lm_wrappers()["flash_attention"].launches_tc
+    return counts
 
 
 def reset_all_launches() -> None:
@@ -312,14 +328,37 @@ def bf16_ulp(y):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def timed_pair(kernel_fn, plain_fn, reps: int) -> dict:
-    """plain, kernel, kernel, plain: the better of two means each."""
+def timed_pair(kernel_fn, plain_fn, reps: int, library_fn=None) -> dict:
+    """plain, library, kernel, kernel, library, plain: the better of two
+    means each (the library call only where one is given)."""
     pl1 = time_ms(plain_fn, max(2, reps // 4))
+    lib1 = time_ms(library_fn, reps) if library_fn else None
     k1 = time_ms(kernel_fn, reps)
     k2 = time_ms(kernel_fn, reps)
+    lib2 = time_ms(library_fn, reps) if library_fn else None
     pl2 = time_ms(plain_fn, max(2, reps // 4))
-    return {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": min(pl1, pl2),
-            "plain_ms_runs": [pl1, pl2]}
+    out = {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": min(pl1, pl2),
+           "plain_ms_runs": [pl1, pl2], "library_ms": None}
+    if library_fn:
+        out.update(library_ms=min(lib1, lib2), library_ms_runs=[lib1, lib2])
+    return out
+
+
+def kernel_vs_plain(cfg, model, tokens, module, attr, plain):
+    """The forward's logits through the kernel, and their distance from the
+    same forward with ``module.attr`` patched to ``plain``, as a share of
+    the plain forward's max |logits|."""
+    from repro_torch import models as M
+
+    full, _ = M.forward(cfg, model, {"tokens": tokens})
+    kernel_fn = getattr(module, attr)
+    setattr(module, attr, plain)
+    try:
+        plain_logits, _ = M.forward(cfg, model, {"tokens": tokens})
+    finally:
+        setattr(module, attr, kernel_fn)
+    rel = float((full - plain_logits).abs().max() / plain_logits.abs().max())
+    return full, rel
 
 
 def metered(fn):
@@ -590,6 +629,8 @@ class Smoke:
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import (
             attention_ref, flash_attention_cuda)
+        from repro_torch.kernels.flash_attention.kernel import kernel_for
+        from repro_torch.kernels.flash_attention.ref import bf16_error_bound
         from repro_torch.kernels.rmsnorm import rms_norm_cuda, rms_norm_ref
 
         dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -614,11 +655,11 @@ class Smoke:
                        f"{label}: not repeatable")
             row = {"shape": list(shape), "dtype": dt,
                    "max_abs_err": float(err.max()), "tolerance": tol}
-            row.update(timed_pair(lambda: rms_norm_cuda(x, scale),
-                                  lambda: rms_norm_ref(x, scale), REPS))
             weight = scale.to(x.dtype)  # the library call takes one dtype
-            row["library_ms"] = time_ms(
-                lambda: F.rms_norm(x, (shape[-1],), weight, 1e-5), REPS)
+            row.update(timed_pair(
+                lambda: rms_norm_cuda(x, scale),
+                lambda: rms_norm_ref(x, scale), REPS,
+                lambda: F.rms_norm(x, (shape[-1],), weight, 1e-5)))
             row["bound_ms"], row["bound_by"] = rms_bound_ms(
                 shape, x.element_size())
             emit({"phase": "kernel", "kernel": "rms_norm", **row,
@@ -630,6 +671,8 @@ class Smoke:
                     (b, heads, s, d)).astype(np.float32)).to("cuda",
                                                              dtypes[dt])
             q, k, v = draw(h), draw(kh), draw(kh)
+            which = kernel_for(q.dtype, d)
+            n_tc = flash_attention_cuda.launches_tc
             o = flash_attention_cuda(q, k, v, causal=causal, window=window)
             ref = attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
@@ -637,22 +680,40 @@ class Smoke:
             tol = F32_ATOL if dt == "float32" else FLASH_BF16_ATOL
             label = f"flash_attention {[b, h, kh, s, d]} {dt}"
             self.check(err <= tol, f"{label}: max_abs_err {err} > {tol}")
+            self.check(flash_attention_cuda.launches_tc - n_tc
+                       == (which == "tensor_core"),
+                       f"{label}: not launched on the {which} kernel")
             self.check(torch.equal(o, flash_attention_cuda(
                 q, k, v, causal=causal, window=window)),
                 f"{label}: not repeatable")
-            del o, ref
             row = {"shape": [b, h, s, d], "kv_heads": kh, "dtype": dt,
-                   "causal": causal, "window": window, "max_abs_err": err,
-                   "tolerance": tol}
+                   "causal": causal, "window": window, "kernel": which,
+                   "max_abs_err": err, "tolerance": tol}
+            if dt == "bfloat16":
+                # the tile-sensitive check: each element within the bound
+                # that P's and o's rounding to bf16 allows
+                o32, bound = bf16_error_bound(q, k, v, causal=causal,
+                                              window=window)
+                dev = (o.float() - o32).abs()
+                share = float(dev.max() / o32.abs().max())
+                worst = float((dev / bound).max())
+                self.check(worst <= 1.0, f"{label}: |o - o32| reaches {worst} "
+                                         "of its bf16 rounding bound")
+                row.update(err_vs_f32_over_max=share,
+                           err_vs_f32_over_bound=worst,
+                           bound_over_max=float(bound.max()
+                                                / o32.abs().max()))
+                del o32, bound, dev
+            del o, ref
+            # one library call computes this function only without a window
+            sdpa = None if window else (
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True))
             row.update(timed_pair(
                 lambda: flash_attention_cuda(q, k, v, causal=causal,
                                              window=window),
                 lambda: attention_ref(q, k, v, causal=causal, window=window),
-                REPS))
-            # one library call computes this function only without a window
-            row["library_ms"] = None if window else time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True), REPS)
+                REPS, sdpa))
             row["bound_ms"], row["bound_by"] = flash_bound_ms(
                 b, h, kh, s, d, q.element_size(), causal, window)
             emit({"phase": "kernel", "kernel": "flash_attention", **row,
@@ -682,10 +743,72 @@ class Smoke:
             "src/repro/kernels/rmsnorm/kernel.py:17",
             rows[("rms_norm", (2, 2048, 3072))],
             rows[("rms_norm", (8, 1, 3072))])
+        # B3: the tensor-core kernel at the main path's shape; the scalar
+        # kernel's time at the same shape in f32 beside it
         self.kernels["flash_attention"] = entry(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:23",
             rows[("flash_attention", (2048, "bfloat16"))])
+        scalar = rows[("flash_attention", (2048, "float32"))]
+        self.kernels["flash_attention"].update(
+            kernel="tensor_core", scalar_f32={k: scalar[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
+
+    # -- phase 4b: where a B2 launch's host time goes at decode -----------
+    def rms_host_path(self):
+        """Each step of ``rms_norm_cuda``'s path at the decode shape (8,1,3072)
+        bf16 on the card, HOST_CALLS calls each, by ``time.perf_counter``
+        (synchronised at the end, so a step that launches counts until its
+        kernels ran); beside them the whole wrapper and ``F.rms_norm``'s
+        call."""
+        import numpy as np
+        import torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.rmsnorm import kernel as b2
+
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal((8, 1, 3072)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, 3072).astype(
+            np.float32)).cuda()
+        weight = scale.to(x.dtype)
+        y = torch.empty_like(x)
+        dev = x.get_device()
+        fn = b2.LIBRARY.load().rmsnorm_forward
+        args = (x.data_ptr(), scale.data_ptr(), y.data_ptr(), 8, 3072, 1e-5,
+                1)
+        packed = b2._pack(*args)
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        steps = {
+            # the path as it is, in its order
+            "checks": lambda: b2._on_card(x, scale),
+            "empty_like": lambda: torch.empty_like(x),
+            "data_ptrs_and_alignment": lambda: (
+                x.data_ptr() % 16, scale.data_ptr() % 16, y.data_ptr()),
+            "device_compare": lambda: dev == torch._C._cuda_getDevice(),
+            "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+            "pack_arguments": lambda: b2._pack(*args),
+            "ctypes_call_and_launch": lambda: fn(packed, stream),
+            "launcher": lambda: b2._forward(dev, packed),
+            "wrapper": lambda: b2.rms_norm_cuda(x, scale),
+            "F.rms_norm": lambda: F.rms_norm(x, (3072,), weight, 1e-5),
+        }
+        us = {}
+        for name, step in steps.items():
+            for _ in range(100):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                step()
+            torch.cuda.synchronize()
+            us[name] = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
+        self.check(torch.equal(y, b2.rms_norm_cuda(x, scale)),
+                   "rms host path: the direct launches disagree")
+        emit({"phase": "rms_host_path", "shape": [8, 1, 3072],
+              "dtype": "bfloat16", "calls": HOST_CALLS, "us_per_call": us,
+              "card": self.card})
 
     # -- phase 5: B4 against its plain version ---------------------------
     def wkv_kernel_phase(self):
@@ -787,16 +910,7 @@ class Smoke:
             prepare(cfg, model)
         tokens = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, CHECK_SEQ), dtype=np.int32)).cuda()
-        full, _ = M.forward(cfg, model, {"tokens": tokens})
-        kernel_fn = getattr(module, attr)
-        setattr(module, attr, plain)
-        try:
-            plain_logits, _ = M.forward(cfg, model, {"tokens": tokens})
-        finally:
-            setattr(module, attr, kernel_fn)
-        k_rel = float((full - plain_logits).abs().max()
-                      / plain_logits.abs().max())
-        del plain_logits
+        full, k_rel = kernel_vs_plain(cfg, model, tokens, module, attr, plain)
         st = M.init_decode_state(cfg, 2, CHECK_SEQ, device="cuda")
         worst = torch.zeros((), device="cuda")
         for t in range(CHECK_SEQ):
@@ -827,6 +941,48 @@ class Smoke:
         self.model_check(ARCH, attn_mod, "flash_attention",
                          lambda q, k, v, **kw: attention_ref(q, k, v, **kw),
                          "flash_attention", MODEL_B3_RTOL, DECODE_RTOL)
+
+    def dense_bf16_model_check(self):
+        """B3's tensor-core kernel inside llama3.2-3b in bf16 at full width,
+        CHECK_LAYERS deep, on 2 x CHECK_SEQ tokens, against the same forward
+        through the plain attention."""
+        import dataclasses
+
+        import numpy as np
+        import torch
+        from repro_torch import models as M
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.flash_attention import (
+            attention_ref, flash_attention_cuda)
+        from repro_torch.models import attention as attn_mod
+
+        cfg = dataclasses.replace(get_config(ARCH), num_layers=CHECK_LAYERS)
+        t0 = time.perf_counter()
+        generator = torch.Generator(device="cuda")
+        generator.manual_seed(0)
+        model = M.init_params(cfg, generator)
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, CHECK_SEQ), dtype=np.int32)).cuda()
+        n_tc = flash_attention_cuda.launches_tc
+        full, k_rel = kernel_vs_plain(
+            cfg, model, tokens, attn_mod, "flash_attention",
+            lambda q, k, v, **kw: attention_ref(q, k, v, **kw))
+        n_tc = flash_attention_cuda.launches_tc - n_tc
+        self.check(bool(torch.isfinite(full).all()),
+                   f"{ARCH} bf16 model check: logits not finite")
+        self.check(n_tc == CHECK_LAYERS, f"{ARCH} bf16 model check: {n_tc} "
+                                         "tensor-core B3 launches")
+        self.check(k_rel <= MODEL_B3_BF16_RTOL,
+                   f"{ARCH} bf16 model check: B3 vs plain {k_rel}")
+        emit({"phase": "model_check", "arch": ARCH, "dtype": "bfloat16",
+              "layers": CHECK_LAYERS, "d_model": cfg.d_model, "batch": 2,
+              "tokens": CHECK_SEQ, "kernel": "flash_attention (tensor cores)",
+              "tensor_core_launches": n_tc,
+              "kernel_vs_plain_over_max_logits": k_rel,
+              "kernel_limit": MODEL_B3_BF16_RTOL,
+              "seconds": time.perf_counter() - t0, "card": self.card})
+        del model, full
+        torch.cuda.empty_cache()
 
     def rwkv_model_check(self):
         from repro_torch.kernels.wkv import wkv_ref
@@ -1019,14 +1175,17 @@ class Smoke:
         # ln1 and ln2 a layer and the final norm; B3 in the forward only,
         # since decode attention is PyTorch ops
         self.lm_main_path(
-            ARCH, {"rms_norm": 2 * n + 1, "flash_attention": 0, "wkv": 0},
-            {"rms_norm": 2 * n + 1, "flash_attention": n, "wkv": 0})
+            ARCH, {"rms_norm": 2 * n + 1, "flash_attention": 0,
+                   "flash_attention_tc": 0, "wkv": 0},
+            {"rms_norm": 2 * n + 1, "flash_attention": n,
+             "flash_attention_tc": n, "wkv": 0})
 
     def rwkv_main_path(self):
         from repro_torch.configs import get_config
 
         n = get_config(RWKV_ARCH).num_layers
-        per = {"rms_norm": 2 * n + 1, "flash_attention": 0, "wkv": n}
+        per = {"rms_norm": 2 * n + 1, "flash_attention": 0,
+               "flash_attention_tc": 0, "wkv": n}
         self.lm_main_path(RWKV_ARCH, per, per)
 
     def lm_kernel_launches(self):
@@ -1038,6 +1197,13 @@ class Smoke:
             self.kernels[name]["launches"] = sum(by_path.values())
             self.kernels[name]["launches_by_path"] = by_path
             self.check(bool(by_path), f"{name} never launched on a main path")
+        # every B3 launch of the main paths went through the tensor cores
+        b3 = self.kernels["flash_attention"]
+        b3["launches_tc"] = sum(n["flash_attention_tc"]
+                                for n in self.path_launches.values())
+        self.check(b3["launches_tc"] == b3["launches"],
+                   f"B3: {b3['launches_tc']} of {b3['launches']} main-path "
+                   "launches on the tensor-core kernel")
 
 def main() -> int:
     import torch
@@ -1049,9 +1215,12 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smoke = Smoke()
+    # f32 matmuls of the plain versions in full f32, as PyTorch's default
+    torch.backends.cuda.matmul.allow_tf32 = False
     for phase in (smoke.card_and_build, smoke.kernel_phase,
-                  smoke.dense_kernel_phase, smoke.wkv_kernel_phase,
-                  smoke.dense_model_check, smoke.rwkv_model_check,
+                  smoke.dense_kernel_phase, smoke.rms_host_path,
+                  smoke.wkv_kernel_phase, smoke.dense_model_check,
+                  smoke.dense_bf16_model_check, smoke.rwkv_model_check,
                   smoke.dense_main_path, smoke.rwkv_main_path,
                   smoke.lm_kernel_launches, smoke.main_path):
         try:

@@ -1,36 +1,85 @@
-// Flash-attention forward for Hopper (sm_90a), bound with ctypes.
+// Flash-attention forward for Hopper (sm_90a), bound with ctypes: two
+// kernels, a tensor-core one for bf16 and a scalar one for the rest.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // kernel.py `_flash_kernel` (via `flash_attention_pallas`). Same function:
 // softmax(q k^T * scale + mask) v over q (B,H,S,D) and k, v (B,KH,S,D),
 // with an online softmax over KV tiles (running max m, running sum l and
-// the accumulator in f32; P stays f32 into PV, as in the Pallas kernel),
-// optional causal mask and, with it, a sliding window (k > q - window).
-// Masked logits are NEG_INF = -0.7 * FLT_MAX, the reference's constant, so
-// a row that is masked in a tile and has no real maximum yet is wiped by
-// alpha = exp(NEG_INF - m) = 0 once its first unmasked key comes. Output in
-// q's dtype (bf16 or f32). Head dims 16, 64 and 128.
+// the accumulator in f32), optional causal mask and, with it, a sliding
+// window (k > q - window). Masked logits are NEG_INF = -0.7 * FLT_MAX, the
+// reference's constant, so a row that is masked in a tile and has no real
+// maximum yet is wiped by alpha = exp(NEG_INF - m) = 0 once its first
+// unmasked key comes; l is floored at 1e-20. Output in q's dtype.
 //
-// GQA: the kernel reads K/V head h / (H/KH) for query head h, so attention()
-// never materialises the repeated K/V (the reference's _repeat_kv).
+// GQA: both kernels read K/V head h / (H/KH) for query head h, so
+// attention() never materialises the repeated K/V (the reference's
+// _repeat_kv). Both skip KV tiles wholly above the causal frontier or wholly
+// outside the window (the Pallas docstring leaves that as a follow-up; the
+// result is the same), mask only the tiles that cross the frontier, the
+// window's edge or the ragged end (S not a multiple of the tile), and launch
+// the heavy (late) causal q tiles first.
 //
 // Bound on an H100 at the dense path's prefill (B=2, H=24, KH=8, S=2048,
 // D=128, causal, bf16): QK^T and PV over the 2.1 M unmasked (q,k) pairs of
 // each of the 48 heads are 51.6 GFLOP, 52 us at 989 TFLOP/s (dense bf16);
 // the bytes (q, k, v read once with native GQA, o written once) are 67 MB,
-// 20 us at 3.35 TB/s. Operations bound it.
+// 20 us at 3.35 TB/s. Operations bound it, so only the tensor cores can
+// approach it.
 //
-// This first kernel does the arithmetic in scalar f32 FMA, not on the
-// tensor cores, so it cannot approach that bound; wgmma/TMA are later work.
-// What it does do:
+// Which kernel takes a call (kernels/flash_attention/kernel.py
+// `kernel_for`, an explicit rule, never a fallback after a failure):
+// bf16 with head dim 64 or 128 -> the tensor-core kernel; f32, and head
+// dim 16, -> the scalar kernel. An f32 product on the tensor cores would be
+// TF32 (about 1e-3 relative), which the f32 checks (2e-5) refuse.
+//
+// 1. The tensor-core kernel (`flash_fwd_tc`, bf16, D = 64 or 128), built
+//    as the hopper-kernels guide sets a fast kernel out:
+// - one block takes 128 query rows of one (batch, head): two consumer
+//   warpgroups of 64 rows each and a producer warpgroup, of which one
+//   thread issues every TMA load (`setmaxnreg` gives the producer's
+//   registers back; ptxas still compiles the consumers to 168);
+// - Q is loaded once; K and V tiles of 128 keys x D stream through a ring
+//   of 3 stages, with one full mbarrier each for K and V and one empty
+//   mbarrier a stage (at D = 128: 32 KB of Q and 3 x 64 KB of K+V);
+// - the tensor maps are 3-D (D, S, B*H), so rows past S are zero-filled and
+//   never read from the next head; each box is 64 columns (128 bytes) x 128
+//   rows in the 128-byte swizzle, which wgmma reads through its descriptor;
+// - S = Q K^T by wgmma m64n128k16 f32.bf16.bf16, Q and K both K-major in
+//   shared memory; P by wgmma's register A operand (m64nDk16) against V,
+//   which is MN-major in shared memory (the descriptor's transpose bit);
+// - in each warpgroup tile i's QK^T is issued with tile i-1's PV behind it,
+//   and the softmax of tile i runs while that PV does; the two warpgroups
+//   take turns to issue (named barriers), so one's softmax also overlaps
+//   the other's products (FlashAttention-3's two schedules);
+// - the online softmax runs on the accumulator fragment in the exp2 domain
+//   (the scale * log2 e folded into one FMA before each MUFU.EX2), a row's
+//   max taken over the 4 lanes that share it by xor shuffles, its sum kept
+//   per lane and reduced once at the end, both in a fixed order; O is
+//   rescaled by alpha in registers;
+// - epilogue: O / l rounded to bf16, staged swizzled in the warpgroup's own
+//   rows of the Q buffer, stored in 16-byte rows (rows past S dropped);
+// - the grid is (B*H, q tiles), heavy tiles first, so the query heads that
+//   share a K/V head run side by side and share it in L2.
+//   ptxas serialises every wgmma of the kernel (warning C7513) if an
+//   instruction other than a wgmma writes a register of one in flight: the
+//   descriptors' warpgroup index is broadcast so they stay in uniform
+//   registers, the first QK^T step overwrites S (an output only), P is
+//   rounded into the PV operand only after the previous PV retires, and
+//   the live registers stay within the 168 ptxas allocates.
+//   Numerics: P is rounded to bf16 before PV, as the port's plain version
+//   (attention_ref casts the normalised probabilities to v's dtype); the
+//   Pallas kernel keeps P in f32 into PV. Here P is rounded unnormalised
+//   (exp2(s - m), m the running max) and l is summed from the unrounded p;
+//   ex2.approx.ftz flushes p below 2^-126 to 0. No atomics: results repeat
+//   bit for bit.
+//   Times at the main shape on an NVIDIA H100 80GB HBM3 at 700.00 W are in
+//   PERF.md (chip_smoke.py).
+//
+// 2. The scalar kernel (`flash_fwd_kernel`, f32 at D = 16, 64, 128 and
+//    bf16 at D = 16) does the arithmetic in scalar f32 FMA (P stays f32
+//    into PV, as in the Pallas kernel):
 // - one block per (q tile of 64 rows, batch*head); the loop over KV tiles
 //   inside the block takes the place of the TPU's sequential kv grid axis;
-//   heavy (late) causal q tiles are launched first;
-// - KV tiles wholly above the causal frontier or wholly outside the window
-//   are skipped, not masked (the Pallas docstring leaves that as a
-//   follow-up; the result is the same);
-// - the ragged edge (S not a multiple of 64) is masked here, so every S
-//   goes through the kernel;
 // - Q, then K and V in turn, are held in shared memory as f32 (one buffer
 //   for K and V keeps 2 blocks on an SM at D=128); each thread computes a
 //   4x4 tile of S = Q K^T from 16-byte shared loads (its 4 key columns are
@@ -39,6 +88,7 @@
 //   the 16 threads that share it with xor shuffles, in a fixed order.
 // Results repeat bit for bit from run to run. Built without --fmad=false:
 // the f32 tolerance it is held to (2e-5) is far above FMA's rounding.
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -299,24 +349,585 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
+// f32 at D = 16, 64 and 128; bf16 at D = 16 only (bf16 at 64 and 128 is
+// the tensor-core kernel's)
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int H, int KH, int S, int D, float scale,
-                     int causal, int window, cudaStream_t stream) {
+                     int causal, int window, int dtype, cudaStream_t stream) {
+  if (dtype == 1)
+    return D == 16 ? launch<__nv_bfloat16, 16>(q, k, v, o, B, H, KH, S,
+                                               scale, causal, window, stream)
+                   : cudaErrorInvalidValue;
+  if (dtype != 0) return cudaErrorInvalidValue;
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, H, KH, S, scale, causal, window,
-                           stream);
+      return launch<float, 16>(q, k, v, o, B, H, KH, S, scale, causal,
+                               window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KH, S, scale, causal, window,
-                           stream);
+      return launch<float, 64>(q, k, v, o, B, H, KH, S, scale, causal,
+                               window, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KH, S, scale, causal, window,
-                            stream);
+      return launch<float, 128>(q, k, v, o, B, H, KH, S, scale, causal,
+                                window, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+
+// ---------------------------------------------------------------------------
+// 1. The tensor-core kernel (bf16, D = 64 or 128)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;             // query rows a block
+constexpr int BK = 128;             // keys a KV tile
+constexpr int CONSUMERS = 2;        // warpgroups of 64 query rows
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
+constexpr int STAGES = 3;           // K/V ring
+constexpr int BOX = 128 * 128;      // bytes of one TMA box: 128 rows x 64 bf16
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int TILE = (D / 64) * BOX;  // 128 rows of Q, K or V
+  static constexpr int KV = TILE;              // stage s: K at KV + 2s TILE,
+  static constexpr int BYTES = TILE * (1 + 2 * STAGES);  // V one TILE on
+  static constexpr int ALLOC = BYTES + 1024;   // slack to align to 1024
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box (64 columns x 128 rows of one head) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(head)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_one() {  // all but the newest
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of a wgmma's registers
+// (its accumulator, or its A operand, which it reads asynchronously)
+// across the wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(i) ACC4(i), ACC4(i + 4), ACC4(i + 8), ACC4(i + 12)
+#define ACC_REGS32                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                       \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "               \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define ACC_REGS64                                         \
+  ACC_REGS32 ", "                                          \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "               \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "               \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "               \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 128, f32) += A (64 x 16) B^T (128 x 16), both K-major in shared
+// memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" ACC_REGS64 "}, %64, %65, 1, 1, 1, 0, 0;\n"
+      : ACC16(0), ACC16(16), ACC16(32), ACC16(48)
+      : "l"(a), "l"(b));
+}
+
+// the same with d overwritten (scale-d false): d is an output only, so
+// whatever wrote its registers before (the softmax) is no wgmma input, and
+// ptxas need not serialise the wgmmas in flight around it
+#define OUT4(i) "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3])
+#define OUT16(i) OUT4(i), OUT4(i + 4), OUT4(i + 8), OUT4(i + 12)
+__device__ __forceinline__ void wgmma_qk_first(float (&d)[64], uint64_t a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" ACC_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : OUT16(0), OUT16(16), OUT16(32), OUT16(48)
+      : "l"(a), "l"(b), "r"(0));
+}
+#undef OUT4
+#undef OUT16
+
+// d (64 x N, f32) += A (64 x 16 bf16, registers) B (16 x N), B MN-major in
+// shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" ACC_REGS64 "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : ACC16(0), ACC16(16), ACC16(32), ACC16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" ACC_REGS32 "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : ACC16(0), ACC16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+#undef ACC4
+#undef ACC16
+#undef ACC_REGS32
+#undef ACC_REGS64
+
+// 2^x in one MUFU.EX2 (exp2f adds a range fix for results below 2^-126,
+// which only moves o by less than 1e-38 of |v|)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Named barriers: 1 and 2 close a consumer warpgroup's epilogue; TURN + w
+// is consumer warpgroup w's turn to issue its products (the other one
+// arrives, 128 + 128 threads).
+constexpr int TURN = 3;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// issue S = Q K^T for one tile: D/16 steps of 16 columns, 4 in each
+// 128-byte box; committed as one group
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t qa,
+                                         uint32_t kd) {
+  wgmma_fence();
+  wgmma_qk_first(sc, sw128_desc(qa, 16, 1024), sw128_desc(kd, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+    wgmma_qk(sc, sw128_desc(qa + off, 16, 1024),
+             sw128_desc(kd + off, 16, 1024));
+  }
+  wgmma_commit();
+}
+
+// issue O += P V for one tile: 8 steps of 16 keys; V is MN-major, 8 keys of
+// 128 bytes apart by 1024 bytes, its boxes of 64 columns apart by BOX;
+// committed as one group
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&p)[32], uint32_t vd) {
+  fence_regs(acc);
+  fence_regs(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    wgmma_pv<D>(acc, a, sw128_desc(vd + kk * 16 * 128, BOX, 1024));
+  }
+  wgmma_commit();
+}
+
+// The thread's two rows of the online softmax over one tile of S (raw
+// logits), in place: scale into the exp2 domain, mask if the tile is on an
+// edge, take the rows' max over the 4 lanes that share them, S becomes
+// P = exp2(s - m) in f32, l = alpha l + rowsum(P) (over the lane's own
+// columns; the lanes' sums are added once, at the end), alpha for O left in
+// al. P is rounded to bf16 into the PV operand only once the previous PV is
+// done: ptxas serialises every wgmma if an instruction other than a wgmma
+// writes a register of one in flight, and it also does so when the live
+// registers outgrow its budget (168 a thread, whatever setmaxnreg gives) and
+// it reuses those of the operand in flight.
+struct Rows {
+  int row0;  // the first row; the second is 8 below
+  int cq;    // the lane's first column in each 8-column chunk
+  float m[2], l[2], al[2];
+};
+
+__device__ __forceinline__ void online_softmax(float (&sc)[64],
+                                               Rows& r,
+                                               int k0, int q0, int S,
+                                               int causal, int window,
+                                               float scale_log2) {
+  const bool edge = k0 + BK > S ||
+                    (causal && (k0 + BK - 1 > q0 ||
+                                (window && k0 <= q0 + BQ - 1 - window)));
+  if (edge) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * n + r.cq + (e & 1);
+        const int row = r.row0 + 8 * (e >> 1);
+        bool ok = col < S;
+        if (causal) {
+          ok = ok && col <= row;
+          if (window) ok = ok && col > row - window;
+        }
+        if (!ok) sc[4 * n + e] = NEG_INF;
+      }
+  }
+  float mx[2] = {NEG_INF, NEG_INF}, off_[2];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      mx[hf] = fmaxf(mx[hf], fmaxf(sc[4 * n + 2 * hf], sc[4 * n + 2 * hf + 1]));
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], off));
+    const float mn = fmaxf(r.m[hf], mx[hf]);  // raw logits
+    r.al[hf] = exp2_ftz((r.m[hf] - mn) * scale_log2);
+    r.m[hf] = mn;
+    // exp2(s scale - m scale) in one FMA; a row with no unmasked key yet
+    // takes offset 0, so its masked logits give exp2(NEG_INF scale) = 0
+    off_[hf] = mn == NEG_INF ? 0.0f : -mn * scale_log2;
+  }
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * n + e] = exp2_ftz(fmaf(sc[4 * n + e], scale_log2, off_[e >> 1]));
+      rs[e >> 1] += sc[4 * n + e];
+    }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) r.l[hf] = r.l[hf] * r.al[hf] + rs[hf];
+}
+
+// Accumulator fragment of wgmma m64nN (f32), for thread t of a warpgroup:
+// rows 16*(t/32) + (t%32)/4 and 8 more; in 8-column chunk n, d[4n], d[4n+1]
+// are the first row at columns 8n + 2*(t%4) + {0, 1}, d[4n+2], d[4n+3] the
+// second. Chunks 2j and 2j+1 of S are, as they stand, the register A
+// fragment of P for keys 16j..16j+15.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             __nv_bfloat16* __restrict__ o, int H, int KH, int S,
+             float scale_log2, int causal, int window) {
+  using L = Smem<D>;
+  constexpr int NB = D / 64;  // boxes across D
+  extern __shared__ uint8_t smem_raw[];
+  // q, then full K, full V and empty, one a stage
+  __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_addr(smem);
+  const uint32_t q_bar = smem_addr(bars);
+  auto full_k = [&](int s) { return q_bar + 8 * (1 + s); };
+  auto full_v = [&](int s) { return q_bar + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return q_bar + 8 * (1 + 2 * STAGES + s); };
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heavy causal tiles first
+  const int q0 = qt * BQ;
+  const int b = bh / H, h = bh - b * H;
+  const int bkh = b * KH + h / (H / KH);
+  const int last_row = min(q0 + BQ, S) - 1;
+  int kt_lo = 0, kt_hi = (S - 1) / BK;
+  if (causal) {
+    kt_hi = last_row / BK;
+    if (window) kt_lo = max(0, q0 - window + 1) / BK;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp-uniform for the compiler (a broadcast), so that the descriptors
+  // built from it live in uniform registers and no move into them lands
+  // between two wgmmas (ptxas would serialise them)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == CONSUMERS) {
+    // the producer: one thread keeps the ring of K/V tiles filled
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(q_bar, L::TILE);
+      for (int c = 0; c < NB; ++c)
+        tma_load(base + c * BOX, &qmap, q_bar, 64 * c, q0, bh);
+      for (int kt = kt_lo, i = 0; kt <= kt_hi; ++kt, ++i) {
+        const int s = i % STAGES;
+        const uint32_t kd = base + L::KV + 2 * s * L::TILE;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // the first pass is free
+        mbar_expect_tx(full_k(s), L::TILE);
+        for (int c = 0; c < NB; ++c)
+          tma_load(kd + c * BOX, &kmap, full_k(s), 64 * c, kt * BK, bkh);
+        mbar_expect_tx(full_v(s), L::TILE);
+        for (int c = 0; c < NB; ++c)
+          tma_load(kd + L::TILE + c * BOX, &vmap, full_v(s), 64 * c, kt * BK,
+                   bkh);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg takes query rows q0 + 64 wg ... + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int r_lo = 16 * (t / 32) + lane / 4;  // rows r_lo and r_lo + 8
+  const int row0 = q0 + 64 * wg + r_lo;
+  const int cq = 2 * (lane % 4);
+  const uint32_t qa = base + wg * 64 * 128;  // this warpgroup's rows of Q
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  Rows rows{row0, cq, {NEG_INF, NEG_INF}, {0.0f, 0.0f}, {1.0f, 1.0f}};
+  auto kd = [&](int i) { return base + L::KV + 2 * (i % STAGES) * L::TILE; };
+  auto phase = [](int i) { return static_cast<uint32_t>((i / STAGES) & 1); };
+
+  // Tile i's S = Q K^T runs on the tensor cores with tile i-1's O += P V
+  // behind it; the softmax of tile i waits only for the first, so it
+  // overlaps the second. The two warpgroups take turns to issue their
+  // products, so one's softmax also runs while the other's products do.
+  float sc[64];
+  uint32_t p[32];  // P in bf16 pairs: A fragments, 4 for each 16 keys
+  const int n_tiles = kt_hi - kt_lo + 1;
+  if (wg == 1) named_arrive(TURN);  // warpgroup 0 goes first
+  mbar_wait(q_bar, 0);
+  mbar_wait(full_k(0), 0);
+  named_sync(TURN + wg);
+  issue_qk<D>(sc, qa, kd(0));
+  named_arrive(TURN + 1 - wg);
+  wgmma_wait();
+  fence_regs(sc);
+  online_softmax(sc, rows, kt_lo * BK, q0, S, causal, window, scale_log2);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+  for (int i = 1; i < n_tiles; ++i) {
+    const int ps = (i - 1) % STAGES;
+    fence_regs(acc);  // O's rescale and P land before any product is issued
+    fence_regs(p);
+    mbar_wait(full_k(i % STAGES), phase(i));
+    mbar_wait(full_v(ps), phase(i - 1));
+    named_sync(TURN + wg);
+    issue_qk<D>(sc, qa, kd(i));
+    issue_pv<D>(acc, p, kd(i - 1) + L::TILE);
+    named_arrive(TURN + 1 - wg);
+    wgmma_wait_one();  // S of tile i
+    fence_regs(sc);
+    online_softmax(sc, rows, (kt_lo + i) * BK, q0, S, causal, window,
+                   scale_log2);
+    wgmma_wait();  // PV of tile i-1
+    fence_regs(acc);
+    fence_regs(p);
+    mbar_arrive(empty(ps));
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[4 * n] *= rows.al[0];
+      acc[4 * n + 1] *= rows.al[0];
+      acc[4 * n + 2] *= rows.al[1];
+      acc[4 * n + 3] *= rows.al[1];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+  }
+  {
+    const int i = n_tiles - 1;
+    mbar_wait(full_v(i % STAGES), phase(i));
+    named_sync(TURN + wg);
+    issue_pv<D>(acc, p, kd(i) + L::TILE);
+    if (wg == 0) named_arrive(TURN + 1);  // warpgroup 1 has no turn left
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(p);
+  }
+  float l0 = rows.l[0], l1 = rows.l[1];
+
+  // epilogue: O / l in bf16, staged swizzled in this warpgroup's rows of Q
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.0f / fmaxf(l0, 1e-20f), inv1 = 1.0f / fmaxf(l1, 1e-20f);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r_lo + 8 * hf;
+      const float inv = hf ? inv1 : inv0;
+      const int byte = (n / 8) * BOX + (64 * wg + r) * 128 +
+                       (((n % 8) ^ (r & 7)) * 16) + (lane % 4) * 4;
+      *reinterpret_cast<uint32_t*>(smem + byte) =
+          pack_bf16(acc[4 * n + 2 * hf] * inv, acc[4 * n + 2 * hf + 1] * inv);
+    }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  for (int i = t; i < 64 * CPR; i += 128) {
+    const int r = i / CPR, c = i % CPR;
+    const int row = q0 + 64 * wg + r;
+    if (row >= S) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        smem + (c / 8) * BOX + (64 * wg + r) * 128 + (((c % 8) ^ (r & 7)) * 16));
+    *reinterpret_cast<uint4*>(o + ((int64_t)bh * S + row) * D + c * 8) = val;
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (heads, S, D) bf16, contiguous: boxes of 64 columns x 128 rows x 1 head in
+// the 128-byte swizzle; rows past S read as zeros
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                int heads, int S, int D) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, BQ, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int H, int KH, int S, float scale, int causal,
+                   int window, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<D>::ALLOC);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(encode, &qm, q, B * H, S, D) ||
+      !tensor_map(encode, &km, k, B * KH, S, D) ||
+      !tensor_map(encode, &vm, v, B * KH, S, D))
+    return cudaErrorInvalidValue;
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  flash_fwd_tc<D><<<grid, THREADS, Smem<D>::ALLOC, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, KH, S, scale * LOG2E,
+      causal, window);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -326,11 +937,12 @@ const char* flash_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q, o: (B, H, S, D); k, v: (B, KH, S, D); contiguous, 16-byte aligned,
-// H a multiple of KH, D in {16, 64, 128}, B*H <= 65535 (the wrapper
-// checks). dtype: 0 = f32, 1 = bf16. causal and window as in the Pallas
-// kernel (window applies only with causal; 0 = none). Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// The scalar kernel: q, o (B, H, S, D); k, v (B, KH, S, D); contiguous,
+// 16-byte aligned, H a multiple of KH, B*H <= 65535 (the wrapper checks).
+// dtype: 0 = f32 with D in {16, 64, 128}, 1 = bf16 with D = 16. causal and
+// window as in the Pallas kernel (window applies only with causal; 0 =
+// none). Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, int B, int H, int KH, int S, int D,
                             float scale, int causal, int window, int dtype,
@@ -338,13 +950,32 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return static_cast<int>(dispatch<float>(q, k, v, o, B, H, KH, S, D, scale,
-                                            causal, window, s));
-  if (dtype == 1)
-    return static_cast<int>(dispatch<__nv_bfloat16>(
-        q, k, v, o, B, H, KH, S, D, scale, causal, window, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(q, k, v, o, B, H, KH, S, D, scale, causal,
+                                   window, dtype, s));
+}
+
+// The tensor-core kernel: bf16 q, o (B, H, S, D) and k, v (B, KH, S, D),
+// contiguous, 16-byte aligned, H a multiple of KH, D in {64, 128} (the
+// wrapper checks). causal and window as above. Launches on `stream`,
+// allocates nothing, returns the first CUDA error (cudaErrorNotSupported if
+// cuTensorMapEncodeTiled cannot be found).
+int flash_attention_forward_tc(const void* q, const void* k, const void* v,
+                               void* o, int B, int H, int KH, int S, int D,
+                               float scale, int causal, int window,
+                               void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64:
+      return static_cast<int>(tc::launch<64>(q, k, v, o, B, H, KH, S, scale,
+                                             causal, window, s));
+    case 128:
+      return static_cast<int>(tc::launch<128>(q, k, v, o, B, H, KH, S, scale,
+                                              causal, window, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -26,6 +26,7 @@
 // so y repeats bit for bit from run to run. Built without --fmad=false.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -162,18 +163,36 @@ const char* rmsnorm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = f32, 1 = bf16. x and y are rows x d, contiguous, 16-byte
-// aligned, d a multiple of 16 bytes' worth of elements (the wrapper checks).
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
-int rmsnorm_forward(const void* x, const float* scale, void* y, int rows,
-                    int d, float eps, int dtype, void* stream) {
+// The arguments of one launch in one buffer, which the wrapper packs with
+// Python's struct format "=QQQiifi" (kernels/rmsnorm/kernel.py `_pack`):
+// ctypes converts one pointer argument in a fraction of the time it takes
+// for seven, and decode launches this kernel 49 or 57 times a step.
+struct RmsArgs {
+  const void* x;
+  const float* scale;
+  void* y;
+  int rows;
+  int d;
+  float eps;
+  int dtype;  // 0 = f32, 1 = bf16
+};
+static_assert(sizeof(RmsArgs) == 40 && offsetof(RmsArgs, rows) == 24 &&
+                  offsetof(RmsArgs, eps) == 32,
+              "RmsArgs must match the wrapper's struct format =QQQiifi");
+
+// x and y are rows x d, contiguous, 16-byte aligned, d a multiple of 16
+// bytes' worth of elements (the wrapper checks). Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
+int rmsnorm_forward(const RmsArgs* a, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return static_cast<int>(launch<float>(x, scale, y, rows, d,
-                                                        eps, s));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(x, scale, y, rows, d, eps,
-                                                  s));
+  if (a->rows <= 0 || a->d <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->dtype == 0)
+    return static_cast<int>(launch<float>(a->x, a->scale, a->y, a->rows,
+                                          a->d, a->eps, s));
+  if (a->dtype == 1)
+    return static_cast<int>(launch<__nv_bfloat16>(a->x, a->scale, a->y,
+                                                  a->rows, a->d, a->eps, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,7 +6,9 @@ use, into ``build/kernels/`` at the repo root (listed in ``.gitignore``),
 under a name that carries the hash of the source and the flags, and loaded
 with ctypes. A build writes a temporary file and renames it into place, so
 two processes that build at once never load half a library. Every library
-exports ``<prefix>_error_string(int)``, CUDA's name for an error code.
+exports ``<prefix>_error_string(int)``, CUDA's name for an error code. Every
+wrapper launches through ``KernelLibrary.launcher``, on PyTorch's current
+stream of the operands' device.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# The current CUDA device's index and the raw handle of a device's current
+# stream, read without building torch.device or torch.cuda.Stream objects;
+# a build of PyTorch without CUDA has neither (and launches nothing).
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def nvcc() -> str:
@@ -92,6 +99,34 @@ class KernelLibrary:
                 self._declare(lib)
                 self._lib = lib
         return self._lib
+
+    def launcher(self, name: str) -> Callable[..., None]:
+        """A function ``launch(device, *args)`` that calls the library's
+        function ``name`` with ``args`` and, last, the current stream of
+        CUDA device ``device`` (an index, as ``Tensor.get_device()`` gives
+        it), and raises if it returns an error. The library is loaded at
+        the first launch.
+
+        The launch path of every kernel, kept short because decode calls
+        it thousands of times a step: the function bound once, the raw
+        stream handle without a ``Stream`` object, the device switched only
+        when ``device`` is not the current one, arguments converted by the
+        declared ``argtypes``."""
+        fn = None
+
+        def launch(device: int, *args) -> None:
+            nonlocal fn
+            if fn is None:
+                fn = getattr(self.load(), name)
+            if device == _current_device():
+                err = fn(*args, _raw_stream(device))
+            else:
+                with torch.cuda.device(device):
+                    err = fn(*args, _raw_stream(device))
+            if err:
+                self.check(err, name)
+
+        return launch
 
     def check(self, err: int, what: str) -> None:
         """Raise if a launch returned a CUDA error."""

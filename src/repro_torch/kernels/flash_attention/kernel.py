@@ -1,19 +1,25 @@
-"""Kernel B3: the flash-attention forward as a hand-written CUDA kernel.
+"""Kernel B3: the flash-attention forward as two hand-written CUDA kernels.
 
 Replaces the JAX package's Pallas TPU kernel (``src/repro/kernels/
 flash_attention/kernel.py`` ``_flash_kernel`` via ``flash_attention_pallas``).
 The source is ``src/repro_torch/csrc/flash_attention.cu``; its header note
-gives the kernel's bound on an H100 and what its design does about it. It is
-built and loaded by ``kernels/_build.py`` without ``--fmad=false``.
+gives the bound on an H100 and what each kernel's design does about it. It
+is built and loaded by ``kernels/_build.py`` without ``--fmad=false``.
 
-Unlike the Pallas wrapper, this one takes any sequence length (the kernel
-masks the ragged edge) and K/V with fewer heads than q (GQA: the kernel
-reads K/V head h // (H/K) for query head h). Head dims 16, 64 and 128;
+``kernel_for`` chooses the kernel from dtype and head dim: bfloat16 at head
+dims 64 and 128 takes the tensor-core kernel (wgmma, TMA), everything else
+(float32, head dim 16) the scalar f32 kernel. The choice is made before the
+launch and never after a failure.
+
+Unlike the Pallas wrapper, this one takes any sequence length (the kernels
+mask the ragged edge) and K/V with fewer heads than q (GQA: the kernels
+read K/V head h // (H/K) for query head h). Head dims 16, 64 and 128;
 float32 or bfloat16.
 
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
-tensor launches the kernel or raises; nothing falls back. The wrapper
-counts its launches in ``flash_attention_cuda.launches``.
+tensor launches a kernel or raises; nothing falls back. The wrapper counts
+every launch in ``flash_attention_cuda.launches`` and the tensor-core
+kernel's in ``flash_attention_cuda.launches_tc``.
 """
 from __future__ import annotations
 
@@ -27,7 +33,17 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128)
-MAX_GRID_Y = 65535  # batch * heads: the grid's second axis
+TC_HEAD_DIMS = (64, 128)  # head dims of the tensor-core kernel (bf16 only)
+MAX_GRID_Y = 65535  # batch * heads: the scalar kernel's second grid axis
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes a CUDA call: ``"tensor_core"`` for bfloat16 at
+    head dims 64 and 128, ``"scalar"`` for the rest. f32 stays off the
+    tensor cores, whose f32 product would be TF32."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "scalar"
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -35,10 +51,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_forward.argtypes = [ptr] * 4 + [i32] * 5 + [
         ctypes.c_float, i32, i32, i32, ptr]
     lib.flash_attention_forward.restype = i32
+    lib.flash_attention_forward_tc.argtypes = [ptr] * 4 + [i32] * 5 + [
+        ctypes.c_float, i32, i32, ptr]
+    lib.flash_attention_forward_tc.restype = i32
 
 
 LIBRARY = KernelLibrary("flash", "flash_attention.cu", declare=_declare)
 load_library = LIBRARY.load
+_scalar = LIBRARY.launcher("flash_attention_forward")
+_tensor_core = LIBRARY.launcher("flash_attention_forward_tc")
 
 
 def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -90,20 +111,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            k.shape[1], s, d, ctypes.c_float(scale), int(causal),
-            int(window), DTYPES[q.dtype], stream)
-    LIBRARY.check(err, "flash_attention_forward")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            k.shape[1], s, d, scale, int(causal), int(window))
+    if kernel_for(q.dtype, d) == "tensor_core":
+        _tensor_core(q.get_device(), *args)
+        flash_attention_cuda.launches_tc += 1
+    else:
+        _scalar(q.get_device(), *args, DTYPES[q.dtype])
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_tc = 0
 
 
 def reset_launches() -> None:
     flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_tc = 0

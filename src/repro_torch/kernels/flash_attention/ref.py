@@ -35,3 +35,33 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.exp(logits - torch.amax(logits, -1, keepdim=True))
     probs = probs / torch.sum(probs, -1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
+
+# bf16's unit roundoff: 8 significant bits, rounded to nearest, so a value
+# moves by at most 2^-8 of itself
+BF16_UNIT = 2.0 ** -8
+# f32 sums over up to 2048 keys move o by at most 2048 * 2^-24 = 2^-13 of
+# the same sum that bounds P's rounding, BF16_UNIT / 32; allowed twice that
+F32_SLACK = 1.0 / 16
+
+
+def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int = 0
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o32, bound) for bf16 q, k, v: ``o32`` is the attention in f32 on the
+    same bf16 values, and ``bound`` bounds |o - o32| elementwise for any
+    kernel that rounds each probability p (scaled by any positive factor,
+    before PV) and the output o to bf16, each to nearest:
+
+        |o - o32| <= BF16_UNIT * (1 + F32_SLACK) * (attn(|v|) + |o32|)
+
+    P's rounding moves o by at most BF16_UNIT * sum(p |v|) / l, which is
+    attn(|v|), the attention of |v| with the same weights; o's rounding by
+    BF16_UNIT |o|. A dropped or misplaced key tile moves o by a share of
+    the weights it carries, which at S = 2048 is far above this bound while
+    it is still far below a flat 3e-2."""
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    o32 = attention_ref(q32, k32, v32, causal=causal, window=window)
+    spread = attention_ref(q32, k32, v32.abs(), causal=causal, window=window)
+    bound = BF16_UNIT * (1 + F32_SLACK) * (spread + o32.abs())
+    return o32, bound

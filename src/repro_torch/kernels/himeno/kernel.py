@@ -74,18 +74,17 @@ def _on_card(p, a, b, c, bnd, wrk1) -> bool:
     return True
 
 
-def _launch(fn_name: str, out, p, a, b, c, bnd, wrk1, *extra):
-    lib = load_library()
+_sweep = LIBRARY.launcher("himeno_sweep_f32")
+_stencil = LIBRARY.launcher("himeno_stencil_f32")
+
+
+def _launch(launch, out, p, a, b, c, bnd, wrk1, *extra):
     I, J, K = p.shape
-    parts = torch.empty(lib.himeno_num_partials(I, J, K), dtype=torch.float32,
-                        device=p.device)
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn_name)(
-            p.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            bnd.data_ptr(), wrk1.data_ptr(), out.data_ptr(), parts.data_ptr(),
-            I, J, K, *extra, stream)
-    LIBRARY.check(err, fn_name)
+    parts = torch.empty(load_library().himeno_num_partials(I, J, K),
+                        dtype=torch.float32, device=p.device)
+    launch(p.get_device(), p.data_ptr(), a.data_ptr(), b.data_ptr(),
+           c.data_ptr(), bnd.data_ptr(), wrk1.data_ptr(), out.data_ptr(),
+           parts.data_ptr(), I, J, K, *extra)
     return parts
 
 
@@ -94,8 +93,7 @@ def himeno_sweep(p, a, b, c, bnd, wrk1, omega: float = 0.8):
     if not _on_card(p, a, b, c, bnd, wrk1):
         return jacobi_ref(p, a, b, c, bnd, wrk1, omega=omega)
     p_new = torch.empty_like(p)
-    parts = _launch("himeno_sweep_f32", p_new, p, a, b, c, bnd, wrk1,
-                    ctypes.c_float(omega))
+    parts = _launch(_sweep, p_new, p, a, b, c, bnd, wrk1, omega)
     himeno_sweep.launches += 1
     return p_new, torch.sum(parts)
 
@@ -107,7 +105,7 @@ def himeno_stencil(p, a, b, c, bnd, wrk1):
         return stencil_parts_ref(p, a, b, c, bnd, wrk1)
     I, J, K = p.shape
     ss = torch.empty((I - 2, J - 2, K - 2), dtype=p.dtype, device=p.device)
-    parts = _launch("himeno_stencil_f32", ss, p, a, b, c, bnd, wrk1)
+    parts = _launch(_stencil, ss, p, a, b, c, bnd, wrk1)
     himeno_stencil.launches += 1
     return ss, parts
 

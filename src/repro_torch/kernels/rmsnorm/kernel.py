@@ -11,78 +11,96 @@ held to (2e-5 in f32, one bf16 ulp in bf16).
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
 tensor launches the kernel or raises; nothing falls back. The wrapper
 counts its launches in ``rms_norm_cuda.launches``.
+
+The launch path is short, since a decode step calls it 49 or 57 times and
+its time there is the host's (``chip_smoke.py``'s ``rms_host_path`` phase
+times each step of it on the card): the checks are ordered cheapest first
+and read no ``torch.device``, and each pointer is read once; the
+library's launcher, bound once, reads the raw stream handle and switches
+device only when x is not on the current one; the seven arguments go to
+the kernel packed into one buffer by ``struct`` (``RmsArgs`` in the
+source), which ctypes passes as one pointer instead of converting each;
+the error check is one comparison when the launch succeeds.
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
 from repro_torch.kernels._build import KernelLibrary
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_VECTORS = 8 * 256  # 16-byte vectors a row may hold (8 a thread, 256)
+# RmsArgs in rmsnorm.cu: x, scale, y, rows, d, eps (f32), dtype (0 = f32,
+# 1 = bf16), in native byte order without padding
+_pack = struct.Struct("=QQQiifi").pack
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.rmsnorm_forward.argtypes = [ptr, ptr, ptr, i32, i32, ctypes.c_float,
-                                    i32, ptr]
-    lib.rmsnorm_forward.restype = i32
+    lib.rmsnorm_forward.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    lib.rmsnorm_forward.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("rmsnorm", "rmsnorm.cu", declare=_declare)
 load_library = LIBRARY.load
+_forward = LIBRARY.launcher("rmsnorm_forward")
 
 
-def _on_card(x: torch.Tensor, scale: torch.Tensor) -> bool:
-    """Check the operands; True for CUDA tensors, False for CPU tensors."""
-    if x.dim() < 1 or scale.dim() != 1 or scale.shape[0] != x.shape[-1]:
+def _on_card(x: torch.Tensor, scale: torch.Tensor) -> int:
+    """Check the operands (all but their alignment, which the wrapper checks
+    on the pointers it passes); return the CUDA device index for tensors on
+    the card, -1 for tensors on the CPU.
+
+    Cheapest first on the card's path: ``is_cuda`` and ``get_device()``
+    instead of building ``torch.device`` objects, which only the refusals
+    and the CPU need."""
+    if x.dim() < 1 or scale.shape != (x.shape[-1],):
         raise ValueError(f"x must be (..., D) and scale (D,), got "
                          f"{tuple(x.shape)} and {tuple(scale.shape)}")
-    if x.dtype not in DTYPES:
+    dtype = x.dtype
+    if dtype is not torch.bfloat16 and dtype is not torch.float32:
         raise TypeError(f"the RMSNorm kernel takes float32 or bfloat16 x, "
-                        f"got {x.dtype}")
-    if scale.dtype != torch.float32:
+                        f"got {dtype}")
+    if scale.dtype is not torch.float32:
         raise TypeError(f"scale must be float32, got {scale.dtype}")
-    if x.device != scale.device:
-        raise ValueError("x and scale must lie on one device")
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device != scale.device:
+            raise ValueError("x and scale must lie on one device")
+        if x.device.type == "cpu":
+            return -1
         raise ValueError(f"no RMSNorm kernel for device {x.device}")
+    device = x.get_device()
+    if scale.get_device() != device:  # -1 off the card
+        raise ValueError("x and scale must lie on one device")
     d = x.shape[-1]
-    vec = 16 // x.element_size()
+    vec = 8 if dtype is torch.bfloat16 else 4  # elements of 16 bytes
     if d % vec or d // vec > MAX_VECTORS:
         raise ValueError(f"the RMSNorm kernel takes D a multiple of {vec} "
-                         f"up to {MAX_VECTORS * vec} for {x.dtype}, got {d}")
+                         f"up to {MAX_VECTORS * vec} for {dtype}, got {d}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("the RMSNorm kernel takes contiguous operands")
-    if x.data_ptr() % 16 or scale.data_ptr() % 16:
-        raise ValueError("the RMSNorm kernel takes 16-byte aligned operands")
-    return True
+    return device
 
 
 def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
                   eps: float = 1e-5) -> torch.Tensor:
     """y = x * rsqrt(mean(x^2) + eps) * scale over the last axis, in f32,
     cast back to x's dtype."""
-    if not _on_card(x, scale):
+    device = _on_card(x, scale)
+    if device < 0:
         return rms_norm_ref(x, scale, eps=eps)
-    lib = load_library()
+    xp, sp = x.data_ptr(), scale.data_ptr()
+    if xp % 16 or sp % 16:
+        raise ValueError("the RMSNorm kernel takes 16-byte aligned operands")
     y = torch.empty_like(x)
     d = x.shape[-1]
     rows = x.numel() // d
-    if rows == 0:
-        return y
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rmsnorm_forward(x.data_ptr(), scale.data_ptr(),
-                                  y.data_ptr(), rows, d, ctypes.c_float(eps),
-                                  DTYPES[x.dtype], stream)
-    LIBRARY.check(err, "rmsnorm_forward")
-    rms_norm_cuda.launches += 1
+    if rows:
+        _forward(device, _pack(xp, sp, y.data_ptr(), rows, d, eps,
+                               x.dtype is torch.bfloat16))
+        rms_norm_cuda.launches += 1
     return y
 
 

@@ -32,6 +32,7 @@ from repro_torch.kernels.wkv.ref import wkv_ref
 
 HEAD_DIMS = (16, 64)
 MAX_GRID_Y = 65535  # batch * heads: the grid's second axis
+I64X3 = ctypes.c_int64 * 3
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -42,6 +43,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 LIBRARY = KernelLibrary("wkv", "wkv.cu", declare=_declare)
 load_library = LIBRARY.load
+_forward = LIBRARY.launcher("wkv_forward")
 
 
 def _check(r, k, v, lw, u, state) -> bool:
@@ -98,22 +100,17 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, final if state is None else state.copy_(final)
     if len({t.stride() for t in (r, k, v, lw)}) != 1 or not _readable(r):
         r, k, v, lw = (t.contiguous() for t in (r, k, v, lw))
-    lib = load_library()
     b, h, s, d = r.shape
     # out shares r's layout (dense) or is contiguous, readable either way;
     # in the model's layout the transpose back is free
     out = torch.empty_like(r)
     final = (torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
              if state is None else state)
-    i64x3 = ctypes.c_int64 * 3
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.wkv_forward(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-            u.data_ptr(), None if state is None else state.data_ptr(),
-            final.data_ptr(), out.data_ptr(), b, h, s, d,
-            i64x3(*r.stride()[:3]), i64x3(*out.stride()[:3]), stream)
-    LIBRARY.check(err, "wkv_forward")
+    _forward(r.get_device(), r.data_ptr(), k.data_ptr(), v.data_ptr(),
+             lw.data_ptr(), u.data_ptr(),
+             None if state is None else state.data_ptr(), final.data_ptr(),
+             out.data_ptr(), b, h, s, d, I64X3(*r.stride()[:3]),
+             I64X3(*out.stride()[:3]))
     wkv_cuda.launches += 1
     return out, final
 

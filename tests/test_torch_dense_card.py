@@ -6,7 +6,11 @@ that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_dense_card.py
 
 Tolerances: f32 within 2e-5 absolute (the JAX package's kernel tests);
-bf16 RMSNorm within one bf16 ulp of |y|, bf16 attention within 3e-2.
+bf16 RMSNorm within one bf16 ulp of |y|, bf16 attention within 3e-2. The
+tensor-core B3 kernel (bf16, head dims 64 and 128) is also held, element by
+element, to the bound that rounding P and o to bf16 allows against the f32
+attention of the same bf16 values (``bf16_error_bound``): a dropped or
+misplaced key tile passes 3e-2 at S = 2048 but not that bound.
 """
 import dataclasses
 
@@ -19,6 +23,7 @@ from repro_torch.configs import ShapeSpec, get_config, reduced
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention_cuda,
 )
+from repro_torch.kernels.flash_attention.ref import bf16_error_bound
 from repro_torch.kernels.rmsnorm import rms_norm_cuda, rms_norm_ref
 from repro_torch.launch.serve import serve
 
@@ -86,6 +91,60 @@ def test_flash_kernel_matches_plain(b, h, kh, s, d, dtype, causal, window):
                                                  window=window))
 
 
+# (B, H, K, S, causal, window): the main path's shape, ragged S, windows,
+# full attention, MQA and a single tile
+TC_CASES = [
+    (2, 24, 8, 2048, True, 0),
+    (2, 4, 2, 130, True, 0),
+    (1, 4, 2, 333, True, 0),
+    (1, 4, 2, 700, True, 16),
+    (1, 4, 2, 1000, True, 256),
+    (2, 4, 2, 333, False, 0),
+    (2, 8, 1, 500, True, 0),
+    (3, 2, 1, 100, True, 0),
+]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,kh,s,causal,window", TC_CASES)
+def test_tensor_core_flash_kernel(b, h, kh, s, causal, window, d):
+    rng = np.random.default_rng(s + d + h)
+
+    def draw(heads):
+        return torch.from_numpy(rng.standard_normal(
+            (b, heads, s, d)).astype(np.float32)).to("cuda", torch.bfloat16)
+
+    q, k, v = draw(h), draw(kh), draw(kh)
+    n, n_tc = flash_attention_cuda.launches, flash_attention_cuda.launches_tc
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_tc == n_tc + 1
+    assert flash_attention_cuda.launches == n + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    assert float((out.float() - ref.float()).abs().max()) <= 3e-2
+    o32, bound = bf16_error_bound(q, k, v, causal=causal, window=window)
+    assert bool(((out.float() - o32).abs() <= bound).all())
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=causal,
+                                                 window=window))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 16)])
+def test_scalar_flash_kernel_takes_the_rest(dtype, d):
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 64, d)).astype(
+        np.float32)).to("cuda", dtype) for _ in range(3))
+    n_tc = flash_attention_cuda.launches_tc
+    out = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_tc == n_tc
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    ref = attention_ref(q, k, v)
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
 def _card_model():
     cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
                               dtype="float32")
@@ -117,3 +176,16 @@ def test_serve_on_the_card():
     out = serve("llama3.2-3b", num_requests=4, slots=2, max_new_tokens=4)
     assert out["completed"] == 4 and out["device"].startswith("cuda")
     assert rms_norm_cuda.launches > n2
+
+
+def test_bf16_dense_forward_goes_through_the_tensor_core_kernel():
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
+                              head_dim=128)
+    model = M.init_params(cfg, device="cuda")
+    batch = M.synthetic_batch(cfg, ShapeSpec("t", "prefill", 200, 2),
+                              device="cuda")
+    n_tc = flash_attention_cuda.launches_tc
+    logits, _ = M.forward(cfg, model, batch)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_tc - n_tc == cfg.num_layers
+    assert bool(torch.isfinite(logits).all())

@@ -15,6 +15,7 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_attention
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention, flash_attention_cuda,
 )
+from repro_torch.kernels.flash_attention.kernel import kernel_for
 
 MASKS = [(True, 0), (True, 16), (False, 0)]
 
@@ -103,7 +104,32 @@ def _meta(*shape):
                                              dtype=torch.bfloat16),
       torch.zeros(1, 2, 16, 16)), TypeError),
     ((torch.zeros(2, 16, 16),) * 3, ValueError),
+    ((torch.zeros(1, 2, 16, 16, dtype=torch.float16),) * 3, TypeError),
+    ((torch.zeros(1, 2, 16, 16), torch.zeros(1, 2, 16, 8),
+      torch.zeros(1, 2, 16, 8)), ValueError),
+    ((torch.zeros(1, 2, 16, 16), torch.zeros(1, 2, 16, 16),
+      torch.zeros(1, 1, 16, 16)), ValueError),
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(args, exc):
     with pytest.raises(exc):
         flash_attention_cuda(*args)
+
+
+@pytest.mark.parametrize("dtype,head_dim,kernel", [
+    (torch.bfloat16, 128, "tensor_core"),  # the dense path's prefill
+    (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 16, "scalar"),        # the reduced configs
+    (torch.float32, 128, "scalar"),        # f32 would be TF32 on the cores
+    (torch.float32, 64, "scalar"),
+    (torch.float32, 16, "scalar"),
+])
+def test_dispatch_rule(dtype, head_dim, kernel):
+    assert kernel_for(dtype, head_dim) == kernel
+
+
+def test_cpu_tensors_count_no_tensor_core_launch():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv((1, 2, 16, 64), 6))
+    before = flash_attention_cuda.launches_tc
+    assert torch.equal(flash_attention(q, k, v), attention_ref(q, k, v))
+    assert flash_attention_cuda.launches_tc == before

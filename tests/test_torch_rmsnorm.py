@@ -80,6 +80,8 @@ def test_cpu_tensors_launch_nothing():
     (torch.zeros(2, 64, dtype=torch.float16), torch.ones(64), TypeError),
     (torch.zeros(2, 64), torch.ones(64, dtype=torch.bfloat16), TypeError),
     (torch.zeros(2, 64), torch.ones(32), ValueError),
+    (torch.zeros(2, 64), torch.ones(64, 1), ValueError),
+    (torch.zeros(()), torch.ones(1), ValueError),
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(x, scale, exc):
     with pytest.raises(exc):
