@@ -7,16 +7,20 @@ Builds the port's four kernels with nvcc for sm_90a, one nvcc each, all
 started together: B1, the Himeno Jacobi sweep (``csrc/himeno.cu``), B2,
 RMSNorm (``csrc/rmsnorm.cu``), B3, the flash-attention forward
 (``csrc/flash_attention.cu``: a tensor-core kernel for bf16, a scalar one
-for f32) and B4, the RWKV6 WKV recurrence (``csrc/wkv.cu``). Holds every
+for f32) and B4, the RWKV6 WKV recurrence (``csrc/wkv.cu``: a chunked
+tensor-core kernel for prefill, a sequential one for decode). Holds every
 kernel against its plain PyTorch version on the card at its main path's
 shapes and at ragged ones, and B3's tensor-core kernel also against the
 bound that rounding P and o to bf16 allows, timing each beside its bound,
 its plain version and, where one exists, the PyTorch library call that
-computes the same function; times each step of B2's launch path at the
-decode shape. Then:
+computes the same function; times each step of B2's and B4's launch paths
+at the decode shape, and counts the cycles of each phase of B4's
+tensor-core kernel. Then:
 
 * slices 2 and 3a, the dense LM at llama3.2-3b's full width and the RWKV
-  LM at rwkv6-1.6b's: a float32 check of B3 (B4) inside a 4-layer model
+  LM at rwkv6-1.6b's (every forward WKV on B4's tensor-core kernel, every
+  decode WKV on its sequential one): a float32 check of B3 (B4) inside a
+  4-layer model
   against the plain attention (WKV), and of forward against teacher-forced
   decode, and a bfloat16 one of B3's tensor-core kernel; then each main path at full width and depth in bf16 —
   ``launch.serve.serve``, a ragged run through ``ServingEngine`` and one
@@ -124,7 +128,7 @@ FLASH_SHAPES = ((2, 24, 8, 2048, 128, "bfloat16", True, 0),
 # deep, against the plain attention, as a share of max |logits|: the bf16
 # bound between the two packages' models on the CPU (PERF.md section 7)
 MODEL_B3_BF16_RTOL = 2e-2
-HOST_CALLS = 10_000  # calls each step of B2's launch path is timed over
+HOST_CALLS = 10_000  # calls each step of B2's and B4's launch paths is timed
 
 # Slice 3a: the RWKV LM path (rwkv6-1.6b) through kernels B2 and B4.
 RWKV_ARCH = "rwkv6-1.6b"
@@ -160,9 +164,12 @@ def lm_wrappers():
 
 
 def lm_launches() -> dict[str, int]:
-    """Each LM kernel's launches, and the tensor-core B3 kernel's apart."""
-    counts = {name: fn.launches for name, fn in lm_wrappers().items()}
-    counts["flash_attention_tc"] = lm_wrappers()["flash_attention"].launches_tc
+    """Each LM kernel's launches, and the tensor-core kernels' of B3 and B4
+    apart."""
+    wrappers = lm_wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts["flash_attention_tc"] = wrappers["flash_attention"].launches_tc
+    counts["wkv_tc"] = wrappers["wkv"].launches_tc
     return counts
 
 
@@ -344,6 +351,25 @@ def timed_pair(kernel_fn, plain_fn, reps: int, library_fn=None) -> dict:
     return out
 
 
+def host_us(steps: dict) -> dict:
+    """Each step's µs a call by ``time.perf_counter`` over HOST_CALLS calls
+    after 100 to warm up, synchronised at the end, so a step that launches
+    counts until its kernels ran."""
+    import torch
+
+    us = {}
+    for name, step in steps.items():
+        for _ in range(100):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            step()
+        torch.cuda.synchronize()
+        us[name] = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
+    return us
+
+
 def kernel_vs_plain(cfg, model, tokens, module, attr, plain):
     """The forward's logits through the kernel, and their distance from the
     same forward with ``module.attr`` patched to ``plain``, as a share of
@@ -392,7 +418,7 @@ class Smoke:
     # -- phase 0 + 1 -----------------------------------------------------
     def card_and_build(self):
         import torch
-        from repro_torch.kernels._build import build_all
+        from repro_torch.kernels._build import BASE_FLAGS, build_all
 
         lines = smi("name,power.limit")
         self.card = lines[0] if lines else "not read"
@@ -401,8 +427,12 @@ class Smoke:
               "torch_device": torch.cuda.get_device_name(0),
               "torch_device_count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda})
-        # every kernel of the port, one nvcc each, all started together
-        libraries = [mod.LIBRARY for mod in kernel_modules()]
+        # every kernel of the port, one nvcc each, all started together;
+        # B4 also with its phase counters, for the wkv_cycles phase
+        from repro_torch.kernels.wkv import cycles
+
+        libraries = [mod.LIBRARY for mod in kernel_modules()] + [
+            cycles.LIBRARY]
         t0 = time.perf_counter()
         seconds = build_all(libraries)
         for lib in libraries:
@@ -416,7 +446,8 @@ class Smoke:
                                     str(path)], capture_output=True,
                                    text=True, timeout=60)
             emit({"phase": "build", "kernel": lib.prefix,
-                  "seconds": seconds[lib.prefix], "library": path.name,
+                  "flags": " ".join(lib.flags[len(BASE_FLAGS):]),
+                  "seconds": seconds[path.name], "library": path.name,
                   "resource_usage": [ln.strip() for ln in
                                      usage.stdout.splitlines()
                                      if "REG:" in ln]})
@@ -758,10 +789,8 @@ class Smoke:
     # -- phase 4b: where a B2 launch's host time goes at decode -----------
     def rms_host_path(self):
         """Each step of ``rms_norm_cuda``'s path at the decode shape (8,1,3072)
-        bf16 on the card, HOST_CALLS calls each, by ``time.perf_counter``
-        (synchronised at the end, so a step that launches counts until its
-        kernels ran); beside them the whole wrapper and ``F.rms_norm``'s
-        call."""
+        bf16 on the card (``host_us``); beside them the whole wrapper and
+        ``F.rms_norm``'s call."""
         import numpy as np
         import torch
         import torch.nn.functional as F
@@ -794,30 +823,29 @@ class Smoke:
             "wrapper": lambda: b2.rms_norm_cuda(x, scale),
             "F.rms_norm": lambda: F.rms_norm(x, (3072,), weight, 1e-5),
         }
-        us = {}
-        for name, step in steps.items():
-            for _ in range(100):
-                step()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(HOST_CALLS):
-                step()
-            torch.cuda.synchronize()
-            us[name] = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
+        us = host_us(steps)
         self.check(torch.equal(y, b2.rms_norm_cuda(x, scale)),
                    "rms host path: the direct launches disagree")
         emit({"phase": "rms_host_path", "shape": [8, 1, 3072],
               "dtype": "bfloat16", "calls": HOST_CALLS, "us_per_call": us,
               "card": self.card})
 
-    # -- phase 5: B4 against its plain version ---------------------------
+    # -- phase 5: B4's two kernels against their plain version ------------
     def wkv_kernel_phase(self):
+        """Both B4 kernels at every WKV_CASES entry (each takes head dim 64
+        at any S), forced by ``kernel=``, against ``wkv_ref``: out and the
+        final state within WKV_RTOL of their max, a given state updated in
+        place, a repeat bit for bit; the dispatch's choice checked at each.
+        Both timed at the forward's shape in this run, the dispatched
+        (sequential) kernel at decode's."""
         import numpy as np
         import torch
+        from repro_torch.kernels.wkv import kernel as b4
         from repro_torch.kernels.wkv import wkv_cuda, wkv_ref
 
         rng = np.random.default_rng(0)
         rows = {}
+        errs = {"sequential": 0.0, "tensor_core": 0.0}
         for shape, lw_range, with_state, model_layout, label in WKV_CASES:
             b, h, s, d = shape
 
@@ -835,31 +863,45 @@ class Smoke:
                 np.float32)).cuda()
             st = (torch.from_numpy(rng.standard_normal((b, h, d, d)).astype(
                 np.float32)).cuda() if with_state else None)
-
-            def run():
-                if st is None:
-                    return wkv_cuda(r, k, v, lw, u)
-                # a copy, updated in place as in a decode step
-                return wkv_cuda(r, k, v, lw, u, st.clone())
-
-            out, final = run()
             ref, ref_final = wkv_ref(r, k, v, lw, u, st)
             torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            s_err = float((final - ref_final).abs().max())
-            rel = err / float(ref.abs().max())
-            s_rel = s_err / float(ref_final.abs().max())
-            what = f"wkv {label} {list(shape)}"
-            self.check(rel <= WKV_RTOL and s_rel <= WKV_RTOL,
-                       f"{what}: out {rel}, state {s_rel} of max, limit "
-                       f"{WKV_RTOL}")
-            self.check(torch.equal(out, run()[0]), f"{what}: not repeatable")
             row = {"shape": list(shape), "case": label, "state": with_state,
                    "model_layout": model_layout, "lw_range": list(lw_range),
-                   "max_abs_err": err, "out_err_over_max": rel,
-                   "state_err_over_max": s_rel, "tolerance": WKV_RTOL,
+                   "dispatch": b4.kernel_for(s, d), "tolerance": WKV_RTOL,
                    "max_abs_out": float(ref.abs().max()),
                    "max_abs_state": float(ref_final.abs().max())}
+            for kernel in errs:
+                def run(kernel=kernel):
+                    # a copy, updated in place as in a decode step
+                    buf = None if st is None else st.clone()
+                    out, final = wkv_cuda(r, k, v, lw, u, buf, kernel=kernel)
+                    return out, final, buf
+
+                out, final, buf = run()
+                again, again_final, _ = run()
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                s_rel = float((final - ref_final).abs().max()) / float(
+                    ref_final.abs().max())
+                what = f"wkv {kernel} {label} {list(shape)}"
+                self.check(rel <= WKV_RTOL and s_rel <= WKV_RTOL,
+                           f"{what}: out {rel}, state {s_rel} of max, limit "
+                           f"{WKV_RTOL}")
+                self.check(torch.equal(out, again) and
+                           torch.equal(final, again_final),
+                           f"{what}: not repeatable")
+                self.check(buf is None or final.data_ptr() == buf.data_ptr(),
+                           f"{what}: the state not updated in place")
+                row[kernel] = {"max_abs_err": err, "out_err_over_max": rel,
+                               "state_err_over_max": s_rel}
+                errs[kernel] = max(errs[kernel], err)
+                del out, final, again, again_final
+            n_tc = wkv_cuda.launches_tc
+            wkv_cuda(r, k, v, lw, u, None if st is None else st.clone())
+            self.check((wkv_cuda.launches_tc - n_tc == 1)
+                       == (row["dispatch"] == "tensor_core") == (s >= 64),
+                       f"wkv {label}: dispatched to the wrong kernel")
             if label in ("forward", "decode"):  # the main path's shapes
                 buf = None if st is None else st.clone()
                 row.update(timed_pair(
@@ -868,23 +910,122 @@ class Smoke:
                 row["library_ms"] = None  # no PyTorch call computes WKV6
                 row["bound_ms"], row["bound_by"] = wkv_bound_ms(
                     b, h, s, d, with_state)
+            if label == "forward":  # the sequential kernel at the same shape
+                seq_ms = [time_ms(lambda: wkv_cuda(
+                    r, k, v, lw, u, kernel="sequential"), REPS)
+                    for _ in range(2)]
+                row["sequential_ms"] = min(seq_ms)
+                row["sequential_ms_runs"] = seq_ms
+                self.check(row["ms"] < row["sequential_ms"],
+                           f"wkv forward: the tensor-core kernel "
+                           f"({row['ms']} ms) is not faster than the "
+                           f"sequential one ({row['sequential_ms']} ms)")
             emit({"phase": "kernel", "kernel": "wkv", **row,
                   "card": self.card})
             rows[label] = row
-            del r, k, v, lw, out, final, ref, ref_final
+            del r, k, v, lw, ref, ref_final
             torch.cuda.empty_cache()
-        main, decode = rows["forward"], rows["decode"]
+        fwd, dec = rows["forward"], rows["decode"]
+        common = {"route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
+                  "replaces": "src/repro/kernels/wkv/kernel.py:22",
+                  "launches": 0, "library_ms": None, "dtype": "float32",
+                  "card": self.card}
+        # the sequential kernel: the decode path's (every decode WKV); its
+        # time at the forward's shape beside it
         self.kernels["wkv"] = {
-            "name": "wkv", "route": "cuda",
-            "source": "src/repro_torch/csrc/wkv.cu",
-            "replaces": "src/repro/kernels/wkv/kernel.py:22", "launches": 0,
-            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "shape": main["shape"], "dtype": "float32",
-            "card": self.card,
-            **{f"decode_{k}": decode[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "library_ms")}}
+            "name": "wkv", **common, "kernel": "sequential",
+            "max_abs_err": errs["sequential"], "ms": dec["ms"],
+            "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+            "bound_by": dec["bound_by"], "shape": dec["shape"],
+            "forward_ms": fwd["sequential_ms"], "forward_shape": fwd["shape"]}
+        # the chunked kernel: the forward's (every prefill WKV)
+        self.kernels["wkv_tc"] = {
+            "name": "wkv_tc", **common, "kernel": "tensor_core",
+            "max_abs_err": errs["tensor_core"], "ms": fwd["ms"],
+            "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+            "bound_by": fwd["bound_by"], "shape": fwd["shape"]}
+
+    # -- phase 5b: where a B4 launch's host time goes at decode -----------
+    def wkv_host_path(self):
+        """Each step of ``wkv_cuda``'s path at the decode shape (8,32,1,64),
+        the state updated in place (``host_us``); then B4's own device time
+        a launch in a profiler window over the wrapper's calls."""
+        import numpy as np
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.kernels.wkv import kernel as b4
+
+        rng = np.random.default_rng(0)
+        b, h, d = 8, 32, 64
+        r, k, v = (torch.from_numpy((rng.standard_normal((b, 1, h, d)) * 0.5
+                                     ).astype(np.float32)).cuda()
+                   .transpose(1, 2) for _ in range(3))
+        lw = torch.from_numpy(rng.uniform(*MODEL_LW, (b, 1, h, d)).astype(
+            np.float32)).cuda().transpose(1, 2)
+        u = torch.from_numpy((rng.standard_normal((h, d)) * 0.5).astype(
+            np.float32)).cuda()
+        state = torch.zeros((b, h, d, d), dtype=torch.float32, device="cuda")
+        out = torch.empty_like(r)
+        dev = r.get_device()
+        fn = b4.LIBRARY.load().wkv_forward
+        ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                u.data_ptr(), state.data_ptr(), state.data_ptr(),
+                out.data_ptr())
+        args = (*ptrs, b, h, 1, d, *r.stride()[:3], *out.stride()[:3])
+        packed = b4._pack(*args)
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        launch = b4._LAUNCH["sequential"]
+        steps = {
+            # the path as it is, in its order
+            "checks": lambda: b4._on_card(r, k, v, lw, u, state),
+            "kernel_for": lambda: b4.kernel_for(1, d),
+            "strides": lambda: (k.stride() != r.stride(),
+                                v.stride() != r.stride(),
+                                lw.stride() != r.stride(),
+                                b4._readable(r.stride())),
+            "empty_like": lambda: torch.empty_like(r),
+            "data_ptrs_and_alignment": lambda: (
+                r.data_ptr() | k.data_ptr() | v.data_ptr() | lw.data_ptr()
+                | u.data_ptr() | state.data_ptr() | out.data_ptr()) % 16,
+            "pack_arguments": lambda: b4._pack(*args),
+            "device_compare": lambda: dev == torch._C._cuda_getDevice(),
+            "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+            "ctypes_call_and_launch": lambda: fn(packed, stream),
+            "launcher": lambda: launch(dev, packed),
+            "wrapper": lambda: b4.wkv_cuda(r, k, v, lw, u, state),
+        }
+        us = host_us(steps)
+        calls = 200
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                b4.wkv_cuda(r, k, v, lw, u, state)
+            torch.cuda.synchronize()
+
+        def device_us(e):
+            return (getattr(e, "self_device_time_total", 0.0)
+                    or getattr(e, "self_cuda_time_total", 0.0))
+
+        kernel_us = sum(device_us(e) for e in prof.key_averages()
+                        if "wkv_kernel" in e.key)
+        self.check(bool(torch.isfinite(state).all()),
+                   "wkv host path: the state is not finite")
+        emit({"phase": "wkv_host_path", "shape": [b, h, 1, d],
+              "dtype": "float32", "calls": HOST_CALLS, "us_per_call": us,
+              "profiled_calls": calls,
+              "device_us_per_launch": (kernel_us / calls if kernel_us
+                                       else "not measured"),
+              "card": self.card})
+
+    # -- phase 5c: where the chunked B4 kernel's cycles go ----------------
+    def wkv_cycles(self):
+        """B4's tensor-core kernel built with its phase counters
+        (``kernels/wkv/cycles.py``) at the forward's shape: cycles a chunk
+        of each phase by warp; ``mma.sync`` and barrier microbenchmarks."""
+        from repro_torch.kernels.wkv import cycles
+
+        phases = cycles.phase_cycles()
+        emit({"phase": "wkv_cycles", **phases,
+              "microbenchmarks": cycles.microbenchmarks(), "card": self.card})
 
     # -- phase 6: the LMs at full width, f32 -----------------------------
     def model_check(self, arch, module, attr, plain, kernel, kernel_rtol,
@@ -985,15 +1126,24 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def rwkv_model_check(self):
-        from repro_torch.kernels.wkv import wkv_ref
+        """B4 inside the f32 rwkv6-1.6b: the forward's WKVs (S = 512) on
+        the tensor-core kernel, the decode steps' on the sequential one."""
+        from repro_torch.kernels.wkv import wkv_cuda, wkv_ref
         from repro_torch.models import rwkv as rwkv_mod
 
         def plain(r, k, v, lw, u, *, state=None, chunk=64):
             out, final = wkv_ref(r, k, v, lw, u, state)
             return out, final if state is None else state.copy_(final)
 
+        n, n_tc = wkv_cuda.launches, wkv_cuda.launches_tc
         self.model_check(RWKV_ARCH, rwkv_mod, "wkv", plain, "wkv",
                          MODEL_B4_RTOL, RWKV_DECODE_RTOL, shift_rwkv)
+        n, n_tc = wkv_cuda.launches - n, wkv_cuda.launches_tc - n_tc
+        # one forward through the kernels, then CHECK_SEQ decode steps
+        self.check(n_tc == CHECK_LAYERS
+                   and n == CHECK_LAYERS * (1 + CHECK_SEQ),
+                   f"{RWKV_ARCH} model check: {n_tc} tensor-core B4 launches "
+                   f"of {n}")
 
     def profile_decode(self, cfg, model, steps: int = 10):
         """Where a decode step's time goes: ``steps`` steps at the ragged
@@ -1176,24 +1326,33 @@ class Smoke:
         # since decode attention is PyTorch ops
         self.lm_main_path(
             ARCH, {"rms_norm": 2 * n + 1, "flash_attention": 0,
-                   "flash_attention_tc": 0, "wkv": 0},
+                   "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0},
             {"rms_norm": 2 * n + 1, "flash_attention": n,
-             "flash_attention_tc": n, "wkv": 0})
+             "flash_attention_tc": n, "wkv": 0, "wkv_tc": 0})
 
     def rwkv_main_path(self):
         from repro_torch.configs import get_config
 
         n = get_config(RWKV_ARCH).num_layers
+        # every decode step's WKVs on the sequential kernel, every one of
+        # the forward's on the tensor-core kernel
         per = {"rms_norm": 2 * n + 1, "flash_attention": 0,
-               "flash_attention_tc": 0, "wkv": n}
-        self.lm_main_path(RWKV_ARCH, per, per)
+               "flash_attention_tc": 0, "wkv": n, "wkv_tc": 0}
+        self.lm_main_path(RWKV_ARCH, per, {**per, "wkv_tc": n})
 
     def lm_kernel_launches(self):
         """Each LM kernel's launches in the kernels line: the sum over the
-        main paths it ran on, kept apart in ``launches_by_path``."""
-        for name in lm_wrappers():
-            by_path = {arch: n[name] for arch, n in self.path_launches.items()
-                       if n[name]}
+        main paths it ran on, kept apart in ``launches_by_path``. B4's two
+        kernels are two entries: ``wkv`` counts the sequential kernel's
+        launches (the wrapper's less the tensor-core kernel's), ``wkv_tc``
+        the tensor-core kernel's."""
+        counted = {"rms_norm": lambda n: n["rms_norm"],
+                   "flash_attention": lambda n: n["flash_attention"],
+                   "wkv": lambda n: n["wkv"] - n["wkv_tc"],
+                   "wkv_tc": lambda n: n["wkv_tc"]}
+        for name, count in counted.items():
+            by_path = {arch: count(n) for arch, n in self.path_launches.items()
+                       if count(n)}
             self.kernels[name]["launches"] = sum(by_path.values())
             self.kernels[name]["launches_by_path"] = by_path
             self.check(bool(by_path), f"{name} never launched on a main path")
@@ -1219,7 +1378,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     for phase in (smoke.card_and_build, smoke.kernel_phase,
                   smoke.dense_kernel_phase, smoke.rms_host_path,
-                  smoke.wkv_kernel_phase, smoke.dense_model_check,
+                  smoke.wkv_kernel_phase, smoke.wkv_host_path,
+                  smoke.wkv_cycles,
+                  smoke.dense_model_check,
                   smoke.dense_bf16_model_check, smoke.rwkv_model_check,
                   smoke.dense_main_path, smoke.rwkv_main_path,
                   smoke.lm_kernel_launches, smoke.main_path):

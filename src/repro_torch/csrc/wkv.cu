@@ -1,4 +1,6 @@
-// The RWKV6 WKV recurrence for Hopper (sm_90a), bound with ctypes.
+// The RWKV6 WKV recurrence for Hopper (sm_90a), bound with ctypes: two
+// kernels, a chunked one on the tensor cores for prefill and the
+// sequential one for decode and head dim 16.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/wkv/kernel.py
 // `_wkv_kernel` (via `wkv_pallas`). For each batch row b and head h, over
@@ -8,13 +10,8 @@
 // r, k, v, lw are f32 (B, H, S, D) with any strides whose last is 1, u is
 // (H, D), the state (B, H, D, D) f32, indexed [key row i][value column j].
 // Returns out (f32, B x H x S x D, strides of its own) and the final state.
-//
-// This is the recurrence as the sequential oracle `wkv_ref`
-// (src/repro/kernels/wkv/ref.py) states it. The TPU kernel's chunked form
-// computes exp(-cum) over a chunk's summed log-decays, which overflows f32
-// under strong decay (NaN at lw = -1.5 and chunks of 64); nothing here
-// multiplies by a growing factor, so every lw <= 0 is safe, down to
-// exp(lw) = 0.
+// Both kernels compute the recurrence as the sequential oracle `wkv_ref`
+// (src/repro/kernels/wkv/ref.py) states it, for every lw <= 0.
 //
 // Bound on an H100, at the forward's shape (B, H, S, D) = (2, 32, 2048, 64):
 // bytes: r, k, v, lw read once, out written once, the state written once,
@@ -25,6 +22,16 @@
 // decode step (S = 1, B = 8) moves the state in and out, 8.7 MB: 2.6 us,
 // bytes.
 //
+// Which kernel takes a call (kernels/wkv/kernel.py `kernel_for`, an
+// explicit rule, never a fallback after a failure): head dim 64 with
+// S >= 64 -> the chunked kernel; S < 64 (decode) and head dim 16 -> the
+// sequential kernel. Both take their arguments packed in one `WkvArgs`.
+//
+// 1. The sequential kernel (`wkv_kernel`). What held it back at prefill:
+// it runs the recurrence a token at a time on the CUDA cores, and every
+// element of S reads r, k and exp(lw) from shared memory each step (three
+// loads for two FMAs) and each step writes a partial sum; the FMA pipes
+// wait on shared memory, 8.5x the operation bound at the forward's shape.
 // Design. Columns j of S are independent: column j of head (b, h) is
 // updated from r_t, k_t, exp(lw_t) and v_t[j] alone, and the bonus term
 // splits off: out_t[j] = r_t . S_{t-1}[:, j] + v_t[j] (r_t . diag(u) k_t),
@@ -48,12 +55,125 @@
 // the end by the thread that owns it, so state_in may be state_out: a
 // decode step updates its state in place.
 //
-// Accurate expf (not __expf), as torch.exp. Built without --fmad=false: the
-// fused multiply-adds change out by rounding only, about 1e-7 of max |out|,
-// far below the tolerance the kernel is held to against the plain version
-// (1e-5 of max |out| and of max |state|; see kernels/wkv/kernel.py).
+// 2. The chunked kernel (`wkv_chunk_kernel`, D = 64, any S >= 1) turns
+// each chunk of C = 64 tokens into matrix products on the tensor cores, as
+// the TPU kernel does for its MXU, but not with its algebra: that factors
+// exp(cum_{t-1} - cum_i) into exp(cum_{t-1}) exp(-cum_i), and exp(-cum)
+// overflows f32 under strong decay (NaN at lw = -1.5 and chunks of 64).
+// The exponent rule here: no exponent is ever formed. Every decay is a
+// product of w = exp(lw) <= 1 over a range of tokens that runs forward
+// from a reference point, so every factor lies in [0, 1]; strong decay
+// underflows to 0 where the truth is ~0, and never reaches inf or NaN.
+// W[a, b) below is the product of w over tokens a..b-1 of the chunk.
+// In a chunk with incoming state S0, for t and i in it:
+//   out_t = (r_t * W[0, t)) S0 + sum_{i <= t} A[t, i] v_i
+//   S_end = diag(W[0, 64)) S0 + sum_i (k_i * W(i, 64))^T v_i
+//   A[t, i] = sum_d r_t[d] k_i[d] W(i, t)[d]   (i < t; W(i, t) = W[i+1, t))
+//   A[t, t] = r_t . diag(u) k_t                (the bonus)
+// The tokens fall into eight 8-blocks and four 16-blocks. Each factor:
+// - r_t * W[0, t) (inter-chunk rows) and k_i * W(i, 64) (state update):
+//   products over tokens of the chunk, <= 1;
+// - A between 16-blocks a < m: ref = the start of m, A = (r_t * W[ref, t))
+//   (k_i * W(i, ref))^T: t >= ref > i, both ranges forward, both <= 1;
+// - A between the two 8-blocks of one 16-block: ref = the second's start,
+//   the same factorisation;
+// - A inside an 8-block: W(i, t) element by element, a running product of
+//   w from i on (no MUFU, no cancellation).
+// Every product is a product of f32 values in [0, 1] and of w's own
+// rounding: no prefix sum of lw is differenced, so weak decay keeps f32's
+// relative precision too. rL = r * W[start of t's 8-block, t) and kL = k *
+// W(i, end of i's 8-block] are formed once a chunk; every other factor is
+// a product of whole 8-blocks' W (tables F, RS, KS, KF), applied as an
+// operand is loaded.
+// Products on the tensor cores: A between blocks, A V, (r W) S0 and
+// (k W)^T V, by mma.sync m16n8k8 in TF32 with a 3xTF32 split: each operand
+// x = hi + lo (hi = x rounded to TF32, lo = x - hi, which the tensor cores
+// truncate to TF32) and hi.hi accumulated apart from hi.lo and lo.hi,
+// summed in f32 at the end. Plain TF32 keeps ~3 digits, the split ~f32's:
+// the CPU tests hold wkv_chunked_ref, the same arithmetic with the same
+// operand rounding, to the 1e-5 tolerance. The state is never an
+// accumulator of the products: each chunk's (k W)^T V starts from zero and
+// S = W S + that in f32, so the tensor cores' accumulation rounds each
+// chunk's share, not the state carried over 32 chunks.
+// Grid and memory. A block takes NJ = 32 value columns of one head (the
+// decay acts on rows, so columns are independent): 2 blocks a head, 128
+// at the forward's shape, one an SM with 161 KB of shared memory. What
+// the split costs: both blocks of a head make the same 8-block pass, the
+// same tables and the same A (a third of a block's products) and read the
+// same r, k, lw from L2; a cluster sharing them would halve that. Each
+// chunk's r, k, lw and the block's columns of v arrive by TMA, one box an
+// operand from a 4-D tensor map (D, S, H, B) over the model's strides,
+// issued by one thread and counted on an mbarrier: r, k, v into one of two
+// buffers, lw into one, the next chunk's issued once the tables are made,
+// so it lands while this chunk's products run. The boxes of r, k, lw are
+// 68 columns wide over a 64-wide tensor, so the 4 columns outside read as
+// zeros and the rows land padded (row stride 68: conflict-free fragment
+// loads); rows past S read as zeros too (r = k = v = 0 and w = 1 mask the
+// ragged last chunk). v and the state's slice, the B operands every warp
+// reads, are kept split in shared memory in b-fragment order, a lane's
+// fragment one 16-byte load (put_split).
+// Eight warps, per chunk: (1) the 8-block pass, one 8-block a warp, two
+// columns a lane: rL, kL, F and A inside the 8-block, its pairs summed over
+// the warp by a reduce-scatter of shuffles in a fixed order; (2) the
+// tables and v's split; (3) A between blocks, two 16 x 8 tiles a warp, and
+// then warps 0-3 out's tiles from S0 (16 rows of 16-block w, all 32
+// columns) while warps 4-7 update the state rows they hold in registers
+// (16 rows each, all 32 columns): a split A fragment serves four column
+// tiles; (4) out's tiles from A: warp w < 4 column tiles 0, 1 of 16-block
+// w, warp w + 4 (the same sub-partition) tiles 2, 3 of 16-block 3 - w, so
+// each sub-partition has 10 of the 40 k-steps; warps 4-7 write the new
+// state's split. No atomics: results repeat bit for bit. Each block reads
+// its state columns at the start and writes them at the end, so state_in
+// may be state_out.
+// Where the time goes (kernels/wkv/cycles.py, clock64() per phase, at the
+// forward's shape on an NVIDIA H100 80GB HBM3 at 700 W): ~7,600 cycles a
+// chunk, 0.142 ms a launch. The 8-block pass takes ~1,480 (plus the wait
+// for the slowest warp's step 4), the tables ~660, A between blocks
+// ~1,350-1,550, out from S0 and the state ~1,850-2,030, out from A
+// ~680-1,810. mma.sync in TF32 alone runs at ~3.45 ns a product on a
+// sub-partition (~315 TFLOP/s, ~64% of the TF32 peak), so the chunk's 1,392
+// products need ~2,400 of the cycles at 1.98 GHz; shared memory moves
+// ~4,700 wavefronts a chunk (operands reread by several warps, factors
+// loaded beside them), and the rest is the pass, the barriers and ~8
+// instructions a product for loading, scaling and splitting operands.
+// Tried and not kept: prep warps a chunk ahead of state warps (the SM's
+// shared memory and issue slots, not the order of the phases, set the
+// time); a cluster of a head's two blocks sharing the pass and A (it needs
+// two or three cluster barriers a chunk, and cycles.py times one at ~760
+// cycles against ~30 for __syncthreads).
+//
+// Accurate expf (not __expf), as torch.exp, in both. Built without
+// --fmad=false: the fused multiply-adds change out by rounding only, about
+// 1e-7 of max |out|, far below the tolerance the kernels are held to
+// against the plain version (1e-5 of max |out| and of max |state|; see
+// kernels/wkv/kernel.py). Times at the forward's and decode's shapes on an
+// NVIDIA H100 80GB HBM3 are in PERF.md (chip_smoke.py).
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is found at run time
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+
+// The arguments of one launch in one buffer, which the wrapper packs with
+// Python's struct format "=8Q4i6q" (kernels/wkv/kernel.py `_pack`): ctypes
+// converts one pointer argument in a fraction of the time it takes for
+// fifteen, and decode launches the sequential kernel 24 times a step.
+struct WkvArgs {
+  const float* r;
+  const float* k;
+  const float* v;
+  const float* lw;
+  const float* u;
+  const float* state_in;  // null: zeros
+  float* state_out;
+  float* out;
+  int B, H, S, D;
+  int64_t in_sb, in_sh, in_ss;     // strides of r, k, v, lw (b, h, s)
+  int64_t out_sb, out_sh, out_ss;  // strides of out (b, h, s)
+};
+static_assert(sizeof(WkvArgs) == 128 && offsetof(WkvArgs, B) == 64 &&
+                  offsetof(WkvArgs, in_sb) == 80 &&
+                  offsetof(WkvArgs, out_sb) == 104,
+              "WkvArgs must match the wrapper's struct format =8Q4i6q");
 
 namespace {
 
@@ -214,18 +334,620 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
+namespace chunk {
+
+constexpr int D = 64;        // head dim
+constexpr int C = 64;        // tokens a chunk
+constexpr int NQ = C / 8;    // 8-blocks a chunk
+constexpr int NJ = 32;       // value columns a block
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int LDR = D + 4;   // row stride (floats) of r, k, lw, A: the
+                             // fragments' rows g, columns c -> 4g + c banks
+constexpr int LDQ = NJ + 2;  // row stride (16-byte units) of the split v
+                             // and S: rows c, columns g -> units 2c + g
+constexpr int NKF = 12;      // KF entries: 16-block m = 1..3, 8-block q < 2m
+// a chunk's boxes: r, k, lw of LDR columns (the last 4 outside the tensor,
+// so zeros: the rows land padded) and v of NJ columns, C rows each
+constexpr uint32_t CHUNK_BYTES = 4 * C * (3 * LDR + NJ);
+static_assert(THREADS == 4 * D, "the tables take four roles of D threads");
+
+struct Smem {
+  float r[2][C][LDR];  // r, then rL = r * W[start of t's 8-block, t)
+  float k[2][C][LDR];  // k, then kL = k * W(t, end of t's 8-block]
+  float v[2][C][NJ];   // the block's columns of v
+  float lw[C][LDR];
+  float A[C][LDR];     // intra-chunk A, zero above the diagonal
+  uint4 vs[C / 8][4][LDQ];  // v split, as b fragments (see put_split)
+  uint4 S[D / 8][4][LDQ];   // the block's columns of S0 split, alike
+  float X[4][8][32];   // out's tiles 2, 3 from S0 of 16-block m, for warp
+                       // 7 - m
+  float F[NQ][D];      // W over 8-block q
+  float RS[NQ][D];     // W over the 8-blocks before q
+  float KS[NQ][D];     // W over the 8-blocks after q
+  float KF[NKF][D];    // [m (m - 1) + q]: W over 8-blocks q+1 .. 2m-1
+  float Ftot[D];       // W over the chunk
+  unsigned long long bar[2];  // chunk data landed, by chunk parity
+};
+constexpr size_t SMEM = sizeof(Smem) + 128;  // slack to align to 128
+static_assert(SMEM <= 227 * 1024, "shared memory");
+static_assert(sizeof(float) * C * LDR % 128 == 0 &&
+                  sizeof(float) * C * NJ % 128 == 0,
+              "every TMA destination 128-byte aligned");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (D, S, H, B) into shared memory, counted on
+// mbarrier `bar`; elements outside the tensor read as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// An operand fragment as hi + lo for the 3xTF32 products: hi = x rounded
+// to TF32, to nearest with ties away from zero (half a TF32 ulp added to
+// the bits, the 13 low bits cleared: three instructions, where sm_90
+// expands cvt.rna.tf32.f32 into five with NaN checks; the operands are
+// finite), lo = x - hi exactly, handed over in f32: the tensor cores read
+// a TF32 operand's top 19 bits, so lo is truncated to TF32 there
+// (wkv_chunked_ref's round_tf32 / truncate_tf32 do the same on the CPU).
+__device__ __forceinline__ uint2 split(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return make_uint2(hi, __float_as_uint(x - __uint_as_float(hi)));
+}
+
+template <int N>
+struct Split {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ explicit Split(const float (&x)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const uint2 s = split(x[i]);
+      hi[i] = s.x;
+      lo[i] = s.y;
+    }
+  }
+  // a b fragment stored split by put_split: rows c and c + 4 of a column
+  __device__ __forceinline__ explicit Split(uint4 b)
+      : hi{b.x, b.y}, lo{b.z, b.w} {}
+};
+
+// A B operand (rows k, columns n) kept split in b-fragment order: rows k
+// and k + 4 of a k-step share one 16-byte unit [k / 8][k % 4][n] as
+// (hi_k, hi_k+4, lo_k, lo_k+4), so a lane's fragment is one load, already
+// in the register pairs mma takes
+__device__ __forceinline__ void put_split(uint4 (*b)[4][LDQ], int row,
+                                          int col, float x) {
+  uint32_t* unit = reinterpret_cast<uint32_t*>(&b[row / 8][row % 4][col]);
+  const uint2 s = split(x);
+  unit[(row / 4) % 2] = s.x;
+  unit[2 + (row / 4) % 2] = s.y;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A 16x8 tile += a (16x8) b (8x8) in 3xTF32: hi.hi into `big`, hi.lo and
+// lo.hi into accumulators of their own (three short chains of dependent
+// products, not one long one), summed small ones first at the end
+struct Acc {
+  float big[4] = {0.f, 0.f, 0.f, 0.f};
+  float s1[4] = {0.f, 0.f, 0.f, 0.f};
+  float s2[4] = {0.f, 0.f, 0.f, 0.f};
+  __device__ __forceinline__ void add(const Split<4>& a, const Split<2>& b) {
+    mma(s1, a.lo, b.hi);
+    mma(s2, a.hi, b.lo);
+    mma(big, a.hi, b.hi);
+  }
+  __device__ __forceinline__ float operator[](int i) const {
+    return big[i] + (s1[i] + s2[i]);
+  }
+};
+
+// Cycles a phase, for kernels/wkv/cycles.py: built with -DWKV_PHASE_CYCLES,
+// each warp adds up the clock64() cycles between the marks of a chunk and
+// writes them to phase_cycles[block][warp][mark]; compiled out otherwise.
+#ifdef WKV_PHASE_CYCLES
+constexpr int PHASES = 7, MAX_BLOCKS = 4096;
+__device__ long long phase_cycles[MAX_BLOCKS * WARPS * PHASES];
+#define PHASE_START                         \
+  long long phase_sum[PHASES] = {};         \
+  long long phase_last = clock64()
+#define PHASE_MARK(k)                            \
+  do {                                           \
+    const long long now_ = clock64();            \
+    phase_sum[k] += now_ - phase_last;           \
+    phase_last = now_;                           \
+  } while (0)
+#define PHASE_END                                                     \
+  do {                                                                \
+    const int blk = blockIdx.y * gridDim.x + blockIdx.x;              \
+    if (lane == 0 && blk < MAX_BLOCKS)                                \
+      for (int k = 0; k < PHASES; ++k)                                \
+        phase_cycles[(blk * WARPS + warp) * PHASES + k] = phase_sum[k]; \
+  } while (0)
+#else
+#define PHASE_START
+#define PHASE_MARK(k)
+#define PHASE_END
+#endif
+
+// mma.m16n8k8 fragments, lane = 4 g + c: a = rows (g, g+8) x columns
+// (c, c+4); b = rows (c, c+4) x column g; the accumulator holds rows
+// (g, g+8) x columns (2c, 2c+1).
+
+__global__ void __launch_bounds__(THREADS, 1)
+wkv_chunk_kernel(const __grid_constant__ CUtensorMap rmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap lmap,
+                 const __grid_constant__ CUtensorMap vmap, const WkvArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // aligned to 128 by an offset into the shared array (a pointer rounded
+  // as an integer would lose its address space: generic loads, not LDS)
+  Smem& sm = *reinterpret_cast<Smem*>(
+      smem_raw + ((128u - (smem_addr(smem_raw) & 127u)) & 127u));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int j0 = blockIdx.x * NJ;
+  const int S = a.S;
+  float* ob = a.out + (int64_t)b * a.out_sb + (int64_t)h * a.out_sh + j0;
+  const int64_t sbase = (int64_t)bh * D * D + j0;
+
+  // chunk ci's tiles by TMA, issued by thread 0 and counted on bar[ci & 1];
+  // rows past S read as zeros (r = k = v = 0, w = exp(0) = 1)
+  auto load_chunk = [&](int ci) {
+    const int p = ci & 1;
+    const uint32_t bar = smem_addr(&sm.bar[p]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(CHUNK_BYTES) : "memory");
+    tma_load(sm.r[p], &rmap, bar, 0, ci * C, h, b);
+    tma_load(sm.k[p], &kmap, bar, 0, ci * C, h, b);
+    tma_load(sm.lw, &lmap, bar, 0, ci * C, h, b);
+    tma_load(sm.v[p], &vmap, bar, j0, ci * C, h, b);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(&sm.bar[p]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // A above the diagonal stays 0. The state: warps 4-7 hold it, in the
+  // layout of the state update's accumulators: rows 16 mS + (g, g+8),
+  // columns 8 n + (2c, 2c+1) for the 4 column tiles n
+  for (int idx = tid; idx < C * LDR; idx += THREADS) (&sm.A[0][0])[idx] = 0.f;
+  const bool owner = warp >= 4;
+  const int mS = warp % 4;
+  float st[NJ / 8][4];
+#pragma unroll
+  for (int n = 0; n < NJ / 8; ++n) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = 16 * mS + g + 8 * (q / 2);
+      const int col = 8 * n + 2 * c + q % 2;
+      st[n][q] = owner && a.state_in
+                     ? a.state_in[sbase + (int64_t)row * D + col]
+                     : 0.f;
+      if (owner) put_split(sm.S, row, col, st[n][q]);
+    }
+  }
+  const float u0 = a.u[(int64_t)h * D + lane];
+  const float u1 = a.u[(int64_t)h * D + lane + 32];
+  __syncthreads();
+  if (tid == 0) load_chunk(0);
+
+  // warps 0-3 hold out's tiles: rows 16 mO + (g, g+8), the 4 column tiles
+  const int mO = warp % 4;
+  const int nchunks = (S + C - 1) / C;
+  PHASE_START;
+  for (int ci = 0; ci < nchunks; ++ci) {
+    const int p = ci & 1;
+    float(*const rs)[LDR] = sm.r[p];
+    float(*const ks)[LDR] = sm.k[p];
+    mbar_wait(smem_addr(&sm.bar[p]), (ci >> 1) & 1);
+    __syncthreads();
+    PHASE_MARK(0);
+
+    // -- 1. the 8-blocks, one a warp (rows 8 warp ..), columns lane and
+    // lane + 32: rL, kL, F and A inside the 8-block. Slot t (t + 1) / 2 + i
+    // of x holds A[t][i], i <= t, summed over this lane's two columns.
+    {
+      const int t0 = 8 * warp;
+      float x[40];
+#pragma unroll
+      for (int i = 0; i < 40; ++i) x[i] = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int d = lane + 32 * half;
+        const float ud = half ? u1 : u0;
+        float rr[8], kk[8], w[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          rr[t] = rs[t0 + t][d];
+          kk[t] = ks[t0 + t][d];
+          w[t] = expf(sm.lw[t0 + t][d]);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          x[i * (i + 1) / 2 + i] += rr[i] * ud * kk[i];  // the bonus
+          float xk = kk[i];  // k_i W(i, t)
+#pragma unroll
+          for (int t = i + 1; t < 8; ++t) {
+            x[t * (t + 1) / 2 + i] += rr[t] * xk;
+            xk *= w[t];
+          }
+        }
+        float pre = 1.f, suf = 1.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          rs[t0 + t][d] = rr[t] * pre;  // rL
+          pre *= w[t];
+        }
+#pragma unroll
+        for (int t = 7; t >= 0; --t) {
+          ks[t0 + t][d] = kk[t] * suf;  // kL
+          suf *= w[t];
+        }
+        sm.F[warp][d] = pre;
+      }
+      // reduce-scatter over the warp: halve the slots a lane keeps at
+      // xor 16, 8 and 4 (40 -> 5), then sum the 5 over xor 2 and 1
+#pragma unroll
+      for (int i = 0; i < 20; ++i) {
+        const bool up = lane & 16;
+        const float keep = up ? x[i + 20] : x[i];
+        x[i] = keep + __shfl_xor_sync(0xffffffffu, up ? x[i] : x[i + 20], 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 10; ++i) {
+        const bool up = lane & 8;
+        const float keep = up ? x[i + 10] : x[i];
+        x[i] = keep + __shfl_xor_sync(0xffffffffu, up ? x[i] : x[i + 10], 8);
+      }
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        const bool up = lane & 4;
+        const float keep = up ? x[i + 5] : x[i];
+        x[i] = keep + __shfl_xor_sync(0xffffffffu, up ? x[i] : x[i + 5], 4);
+      }
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        x[i] += __shfl_xor_sync(0xffffffffu, x[i], 2);
+        x[i] += __shfl_xor_sync(0xffffffffu, x[i], 1);
+      }
+      // the four lanes of a group hold the same five sums: lane e of the
+      // group writes slot e, lane 0 also slot 4
+      const int base = (lane & 16 ? 20 : 0) + (lane & 8 ? 10 : 0) +
+                       (lane & 4 ? 5 : 0);
+#pragma unroll
+      for (int e = 0; e < 5; ++e) {
+        const int slot = base + e;
+        if ((lane & 3) == e % 4 && slot < 36) {
+          const int t = (slot >= 1) + (slot >= 3) + (slot >= 6) +
+                        (slot >= 10) + (slot >= 15) + (slot >= 21) +
+                        (slot >= 28);
+          sm.A[t0 + t][t0 + slot - t * (t + 1) / 2] = x[e];
+        }
+      }
+    }
+    __syncthreads();
+    PHASE_MARK(1);
+
+    // -- 2. the tables of whole 8-blocks' W, a column and one of four
+    // tables a thread; v split into (hi, lo), eight values a thread
+    {
+      const int d = tid % D, role = tid / D;
+      float f[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) f[q] = sm.F[q][d];
+      if (role == 0) {
+        float pre = 1.f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          sm.RS[q][d] = pre;
+          pre *= f[q];
+        }
+        sm.Ftot[d] = pre;
+      } else if (role == 1) {
+        float suf = 1.f;
+#pragma unroll
+        for (int q = NQ - 1; q >= 0; --q) {
+          sm.KS[q][d] = suf;
+          suf *= f[q];
+        }
+      } else {
+        // KF: role 2 takes 16-block m = 1 and q < 3 of m = 3, role 3 the
+        // rest
+#pragma unroll
+        for (int m = 1; m < C / 16; ++m) {
+#pragma unroll
+          for (int q = 0; q < 2 * m; ++q) {
+            const int owner = m == 1 ? 2 : m == 2 ? 3 : (q < 3 ? 2 : 3);
+            if (role != owner) continue;
+            float fac = 1.f;
+#pragma unroll
+            for (int q2 = q + 1; q2 < 2 * m; ++q2) fac *= f[q2];
+            sm.KF[m * (m - 1) + q][d] = fac;
+          }
+        }
+      }
+      // v split: a thread fills whole units (rows 8 ks + c and + 4)
+#pragma unroll
+      for (int e = 0; e < C * NJ / (2 * THREADS); ++e) {
+        const int idx = tid + THREADS * e, j = idx % NJ, unit = idx / NJ;
+        const int row = 8 * (unit / 4) + unit % 4;
+        const uint2 lo4 = split(sm.v[p][row][j]);
+        const uint2 hi4 = split(sm.v[p][row + 4][j]);
+        sm.vs[unit / 4][unit % 4][j] = make_uint4(lo4.x, hi4.x, lo4.y, hi4.y);
+      }
+    }
+    // the next chunk loads while this one's products run: lw has been read,
+    // and the other r, k, v buffers since the last chunk's first barrier;
+    // the threads' accesses to them are ordered before the TMA's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0 && ci + 1 < nchunks) load_chunk(ci + 1);
+    PHASE_MARK(2);
+
+    // -- 3. the products that do not need A, balanced over the warps.
+    // (a) A between blocks, 16 tiles of 8 k-steps (d), two a warp.
+    // Warps 0-5: rows of 16-block m against the 8-blocks q0, q0 + 1 of an
+    // earlier 16-block, ref = the start of m: rows (r W[ref, t)) = rL, times
+    // F[2m] in m's second 8-block; columns kL * KF[m][q].
+    // Warps 6, 7: in 16-blocks m = 2 (warp - 6) + e, the second 8-block's
+    // rows against the first's columns, ref = the second's start: rL and
+    // kL as they are (the mma's rows 8-15 are zero).
+    if (warp < 6) {
+      const int m = warp < 1 ? 1 : warp < 3 ? 2 : 3;
+      const int q0 = 2 * warp - m * (m - 1);  // KF index 2 warp
+      Acc acc[2];
+#pragma unroll
+      for (int kstep = 0; kstep < D / 8; ++kstep) {
+        const int d0 = 8 * kstep + c, d1 = d0 + 4;
+        const float af[4] = {rs[16 * m + g][d0],
+                             rs[16 * m + 8 + g][d0] * sm.F[2 * m][d0],
+                             rs[16 * m + g][d1],
+                             rs[16 * m + 8 + g][d1] * sm.F[2 * m][d1]};
+        const Split<4> as(af);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = q0 + e, kf = m * (m - 1) + q;
+          const float bf[2] = {ks[8 * q + g][d0] * sm.KF[kf][d0],
+                               ks[8 * q + g][d1] * sm.KF[kf][d1]};
+          acc[e].add(as, Split<2>(bf));
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * (q0 + e) + 2 * c;
+        sm.A[16 * m + g][col] = acc[e][0];
+        sm.A[16 * m + g][col + 1] = acc[e][1];
+        sm.A[16 * m + 8 + g][col] = acc[e][2];
+        sm.A[16 * m + 8 + g][col + 1] = acc[e][3];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 2 * (warp - 6) + e;
+        Acc acc;
+#pragma unroll
+        for (int kstep = 0; kstep < D / 8; ++kstep) {
+          const int d0 = 8 * kstep + c, d1 = d0 + 4;
+          const float af[4] = {rs[16 * m + 8 + g][d0], 0.f,
+                               rs[16 * m + 8 + g][d1], 0.f};
+          const float bf[2] = {ks[16 * m + g][d0], ks[16 * m + g][d1]};
+          acc.add(Split<4>(af), Split<2>(bf));
+        }
+        sm.A[16 * m + 8 + g][16 * m + 2 * c] = acc[0];
+        sm.A[16 * m + 8 + g][16 * m + 2 * c + 1] = acc[1];
+      }
+    }
+
+    PHASE_MARK(3);
+
+    // (b) warps 0-3, out's tiles from S0: (rL * RS) S0 over d.
+    // (c) warps 4-7, the state: S = Ftot S + (kL * KS)^T V, the product
+    // from zero. Each split a fragment serves the 4 column tiles.
+    float out[NJ / 8][4];
+    {
+      Acc acc[NJ / 8];
+      if (!owner) {
+#pragma unroll
+        for (int kstep = 0; kstep < D / 8; ++kstep) {
+          const int d0 = 8 * kstep + c, d1 = d0 + 4;
+          const float af[4] = {
+              rs[16 * mO + g][d0] * sm.RS[2 * mO][d0],
+              rs[16 * mO + 8 + g][d0] * sm.RS[2 * mO + 1][d0],
+              rs[16 * mO + g][d1] * sm.RS[2 * mO][d1],
+              rs[16 * mO + 8 + g][d1] * sm.RS[2 * mO + 1][d1]};
+          const Split<4> as(af);
+#pragma unroll
+          for (int n = 0; n < NJ / 8; ++n)
+            acc[n].add(as, Split<2>(sm.S[kstep][c][8 * n + g]));
+        }
+#pragma unroll
+        for (int n = 0; n < NJ / 8; ++n) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            out[n][q] = acc[n][q];
+            if (n >= 2) sm.X[mO][4 * (n - 2) + q][lane] = out[n][q];
+          }
+        }
+      } else {
+        const int i0 = 16 * mS + g, i1 = i0 + 8;
+#pragma unroll
+        for (int kstep = 0; kstep < C / 8; ++kstep) {
+          const int t0 = 8 * kstep + c, t1 = t0 + 4;
+          const float f0 = sm.KS[kstep][i0], f1 = sm.KS[kstep][i1];
+          const float af[4] = {ks[t0][i0] * f0, ks[t0][i1] * f1,
+                               ks[t1][i0] * f0, ks[t1][i1] * f1};
+          const Split<4> as(af);
+#pragma unroll
+          for (int n = 0; n < NJ / 8; ++n)
+            acc[n].add(as, Split<2>(sm.vs[kstep][c][8 * n + g]));
+        }
+        const float f0 = sm.Ftot[i0], f1 = sm.Ftot[i1];
+#pragma unroll
+        for (int n = 0; n < NJ / 8; ++n) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            st[n][q] = fmaf(q < 2 ? f0 : f1, st[n][q], acc[n][q]);
+        }
+      }
+    }
+    PHASE_MARK(4);
+    // A is whole, and every read of S0 is done
+    __syncthreads();
+    PHASE_MARK(5);
+
+    // -- 4. out's tiles from A, A V over i up to the tiles' last row, added
+    // to those from S0 and stored: warp w < 4 takes column tiles 0, 1 of
+    // 16-block w, warp w + 4 (on the same sub-partition) tiles 2, 3 of
+    // 16-block 3 - w, so that each sub-partition has 10 of the 40 k-steps.
+    // Warps 4-7 also split the new state into S.
+    {
+      const int m = owner ? 7 - warp : warp, n0 = owner ? 2 : 0;
+      Acc acc[2];
+      for (int k2 = 0; k2 < m + 1; ++k2) {  // two k-steps an iteration
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i0 = 16 * k2 + 8 * e + c, i1 = i0 + 4;
+          const float af[4] = {sm.A[16 * m + g][i0], sm.A[16 * m + 8 + g][i0],
+                               sm.A[16 * m + g][i1],
+                               sm.A[16 * m + 8 + g][i1]};
+          const Split<4> as(af);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            acc[n].add(as, Split<2>(sm.vs[2 * k2 + e][c][8 * (n0 + n) + g]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int hrow = 0; hrow < 2; ++hrow) {
+          const int t = ci * C + 16 * m + g + 8 * hrow;
+          float part[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            part[e] = owner ? sm.X[m][4 * n + 2 * hrow + e][lane]
+                            : out[n][2 * hrow + e];
+          if (t < S)
+            *reinterpret_cast<float2*>(ob + (int64_t)t * a.out_ss +
+                                       8 * (n0 + n) + 2 * c) =
+                make_float2(part[0] + acc[n][2 * hrow],
+                            part[1] + acc[n][2 * hrow + 1]);
+        }
+      }
+      if (owner) {
+#pragma unroll
+        for (int n = 0; n < NJ / 8; ++n) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            put_split(sm.S, 16 * mS + g + 8 * (q / 2), 8 * n + 2 * c + q % 2,
+                      st[n][q]);
+        }
+      }
+    }
+    PHASE_MARK(6);
+  }
+  PHASE_END;
+
+  if (owner) {
+#pragma unroll
+    for (int n = 0; n < NJ / 8; ++n) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = 16 * mS + g + 8 * (q / 2);
+        const int col = 8 * n + 2 * c + q % 2;
+        a.state_out[sbase + (int64_t)row * D + col] = st[n][q];
+      }
+    }
+  }
+}
+
+}  // namespace chunk
+
 template <int D, int SPLIT, int COLS, int T>
-cudaError_t launch(const float* r, const float* k, const float* v,
-                   const float* lw, const float* u, const float* state_in,
-                   float* state_out, float* out, int B, int H, int S,
-                   const int64_t* in_strides, const int64_t* out_strides,
-                   cudaStream_t stream) {
-  const dim3 grid(D / COLS, B * H);
+cudaError_t launch(const WkvArgs& a, cudaStream_t stream) {
+  const dim3 grid(D / COLS, a.B * a.H);
   wkv_kernel<D, SPLIT, COLS, T><<<grid, COLS * SPLIT, 0, stream>>>(
-      r, k, v, lw, u, state_in, state_out, out, H, S, in_strides[0],
-      in_strides[1], in_strides[2], out_strides[0], out_strides[1],
-      out_strides[2]);
+      a.r, a.k, a.v, a.lw, a.u, a.state_in, a.state_out, a.out, a.H, a.S,
+      a.in_sb, a.in_sh, a.in_ss, a.out_sb, a.out_sh, a.out_ss);
   return cudaGetLastError();
+}
+
+bool valid(const WkvArgs& a) {
+  return a.B > 0 && a.H > 0 && a.S > 0 && (int64_t)a.B * a.H <= 65535;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// an f32 (B, H, S, D) operand with the strides of `a`'s inputs as a 4-D map
+// (D, S, H, B); boxes of `cols` x C tokens x 1 x 1, no swizzle, zeros
+// outside the tensor
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const float* ptr,
+                const WkvArgs& a, int cols) {
+  const cuuint64_t dims[4] = {(cuuint64_t)a.D, (cuuint64_t)a.S,
+                              (cuuint64_t)a.H, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)a.in_ss * 4,
+                                 (cuuint64_t)a.in_sh * 4,
+                                 (cuuint64_t)a.in_sb * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, chunk::C, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                const_cast<float*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -236,33 +958,61 @@ const char* wkv_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// r, k, v, lw: f32 (B, H, S, D) with element strides in_strides (b, h, s)
-// and 1 along D, all four alike; out: f32 with strides out_strides (b, h,
-// s) and 1 along D; u: (H, D) contiguous; state_in (may be null: zeros) and
+// r, k, v, lw: f32 (B, H, S, D) with element strides in_s* (b, h, s) and 1
+// along D, all four alike; out: f32 with strides out_s* (b, h, s) and 1
+// along D; u: (H, D) contiguous; state_in (may be null: zeros) and
 // state_out: (B, H, D, D) contiguous, and may be the same buffer. Every
-// pointer 16-byte aligned and in_strides multiples of 4 (the wrapper
-// checks). D is 16 or 64. Launches on `stream`, allocates nothing, returns
+// pointer 16-byte aligned and the in_s* and out_s* multiples of 4 (the
+// wrapper checks). Each launches on `stream`, allocates nothing and returns
 // cudaGetLastError().
-int wkv_forward(const float* r, const float* k, const float* v,
-                const float* lw, const float* u, const float* state_in,
-                float* state_out, float* out, int B, int H, int S, int D,
-                const int64_t* in_strides, const int64_t* out_strides,
-                void* stream) {
+
+// The sequential kernel, D = 16 or 64, any S >= 1.
+int wkv_forward(const WkvArgs* a, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || S <= 0 || (int64_t)B * H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
+  if (!valid(*a)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a->D) {
     case 16:
-      return static_cast<int>(launch<16, 4, 16, 64>(
-          r, k, v, lw, u, state_in, state_out, out, B, H, S, in_strides,
-          out_strides, s));
+      return static_cast<int>(launch<16, 4, 16, 64>(*a, s));
     case 64:
-      return static_cast<int>(launch<64, 8, 16, 32>(
-          r, k, v, lw, u, state_in, state_out, out, B, H, S, in_strides,
-          out_strides, s));
+      return static_cast<int>(launch<64, 8, 16, 32>(*a, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The chunked tensor-core kernel, D = 64, any S >= 1.
+int wkv_forward_tc(const WkvArgs* a, void* stream) {
+  if (!valid(*a) || a->D != chunk::D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        chunk::wkv_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)chunk::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap rm, km, lm, vm;
+  if (!tensor_map(encode, &rm, a->r, *a, chunk::LDR) ||
+      !tensor_map(encode, &km, a->k, *a, chunk::LDR) ||
+      !tensor_map(encode, &lm, a->lw, *a, chunk::LDR) ||
+      !tensor_map(encode, &vm, a->v, *a, chunk::NJ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(chunk::D / chunk::NJ, a->B * a->H);
+  chunk::wkv_chunk_kernel<<<grid, chunk::THREADS, chunk::SMEM,
+                            static_cast<cudaStream_t>(stream)>>>(rm, km, lm,
+                                                                 vm, *a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef WKV_PHASE_CYCLES
+// the per-phase cycles of the last launch: n values, [block][warp][mark]
+int wkv_phase_cycles(long long* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, chunk::phase_cycles, sizeof(long long) * n));
+}
+#endif
 
 }  // extern "C"

@@ -137,11 +137,12 @@ class KernelLibrary:
 
 def build_all(libraries: Iterable[KernelLibrary]) -> dict[str, float]:
     """Build several libraries at once, one ``nvcc`` each, all started
-    together; return each build's seconds by prefix."""
+    together; return each build's seconds by library file name (one source
+    may be built with two sets of flags)."""
     def timed(lib: KernelLibrary) -> tuple[str, float]:
         t0 = time.perf_counter()
         lib.build()
-        return lib.prefix, time.perf_counter() - t0
+        return lib.path().name, time.perf_counter() - t0
 
     libs = list(libraries)
     with ThreadPoolExecutor(max_workers=max(len(libs), 1)) as pool:

@@ -1,122 +1,194 @@
-"""Kernel B4: the RWKV6 WKV recurrence as a hand-written CUDA kernel.
+"""Kernel B4: the RWKV6 WKV recurrence as two hand-written CUDA kernels.
 
 Replaces the JAX package's Pallas TPU kernel (``src/repro/kernels/wkv/
 kernel.py`` ``_wkv_kernel`` via ``wkv_pallas``). The source is
-``src/repro_torch/csrc/wkv.cu``; its header note gives the kernel's bound on
-an H100 and what its design does about it. It is built and loaded by
+``src/repro_torch/csrc/wkv.cu``; its header note gives the bound on an H100
+and what each kernel's design does about it. It is built and loaded by
 ``kernels/_build.py`` without ``--fmad=false``: fused multiply-adds move out
 by rounding only (about 1e-7 of max |out| on the card), far below the 1e-5
-of max |out| and of max |state| the kernel is held to against ``wkv_ref``.
+of max |out| and of max |state| the kernels are held to against
+``wkv_ref``.
 
-Unlike the Pallas wrapper, this one computes the sequential recurrence of
-``wkv_ref`` (no chunked form that overflows under strong decay), takes any
-S >= 1 and an optional initial state, which it updates in place: a decode
-step carries its state from step to step without a copy. r, k, v and lw are
-float32 with any strides whose last is 1 (the model hands over views of its
+``kernel_for`` chooses the kernel from the sequence length and the head
+dim: head dim 64 with S >= 64 (prefill) takes the chunked tensor-core
+kernel (3xTF32 ``mma.sync``), S < 64 (decode) and head dim 16 (the reduced
+configs) the sequential one. The choice is made before the launch and never
+after a failure; ``kernel=`` forces one (the card tests and
+``chip_smoke.py`` hold both to ``wkv_ref`` at the same inputs).
+
+Unlike the Pallas wrapper, this one computes ``wkv_ref``'s function for
+every lw <= 0 (the TPU kernel's chunked form overflows under strong decay;
+the chunked kernel here forms no exponent), takes any S >= 1 and an
+optional initial state, which it updates in place: a decode step carries
+its state from step to step without a copy. r, k, v and lw are float32
+with any strides whose last is 1 (the model hands over views of its
 (B, S, H, D) products); head dims 16 (the reduced config) and 64
 (rwkv6-1.6b).
 
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
-tensor launches the kernel or raises; nothing falls back. The wrapper
-counts its launches in ``wkv_cuda.launches``.
+tensor launches a kernel or raises; nothing falls back. The wrapper counts
+every launch in ``wkv_cuda.launches`` and the tensor-core kernel's in
+``wkv_cuda.launches_tc``.
+
+The launch path is short, since a decode step calls it 24 times
+(``chip_smoke.py``'s ``wkv_host_path`` phase times each step of it on the
+card): the checks read ``is_cuda`` and ``get_device()`` rather than
+``torch.device`` objects, and the fifteen arguments go to the kernel packed
+into one buffer by ``struct`` (``WkvArgs`` in the source), which ctypes
+passes as one pointer.
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels._build import KernelLibrary
-from repro_torch.kernels.wkv.ref import wkv_ref
+from repro_torch.kernels.wkv.ref import CHUNK, wkv_ref
 
 HEAD_DIMS = (16, 64)
+TC_HEAD_DIM = 64  # head dim of the chunked tensor-core kernel
+KERNELS = ("sequential", "tensor_core")
 MAX_GRID_Y = 65535  # batch * heads: the grid's second axis
-I64X3 = ctypes.c_int64 * 3
+# WkvArgs in wkv.cu: r, k, v, lw, u, state_in (0: zeros), state_out, out;
+# B, H, S, D; the strides (b, h, s) of r, k, v, lw, then of out; in native
+# byte order without padding
+_pack = struct.Struct("=8Q4i6q").pack
+
+
+def kernel_for(s: int, head_dim: int) -> str:
+    """The kernel that takes a CUDA call: ``"tensor_core"`` for head dim 64
+    and at least one chunk of tokens, ``"sequential"`` for the rest (decode
+    steps and the reduced configs' head dim 16)."""
+    if head_dim == TC_HEAD_DIM and s >= CHUNK:
+        return "tensor_core"
+    return "sequential"
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.wkv_forward.argtypes = [ptr] * 8 + [i32] * 4 + [ptr, ptr, ptr]
-    lib.wkv_forward.restype = i32
+    for name in ("wkv_forward", "wkv_forward_tc"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("wkv", "wkv.cu", declare=_declare)
 load_library = LIBRARY.load
-_forward = LIBRARY.launcher("wkv_forward")
+_LAUNCH = {"sequential": LIBRARY.launcher("wkv_forward"),
+           "tensor_core": LIBRARY.launcher("wkv_forward_tc")}
 
 
-def _check(r, k, v, lw, u, state) -> bool:
-    """Check the operands; True for CUDA tensors, False for CPU tensors."""
-    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, lw)):
+def _on_card(r, k, v, lw, u, state) -> int:
+    """Check the operands (all but their alignment and strides, which the
+    wrapper checks on what it passes); return the CUDA device index for
+    tensors on the card, -1 for tensors on the CPU.
+
+    Written out rather than looped over the operands: a decode step takes
+    this path 24 times, and generators over six tensors cost it twice as
+    much (``chip_smoke.py``'s ``wkv_host_path`` times it on the card)."""
+    shape = r.shape
+    if len(shape) != 4 or k.shape != shape or v.shape != shape \
+            or lw.shape != shape:
         raise ValueError(f"r, k, v, lw must be (B,H,S,D) of one shape, got "
                          f"{[tuple(t.shape) for t in (r, k, v, lw)]}")
-    b, h, s, d = r.shape
-    if tuple(u.shape) != (h, d):
+    b, h, s, d = shape
+    if u.shape != (h, d):
         raise ValueError(f"u must be (H, D) = {(h, d)}, got {tuple(u.shape)}")
-    if state is not None and tuple(state.shape) != (b, h, d, d):
+    given_state = state is not None
+    if given_state and state.shape != (b, h, d, d):
         raise ValueError(f"state must be (B,H,D,D) = {(b, h, d, d)}, got "
                          f"{tuple(state.shape)}")
-    given = [t for t in (r, k, v, lw, u, state) if t is not None]
-    if any(t.dtype != torch.float32 for t in given):
+    f32 = torch.float32
+    if r.dtype is not f32 or k.dtype is not f32 or v.dtype is not f32 \
+            or lw.dtype is not f32 or u.dtype is not f32 \
+            or (given_state and state.dtype is not f32):
+        dtypes = [t.dtype for t in (r, k, v, lw, u, state) if t is not None]
         raise TypeError(f"the WKV kernel takes float32 operands, got "
-                        f"{[t.dtype for t in given]}")
-    if any(t.device != r.device for t in given):
-        raise ValueError("the WKV operands must lie on one device")
-    if r.device.type == "cpu":
-        return False
-    if r.device.type != "cuda":
+                        f"{dtypes}")
+    if not r.is_cuda:
+        if any(t is not None and t.device != r.device
+               for t in (k, v, lw, u, state)):
+            raise ValueError("the WKV operands must lie on one device")
+        if r.device.type == "cpu":
+            return -1
         raise ValueError(f"no WKV kernel for device {r.device}")
+    device = r.get_device()  # -1 off the card
+    if k.get_device() != device or v.get_device() != device \
+            or lw.get_device() != device or u.get_device() != device \
+            or (given_state and state.get_device() != device):
+        raise ValueError("the WKV operands must lie on one device")
     if d not in HEAD_DIMS:
-        raise ValueError(f"the WKV kernel takes head dims {HEAD_DIMS}, got {d}")
+        raise ValueError(f"the WKV kernel takes head dims {HEAD_DIMS}, "
+                         f"got {d}")
     if b * h > MAX_GRID_Y or s == 0:
         raise ValueError(f"the WKV kernel takes 1 <= S and B*H <= "
-                         f"{MAX_GRID_Y}, got {tuple(r.shape)}")
-    for st in (u, state):
-        if st is not None and not st.is_contiguous():
-            raise ValueError("u and the state must be contiguous")
-    if any(t.data_ptr() % 16 for t in given):
-        raise ValueError("the WKV kernel takes 16-byte aligned operands")
-    return True
+                         f"{MAX_GRID_Y}, got {tuple(shape)}")
+    if not u.is_contiguous() or (given_state and not state.is_contiguous()):
+        raise ValueError("u and the state must be contiguous")
+    return device
 
 
-def _readable(t: torch.Tensor) -> bool:
-    """True when the kernel reads a (B,H,S,D) tensor in place: D contiguous
-    and the other strides multiples of 4 (16-byte rows)."""
-    sb, sh, ss, sd = t.stride()
+def _readable(strides: tuple[int, ...]) -> bool:
+    """True when the kernels read a (B,H,S,D) tensor of these strides in
+    place: D contiguous and the other strides multiples of 4 (16-byte
+    rows)."""
+    sb, sh, ss, sd = strides
     return sd == 1 and not (sb % 4 or sh % 4 or ss % 4)
 
 
 def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              lw: torch.Tensor, u: torch.Tensor,
-             state: Optional[torch.Tensor] = None
+             state: Optional[torch.Tensor] = None, *,
+             kernel: Optional[str] = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, lw: (B, H, S, D) f32; u: (H, D) f32; state: (B, H, D, D) f32
     or None (zeros). Returns (out (B, H, S, D) f32, final state). A given
     ``state`` is updated in place and returned; without one the final state
-    is a new tensor."""
-    if not _check(r, k, v, lw, u, state):
+    is a new tensor. ``kernel`` ("sequential" or "tensor_core", the latter
+    at head dim 64 only) forces a kernel for CUDA tensors; None takes
+    ``kernel_for``'s."""
+    if kernel is not None and kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    device = _on_card(r, k, v, lw, u, state)
+    if device < 0:
         out, final = wkv_ref(r, k, v, lw, u, state)
         return out, final if state is None else state.copy_(final)
-    if len({t.stride() for t in (r, k, v, lw)}) != 1 or not _readable(r):
-        r, k, v, lw = (t.contiguous() for t in (r, k, v, lw))
     b, h, s, d = r.shape
+    if kernel is None:
+        kernel = kernel_for(s, d)
+    elif kernel == "tensor_core" and d != TC_HEAD_DIM:
+        raise ValueError(f"the tensor-core WKV kernel takes head dim "
+                         f"{TC_HEAD_DIM}, got {d}")
+    strides = r.stride()
+    if k.stride() != strides or v.stride() != strides \
+            or lw.stride() != strides or not _readable(strides):
+        r, k, v, lw = (t.contiguous() for t in (r, k, v, lw))
+        strides = r.stride()
     # out shares r's layout (dense) or is contiguous, readable either way;
     # in the model's layout the transpose back is free
     out = torch.empty_like(r)
     final = (torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
              if state is None else state)
-    _forward(r.get_device(), r.data_ptr(), k.data_ptr(), v.data_ptr(),
-             lw.data_ptr(), u.data_ptr(),
-             None if state is None else state.data_ptr(), final.data_ptr(),
-             out.data_ptr(), b, h, s, d, I64X3(*r.stride()[:3]),
-             I64X3(*out.stride()[:3]))
+    pr, pk, pv, pl, pu = (r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          lw.data_ptr(), u.data_ptr())
+    pf, po = final.data_ptr(), out.data_ptr()
+    if (pr | pk | pv | pl | pu | pf | po) % 16:
+        raise ValueError("the WKV kernel takes 16-byte aligned operands")
+    _LAUNCH[kernel](device, _pack(pr, pk, pv, pl, pu,
+                                  0 if state is None else pf, pf, po, b, h,
+                                  s, d, *strides[:3], *out.stride()[:3]))
+    if kernel == "tensor_core":
+        wkv_cuda.launches_tc += 1
     wkv_cuda.launches += 1
     return out, final
 
 
 wkv_cuda.launches = 0
+wkv_cuda.launches_tc = 0
 
 
 def reset_launches() -> None:
     wkv_cuda.launches = 0
+    wkv_cuda.launches_tc = 0

@@ -3,12 +3,21 @@
 
     out_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
     S_t   = diag(w_t) S_{t-1} + k_t v_t^T    (w_t = exp(lw_t), decay on k-dim)
+
+``wkv_chunked_ref`` is the same function in the chunked arithmetic of the
+tensor-core kernel (``csrc/wkv.cu`` ``wkv_chunk_kernel``), step for step in
+plain PyTorch: the tests hold it against the JAX package's oracle on the
+CPU, so the algorithm's precision is known before the card runs it. The
+main path never calls it.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+CHUNK = 64  # tokens a chunk (the kernel's C)
+SUB = 8     # tokens of the smallest block, whose pairs are formed one by one
 
 
 def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,3 +39,138 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out[:, :, t] = torch.einsum("bhd,bhdv->bhv", r_t, S + uu * kv)
         S = torch.exp(lw[:, :, t].float())[..., None] * S + kv
     return out.to(r.dtype), S
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as the kernel rounds the large part of an operand; x finite
+    float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def truncate_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x truncated to TF32, as the tensor cores read an f32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
+    """a @ b in f32, or as the kernel's 3xTF32 split computes it: each
+    operand x = hi + lo with hi = x rounded to TF32 and lo = x - hi
+    truncated to TF32, and hi.hi + (hi.lo + lo.hi), the small products
+    summed apart."""
+    if not split:
+        return a @ b
+    a_hi, b_hi = round_tf32(a), round_tf32(b)
+    a_lo, b_lo = truncate_tf32(a - a_hi), truncate_tf32(b - b_hi)
+    return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+
+def _exclusive_products(w: torch.Tensor, dim: int, reverse: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Running products of w along ``dim``, each excluding its own element
+    (from the start, or from the end if ``reverse``), one multiply a step;
+    and the product of all of them."""
+    n = w.shape[dim]
+    out = torch.empty_like(w)
+    p = torch.ones_like(w.select(dim, 0))
+    for i in (range(n - 1, -1, -1) if reverse else range(n)):
+        out.select(dim, i).copy_(p)
+        p = p * w.select(dim, i)
+    return out, p
+
+
+def wkv_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lw: torch.Tensor, u: torch.Tensor,
+                    state: Optional[torch.Tensor] = None, *,
+                    tf32_split: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``wkv_ref``'s function in chunks of 64 tokens, as the tensor-core
+    kernel computes it; ``tf32_split`` rounds the operands of every matrix
+    product as the kernel's 3xTF32 products do. Same arguments and results
+    as ``wkv_ref``, float32.
+
+    In a chunk with incoming state S0, for t and i in it (lw <= 0):
+      out_t = (r_t * e^{cum_{t-1}}) S0 + sum_{i<=t} A[t,i] v_i
+      S_end = diag(e^{cum_63}) S0 + sum_i (k_i * e^{cum_63 - cum_i}) v_i^T
+    with A[t,i] = sum_d r_t k_i e^{cum_{t-1} - cum_i} (i < t) and the
+    bonus A[t,t] = r_t . diag(u) k_t. No exponent is ever formed: every
+    decay is a product of w = e^{lw} <= 1 over a range of tokens, so each
+    factor lies in [0, 1] and strong decay underflows to 0, never to inf.
+    The tokens fall into 8-blocks of 8 and 16-blocks of 16; within an
+    8-block the pairs (t, i) take running products of w, and between blocks
+    A factors through the start of t's block ("ref"), as
+    (r_t * W[ref, t)) (k_i * W(i, ref))^T, W[a, b) the product of w over
+    tokens a..b-1: rows relative to the start of their 16-block (8-block
+    for the pairs inside one 16-block), columns to it from i on.
+    """
+    b, h, s, d = r.shape
+    dev = r.device
+    f32 = torch.float32
+    n = -(-s // CHUNK) * CHUNK
+    pad = n - s
+
+    def padded(x, fill=0.0):
+        x = x.to(f32)
+        if pad:
+            x = torch.cat([x, x.new_full((b, h, pad, d), fill)], dim=2)
+        return x
+
+    r, k, v, lw = padded(r), padded(k), padded(v), padded(lw)  # lw 0: w 1
+    u = u.to(f32)
+    S = (torch.zeros((b, h, d, d), dtype=f32, device=dev) if state is None
+         else state.to(f32).clone())
+    out = torch.empty((b, h, n, d), dtype=f32, device=dev)
+    nq, ns = CHUNK // SUB, CHUNK // (2 * SUB)  # 8-blocks, 16-blocks
+    mm = lambda a, c: _matmul(a, c, tf32_split)  # noqa: E731
+    for c0 in range(0, n, CHUNK):
+        sl = slice(c0, c0 + CHUNK)
+        rc, kc, vc = r[:, :, sl], k[:, :, sl], v[:, :, sl]
+        w = torch.exp(lw[:, :, sl])
+        # within each 8-block: W[start, t) and W(t, end], and the block's W
+        shape8 = (b, h, nq, SUB, d)
+        pre, F = _exclusive_products(w.reshape(shape8), 3)
+        suf, _ = _exclusive_products(w.reshape(shape8), 3, reverse=True)
+        rL = (rc.reshape(shape8) * pre).reshape(b, h, CHUNK, d)
+        kL = (kc.reshape(shape8) * suf).reshape(b, h, CHUNK, d)
+        # over the 8-blocks: W of the blocks before q, after q, of all
+        RS, Ftot = _exclusive_products(F, 2)
+        KS, _ = _exclusive_products(F, 2, reverse=True)
+
+        A = torch.zeros((b, h, CHUNK, CHUNK), dtype=f32, device=dev)
+        # inside an 8-block, pair by pair: running products of w from i on
+        for q in range(nq):
+            t0 = q * SUB
+            rq, kq, wq = (x[:, :, t0:t0 + SUB] for x in (rc, kc, w))
+            for i in range(SUB):
+                A[:, :, t0 + i, t0 + i] = (rq[:, :, i] * u * kq[:, :, i]
+                                           ).sum(-1)
+                x = kq[:, :, i]
+                for t in range(i + 1, SUB):
+                    A[:, :, t0 + t, t0 + i] = (rq[:, :, t] * x).sum(-1)
+                    x = x * wq[:, :, t]
+        # the second 8-block of a 16-block against its first: ref = the
+        # second's start, so rows rL and columns kL as they are
+        for m in range(ns):
+            rows, cols = slice(16 * m + 8, 16 * m + 16), slice(16 * m,
+                                                               16 * m + 8)
+            A[:, :, rows, cols] = mm(rL[:, :, rows],
+                                     kL[:, :, cols].transpose(-1, -2))
+        # 16-block m against an earlier 16-block a: ref = m's start
+        for m in range(1, ns):
+            rows = slice(16 * m, 16 * m + 16)
+            rI = rL[:, :, rows].clone()
+            rI[:, :, 8:] *= F[:, :, 2 * m, None]  # W[start of m, t)
+            for q in range(2 * m):  # the 8-blocks of the earlier ones
+                fac = torch.ones_like(F[:, :, 0])
+                for q2 in range(q + 1, 2 * m):
+                    fac = fac * F[:, :, q2]
+                cols = slice(SUB * q, SUB * q + SUB)
+                A[:, :, rows, cols] = mm(
+                    rI, (kL[:, :, cols] * fac[:, :, None]).transpose(-1, -2))
+
+        rS = (rL.reshape(shape8) * RS[:, :, :, None]).reshape(b, h, CHUNK, d)
+        kS = (kL.reshape(shape8) * KS[:, :, :, None]).reshape(b, h, CHUNK, d)
+        out[:, :, sl] = mm(rS, S) + mm(A, vc)
+        S = Ftot[..., None] * S + mm(kS.transpose(-1, -2), vc)
+    return out[:, :, :s], S

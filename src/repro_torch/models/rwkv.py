@@ -8,8 +8,9 @@ Counterpart of the JAX package's ``models/rwkv.py``. Recurrence per head
 The reference computes prefill in a chunked parallel form (``_wkv_chunk``)
 that takes exp(-cum) of a chunk's summed log-decays and overflows f32 under
 strong decay; the port runs every WKV, prefill and decode alike, through
-kernel B4 (``kernels/wkv``), the sequential recurrence, so ``ssm_chunk``
-changes nothing here. Decode carries (S, last_x): O(1) a token. The
+kernel B4 (``kernels/wkv``): a prefill at head dim 64 on its chunked
+tensor-core kernel, which forms no exponent, decode and head dim 16 on the
+sequential one, so ``ssm_chunk`` changes nothing here. Decode carries (S, last_x): O(1) a token. The
 per-head RMS norm with its (H, hd) scale stays torch ops, as it is inline
 jnp in the reference (B2 takes one scale vector).
 """

@@ -7,7 +7,11 @@ kernel itself is held against it on the card
 (``tests/test_torch_rwkv_card.py``).
 
 Tolerances: the port's sequential scan against the reference's within 1e-5
-of max |out| (both f32 step by step, only the order of the sums differs);
+of max |out| (both f32 step by step, only the order of the sums differs),
+and so the chunked arithmetic of the tensor-core kernel
+(``wkv_chunked_ref``), also with its products' operands rounded as the
+kernel's 3xTF32 split rounds them: the card holds the kernel to the same
+1e-5;
 against ``wkv_pallas`` in interpret mode within 5e-5 absolute, the
 reference's own bound between its chunked kernel and its oracle
 (``tests/test_kernels.py``).
@@ -21,6 +25,9 @@ from repro.kernels.wkv.kernel import wkv_pallas
 from repro.kernels.wkv.ref import wkv_ref as ref_wkv_ref
 from repro_torch.kernels import wkv
 from repro_torch.kernels.wkv import wkv_cuda, wkv_ref
+from repro_torch.kernels.wkv.kernel import kernel_for
+from repro_torch.kernels.wkv.ref import (round_tf32, truncate_tf32,
+                                         wkv_chunked_ref)
 
 RTOL = 1e-5
 PALLAS_ATOL = 5e-5
@@ -158,3 +165,102 @@ def test_operands_are_checked():
         wkv(r.double(), k, v, lw, u)
     with pytest.raises(ValueError, match="device"):
         wkv(*(t.to("meta") for t in arrs))
+
+
+# -- the chunked arithmetic of the tensor-core kernel (wkv_chunked_ref) ----
+# (B, H, S, lw range, initial state): the smoke's decays, model (-1.61,
+# -0.64), weak (-0.01, 0) at S = 2048 and strong (-20, 0); S = 333 (ragged)
+# and S = 64 k; with and without an initial state
+MODEL_LW, WEAK_LW, STRONG_LW = (-1.61, -0.64), (-0.01, 0.0), (-20.0, 0.0)
+CHUNKED_CASES = [
+    (1, 2, 333, MODEL_LW, True),
+    (2, 2, 128, MODEL_LW, False),
+    (1, 2, 2048, WEAK_LW, True),
+    (1, 2, 2048, WEAK_LW, False),
+    (1, 2, 333, STRONG_LW, False),
+    (1, 2, 192, STRONG_LW, True),
+    (1, 1, 1, MODEL_LW, True),
+]
+
+
+def _smoke_inputs(b, h, s, lw, seed, state):
+    """As chip_smoke.py draws them: r, k, v, u ~ N(0, 0.5^2), lw uniform
+    in the range, the state ~ N(0, 1); head dim 64."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, h, s, 64)) * 0.5 for _ in range(3))
+    arrs = [r, k, v, rng.uniform(*lw, (b, h, s, 64)),
+            rng.standard_normal((h, 64)) * 0.5]
+    if state:
+        arrs.append(rng.standard_normal((b, h, 64, 64)))
+    return [x.astype(np.float32) for x in arrs]
+
+
+def _chunked(arrs, **kw):
+    state = torch.from_numpy(arrs[5]) if len(arrs) > 5 else None
+    return wkv_chunked_ref(*map(torch.from_numpy, arrs[:5]), state, **kw)
+
+
+@pytest.mark.parametrize("b,h,s,lw,state", CHUNKED_CASES)
+def test_chunked_matches_reference_oracle(b, h, s, lw, state):
+    arrs = _smoke_inputs(b, h, s, lw, seed=s, state=state)
+    out, st = _chunked(arrs)
+    ref_out, ref_st = _reference(arrs)
+    assert out.shape == (b, h, s, 64) and st.shape == (b, h, 64, 64)
+    assert np.isfinite(out.numpy()).all()
+    assert _close(out, ref_out) and _close(st, ref_st)
+
+
+@pytest.mark.parametrize("lw", [MODEL_LW, WEAK_LW, STRONG_LW])
+def test_chunked_with_tf32_split_operands(lw):
+    """Every product's operands rounded as the kernel's 3xTF32 split rounds
+    them (hi to nearest, lo truncated) at (1, 4, 2048, 64): the tolerance
+    holds before the card is asked."""
+    arrs = _smoke_inputs(1, 4, 2048, lw, seed=7, state=True)
+    out, st = _chunked(arrs, tf32_split=True)
+    ref_out, ref_st = _reference(arrs)
+    assert _close(out, ref_out) and _close(st, ref_st)
+    # the split does round: the plain f32 products differ from it
+    plain, _ = _chunked(arrs)
+    assert not torch.equal(out, plain)
+
+
+def test_chunked_finite_where_pallas_is_not():
+    """The chunked Pallas form takes exp(-cum) and overflows under strong
+    decay; the port's chunked form multiplies factors in [0, 1] only."""
+    arrs = _smoke_inputs(1, 2, 128, STRONG_LW, seed=12, state=False)
+    p_out, _ = wkv_pallas(*map(jnp.asarray, arrs), chunk=64, interpret=True)
+    assert not np.isfinite(np.asarray(p_out)).all()
+    out, st = _chunked(arrs, tf32_split=True)
+    ref_out, ref_st = _reference(arrs)
+    assert np.isfinite(out.numpy()).all() and np.isfinite(st.numpy()).all()
+    assert _close(out, ref_out) and _close(st, ref_st)
+
+
+def test_chunked_leaves_the_state_alone():
+    arrs = _smoke_inputs(1, 1, 70, MODEL_LW, seed=3, state=True)
+    state = torch.from_numpy(arrs[5].copy())
+    wkv_chunked_ref(*map(torch.from_numpy, arrs[:5]), state)
+    assert torch.equal(state, torch.from_numpy(arrs[5]))
+
+
+def test_tf32_rounding():
+    """round_tf32 keeps 10 mantissa bits, to nearest, ties away from zero;
+    truncate_tf32 drops the 13 low bits."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0], dtype=torch.float32)
+    assert round_tf32(x).tolist() == [one + ulp, -(one + ulp), one,
+                                      one + ulp, 3.0]
+    assert truncate_tf32(x).tolist() == [one, -one, one, one, 3.0]
+
+
+def test_kernel_for_picks_by_length_and_head_dim():
+    assert kernel_for(2048, 64) == "tensor_core"
+    assert kernel_for(64, 64) == "tensor_core"
+    assert kernel_for(63, 64) == "sequential"
+    assert kernel_for(1, 64) == "sequential"  # a decode step
+    assert kernel_for(2048, 16) == "sequential"  # the reduced configs
+    arrs = [torch.from_numpy(a) for a in _inputs(1, 2, 4, 8, seed=0)]
+    with pytest.raises(ValueError, match="kernel must be"):
+        wkv_cuda(*arrs, kernel="chunked")
