@@ -28,12 +28,12 @@
 //
 // Which kernel takes a call (kernels/flash_attention/kernel.py
 // `kernel_for`, an explicit rule, never a fallback after a failure):
-// bf16 with head dim 64 or 128 -> the tensor-core kernel; f32, and head
-// dim 16, -> the scalar kernel. An f32 product on the tensor cores would be
-// TF32 (about 1e-3 relative), which the f32 checks (2e-5) refuse.
+// bf16 with head dim 64, 112 or 128 -> the tensor-core kernel; f32, and
+// head dim 16, -> the scalar kernel. An f32 product on the tensor cores
+// would be TF32 (about 1e-3 relative), which the f32 checks (2e-5) refuse.
 //
-// 1. The tensor-core kernel (`flash_fwd_tc`, bf16, D = 64 or 128), built
-//    as the hopper-kernels guide sets a fast kernel out:
+// 1. The tensor-core kernel (`flash_fwd_tc`, bf16, D = 64, 112 or 128),
+//    built as the hopper-kernels guide sets a fast kernel out:
 // - one block takes 128 query rows of one (batch, head): two consumer
 //   warpgroups of 64 rows each and a producer warpgroup, of which one
 //   thread issues every TMA load (`setmaxnreg` gives the producer's
@@ -44,6 +44,14 @@
 // - the tensor maps are 3-D (D, S, B*H), so rows past S are zero-filled and
 //   never read from the next head; each box is 64 columns (128 bytes) x 128
 //   rows in the 128-byte swizzle, which wgmma reads through its descriptor;
+// - D = 112 (zamba2-7b's shared attention) is laid out in shared memory as
+//   D = 128: the tensor maps keep the true D and its row stride of 224
+//   bytes, the second box reads columns 64-127, and columns 112-127 lie
+//   outside the tensor, so TMA fills them with zeros. QK^T runs the 7
+//   k-steps of the true D; PV runs at N = 128 against V's zero columns
+//   (the MN-major 128-byte swizzle takes N in whole 64-column atoms), and
+//   the epilogue stores the 112 true columns. Shared memory and registers
+//   are those of D = 128;
 // - S = Q K^T by wgmma m64n128k16 f32.bf16.bf16, Q and K both K-major in
 //   shared memory; P by wgmma's register A operand (m64nDk16) against V,
 //   which is MN-major in shared memory (the descriptor's transpose bit);
@@ -75,8 +83,8 @@
 //   Times at the main shape on an NVIDIA H100 80GB HBM3 at 700.00 W are in
 //   PERF.md (chip_smoke.py).
 //
-// 2. The scalar kernel (`flash_fwd_kernel`, f32 at D = 16, 64, 128 and
-//    bf16 at D = 16) does the arithmetic in scalar f32 FMA (P stays f32
+// 2. The scalar kernel (`flash_fwd_kernel`, f32 at D = 16, 64, 112, 128
+//    and bf16 at D = 16) does the arithmetic in scalar f32 FMA (P stays f32
 //    into PV, as in the Pallas kernel):
 // - one block per (q tile of 64 rows, batch*head); the loop over KV tiles
 //   inside the block takes the place of the TPU's sequential kv grid axis;
@@ -84,8 +92,10 @@
 //   for K and V keeps 2 blocks on an SM at D=128); each thread computes a
 //   4x4 tile of S = Q K^T from 16-byte shared loads (its 4 key columns are
 //   16 apart, so a quarter-warp's loads hit 8 distinct bank groups) and a
-//   4 x D/16 tile of O; the softmax statistics of a row are reduced over
-//   the 16 threads that share it with xor shuffles, in a fixed order.
+//   4 x D/16 tile of O (at D = 112, 7 neighbouring columns: an odd stride,
+//   so a half-warp's scalar loads of V hit 16 distinct banks); the softmax
+//   statistics of a row are reduced over the 16 threads that share it with
+//   xor shuffles, in a fixed order.
 // Results repeat bit for bit from run to run. Built without --fmad=false:
 // the f32 tolerance it is held to (2e-5) is far above FMA's rounding.
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is looked up at run time
@@ -162,10 +172,10 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
 
 template <int D>
 __device__ __forceinline__ int out_col(int tx, int c) {
-  // columns of O a thread owns: float4 groups 64 apart for D >= 64, so a
-  // half-warp reads one contiguous 256-byte row segment of V; one column
-  // for D = 16
-  if constexpr (D >= 64) return (c >> 2) * 64 + tx * 4 + (c & 3);
+  // columns of O a thread owns: float4 groups 64 apart where D is a
+  // multiple of 64, so a half-warp reads one contiguous 256-byte row
+  // segment of V; D / 16 neighbouring columns otherwise (D = 16 and 112)
+  if constexpr (D % 64 == 0) return (c >> 2) * 64 + tx * 4 + (c & 3);
   else return tx * (D / 16) + c;
 }
 
@@ -290,7 +300,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
         const float* vrow = KVs + (j + jj) * STR;
         float vv[TN];
-        if constexpr (D >= 64) {
+        if constexpr (D % 64 == 0) {
 #pragma unroll
           for (int g = 0; g < TN / 4; ++g) {
             const float4 t =
@@ -349,8 +359,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// f32 at D = 16, 64 and 128; bf16 at D = 16 only (bf16 at 64 and 128 is
-// the tensor-core kernel's)
+// f32 at D = 16, 64, 112 and 128; bf16 at D = 16 only (bf16 at 64, 112 and
+// 128 is the tensor-core kernel's)
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int H, int KH, int S, int D, float scale,
                      int causal, int window, int dtype, cudaStream_t stream) {
@@ -366,6 +376,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<float, 64>(q, k, v, o, B, H, KH, S, scale, causal,
                                window, stream);
+    case 112:
+      return launch<float, 112>(q, k, v, o, B, H, KH, S, scale, causal,
+                                window, stream);
     case 128:
       return launch<float, 128>(q, k, v, o, B, H, KH, S, scale, causal,
                                 window, stream);
@@ -376,7 +389,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 
 // ---------------------------------------------------------------------------
-// 1. The tensor-core kernel (bf16, D = 64 or 128)
+// 1. The tensor-core kernel (bf16, D = 64, 112 or 128)
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -389,9 +402,13 @@ constexpr int STAGES = 3;           // K/V ring
 constexpr int BOX = 128 * 128;      // bytes of one TMA box: 128 rows x 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// the width of a tile in shared memory: D rounded up to whole 64-column
+// boxes (112 -> 128; the columns past D are TMA's zero fill)
+__host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
+
+template <int DP>
 struct Smem {
-  static constexpr int TILE = (D / 64) * BOX;  // 128 rows of Q, K or V
+  static constexpr int TILE = (DP / 64) * BOX;  // 128 rows of Q, K or V
   static constexpr int KV = TILE;              // stage s: K at KV + 2s TILE,
   static constexpr int BYTES = TILE * (1 + 2 * STAGES);  // V one TILE on
   static constexpr int ALLOC = BYTES + 1024;   // slack to align to 1024
@@ -697,8 +714,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap vmap,
              __nv_bfloat16* __restrict__ o, int H, int KH, int S,
              float scale_log2, int causal, int window) {
-  using L = Smem<D>;
-  constexpr int NB = D / 64;  // boxes across D
+  constexpr int DP = padded(D);  // columns a tile holds in shared memory
+  using L = Smem<DP>;
+  constexpr int NB = DP / 64;   // boxes across DP
   extern __shared__ uint8_t smem_raw[];
   // q, then full K, full V and empty, one a stage
   __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
@@ -769,9 +787,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   const int cq = 2 * (lane % 4);
   const uint32_t qa = base + wg * 64 * 128;  // this warpgroup's rows of Q
 
-  float acc[D / 2];
+  float acc[DP / 2];  // O over DP columns; those past D stay 0
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
   Rows rows{row0, cq, {NEG_INF, NEG_INF}, {0.0f, 0.0f}, {1.0f, 1.0f}};
   auto kd = [&](int i) { return base + L::KV + 2 * (i % STAGES) * L::TILE; };
   auto phase = [](int i) { return static_cast<uint32_t>((i / STAGES) & 1); };
@@ -802,7 +820,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     mbar_wait(full_v(ps), phase(i - 1));
     named_sync(TURN + wg);
     issue_qk<D>(sc, qa, kd(i));
-    issue_pv<D>(acc, p, kd(i - 1) + L::TILE);
+    issue_pv<DP>(acc, p, kd(i - 1) + L::TILE);
     named_arrive(TURN + 1 - wg);
     wgmma_wait_one();  // S of tile i
     fence_regs(sc);
@@ -813,7 +831,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     fence_regs(p);
     mbar_arrive(empty(ps));
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DP / 8; ++n) {
       acc[4 * n] *= rows.al[0];
       acc[4 * n + 1] *= rows.al[0];
       acc[4 * n + 2] *= rows.al[1];
@@ -826,7 +844,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     const int i = n_tiles - 1;
     mbar_wait(full_v(i % STAGES), phase(i));
     named_sync(TURN + wg);
-    issue_pv<D>(acc, p, kd(i) + L::TILE);
+    issue_pv<DP>(acc, p, kd(i) + L::TILE);
     if (wg == 0) named_arrive(TURN + 1);  // warpgroup 1 has no turn left
     wgmma_wait();
     fence_regs(acc);
@@ -834,7 +852,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   }
   float l0 = rows.l[0], l1 = rows.l[1];
 
-  // epilogue: O / l in bf16, staged swizzled in this warpgroup's rows of Q
+  // epilogue: O / l in bf16, staged swizzled in this warpgroup's rows of
+  // Q; only the D true columns are staged and stored
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
@@ -853,7 +872,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
           pack_bf16(acc[4 * n + 2 * hf] * inv, acc[4 * n + 2 * hf + 1] * inv);
     }
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  constexpr int CPR = D / 8;  // 16-byte chunks a row of o
   for (int i = t; i < 64 * CPR; i += 128) {
     const int r = i / CPR, c = i % CPR;
     const int row = q0 + 64 * wg + r;
@@ -887,7 +906,8 @@ EncodeTiled encoder() {
 }
 
 // (heads, S, D) bf16, contiguous: boxes of 64 columns x 128 rows x 1 head in
-// the 128-byte swizzle; rows past S read as zeros
+// the 128-byte swizzle; rows past S, and columns past D (D = 112), read as
+// zeros. The row stride, 2 D bytes, is a multiple of 16 as TMA needs.
 bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 int heads, int S, int D) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
@@ -909,7 +929,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Smem<D>::ALLOC);
+        Smem<padded(D)>::ALLOC);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -921,7 +941,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       !tensor_map(encode, &vm, v, B * KH, S, D))
     return cudaErrorInvalidValue;
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_fwd_tc<D><<<grid, THREADS, Smem<D>::ALLOC, stream>>>(
+  flash_fwd_tc<D><<<grid, THREADS, Smem<padded(D)>::ALLOC, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), H, KH, S, scale * LOG2E,
       causal, window);
   return cudaGetLastError();
@@ -939,9 +959,9 @@ const char* flash_error_string(int err) {
 
 // The scalar kernel: q, o (B, H, S, D); k, v (B, KH, S, D); contiguous,
 // 16-byte aligned, H a multiple of KH, B*H <= 65535 (the wrapper checks).
-// dtype: 0 = f32 with D in {16, 64, 128}, 1 = bf16 with D = 16. causal and
-// window as in the Pallas kernel (window applies only with causal; 0 =
-// none). Launches on `stream`, allocates nothing, returns
+// dtype: 0 = f32 with D in {16, 64, 112, 128}, 1 = bf16 with D = 16.
+// causal and window as in the Pallas kernel (window applies only with
+// causal; 0 = none). Launches on `stream`, allocates nothing, returns
 // cudaGetLastError().
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, int B, int H, int KH, int S, int D,
@@ -955,8 +975,8 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core kernel: bf16 q, o (B, H, S, D) and k, v (B, KH, S, D),
-// contiguous, 16-byte aligned, H a multiple of KH, D in {64, 128} (the
-// wrapper checks). causal and window as above. Launches on `stream`,
+// contiguous, 16-byte aligned, H a multiple of KH, D in {64, 112, 128}
+// (the wrapper checks). causal and window as above. Launches on `stream`,
 // allocates nothing, returns the first CUDA error (cudaErrorNotSupported if
 // cuTensorMapEncodeTiled cannot be found).
 int flash_attention_forward_tc(const void* q, const void* k, const void* v,
@@ -970,6 +990,9 @@ int flash_attention_forward_tc(const void* q, const void* k, const void* v,
     case 64:
       return static_cast<int>(tc::launch<64>(q, k, v, o, B, H, KH, S, scale,
                                              causal, window, s));
+    case 112:
+      return static_cast<int>(tc::launch<112>(q, k, v, o, B, H, KH, S, scale,
+                                              causal, window, s));
     case 128:
       return static_cast<int>(tc::launch<128>(q, k, v, o, B, H, KH, S, scale,
                                               causal, window, s));

@@ -7,14 +7,19 @@ gives the bound on an H100 and what each kernel's design does about it. It
 is built and loaded by ``kernels/_build.py`` without ``--fmad=false``.
 
 ``kernel_for`` chooses the kernel from dtype and head dim: bfloat16 at head
-dims 64 and 128 takes the tensor-core kernel (wgmma, TMA), everything else
-(float32, head dim 16) the scalar f32 kernel. The choice is made before the
-launch and never after a failure.
+dims 64, 112 and 128 takes the tensor-core kernel (wgmma, TMA), everything
+else (float32, head dim 16) the scalar f32 kernel. The choice is made
+before the launch and never after a failure. Of the three LM families the
+port runs, two attend: the dense one (llama3.2-3b, head dim 128) and the
+hybrid one (zamba2-7b's shared attention, head dim 112); RWKV has no
+attention, and the reduced configs use head dim 16.
 
 Unlike the Pallas wrapper, this one takes any sequence length (the kernels
 mask the ragged edge) and K/V with fewer heads than q (GQA: the kernels
-read K/V head h // (H/K) for query head h). Head dims 16, 64 and 128;
-float32 or bfloat16.
+read K/V head h // (H/K) for query head h). Head dims 16, 64, 112 and 128;
+float32 or bfloat16. The scale is D^-1/2 of the true head dim; the
+tensor-core kernel lays D = 112 out in shared memory as 128 columns, of
+which the 16 past D are zeros.
 
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
 tensor launches a kernel or raises; nothing falls back. The wrapper counts
@@ -32,14 +37,14 @@ from repro_torch.kernels._build import KernelLibrary
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)
-TC_HEAD_DIMS = (64, 128)  # head dims of the tensor-core kernel (bf16 only)
+HEAD_DIMS = (16, 64, 112, 128)
+TC_HEAD_DIMS = (64, 112, 128)  # of the tensor-core kernel (bf16 only)
 MAX_GRID_Y = 65535  # batch * heads: the scalar kernel's second grid axis
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes a CUDA call: ``"tensor_core"`` for bfloat16 at
-    head dims 64 and 128, ``"scalar"`` for the rest. f32 stays off the
+    head dims 64, 112 and 128, ``"scalar"`` for the rest. f32 stays off the
     tensor cores, whose f32 product would be TF32."""
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tensor_core"

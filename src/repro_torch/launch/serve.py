@@ -5,8 +5,9 @@ on one card.
 Counterpart of the JAX package's ``launch/serve.py`` for one engine.
 ``--full`` serves the published config (``python -m repro_torch.launch.serve
 --full`` serves llama3.2-3b at full width and depth on the card, ``--arch
-rwkv6-1.6b --full`` rwkv6-1.6b); without it the reduced config is served. The weights are random, drawn from a
-generator seeded 0 on the device.
+rwkv6-1.6b --full`` rwkv6-1.6b, ``--arch zamba2-7b --full`` zamba2-7b);
+without it the reduced config is served. The weights are random, drawn
+from a generator seeded 0 on the device.
 
 No placement epoch is applied: ``static_placements`` (``runtime/
 placement.py``, the LM cost model and the destination catalog) waits for

@@ -1,5 +1,5 @@
-"""The port's LMs (dense and RWKV families): parameters, forward (prefill)
-and decode."""
+"""The port's LMs (dense, RWKV and hybrid families): parameters, forward
+(prefill) and decode."""
 from repro_torch.models.inputs import batch_structure, synthetic_batch
 from repro_torch.models.transformer import (
     TransformerLM,

@@ -1,13 +1,15 @@
-"""Model assembly, dense and RWKV families: a decoder-only LM over
+"""Model assembly, dense, RWKV and hybrid families: a decoder-only LM over
 per-layer blocks.
 
-Counterpart of the dense and RWKV (``family == "ssm"``) branches of the JAX
-package's ``models/transformer.py``. The parameters live in a
-:class:`TransformerLM` (an ``nn.Module``) under the reference's names and
-layouts (``wq`` stays ``(d, h, hd)``), with the reference's stacked layer
-axis split into one entry of ``layers`` per layer. The module-level
-functions keep the reference's public signatures, with the module in the
-place of ``params``.
+Counterpart of the dense, RWKV (``family == "ssm"``) and hybrid (Mamba2
+blocks with one shared attention block heading each group of
+``attn_every``, as in zamba2) branches of the JAX package's
+``models/transformer.py``. The parameters live in a :class:`TransformerLM`
+(an ``nn.Module``) under the reference's names and layouts (``wq`` stays
+``(d, h, hd)``), with the reference's stacked layer axes split per layer:
+one entry of ``layers`` a layer (dense, RWKV), or ``groups[g][i]`` and
+``tail[j]`` (hybrid). The module-level functions keep the reference's
+public signatures, with the module in the place of ``params``.
 
 Public surface:
     model_defs(cfg)                   -> PDef tree (single source of truth)
@@ -17,11 +19,12 @@ Public surface:
     decode_step(cfg, model, state, tokens)   -> (logits, state) [serve]
 
 The decode state is updated in place: ``decode_step`` writes each layer's
-new K/V rows into the stacked cache (dense), or its WKV state, ``tm_x`` and
-``cm_x`` into the stacked recurrent leaves (RWKV), replaces
-``state["pos"]``, and returns the same dict. MoE, Mamba, hybrid, enc-dec
-and VLM configs raise ``NotImplementedError``: they wait for the rest of
-slice 3 of the port, with ``extract_decode_slot``/``restore_decode_slot``
+new K/V rows into the stacked cache (dense, and each hybrid group's shared
+attention), or its WKV state, ``tm_x`` and ``cm_x`` (RWKV), or its Mamba
+``ssm`` and ``conv`` leaves (hybrid) into the stacked recurrent leaves,
+replaces ``state["pos"]``, and returns the same dict. MoE, enc-dec and VLM
+configs raise ``NotImplementedError``: they wait for the rest of slice 3
+of the port, with ``extract_decode_slot``/``restore_decode_slot``
 (migration).
 """
 from __future__ import annotations
@@ -36,19 +39,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.parallel.sharding import init_from_defs, stack_defs
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """The dense and RWKV families are ported; the others raise."""
-    if (cfg.family not in ("dense", "ssm") or cfg.num_experts
+    """The dense, RWKV and hybrid families are ported; the others raise."""
+    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.num_experts
             or cfg.is_encdec or cfg.frontend != "none"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense and RWKV families "
-            "are ported; MoE, Mamba, hybrid, enc-dec and VLM wait for the "
-            "rest of slice 3")
+            f"{cfg.name} ({cfg.family}): only the dense, RWKV and hybrid "
+            "families are ported; MoE, enc-dec and VLM wait for the rest "
+            "of slice 3")
 
 
 # ---------------------------------------------------------------------------
@@ -75,14 +79,35 @@ def _rwkv_layer_defs(cfg: ArchConfig) -> dict:
     }
 
 
+def _mamba_layer_defs(cfg: ArchConfig) -> dict:
+    return {"ln": L.rms_norm_defs(cfg.d_model),
+            "mamba": ssm_mod.mamba_defs(cfg)}
+
+
+def hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
+    """(num_groups, tail): zamba's shared attention block heads each group
+    of ``attn_every`` Mamba layers; the ``tail`` layers after the last
+    group have none."""
+    g = cfg.attn_every or cfg.num_layers
+    return cfg.num_layers // g, cfg.num_layers % g
+
+
 def model_defs(cfg: ArchConfig) -> dict:
     require_ported(cfg)
-    layer = _rwkv_layer_defs if cfg.family == "ssm" else _dense_layer_defs
-    return {
-        "embedding": L.embedding_defs(cfg),
-        "final_norm": L.rms_norm_defs(cfg.d_model),
-        "layers": stack_defs(layer(cfg), cfg.num_layers),
-    }
+    defs = {"embedding": L.embedding_defs(cfg),
+            "final_norm": L.rms_norm_defs(cfg.d_model)}
+    if cfg.family == "hybrid":
+        ng, tail = hybrid_groups(cfg)
+        defs["groups"] = stack_defs(
+            stack_defs(_mamba_layer_defs(cfg), cfg.attn_every), ng)
+        if tail:
+            defs["tail"] = stack_defs(_mamba_layer_defs(cfg), tail)
+        defs["shared_attn"] = {"ln": L.rms_norm_defs(cfg.d_model),
+                               "attn": attn.attention_defs(cfg)}
+    else:
+        layer = _rwkv_layer_defs if cfg.family == "ssm" else _dense_layer_defs
+        defs["layers"] = stack_defs(layer(cfg), cfg.num_layers)
+    return defs
 
 
 def _module(tree: dict) -> nn.Module:
@@ -101,31 +126,60 @@ def _tree_map(fn, tree):
 
 class TransformerLM(nn.Module):
     """A decoder LM's parameters: ``embedding`` (``embed``, and
-    ``unembed`` unless tied), ``final_norm`` and ``layers[i]`` (dense:
-    ``ln1``, ``attn``, ``ln2``, ``mlp``; RWKV: ``ln1``, ``tm``, ``ln2``),
-    each leaf under the reference's name and layout. Built from
-    ``init_params`` or from the reference's weights
+    ``unembed`` unless tied), ``final_norm``, and ``layers[i]`` (dense:
+    ``ln1``, ``attn``, ``ln2``, ``mlp``; RWKV: ``ln1``, ``tm``, ``ln2``) or,
+    for the hybrid family, ``groups[g][i]`` and ``tail[j]`` (Mamba layers:
+    ``ln``, ``mamba``) with one ``shared_attn`` (``ln``, ``attn``) that
+    heads every group; each leaf under the reference's name and layout.
+    Built from ``init_params`` or from the reference's weights
     (``models/weights.py``)."""
 
     def __init__(self, cfg: ArchConfig, embedding: dict, final_norm: dict,
-                 layers: list[dict]):
+                 layers: Optional[list[dict]] = None, *,
+                 groups: Optional[list[list[dict]]] = None,
+                 tail: Optional[list[dict]] = None,
+                 shared_attn: Optional[dict] = None):
         super().__init__()
         require_ported(cfg)
-        if len(layers) != cfg.num_layers:
-            raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, got "
-                             f"{len(layers)}")
         self.cfg = cfg
         self.embedding = _module(embedding)
         self.final_norm = _module(final_norm)
-        self.layers = nn.ModuleList(_module(p) for p in layers)
+        if cfg.family == "hybrid":
+            ng, nt = hybrid_groups(cfg)
+            tail = tail or []
+            sizes = [len(g) for g in groups or []]
+            if (layers is not None or shared_attn is None
+                    or sizes != [cfg.attn_every] * ng or len(tail) != nt):
+                raise ValueError(
+                    f"{cfg.name} takes {ng} groups of {cfg.attn_every} "
+                    f"layers, a tail of {nt} and shared_attn, got groups "
+                    f"{sizes}, a tail of {len(tail)}")
+            self.groups = nn.ModuleList(
+                nn.ModuleList(_module(p) for p in g) for g in groups)
+            self.tail = nn.ModuleList(_module(p) for p in tail)
+            self.shared_attn = _module(shared_attn)
+        else:
+            if layers is None or len(layers) != cfg.num_layers:
+                raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, "
+                                 f"got {0 if layers is None else len(layers)}")
+            self.layers = nn.ModuleList(_module(p) for p in layers)
 
     @classmethod
     def from_stacked(cls, cfg: ArchConfig, tree: dict) -> "TransformerLM":
         """From a tree shaped like ``model_defs(cfg)``: the stacked layer
-        leaves (leading axis L) are split into per-layer views."""
-        layers = [_tree_map(lambda t, i=i: t[i], tree["layers"])
-                  for i in range(cfg.num_layers)]
-        return cls(cfg, tree["embedding"], tree["final_norm"], layers)
+        leaves (leading axis L; hybrid: ``groups`` (ng, attn_every, ...)
+        and ``tail`` (tail, ...)) are split into per-layer views."""
+        if cfg.family != "hybrid":
+            layers = [_tree_map(lambda t, i=i: t[i], tree["layers"])
+                      for i in range(cfg.num_layers)]
+            return cls(cfg, tree["embedding"], tree["final_norm"], layers)
+        ng, nt = hybrid_groups(cfg)
+        groups = [[_tree_map(lambda t, g=g, i=i: t[g, i], tree["groups"])
+                   for i in range(cfg.attn_every)] for g in range(ng)]
+        tail = [_tree_map(lambda t, j=j: t[j], tree["tail"])
+                for j in range(nt)]
+        return cls(cfg, tree["embedding"], tree["final_norm"], groups=groups,
+                   tail=tail, shared_attn=tree["shared_attn"])
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -164,6 +218,22 @@ def _rwkv_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
         cfg, p["tm"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
+def _hybrid_group_block(cfg: ArchConfig, p_group, shared, x: torch.Tensor,
+                        *, mode: str):
+    """The shared attention block (B3), then the group's Mamba layers."""
+    x = x + attn.attention(cfg, shared["attn"],
+                           L.rms_norm(x, shared["ln"], cfg.norm_eps),
+                           causal=True, mode=mode)
+    for p_i in p_group:
+        x = _mamba_block(cfg, p_i, x, mode=mode)
+    return x
+
+
+def _mamba_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
+    return x + ssm_mod.mamba_apply(
+        cfg, p["mamba"], L.rms_norm(x, p["ln"], cfg.norm_eps), mode=mode)
+
+
 @torch.no_grad()
 def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
             mode: str = "exec", remat: Optional[str] = None
@@ -173,10 +243,17 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
     ``remat`` is accepted for the reference's signature; nothing here keeps
     activations for a backward pass."""
     require_ported(cfg)
-    block = _rwkv_block if cfg.family == "ssm" else _dense_block
     x = L.embed_tokens(cfg, model.embedding, batch["tokens"])
-    for p_l in model.layers:
-        x = block(cfg, p_l, x, mode=mode)
+    if cfg.family == "hybrid":
+        for p_g in model.groups:
+            x = _hybrid_group_block(cfg, p_g, model.shared_attn, x,
+                                    mode=mode)
+        for p_l in model.tail:
+            x = _mamba_block(cfg, p_l, x, mode=mode)
+    else:
+        block = _rwkv_block if cfg.family == "ssm" else _dense_block
+        for p_l in model.layers:
+            x = block(cfg, p_l, x, mode=mode)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = L.lm_logits(cfg, model.embedding, x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -190,25 +267,42 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
                       device=None) -> dict:
     """``{"pos": (batch,) int32, "kv": {"k", "v": (L, batch, len, K, hd)
-    bf16}}`` (dense) or ``{"pos", "rwkv": {"wkv": (L, batch, H, hd, hd)
-    f32, "tm_x", "cm_x": (L, batch, D) bf16}}`` (RWKV, no cache length) on
-    ``device`` (None: the card). Every slot carries its own position
-    stream, so a serving slot can be reset and re-admitted mid-stream
-    without aliasing cache positions across requests."""
+    bf16}}`` (dense), ``{"pos", "rwkv": {"wkv": (L, batch, H, hd, hd)
+    f32, "tm_x", "cm_x": (L, batch, D) bf16}}`` (RWKV, no cache length) or
+    ``{"pos", "mamba": {"ssm": (ng*attn_every, batch, H, hd, N) f32,
+    "conv": (ng*attn_every, batch, K-1, C)}, "mamba_tail": (the same over
+    the tail's layers, if any), "attn": {"k", "v": (ng, batch, len, K,
+    hd) bf16}}`` (hybrid: one cache a group's shared attention; ``conv`` in
+    the model's dtype, as ``models/ssm.py`` says) on ``device`` (None: the
+    card). Every slot carries its own position stream, so a serving slot
+    can be reset and re-admitted mid-stream without aliasing cache
+    positions across requests."""
     require_ported(cfg)
     device = resolve_device(device)
+
+    def rep(per: dict, n: int) -> dict:
+        return {name: buf[None].repeat((n,) + (1,) * buf.dim())
+                for name, buf in per.items()}
+
+    state = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.family == "ssm":
-        per = rwkv_mod.init_rwkv_state(cfg, batch, device=device)
-        key = "rwkv"
+        state["rwkv"] = rep(rwkv_mod.init_rwkv_state(cfg, batch,
+                                                     device=device),
+                            cfg.num_layers)
+    elif cfg.family == "hybrid":
+        ng, tail = hybrid_groups(cfg)
+        m = ssm_mod.init_ssm_state(cfg, batch, device=device)
+        state["mamba"] = rep(m, ng * cfg.attn_every)
+        if tail:
+            state["mamba_tail"] = rep(m, tail)
+        state["attn"] = rep(attn.init_kv_cache(cfg, batch, cache_len,
+                                               device=device), ng)
     else:
-        per = attn.init_kv_cache(cfg, batch, cache_len,
-                                 window=cfg.sliding_window, device=device)
-        key = "kv"
-    return {
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-        key: {name: buf[None].repeat((cfg.num_layers,) + (1,) * buf.dim())
-              for name, buf in per.items()},
-    }
+        state["kv"] = rep(attn.init_kv_cache(cfg, batch, cache_len,
+                                             window=cfg.sliding_window,
+                                             device=device),
+                          cfg.num_layers)
+    return state
 
 
 def reset_decode_slots(cfg: ArchConfig, state: dict, reset_mask) -> dict:
@@ -218,15 +312,17 @@ def reset_decode_slots(cfg: ArchConfig, state: dict, reset_mask) -> dict:
     only exposes cache rows a slot has written since its last reset,
     including the sliding-window ring buffer, whose "fully wrapped" clause
     only unlocks after the new stream has itself written the whole ring.
-    Only ``pos`` changes for the dense family. RWKV carries its history
-    densely in its state, so its three leaves are zeroed in place under the
-    mask (the fresh state of ``init_rwkv_state``). Returns ``state``."""
+    Only ``pos`` changes for the dense family. The recurrent families carry
+    their history densely in their state, so their leaves (RWKV's three;
+    the hybrid's ``ssm`` and ``conv`` in ``mamba`` and ``mamba_tail``, not
+    its KV caches) are zeroed in place under the mask: the fresh state of
+    ``init_rwkv_state`` and ``init_ssm_state``. Returns ``state``."""
     require_ported(cfg)
     pos = state["pos"]
     reset = torch.as_tensor(reset_mask, dtype=torch.bool, device=pos.device)
     state["pos"] = torch.where(reset, torch.zeros_like(pos), pos)
-    if cfg.family == "ssm":
-        for leaf in state["rwkv"].values():
+    for key in ("rwkv", "mamba", "mamba_tail"):
+        for leaf in state.get(key, {}).values():
             # batch is axis 1 of every stacked leaf
             leaf.masked_fill_(reset.view((1, -1) + (1,) * (leaf.dim() - 2)),
                               0)
@@ -262,6 +358,8 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, state: dict,
     x = L.embed_tokens(cfg, model.embedding, tokens[:, None])
     if cfg.family == "ssm":
         x = _rwkv_decode_layers(cfg, model, state["rwkv"], x)
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode_layers(cfg, model, state, pos, x)
     else:
         x = _dense_decode_layers(cfg, model, state["kv"], pos, x)
     state["pos"] = pos + 1
@@ -303,3 +401,31 @@ def _dense_decode_layers(cfg: ArchConfig, model: TransformerLM, kv: dict,
         xn = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(cfg, p_l["mlp"], xn)
     return x
+
+
+def _hybrid_decode_layers(cfg: ArchConfig, model: TransformerLM, state: dict,
+                          pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One token through every hybrid group (the shared attention against
+    the group's own KV cache, then its Mamba layers) and the tail; each
+    Mamba layer's ``ssm`` and ``conv`` leaves are updated in place."""
+    shared, kv = model.shared_attn, state["attn"]
+    for g, p_g in enumerate(model.groups):
+        cache = {"k": kv["k"][g], "v": kv["v"][g]}
+        xn = L.rms_norm(x, shared["ln"], cfg.norm_eps)
+        y, _ = attn.decode_attention(cfg, shared["attn"], xn, cache, pos)
+        x = x + y
+        for i, p_i in enumerate(p_g):
+            x = _mamba_decode(cfg, p_i, state["mamba"],
+                              g * cfg.attn_every + i, x)
+    for j, p_l in enumerate(model.tail):
+        x = _mamba_decode(cfg, p_l, state["mamba_tail"], j, x)
+    return x
+
+
+def _mamba_decode(cfg: ArchConfig, p, leaves: dict, i: int,
+                  x: torch.Tensor) -> torch.Tensor:
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    y, _ = ssm_mod.mamba_decode_step(
+        cfg, p["mamba"], xn, {"ssm": leaves["ssm"][i],
+                              "conv": leaves["conv"][i]})
+    return x + y

@@ -11,14 +11,19 @@ values into the cache.
 
 The tier-1 test runs reduced configs. Run as a script, the file measures
 the gap at one of ``chip_smoke.py``'s model checks (full width, float32,
-4 layers, 2 x 512 tokens) on the CPU and prints one JSON line:
+4 layers, or 7 for zamba2-7b: one group of 6 and a tail of 1; 2 x 512
+tokens) on the CPU and prints one JSON line:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py \
         rwkv6-1.6b
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py \
+        zamba2-7b
 
 llama3.2-3b (the default) needs about 6 GiB of host memory and about 5
-minutes. RWKV's decode keeps ``tm_x`` and ``cm_x`` in bf16 where forward
+minutes. The hybrid's decode reads its shared attention's K and V from the
+bf16 cache, as the dense family's does; its Mamba conv state is held in
+the config's dtype by both packages after their first step. RWKV's decode keeps ``tm_x`` and ``cm_x`` in bf16 where forward
 keeps the token shift in the config's dtype; the reference runs its chunked
 WKV at ``ssm_chunk`` 16 there (8 in the reduced config), where it is finite.
 Random init leaves RWKV's token-shift mixes and bonus at 0, so those bf16
@@ -121,13 +126,15 @@ def measure(arch, layers, seq, small, shifted=False):
             "port_vs_reference_forward": _rel(port_full, ref_full)}
 
 
-@pytest.mark.parametrize("arch,shifted", [
-    *(pytest.param(a, False, id=a)
+@pytest.mark.parametrize("arch,shifted,layers", [
+    *(pytest.param(a, False, 2, id=a)
       for a in ("llama3.2-3b", "stablelm-1.6b", "rwkv6-1.6b")),
     # where decode's bf16 tm_x/cm_x and the bonus reach the logits
-    pytest.param("rwkv6-1.6b", True, id="rwkv6-1.6b-shifted")])
-def test_port_gap_equals_reference_gap(arch, shifted):
-    out = measure(arch, 2, 32, small=True, shifted=shifted)
+    pytest.param("rwkv6-1.6b", True, 2, id="rwkv6-1.6b-shifted"),
+    # two groups of attn_every = 2 and a tail of 1
+    pytest.param("zamba2-7b", False, 5, id="zamba2-7b")])
+def test_port_gap_equals_reference_gap(arch, shifted, layers):
+    out = measure(arch, layers, 32, small=True, shifted=shifted)
     assert out["port_vs_reference_forward"] < 1e-4
     assert abs(out["port_gap"] - out["reference_gap"]) \
         <= 0.05 * out["reference_gap"] + 1e-6
@@ -137,7 +144,8 @@ def test_port_gap_equals_reference_gap(arch, shifted):
 if __name__ == "__main__":
     t0 = time.perf_counter()
     arch = sys.argv[1] if len(sys.argv) > 1 else "llama3.2-3b"
-    out = measure(arch, 4, 512, small=False,
-                  shifted=get_config(arch).family == "ssm")
+    family = get_config(arch).family
+    out = measure(arch, 7 if family == "hybrid" else 4, 512, small=False,
+                  shifted=family == "ssm")
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)

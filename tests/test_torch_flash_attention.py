@@ -61,6 +61,24 @@ def test_bf16_matches_oracle_and_pallas(causal, window):
                                    atol=3e-2, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_head_dim_112_matches_oracle_and_pallas(causal, window, dtype):
+    """zamba2-7b's head dim, which the card's kernels lay out as 128 columns
+    of which 16 are zeros; the plain version computes it as it is."""
+    q, k, v = _qkv((1, 2, 64, 112), 112)
+    out = _port(q, k, v, dtype, causal=causal, window=window)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    qj, kj, vj = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    oracle = jax_attention(qj, kj, vj, causal=causal, window=window)
+    pallas = flash_attention_pallas(qj, kj, vj, causal=causal, window=window,
+                                    block_q=16, block_k=16, interpret=True)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for ref in (oracle, pallas):
+        np.testing.assert_allclose(out, np.asarray(ref.astype(jnp.float32)),
+                                   atol=tol, rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(1, 4, 37, 16), (2, 2, 50, 64),
                                    (1, 1, 333, 16)])
 @pytest.mark.parametrize("causal,window", MASKS)
@@ -118,9 +136,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(args, exc):
 @pytest.mark.parametrize("dtype,head_dim,kernel", [
     (torch.bfloat16, 128, "tensor_core"),  # the dense path's prefill
     (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 112, "tensor_core"),  # zamba2-7b's shared attention
     (torch.bfloat16, 16, "scalar"),        # the reduced configs
     (torch.float32, 128, "scalar"),        # f32 would be TF32 on the cores
     (torch.float32, 64, "scalar"),
+    (torch.float32, 112, "scalar"),
     (torch.float32, 16, "scalar"),
 ])
 def test_dispatch_rule(dtype, head_dim, kernel):

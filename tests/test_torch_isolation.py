@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` imports JAX or the
-JAX package, and its entry points raise without CUDA instead of falling
-back to the CPU."""
+JAX package (``models/ssm.py`` and the hybrid entry points included), and
+its entry points raise without CUDA instead of falling back to the CPU."""
 import ast
 import os
 import subprocess
@@ -92,6 +92,20 @@ raises(lambda: serve("rwkv6-1.6b"), RuntimeError)
 raises(wkv_library, RuntimeError)
 raises(lambda: wkv(*(torch.zeros(1, 2, 4, 16, device="meta"),) * 4,
                    torch.zeros(2, 16, device="meta")), ValueError)
+from repro_torch.models import ssm
+from repro_torch.models.transformer import decode_step, forward
+
+zamba = reduced(get_config("zamba2-7b"))
+raises(lambda: init_params(zamba), RuntimeError)
+raises(lambda: init_decode_state(zamba, 2, 8), RuntimeError)
+raises(lambda: serve("zamba2-7b"), RuntimeError)
+hybrid = init_params(zamba, device="cpu")
+st = init_decode_state(zamba, 2, 8, device="cpu")
+decode_step(zamba, hybrid, st, torch.zeros(2, dtype=torch.int32))
+forward(zamba, hybrid, {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+ssm.init_ssm_state(zamba, 2, device="cpu")
+raises(lambda: flash_attention(*(torch.zeros(1, 2, 16, 112, device="meta"),)
+                               * 3), ValueError)
 print("ISOLATED", len(mods))
 """
 

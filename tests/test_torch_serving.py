@@ -3,15 +3,26 @@
 The scenarios of ``tests/test_slot_stream.py`` (ragged lengths, finish
 reasons, the length cap, placement-epoch attribution, energy correction,
 SLO-aware admission, a mid-run submit) run through both packages on the
-same weights (the reduced llama3.2-3b, and the reduced rwkv6-1.6b, at
+same weights (the reduced llama3.2-3b, rwkv6-1.6b and zamba2-7b, at
 float32, drawn by the reference's ``init_params`` and carried across), under
 both schedulers. The greedy outputs must be token-identical and every field
-of ``EngineStats`` equal.
+of ``EngineStats`` equal. zamba2 runs at 5 layers, two groups and a tail
+(its stock reduced config has no tail).
+
+In bfloat16 the two packages round at other places, so a greedy choice
+between two logits closer than that rounding could part.
+``test_bf16_greedy_tokens_match_reference`` holds greedy decode and the
+ragged scenarios of all three families in bf16 to identical tokens; where a
+run parts, the first parting step must be a bf16 near-tie: every token
+before it identical, both packages' logits within 2e-2 of max |logits|
+there, and the reference's own margin between the two choices within that
+tolerance.
 """
 import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,14 +37,17 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch.serve import serve
 
 
-DENSE, RWKV = "llama3.2-3b", "rwkv6-1.6b"
+DENSE, RWKV, HYBRID = "llama3.2-3b", "rwkv6-1.6b", "zamba2-7b"
+# changes to the reduced config beside the dtype: zamba2 with a tail
+CHANGES = {HYBRID: {"num_layers": 5}}
+BF16_TOL = 2e-2
 
 
 @functools.lru_cache(maxsize=None)
-def _models(arch=DENSE):
-    rcfg = dataclasses.replace(ref_reduced(ref_get_config(arch)),
-                               dtype="float32")
-    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+def _models(arch=DENSE, dtype="float32"):
+    changes = dict(CHANGES.get(arch, {}), dtype=dtype)
+    rcfg = dataclasses.replace(ref_reduced(ref_get_config(arch)), **changes)
+    cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
     params = RM.init_params(rcfg, jax.random.PRNGKey(0))
     model = M.params_from_reference(cfg, jax.tree.map(np.asarray, params),
                                     "cpu")
@@ -41,10 +55,15 @@ def _models(arch=DENSE):
 
 
 def _engine(pkg, arch=DENSE, **kw):
-    cfg, weights = _models(arch)[pkg]
+    """``arch`` names the reduced config, in float32, or is (name, dtype)
+    or (name, dtype, log): then every decode step's tokens and logits are
+    appended to the list ``log``."""
+    name, dtype, *log = (arch, "float32") if isinstance(arch, str) else arch
+    cfg, weights = _models(name, dtype)[pkg]
     if pkg is PR:
         kw["device"] = "cpu"
-    return pkg.ServingEngine(cfg, weights, **kw)
+    eng = pkg.ServingEngine(cfg, weights, **kw)
+    return _logged(eng, log[0]) if log else eng
 
 
 def _ragged(pkg, n=6):
@@ -190,6 +209,111 @@ def test_rwkv_engine_matches_reference(scenario, scheduler):
     assert reqs
 
 
+@pytest.mark.parametrize("scheduler", ["stream", "wave"])
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_hybrid_engine_matches_reference(scenario, scheduler):
+    """The same scenarios on the hybrid family (Mamba state reset at
+    admission, the shared attention's KV caches left alone)."""
+    ref_reqs, ref_stats = _record(*SCENARIOS[scenario](RR, scheduler,
+                                                       HYBRID))
+    reqs, stats = _record(*SCENARIOS[scenario](PR, scheduler, HYBRID))
+    assert reqs == ref_reqs
+    assert stats == ref_stats
+    assert reqs
+
+
+def _host(x, dtype):
+    """A step's tokens or logits as a numpy array, from either package."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32 if dtype == np.float32 else torch.int64
+                    ).numpy()
+    return np.asarray(x).astype(dtype)
+
+
+def _logged(eng, log):
+    """Record (tokens, logits) of every decode step of ``eng``."""
+    step = eng._step
+
+    def logged_step(weights, state, tokens):
+        logits, state = step(weights, state, tokens)
+        log.append((_host(tokens, np.int64), _host(logits, np.float32)))
+        return logits, state
+
+    eng._step = logged_step
+    return eng
+
+
+def _first_parting(ref_log, log):
+    """The first step whose greedy choices part, checked to be a bf16
+    near-tie after identical inputs; None if no step parts."""
+    for t, ((ref_toks, ref), (toks, out)) in enumerate(zip(ref_log, log)):
+        assert np.array_equal(toks, ref_toks), f"inputs part at step {t}"
+        ref_pick, pick = ref.argmax(-1), out.argmax(-1)
+        if np.array_equal(ref_pick, pick):
+            continue
+        scale = np.abs(ref).max()
+        assert np.abs(out - ref).max() <= BF16_TOL * scale, t
+        rows = np.nonzero(ref_pick != pick)[0]
+        margin = ref[rows, ref_pick[rows]] - ref[rows, pick[rows]]
+        assert (margin <= BF16_TOL * scale).all(), (t, margin / scale)
+        return t
+    return None
+
+
+def _greedy(pkg, arch, log, prompt_len=6, new_tokens=16):
+    """Three prompts teacher-forced through ``decode_step``, then greedy
+    decode; returns the generated tokens, (3, new_tokens)."""
+    cfg, weights = _models(arch, "bfloat16")[pkg]
+    prompts = np.random.default_rng(11).integers(
+        1, cfg.vocab_size, (3, prompt_len), dtype=np.int32)
+    if pkg is PR:
+        state = M.init_decode_state(cfg, 3, 32, device="cpu")
+        step = functools.partial(M.decode_step, cfg)
+        tok = torch.from_numpy
+    else:
+        state = RM.init_decode_state(cfg, 3, 32)
+        step = jax.jit(functools.partial(RM.decode_step, cfg))
+        tok = jnp.asarray
+    eng = _logged(type("Steps", (), {"_step": staticmethod(step)})(), log)
+    out = []
+    nxt = prompts[:, 0]
+    for t in range(prompt_len - 1 + new_tokens):
+        logits, state = eng._step(weights, state, tok(nxt))
+        pick = log[-1][1].argmax(-1).astype(np.int32)
+        nxt = prompts[:, t + 1] if t + 1 < prompt_len else pick
+        if t + 1 >= prompt_len:
+            out.append(pick)
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("run", ["greedy", *(
+    f"{scenario}-{scheduler}" for scenario in ("ragged_six", "ragged_five")
+    for scheduler in ("stream", "wave"))])
+@pytest.mark.parametrize("arch", [DENSE, RWKV, HYBRID])
+def test_bf16_greedy_tokens_match_reference(arch, run):
+    """bf16 greedy tokens of both packages on the same weights and prompts:
+    identical, or parted first at a bf16 near-tie (the module docstring)."""
+    logs = {RR: [], PR: []}
+    if run == "greedy":
+        out = {pkg: _greedy(pkg, arch, logs[pkg]) for pkg in (RR, PR)}
+        same = np.array_equal(out[RR], out[PR])
+        stats_same = True
+    else:
+        scenario, scheduler = run.rsplit("-", 1)
+        rec = {}
+        for pkg in (RR, PR):
+            eng, done = SCENARIOS[scenario](pkg, scheduler,
+                                            (arch, "bfloat16", logs[pkg]))
+            assert eng.stats.steps == len(logs[pkg])
+            rec[pkg] = _record(eng, done)
+        same = rec[RR][0] == rec[PR][0]
+        stats_same = rec[RR][1] == rec[PR][1]
+    if same:
+        assert stats_same
+        return
+    assert _first_parting(logs[RR], logs[PR]) is not None
+
+
 @pytest.mark.parametrize("n,slots,max_len", [(5, 2, 24), (8, 3, 32)])
 def test_stream_matches_wave_in_the_port(n, slots, max_len):
     _stream_matches_wave(DENSE, n, slots, max_len)
@@ -197,6 +321,10 @@ def test_stream_matches_wave_in_the_port(n, slots, max_len):
 
 def test_rwkv_stream_matches_wave_in_the_port():
     _stream_matches_wave(RWKV, 8, 3, 32)
+
+
+def test_hybrid_stream_matches_wave_in_the_port():
+    _stream_matches_wave(HYBRID, 8, 3, 32)
 
 
 def _stream_matches_wave(arch, n, slots, max_len):
@@ -247,6 +375,15 @@ def test_serve_on_cpu_completes_every_request():
 @pytest.mark.parametrize("scheduler", ["stream", "wave"])
 def test_serve_rwkv_on_cpu_completes_every_request(scheduler):
     out = serve(RWKV, num_requests=5, slots=2, max_new_tokens=4,
+                scheduler=scheduler, device="cpu")
+    assert out["completed"] == 5 and out["rejected"] == 0
+    assert out["decode_tokens"] == 5 * 3
+    assert all(len(o) == 4 for o in out["outputs"].values())
+
+
+@pytest.mark.parametrize("scheduler", ["stream", "wave"])
+def test_serve_hybrid_on_cpu_completes_every_request(scheduler):
+    out = serve(HYBRID, num_requests=5, slots=2, max_new_tokens=4,
                 scheduler=scheduler, device="cpu")
     assert out["completed"] == 5 and out["rejected"] == 0
     assert out["decode_tokens"] == 5 * 3
