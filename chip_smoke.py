@@ -17,19 +17,27 @@ computes the same function; times each step of B2's and B4's launch paths
 at the decode shape, and counts the cycles of each phase of B4's
 tensor-core kernel. Then:
 
-* slices 2, 3a and 3b, the three LM families the port runs: the dense LM
-  at llama3.2-3b's full width (through B2 and B3 at head dim 128), the
+* slices 2, 3a, 3b and 3c, the four LM families the port runs: the dense
+  LM at llama3.2-3b's full width (through B2 and B3 at head dim 128), the
   RWKV LM at rwkv6-1.6b's (B2 and B4: every forward WKV on B4's
-  tensor-core kernel, every decode WKV on its sequential one) and the
-  hybrid LM at zamba2-7b's (B2 and B3 at head dim 112: Mamba2 blocks as
-  PyTorch ops, a shared attention block heading each group of 6): a
-  float32 check of B3 (B4) inside a model 4 layers deep (zamba2: 7, one
-  group and a tail of 1) against the plain attention (WKV), and of
-  forward against teacher-forced decode, and a bfloat16 one of B3's
-  tensor-core kernel (dense and hybrid); then each main path at full
-  width and depth in bf16 — ``launch.serve.serve``, a ragged run through
+  tensor-core kernel, every decode WKV on its sequential one), the hybrid
+  LM at zamba2-7b's (B2 and B3 at head dim 112: Mamba2 blocks as PyTorch
+  ops, a shared attention block heading each group of 6) and the MoE LM at
+  mixtral-8x7b's (B2 and B3 at head dim 128, GQA 4 and its window of 4096;
+  8 experts, top-2, as PyTorch ops): a float32 check of B3 (B4) inside a
+  model 4 layers deep (zamba2: 7, one group and a tail of 1; mixtral: 2)
+  against the plain attention (WKV), and of forward against teacher-forced
+  decode, and a bfloat16 one of B3's tensor-core kernel (dense, hybrid and
+  MoE; the MoE checks route each compared run as the other did,
+  ``HeldRouting``); then each main path at full width in bf16
+  (llama3.2-3b and rwkv6-1.6b at full depth, zamba2-7b at 27 of its 81
+  layers to fit the run's budget, mixtral-8x7b at 24 of its 32 to fit the
+  card) —
+  ``launch.serve.serve`` (for a cut config, which ``serve`` cannot build,
+  ``ServingEngine`` with ``serve``'s requests), a ragged run through
   ``ServingEngine`` and one forward of 2x2048 tokens, each metered on the
-  GPU's power counter, and then a profiled window of decode steps;
+  GPU's power counter, and then profiled windows of decode steps and of a
+  forward;
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
@@ -47,6 +55,7 @@ the repo beside it, the script fails before it prints a result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import shutil
 import subprocess
@@ -116,6 +125,7 @@ RAGGED = dict(slots=8, max_len=1024, requests=16, prompt=(64, 512),
 PREFILL = (2, 2048)  # batch x tokens of the main path's forward
 RMS_SHAPES = (((8, 1, 3072), "bfloat16"), ((2, 2048, 3072), "bfloat16"),
               ((8, 1, 3584), "bfloat16"), ((2, 2048, 3584), "bfloat16"),
+              ((8, 1, 4096), "bfloat16"), ((2, 2048, 4096), "bfloat16"),
               ((37, 5632), "float32"))
 # (B, H, K, S, D, dtype, causal, window); bf16 at D = 64 and 128 takes the
 # tensor-core kernel, the rest the scalar one. The main path's shape also
@@ -130,6 +140,11 @@ FLASH_SHAPES = ((2, 24, 8, 2048, 128, "bfloat16", True, 0),
                 (2, 32, 32, 2048, 112, "bfloat16", True, 0),
                 (2, 32, 32, 2048, 112, "float32", True, 0),
                 (1, 4, 4, 333, 112, "bfloat16", True, 0),
+                # mixtral-8x7b's attention (GQA 4, window 4096), and a
+                # sequence its window cuts
+                (2, 32, 8, 2048, 128, "bfloat16", True, 4096),
+                (2, 32, 8, 2048, 128, "float32", True, 4096),
+                (1, 32, 8, 6144, 128, "bfloat16", True, 4096),
                 (1, 8, 2, 1000, 64, "bfloat16", True, 256),
                 (1, 8, 2, 1000, 64, "float32", True, 256),
                 (1, 4, 4, 333, 16, "float32", False, 0))
@@ -166,6 +181,33 @@ HYBRID_B3_BF16_RTOL = 4e-2
 # 1.06 of it in zamba2-7b and llama3.2-3b on the card); a dropped or
 # misplaced K/V tile would move them far more.
 B3_BF16_SPREAD_FACTOR = 1.5
+# Depth of zamba2-7b's main path: 4 groups of 6 and its tail of 3, so that
+# B3 and the tail still run; its 81 layers' ragged run alone took 95 s of
+# the run's budget.
+HYBRID_LAYERS = 27
+
+# Slice 3c: the MoE LM path (mixtral-8x7b) through kernels B2 and B3. Its
+# 32 layers are 93.4 GB of bf16 weights, more than the card's 80 GB: the
+# main path runs 24 (70.2 GB), at full width.
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 24
+# Depth of its model checks at full width: the f32 model is ~12.7 GB.
+MOE_CHECK_LAYERS = 2
+# Its forward against teacher-forced decode at capacity factor E/k (no
+# choice drops), as a share of max |logits|, with the routing held
+# (``HeldRouting``): the JAX package gives 1.180e-2 and the port 1.212e-2
+# on the same weights and tokens (mixtral-8x7b in f32 at full width, 2
+# layers, 2 x 512 tokens, on a CPU: tests/test_torch_decode_gap.py
+# mixtral-8x7b, run as a script), over the dense check's 1e-2, so the limit
+# is 2e-2, as RWKV's and the hybrid's. The routing held, 10 (port) and 11
+# (JAX package) decode tokens would have gone to other experts there.
+MOE_DECODE_RTOL = 2e-2
+# B3 (tensor cores) inside the bf16 mixtral-8x7b, routing held, as a share
+# of max |logits|: like zamba2-7b's, this model turns a bf16-sized change of
+# its attention into ~3% of its logits (the plain version with its scores
+# in bf16 or in f32 parts by 3.1e-2 on the card), so the hybrid's 4e-2,
+# beside B3_BF16_SPREAD_FACTOR.
+MOE_B3_BF16_RTOL = 4e-2
 
 # Slice 3a: the RWKV LM path (rwkv6-1.6b) through kernels B2 and B4.
 RWKV_ARCH = "rwkv6-1.6b"
@@ -407,18 +449,92 @@ def host_us(steps: dict) -> dict:
     return us
 
 
-def kernel_vs_plain(cfg, model, tokens, module, attr, plain, baseline=None):
+class HeldRouting:
+    """Holds an MoE model's routing fixed between two runs, as teacher
+    forcing holds the tokens. Inside ``with``, ``models.moe.route`` is
+    patched: while recording, each call's expert ids and router
+    probabilities are kept; after ``hold(forced)``, call i routes to the
+    ids of ``forced(i)`` (a recorded (ids, probs) pair, or a slice of one)
+    with weights from its own probabilities of those experts, normalised
+    as ``route`` does. A random-init MoE at full width sends a token to
+    another expert wherever its router sits at a near-tie that a bf16-sized
+    change of its input crosses, and that token's logits then move by up
+    to their whole size, so the two runs are compared on the same experts.
+    ``stats`` counts the tokens whose own choice differed from the held one
+    and the largest gap between the two runs' router probabilities."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe.route
+        self.record()
+
+    def __enter__(self):
+        self.moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def record(self):
+        self.recorded, self.forced = [], None
+
+    def hold(self, forced):
+        self.forced, self.calls = forced, 0
+        self.flipped = self.tokens = 0
+        self.prob_gap = 0.0
+
+    def stats(self) -> dict:
+        return {"held_calls": self.calls, "tokens_routed_otherwise":
+                self.flipped, "tokens": self.tokens,
+                "max_router_prob_gap": self.prob_gap}
+
+    def _route(self, cfg, p, x):
+        import torch
+
+        w, ids, aux = self.route(cfg, p, x)
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        if self.forced is None:
+            self.recorded.append((ids, probs))
+            return w, ids, aux
+        held, held_probs = self.forced(self.calls)
+        self.calls += 1
+        same = (ids.sort(-1).values == held.sort(-1).values).all(-1)
+        self.flipped += int((~same).sum())
+        self.tokens += same.numel()
+        self.prob_gap = max(self.prob_gap,
+                            float((probs - held_probs).abs().max()))
+        w = probs.gather(-1, held)
+        w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+        return w.to(x.dtype), held, aux
+
+
+def held_routing(cfg):
+    """A ``HeldRouting`` for an MoE config, a context that does nothing for
+    the others (``routing`` is then None)."""
+    import contextlib
+
+    return HeldRouting() if cfg.num_experts else contextlib.nullcontext()
+
+
+def kernel_vs_plain(cfg, model, tokens, module, attr, plain, baseline=None,
+                    routing=None):
     """The forward's logits through the kernel (or, if given, with
     ``module.attr`` patched to ``baseline``), and their distance from the
     same forward with ``module.attr`` patched to ``plain``, as a share of
-    the plain forward's max |logits|."""
+    the plain forward's max |logits|. With ``routing`` (a ``HeldRouting``),
+    the second forward routes as the first did."""
     from repro_torch import models as M
 
     kernel_fn = getattr(module, attr)
     setattr(module, attr, baseline or kernel_fn)
     try:
+        if routing is not None:
+            routing.record()
         full, _ = M.forward(cfg, model, {"tokens": tokens})
         setattr(module, attr, plain)
+        if routing is not None:
+            routing.hold(routing.recorded.__getitem__)
         plain_logits, _ = M.forward(cfg, model, {"tokens": tokens})
     finally:
         setattr(module, attr, kernel_fn)
@@ -775,10 +891,18 @@ class Smoke:
                                                 / o32.abs().max()))
                 del o32, bound, dev
             del o, ref
-            # one library call computes this function only without a window
-            sdpa = None if window else (
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True))
+            # the library call: causal, or with the window's mask where the
+            # window cuts the sequence
+            mask = None
+            if window and window < s:
+                i = torch.arange(s, device="cuda")
+                mask = ((i[None, :] <= i[:, None])
+                        & (i[None, :] > i[:, None] - window))
+            sdpa = functools.partial(
+                F.scaled_dot_product_attention, q, k, v, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+            row["library_call"] = ("SDPA, causal" if mask is None
+                                   else "SDPA, boolean window mask")
             row.update(timed_pair(
                 lambda: flash_attention_cuda(q, k, v, causal=causal,
                                              window=window),
@@ -788,8 +912,8 @@ class Smoke:
                 b, h, kh, s, d, q.element_size(), causal, window)
             emit({"phase": "kernel", "kernel": "flash_attention", **row,
                   "card": self.card})
-            rows[("flash_attention", (s, d, dt))] = row
-            del q, k, v
+            rows[("flash_attention", (b, h, kh, s, d, dt, window))] = row
+            del q, k, v, mask, sdpa
             torch.cuda.empty_cache()
 
         # the kernels line: the main path's shapes (prefill; decode beside)
@@ -811,34 +935,46 @@ class Smoke:
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         # B2 at llama3.2-3b's width (prefill; decode beside), and at
-        # zamba2-7b's
+        # zamba2-7b's and mixtral-8x7b's
         self.kernels["rms_norm"] = entry(
             "rms_norm", "src/repro_torch/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm/kernel.py:17",
             rows[("rms_norm", (2, 2048, 3072))],
             rows[("rms_norm", (8, 1, 3072))])
-        self.kernels["rms_norm"]["d3584"] = {
-            **{k: rows[("rms_norm", (2, 2048, 3584))][k] for k in keys},
-            **{f"decode_{k}": rows[("rms_norm", (8, 1, 3584))][k]
-               for k in ("shape", "ms", "plain_ms", "bound_ms",
-                         "library_ms")}}
+        for width in (3584, 4096):
+            self.kernels["rms_norm"][f"d{width}"] = {
+                **{k: rows[("rms_norm", (2, 2048, width))][k] for k in keys},
+                **{f"decode_{k}": rows[("rms_norm", (8, 1, width))][k]
+                   for k in ("shape", "ms", "plain_ms", "bound_ms",
+                             "library_ms")}}
+
         # B3: the tensor-core kernel at the dense path's shape, the scalar
         # kernel's time at the same shape in f32 beside it; then both at
-        # the hybrid path's head dim 112
+        # the hybrid path's head dim 112 and the MoE path's shape, and the
+        # tensor-core kernel where mixtral's window cuts the sequence
+        def b3(b, h, kh, s, d, window, scalar=True):
+            tc = rows[("flash_attention",
+                       (b, h, kh, s, d, "bfloat16", window))]
+            out = {**{k: tc[k] for k in keys}, "kv_heads": kh,
+                   "window": window, "kernel": "tensor_core",
+                   "max_abs_err": tc["max_abs_err"],
+                   "err_vs_f32_over_bound": tc["err_vs_f32_over_bound"]}
+            if scalar:
+                f32 = rows[("flash_attention",
+                            (b, h, kh, s, d, "float32", window))]
+                out["scalar_f32"] = {k: f32[k] for k in keys}
+            return out
+
         self.kernels["flash_attention"] = entry(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:23",
-            rows[("flash_attention", (2048, 128, "bfloat16"))])
-        scalar = rows[("flash_attention", (2048, 128, "float32"))]
-        tc112 = rows[("flash_attention", (2048, 112, "bfloat16"))]
-        scalar112 = rows[("flash_attention", (2048, 112, "float32"))]
+            rows[("flash_attention", (2, 24, 8, 2048, 128, "bfloat16", 0))])
+        dense = b3(2, 24, 8, 2048, 128, 0)
         self.kernels["flash_attention"].update(
-            kernel="tensor_core",
-            scalar_f32={k: scalar[k] for k in keys},
-            d112={**{k: tc112[k] for k in keys}, "kernel": "tensor_core",
-                  "max_abs_err": tc112["max_abs_err"],
-                  "err_vs_f32_over_bound": tc112["err_vs_f32_over_bound"],
-                  "scalar_f32": {k: scalar112[k] for k in keys}})
+            kernel="tensor_core", scalar_f32=dense["scalar_f32"],
+            d112=b3(2, 32, 32, 2048, 112, 0),
+            mixtral=b3(2, 32, 8, 2048, 128, 4096),
+            window_cuts=b3(1, 32, 8, 6144, 128, 4096, scalar=False))
 
     # -- phase 4b: where a B2 launch's host time goes at decode -----------
     def rms_host_path(self):
@@ -1083,11 +1219,15 @@ class Smoke:
 
     # -- phase 6: the LMs at full width, f32 -----------------------------
     def model_check(self, arch, module, attr, plain, kernel, kernel_rtol,
-                    decode_rtol, prepare=None, layers=CHECK_LAYERS):
-        """The f32 model at full width, ``layers`` deep: forward through
-        ``kernel`` against the same forward with ``module.attr`` patched to
-        its plain version, and forward against teacher-forced decode.
-        ``prepare`` (if given) changes the random weights in place first."""
+                    decode_rtol, prepare=None, layers=CHECK_LAYERS,
+                    **changes):
+        """The f32 model at full width, ``layers`` deep (``changes`` to the
+        config beside): forward through ``kernel`` against the same forward
+        with ``module.attr`` patched to its plain version, and forward
+        against teacher-forced decode, as shares of max |logits|. An MoE
+        model holds its routing (``HeldRouting``): the plain forward and
+        every decode step route as the kernel's forward did. ``prepare``
+        (if given) changes the random weights in place first."""
         import dataclasses
 
         import numpy as np
@@ -1096,7 +1236,7 @@ class Smoke:
         from repro_torch.configs import get_config
 
         cfg = dataclasses.replace(get_config(arch), dtype="float32",
-                                  num_layers=layers)
+                                  num_layers=layers, **changes)
         t0 = time.perf_counter()
         generator = torch.Generator(device="cuda")
         generator.manual_seed(0)
@@ -1105,12 +1245,28 @@ class Smoke:
             prepare(cfg, model)
         tokens = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, CHECK_SEQ), dtype=np.int32)).cuda()
-        full, k_rel = kernel_vs_plain(cfg, model, tokens, module, attr, plain)
-        st = M.init_decode_state(cfg, 2, CHECK_SEQ, device="cuda")
-        worst = torch.zeros((), device="cuda")
-        for t in range(CHECK_SEQ):
-            logits, st = M.decode_step(cfg, model, st, tokens[:, t])
-            worst = torch.maximum(worst, (logits - full[:, t]).abs().max())
+        held = {}
+        with held_routing(cfg) as routing:
+            full, k_rel = kernel_vs_plain(cfg, model, tokens, module, attr,
+                                          plain, routing=routing)
+            if routing is not None:
+                held["plain"] = routing.stats()
+                fwd = routing.recorded
+
+                def as_forward(i):
+                    # decode step t, layer l routes as the forward's token t
+                    t = i // layers
+                    return tuple(r[:, t:t + 1] for r in fwd[i % layers])
+
+                routing.hold(as_forward)
+            st = M.init_decode_state(cfg, 2, CHECK_SEQ, device="cuda")
+            worst = torch.zeros((), device="cuda")
+            for t in range(CHECK_SEQ):
+                logits, st = M.decode_step(cfg, model, st, tokens[:, t])
+                worst = torch.maximum(worst,
+                                      (logits - full[:, t]).abs().max())
+            if routing is not None:
+                held["decode"] = routing.stats()
         rel = float(worst) / float(full.abs().max())
         finite = bool(torch.isfinite(full).all())
         self.check(finite, f"{arch} model check: forward logits not finite")
@@ -1119,12 +1275,12 @@ class Smoke:
         self.check(rel < decode_rtol, f"{arch} model check: forward vs "
                                       f"decode {rel} >= {decode_rtol}")
         emit({"phase": "model_check", "arch": arch, "dtype": "float32",
-              "layers": layers, "d_model": cfg.d_model,
+              "layers": layers, "d_model": cfg.d_model, "changes": changes,
               "batch": 2, "tokens": CHECK_SEQ, "kernel": kernel,
               "kernel_vs_plain_over_max_logits": k_rel,
               "kernel_limit": kernel_rtol,
               "decode_vs_forward_over_max_logits": rel,
-              "decode_limit": decode_rtol,
+              "decode_limit": decode_rtol, "held_routing": held,
               "seconds": time.perf_counter() - t0, "card": self.card})
         del model, full, st
         torch.cuda.empty_cache()
@@ -1147,7 +1303,8 @@ class Smoke:
         2 x CHECK_SEQ tokens, against the same forward through the plain
         attention, to ``limit``; beside it, how far the plain attention
         moves the logits when it keeps its scores in f32 on the same bf16
-        operands, the model's own sensitivity to bf16 rounding there."""
+        operands, the model's own sensitivity to bf16 rounding there. An
+        MoE model holds its routing in each pair (``HeldRouting``)."""
         import dataclasses
 
         import numpy as np
@@ -1165,16 +1322,24 @@ class Smoke:
         model = M.init_params(cfg, generator)
         tokens = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, CHECK_SEQ), dtype=np.int32)).cuda()
-        n_tc = flash_attention_cuda.launches_tc
-        full, k_rel = kernel_vs_plain(
-            cfg, model, tokens, attn_mod, "flash_attention",
-            lambda q, k, v, **kw: attention_ref(q, k, v, **kw))
-        n_tc = flash_attention_cuda.launches_tc - n_tc
-        _, spread = kernel_vs_plain(
-            cfg, model, tokens, attn_mod, "flash_attention",
-            lambda q, k, v, **kw: attention_ref(q.float(), k.float(),
-                                                v.float(), **kw).to(q.dtype),
-            baseline=lambda q, k, v, **kw: attention_ref(q, k, v, **kw))
+        held = {}
+        with held_routing(cfg) as routing:
+            n_tc = flash_attention_cuda.launches_tc
+            full, k_rel = kernel_vs_plain(
+                cfg, model, tokens, attn_mod, "flash_attention",
+                lambda q, k, v, **kw: attention_ref(q, k, v, **kw),
+                routing=routing)
+            n_tc = flash_attention_cuda.launches_tc - n_tc
+            if routing is not None:
+                held["kernel_vs_plain"] = routing.stats()
+            _, spread = kernel_vs_plain(
+                cfg, model, tokens, attn_mod, "flash_attention",
+                lambda q, k, v, **kw: attention_ref(
+                    q.float(), k.float(), v.float(), **kw).to(q.dtype),
+                baseline=lambda q, k, v, **kw: attention_ref(q, k, v, **kw),
+                routing=routing)
+            if routing is not None:
+                held["plain_bf16_vs_f32"] = routing.stats()
         self.check(bool(torch.isfinite(full).all()),
                    f"{arch} bf16 model check: logits not finite")
         self.check(n_tc == attn_blocks, f"{arch} bf16 model check: {n_tc} "
@@ -1192,6 +1357,7 @@ class Smoke:
               "kernel_vs_plain_over_max_logits": k_rel,
               "kernel_limit": limit,
               "plain_bf16_vs_f32_over_max_logits": spread,
+              "held_routing": held,
               "seconds": time.perf_counter() - t0, "card": self.card})
         del model, full
         torch.cuda.empty_cache()
@@ -1245,6 +1411,35 @@ class Smoke:
                                   num_layers=HYBRID_CHECK_LAYERS)
         self.bf16_model_check(HYBRID_ARCH, HYBRID_CHECK_LAYERS,
                               hybrid_groups(cfg)[0], HYBRID_B3_BF16_RTOL)
+
+    def moe_model_check(self):
+        """B3 (the scalar kernel, f32) inside the f32 mixtral-8x7b at full
+        width, MOE_CHECK_LAYERS deep, and forward against teacher-forced
+        decode at capacity factor E/k, where the forward drops no choice
+        (decode never drops one)."""
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.flash_attention import (
+            attention_ref, flash_attention_cuda)
+        from repro_torch.models import attention as attn_mod
+
+        cfg = get_config(MOE_ARCH)
+        n = flash_attention_cuda.launches
+        n_tc = flash_attention_cuda.launches_tc
+        self.model_check(MOE_ARCH, attn_mod, "flash_attention",
+                         lambda q, k, v, **kw: attention_ref(q, k, v, **kw),
+                         "flash_attention", MODEL_B3_RTOL, MOE_DECODE_RTOL,
+                         layers=MOE_CHECK_LAYERS,
+                         capacity_factor=cfg.num_experts
+                         / cfg.experts_per_token)
+        n = flash_attention_cuda.launches - n
+        n_tc = flash_attention_cuda.launches_tc - n_tc
+        self.check(n == MOE_CHECK_LAYERS and n_tc == 0,
+                   f"{MOE_ARCH} model check: {n} B3 launches, {n_tc} on "
+                   "tensor cores")
+
+    def moe_bf16_model_check(self):
+        self.bf16_model_check(MOE_ARCH, MOE_CHECK_LAYERS, MOE_CHECK_LAYERS,
+                              MOE_B3_BF16_RTOL)
 
     def profile_decode(self, cfg, model, steps: int = 10):
         """Where a decode step's time goes: ``steps`` steps at the ragged
@@ -1323,19 +1518,23 @@ class Smoke:
               "card": self.card})
 
     # -- phase 7: the LM main paths, full width and depth, bf16 ----------
-    def lm_main_path(self, arch, per_step: dict, per_forward: dict):
-        """``serve()``, the ragged run and one forward of ``arch`` at full
-        width and depth, each metered; ``per_step`` and ``per_forward`` are
-        the launches of each LM kernel a decode step and a forward. The
-        counts are set to 0 before the path and read after it."""
+    def lm_main_path(self, cfg, per_step: dict, per_forward: dict):
+        """``serve()``, the ragged run and one forward of ``cfg`` at full
+        width, each metered; ``per_step`` and ``per_forward`` are the
+        launches of each LM kernel a decode step and a forward. A config
+        cut from its published one, which ``serve()`` cannot build, serves
+        ``serve()``'s requests through ``ServingEngine`` on the path's
+        model. The counts are set to 0 before the path and read after it;
+        the path's peak device memory is read after the forward."""
         import numpy as np
         import torch
         from repro_torch import models as M
         from repro_torch.configs import get_config
-        from repro_torch.launch.serve import serve
+        from repro_torch.launch.serve import _requests, serve
         from repro_torch.runtime import Request, ServingEngine
 
-        cfg = get_config(arch)
+        arch = cfg.name
+        entry = "serve" if cfg == get_config(arch) else "engine"
 
         def since(before):
             return {k: n - before[k] for k, n in lm_launches().items()}
@@ -1343,14 +1542,39 @@ class Smoke:
         def want(per, times):
             return {k: n * times for k, n in per.items()}
 
+        def engine_serve():
+            # serve()'s engine and requests, on this path's model
+            engine = ServingEngine(cfg, model, slots=4, max_len=64)
+            for r in _requests(8, 32):
+                engine.submit(r)
+            t0 = time.time()
+            done = engine.run()
+            torch.cuda.synchronize()
+            wall, st = time.time() - t0, engine.stats
+            return {"completed": len(done), "steps": st.steps,
+                    "occupancy": st.occupancy,
+                    "decode_tokens": st.decode_tokens,
+                    "total_tokens": st.total_tokens, "wall_s": wall,
+                    "tokens_per_s": st.decode_tokens / wall,
+                    "energy_note": "no placement epoch, as serve()"}
+
+        torch.cuda.reset_peak_memory_stats()
         reset_all_launches()
+        t0 = time.perf_counter()
+        generator = torch.Generator(device="cuda")
+        generator.manual_seed(0)
+        model = M.init_params(cfg, generator)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
         # 1. the serve entry point
         before = lm_launches()
-        out, secs, ws, samples = metered(lambda: serve(
-            arch, use_reduced=False, num_requests=8, slots=4,
-            max_new_tokens=32))
+        out, secs, ws, samples = metered(
+            (lambda: serve(arch, use_reduced=False, num_requests=8, slots=4,
+                           max_new_tokens=32)) if entry == "serve"
+            else engine_serve)
         n = since(before)
-        emit({"phase": "serve", "arch": arch, "full": True,
+        emit({"phase": "serve", "arch": arch, "entry": entry,
+              "layers": cfg.num_layers, "full": True, "init_s": init_s,
               "requests": 8, "slots": 4, "max_new_tokens": 32,
               "seconds": secs, "wall_s": out["wall_s"],
               "completed": out["completed"], "steps": out["steps"],
@@ -1371,9 +1595,6 @@ class Smoke:
                    f"want {per_step} a step")
 
         # 2. a ragged run through the engine
-        generator = torch.Generator(device="cuda")
-        generator.manual_seed(0)
-        model = M.init_params(cfg, generator)
         rng = np.random.default_rng(RAGGED["seed"])
         lo, hi = RAGGED["prompt"]
         reqs = [Request(rid=i, prompt=rng.integers(
@@ -1398,9 +1619,9 @@ class Smoke:
         done, secs, ws, samples = metered(engine.run)
         n = since(before)
         st = engine.stats
-        emit({"phase": "ragged", "arch": arch, **RAGGED,
-              "seconds": secs, "completed": len(done), "steps": st.steps,
-              "occupancy": st.occupancy,
+        emit({"phase": "ragged", "arch": arch, "layers": cfg.num_layers,
+              **RAGGED, "seconds": secs, "completed": len(done),
+              "steps": st.steps, "occupancy": st.occupancy,
               "prefill_tokens": st.prefill_tokens,
               "decode_tokens": st.decode_tokens,
               "tokens_per_s": st.total_tokens / secs,
@@ -1421,18 +1642,24 @@ class Smoke:
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, PREFILL,
                                                dtype=np.int32)).cuda()
         before = lm_launches()
-        (logits, _), secs, ws, samples = metered(
+        (logits, aux), secs, ws, samples = metered(
             lambda: M.forward(cfg, model, {"tokens": tokens}))
         n = since(before)
         ntok = PREFILL[0] * PREFILL[1]
-        emit({"phase": "forward", "arch": arch, "batch": PREFILL[0],
-              "tokens": PREFILL[1], "seconds": secs,
+        emit({"phase": "forward", "arch": arch, "layers": cfg.num_layers,
+              "batch": PREFILL[0], "tokens": PREFILL[1], "seconds": secs,
               "tokens_per_s": ntok / secs, "metered_gpu_ws": ws,
               "trace_samples": samples, "j_per_token": ws / ntok,
-              "launches": n, "card": self.card})
+              "aux": float(aux), "launches": n,
+              "path_max_memory_allocated_bytes":
+                  torch.cuda.max_memory_allocated(),
+              "card": self.card})
         self.check(tuple(logits.shape) == PREFILL + (cfg.padded_vocab(),)
                    and bool(torch.isfinite(logits).all()),
                    f"{arch} forward: logits not finite or of the wrong shape")
+        self.check(bool(torch.isfinite(aux)) and (float(aux) > 0)
+                   == bool(cfg.num_experts),
+                   f"{arch} forward: aux loss {float(aux)}")
         self.check(n == per_forward, f"{arch} forward: launches {n}, want "
                                      f"{per_forward}")
 
@@ -1446,40 +1673,55 @@ class Smoke:
         del model, engine
         torch.cuda.empty_cache()
 
+    def attention_main_path(self, cfg):
+        """The dense and MoE paths: ln1 and ln2 a layer and the final norm;
+        B3 once a layer in the forward, on the tensor cores, since decode
+        attention is PyTorch ops."""
+        n = cfg.num_layers
+        per = {"rms_norm": 2 * n + 1, "flash_attention": 0,
+               "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+        self.lm_main_path(cfg, per, {**per, "flash_attention": n,
+                                     "flash_attention_tc": n})
+
     def dense_main_path(self):
         from repro_torch.configs import get_config
 
-        n = get_config(ARCH).num_layers
-        # ln1 and ln2 a layer and the final norm; B3 in the forward only,
-        # since decode attention is PyTorch ops
-        self.lm_main_path(
-            ARCH, {"rms_norm": 2 * n + 1, "flash_attention": 0,
-                   "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0},
-            {"rms_norm": 2 * n + 1, "flash_attention": n,
-             "flash_attention_tc": n, "wkv": 0, "wkv_tc": 0})
+        self.attention_main_path(get_config(ARCH))
+
+    def moe_main_path(self):
+        import dataclasses
+
+        from repro_torch.configs import get_config
+
+        self.attention_main_path(dataclasses.replace(get_config(MOE_ARCH),
+                                                     num_layers=MOE_LAYERS))
 
     def rwkv_main_path(self):
         from repro_torch.configs import get_config
 
-        n = get_config(RWKV_ARCH).num_layers
+        cfg = get_config(RWKV_ARCH)
+        n = cfg.num_layers
         # every decode step's WKVs on the sequential kernel, every one of
         # the forward's on the tensor-core kernel
         per = {"rms_norm": 2 * n + 1, "flash_attention": 0,
                "flash_attention_tc": 0, "wkv": n, "wkv_tc": 0}
-        self.lm_main_path(RWKV_ARCH, per, {**per, "wkv_tc": n})
+        self.lm_main_path(cfg, per, {**per, "wkv_tc": n})
 
     def hybrid_main_path(self):
+        import dataclasses
+
         from repro_torch.configs import get_config
         from repro_torch.models.transformer import hybrid_groups
 
-        cfg = get_config(HYBRID_ARCH)
+        cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                                  num_layers=HYBRID_LAYERS)
         groups, _ = hybrid_groups(cfg)
         # the shared attention's ln a group, each Mamba layer's ln and the
         # final norm; B3 once a group in the forward, on the tensor cores,
         # since decode attention is PyTorch ops
         per = {"rms_norm": groups + cfg.num_layers + 1, "flash_attention": 0,
                "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
-        self.lm_main_path(HYBRID_ARCH, per,
+        self.lm_main_path(cfg, per,
                           {**per, "flash_attention": groups,
                            "flash_attention_tc": groups})
 
@@ -1526,8 +1768,9 @@ def main() -> int:
                   smoke.dense_model_check,
                   smoke.dense_bf16_model_check, smoke.rwkv_model_check,
                   smoke.hybrid_model_check, smoke.hybrid_bf16_model_check,
+                  smoke.moe_model_check, smoke.moe_bf16_model_check,
                   smoke.dense_main_path, smoke.rwkv_main_path,
-                  smoke.hybrid_main_path,
+                  smoke.hybrid_main_path, smoke.moe_main_path,
                   smoke.lm_kernel_launches, smoke.main_path):
         try:
             phase()

@@ -6,8 +6,11 @@ Counterpart of the JAX package's ``launch/serve.py`` for one engine.
 ``--full`` serves the published config (``python -m repro_torch.launch.serve
 --full`` serves llama3.2-3b at full width and depth on the card, ``--arch
 rwkv6-1.6b --full`` rwkv6-1.6b, ``--arch zamba2-7b --full`` zamba2-7b);
-without it the reduced config is served. The weights are random, drawn
-from a generator seeded 0 on the device.
+without it the reduced config is served, as ``--arch mixtral-8x7b`` and
+``--arch grok-1-314b`` serve the MoE family's on the card. Their published
+configs do not fit one card: ``--full`` would need 93.4 GB of bf16 weights
+for mixtral-8x7b and 633 GB for grok-1-314b, where an H100 holds 80 GB.
+The weights are random, drawn from a generator seeded 0 on the device.
 
 No placement epoch is applied: ``static_placements`` (``runtime/
 placement.py``, the LM cost model and the destination catalog) waits for

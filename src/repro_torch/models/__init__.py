@@ -1,6 +1,7 @@
-"""The port's LMs (dense, RWKV and hybrid families): parameters, forward
-(prefill) and decode."""
+"""The port's LMs (dense, MoE, RWKV and hybrid families): parameters,
+forward (prefill) and decode."""
 from repro_torch.models.inputs import batch_structure, synthetic_batch
+from repro_torch.models import moe
 from repro_torch.models.transformer import (
     TransformerLM,
     decode_step,
@@ -20,6 +21,7 @@ __all__ = [
     "init_decode_state",
     "init_params",
     "model_defs",
+    "moe",
     "params_from_reference",
     "reset_decode_slots",
     "synthetic_batch",

@@ -1,15 +1,16 @@
-"""Model assembly, dense, RWKV and hybrid families: a decoder-only LM over
-per-layer blocks.
+"""Model assembly, dense, MoE, RWKV and hybrid families: a decoder-only LM
+over per-layer blocks.
 
-Counterpart of the dense, RWKV (``family == "ssm"``) and hybrid (Mamba2
-blocks with one shared attention block heading each group of
-``attn_every``, as in zamba2) branches of the JAX package's
-``models/transformer.py``. The parameters live in a :class:`TransformerLM`
-(an ``nn.Module``) under the reference's names and layouts (``wq`` stays
-``(d, h, hd)``), with the reference's stacked layer axes split per layer:
-one entry of ``layers`` a layer (dense, RWKV), or ``groups[g][i]`` and
-``tail[j]`` (hybrid). The module-level functions keep the reference's
-public signatures, with the module in the place of ``params``.
+Counterpart of the dense, MoE (the dense block with ``moe_apply`` in place
+of the MLP), RWKV (``family == "ssm"``) and hybrid (Mamba2 blocks with one
+shared attention block heading each group of ``attn_every``, as in zamba2)
+branches of the JAX package's ``models/transformer.py``. The parameters
+live in a :class:`TransformerLM` (an ``nn.Module``) under the reference's
+names and layouts (``wq`` stays ``(d, h, hd)``), with the reference's
+stacked layer axes split per layer: one entry of ``layers`` a layer
+(dense, MoE, RWKV), or ``groups[g][i]`` and ``tail[j]`` (hybrid). The
+module-level functions keep the reference's public signatures, with the
+module in the place of ``params``.
 
 Public surface:
     model_defs(cfg)                   -> PDef tree (single source of truth)
@@ -19,13 +20,13 @@ Public surface:
     decode_step(cfg, model, state, tokens)   -> (logits, state) [serve]
 
 The decode state is updated in place: ``decode_step`` writes each layer's
-new K/V rows into the stacked cache (dense, and each hybrid group's shared
-attention), or its WKV state, ``tm_x`` and ``cm_x`` (RWKV), or its Mamba
-``ssm`` and ``conv`` leaves (hybrid) into the stacked recurrent leaves,
-replaces ``state["pos"]``, and returns the same dict. MoE, enc-dec and VLM
-configs raise ``NotImplementedError``: they wait for the rest of slice 3
-of the port, with ``extract_decode_slot``/``restore_decode_slot``
-(migration).
+new K/V rows into the stacked cache (dense, MoE, and each hybrid group's
+shared attention), or its WKV state, ``tm_x`` and ``cm_x`` (RWKV), or its
+Mamba ``ssm`` and ``conv`` leaves (hybrid) into the stacked recurrent
+leaves, replaces ``state["pos"]``, and returns the same dict. Enc-dec and
+VLM configs raise ``NotImplementedError``: they wait for slice 3d of the
+port, and ``extract_decode_slot``/``restore_decode_slot`` (migration) for
+slice 3e.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.parallel.sharding import init_from_defs, stack_defs
@@ -46,13 +48,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """The dense, RWKV and hybrid families are ported; the others raise."""
-    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.num_experts
+    """The dense, MoE, RWKV and hybrid families are ported; the others
+    raise."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
             or cfg.is_encdec or cfg.frontend != "none"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense, RWKV and hybrid "
-            "families are ported; MoE, enc-dec and VLM wait for the rest "
-            "of slice 3")
+            f"{cfg.name} ({cfg.family}): only the dense, MoE, RWKV and "
+            "hybrid families are ported; enc-dec and VLM wait for slice 3d")
 
 
 # ---------------------------------------------------------------------------
@@ -62,12 +64,16 @@ def require_ported(cfg: ArchConfig) -> None:
 
 def _dense_layer_defs(cfg: ArchConfig) -> dict:
     d = cfg.d_model
-    return {
+    defs = {
         "ln1": L.rms_norm_defs(d),
         "attn": attn.attention_defs(cfg),
         "ln2": L.rms_norm_defs(d),
-        "mlp": L.mlp_defs(cfg),
     }
+    if cfg.num_experts:
+        defs["moe"] = moe_mod.moe_defs(cfg)
+    else:
+        defs["mlp"] = L.mlp_defs(cfg)
+    return defs
 
 
 def _rwkv_layer_defs(cfg: ArchConfig) -> dict:
@@ -127,10 +133,11 @@ def _tree_map(fn, tree):
 class TransformerLM(nn.Module):
     """A decoder LM's parameters: ``embedding`` (``embed``, and
     ``unembed`` unless tied), ``final_norm``, and ``layers[i]`` (dense:
-    ``ln1``, ``attn``, ``ln2``, ``mlp``; RWKV: ``ln1``, ``tm``, ``ln2``) or,
-    for the hybrid family, ``groups[g][i]`` and ``tail[j]`` (Mamba layers:
-    ``ln``, ``mamba``) with one ``shared_attn`` (``ln``, ``attn``) that
-    heads every group; each leaf under the reference's name and layout.
+    ``ln1``, ``attn``, ``ln2``, ``mlp``; MoE: ``moe`` in place of ``mlp``;
+    RWKV: ``ln1``, ``tm``, ``ln2``) or, for the hybrid family,
+    ``groups[g][i]`` and ``tail[j]`` (Mamba layers: ``ln``, ``mamba``) with
+    one ``shared_attn`` (``ln``, ``attn``) that heads every group; each
+    leaf under the reference's name and layout.
     Built from ``init_params`` or from the reference's weights
     (``models/weights.py``)."""
 
@@ -203,19 +210,28 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(cfg: ArchConfig, p, xn: torch.Tensor):
+    """The dense block's second half: (MoE or MLP output, aux loss or
+    None)."""
+    if cfg.num_experts:
+        return moe_mod.moe_apply(cfg, p["moe"], xn)
+    return L.mlp_apply(cfg, p["mlp"], xn), None
+
+
 def _dense_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
+    """Returns (x, the MoE aux loss or None)."""
     h = attn.attention(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                        causal=True, window=cfg.sliding_window, mode=mode)
     x = x + h
-    xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(cfg, p["mlp"], xn)
+    h2, aux = _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + h2, aux
 
 
 def _rwkv_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
     x = x + rwkv_mod.rwkv_time_mix(
         cfg, p["tm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode)
     return x + rwkv_mod.rwkv_channel_mix(
-        cfg, p["tm"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+        cfg, p["tm"], L.rms_norm(x, p["ln2"], cfg.norm_eps)), None
 
 
 def _hybrid_group_block(cfg: ArchConfig, p_group, shared, x: torch.Tensor,
@@ -239,11 +255,13 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
             mode: str = "exec", remat: Optional[str] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits, aux): logits (B, S, padded vocab) in the model's
-    dtype, aux the reference's MoE auxiliary loss, 0 for these families.
-    ``remat`` is accepted for the reference's signature; nothing here keeps
-    activations for a backward pass."""
+    dtype, aux the reference's MoE auxiliary loss, an f32 scalar: the sum
+    of the MoE layers' losses, 0 for the other families. ``remat`` is
+    accepted for the reference's signature; nothing here keeps activations
+    for a backward pass."""
     require_ported(cfg)
     x = L.embed_tokens(cfg, model.embedding, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for p_g in model.groups:
             x = _hybrid_group_block(cfg, p_g, model.shared_attn, x,
@@ -253,10 +271,12 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
     else:
         block = _rwkv_block if cfg.family == "ssm" else _dense_block
         for p_l in model.layers:
-            x = block(cfg, p_l, x, mode=mode)
+            x, a = block(cfg, p_l, x, mode=mode)
+            if a is not None:
+                aux = aux + a
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = L.lm_logits(cfg, model.embedding, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +287,8 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
                       device=None) -> dict:
     """``{"pos": (batch,) int32, "kv": {"k", "v": (L, batch, len, K, hd)
-    bf16}}`` (dense), ``{"pos", "rwkv": {"wkv": (L, batch, H, hd, hd)
+    bf16}}`` (dense and MoE; ``len`` at most the sliding window, a ring
+    buffer then), ``{"pos", "rwkv": {"wkv": (L, batch, H, hd, hd)
     f32, "tm_x", "cm_x": (L, batch, D) bf16}}`` (RWKV, no cache length) or
     ``{"pos", "mamba": {"ssm": (ng*attn_every, batch, H, hd, N) f32,
     "conv": (ng*attn_every, batch, K-1, C)}, "mamba_tail": (the same over
@@ -390,16 +411,16 @@ def _rwkv_decode_layers(cfg: ArchConfig, model: TransformerLM, rw: dict,
 
 def _dense_decode_layers(cfg: ArchConfig, model: TransformerLM, kv: dict,
                          pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """One token through every dense layer; each layer's new K/V rows are
-    written into its cache."""
+    """One token through every dense (or MoE) layer; each layer's new K/V
+    rows are written into its cache. The MoE aux loss is dropped, as the
+    reference drops it in decode."""
     for i, p_l in enumerate(model.layers):
         cache = {"k": kv["k"][i], "v": kv["v"][i]}
         xn = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
         y, _ = attn.decode_attention(cfg, p_l["attn"], xn, cache, pos,
                                      window=cfg.sliding_window)
         x = x + y
-        xn = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(cfg, p_l["mlp"], xn)
+        x = x + _ffn(cfg, p_l, L.rms_norm(x, p_l["ln2"], cfg.norm_eps))[0]
     return x
 
 

@@ -185,15 +185,17 @@ def test_params_from_reference_checks_names_and_shapes():
                                   "seamless-m4t-medium",
                                   "llava-next-mistral-7b"])
 def test_other_families_wait_for_slice_3(arch):
-    """MoE, enc-dec and VLM wait for the rest of slice 3 and raise; the
-    hybrid family (zamba2-7b) came with slice 3b and builds."""
+    """Enc-dec and VLM wait for the rest of slice 3 and raise; the hybrid
+    family (zamba2-7b) came with slice 3b and MoE (mixtral-8x7b) with
+    slice 3c, and both build."""
     cfg = reduced(get_config(arch))
-    if cfg.family == "hybrid":
+    state_keys = {"hybrid": {"pos", "mamba", "attn"}, "moe": {"pos", "kv"}}
+    if cfg.family in state_keys:
         model = M.init_params(cfg, device="cpu")
         assert sum(p.numel() for p in model.parameters()) \
             == cfg.param_count()
-        assert set(M.init_decode_state(cfg, 2, 8, device="cpu")) == {
-            "pos", "mamba", "attn"}
+        assert set(M.init_decode_state(cfg, 2, 8, device="cpu")) \
+            == state_keys[cfg.family]
         return
     with pytest.raises(NotImplementedError, match="slice 3"):
         M.init_params(cfg, device="cpu")

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` imports JAX or the
-JAX package (``models/ssm.py`` and the hybrid entry points included), and
-its entry points raise without CUDA instead of falling back to the CPU."""
+JAX package (``models/ssm.py``, ``models/moe.py`` and the hybrid and MoE
+entry points included), and its entry points raise without CUDA instead of
+falling back to the CPU."""
 import ast
 import os
 import subprocess
@@ -106,6 +107,17 @@ forward(zamba, hybrid, {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
 ssm.init_ssm_state(zamba, 2, device="cpu")
 raises(lambda: flash_attention(*(torch.zeros(1, 2, 16, 112, device="meta"),)
                                * 3), ValueError)
+from repro_torch.models import moe
+
+mixtral = reduced(get_config("mixtral-8x7b"))
+raises(lambda: init_params(mixtral), RuntimeError)
+raises(lambda: init_decode_state(mixtral, 2, 8), RuntimeError)
+raises(lambda: serve("mixtral-8x7b"), RuntimeError)
+moe_lm = init_params(mixtral, device="cpu")
+st = init_decode_state(mixtral, 2, 8, device="cpu")
+decode_step(mixtral, moe_lm, st, torch.zeros(2, dtype=torch.int32))
+forward(mixtral, moe_lm, {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+moe.moe_apply(mixtral, moe_lm.layers[0]["moe"], torch.zeros(1, 4, 64))
 print("ISOLATED", len(mods))
 """
 

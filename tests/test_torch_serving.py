@@ -3,20 +3,25 @@
 The scenarios of ``tests/test_slot_stream.py`` (ragged lengths, finish
 reasons, the length cap, placement-epoch attribution, energy correction,
 SLO-aware admission, a mid-run submit) run through both packages on the
-same weights (the reduced llama3.2-3b, rwkv6-1.6b and zamba2-7b, at
-float32, drawn by the reference's ``init_params`` and carried across), under
-both schedulers. The greedy outputs must be token-identical and every field
-of ``EngineStats`` equal. zamba2 runs at 5 layers, two groups and a tail
+same weights (the reduced llama3.2-3b, rwkv6-1.6b, zamba2-7b and
+mixtral-8x7b, at float32, drawn by the reference's ``init_params`` and
+carried across), under both schedulers. The greedy outputs must be
+token-identical and every field of ``EngineStats`` equal. zamba2 runs at 5 layers, two groups and a tail
 (its stock reduced config has no tail).
 
 In bfloat16 the two packages round at other places, so a greedy choice
 between two logits closer than that rounding could part.
 ``test_bf16_greedy_tokens_match_reference`` holds greedy decode and the
-ragged scenarios of all three families in bf16 to identical tokens; where a
+ragged scenarios of all four families in bf16 to identical tokens; where a
 run parts, the first parting step must be a bf16 near-tie: every token
 before it identical, both packages' logits within 2e-2 of max |logits|
 there, and the reference's own margin between the two choices within that
-tolerance.
+tolerance. An MoE router turns a bf16 rounding at a near-tie into another
+expert for one token, and that token's logits then part by more than the
+tolerance: for mixtral-8x7b, logits may part first at a step where some
+layer of a parting row chose other experts in the two packages, the first
+such choice a bf16 near-tie of the reference's router probabilities, within
+the same tolerance of its largest.
 """
 import dataclasses
 import functools
@@ -31,13 +36,16 @@ from repro import models as RM
 from repro import runtime as RR
 from repro.configs import get_config as ref_get_config
 from repro.configs import reduced as ref_reduced
+from repro.models import moe as ref_moe
 from repro_torch import models as M
 from repro_torch import runtime as PR
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch.serve import serve
+from repro_torch.models import moe as port_moe
 
 
-DENSE, RWKV, HYBRID = "llama3.2-3b", "rwkv6-1.6b", "zamba2-7b"
+DENSE, RWKV, HYBRID, MOE = ("llama3.2-3b", "rwkv6-1.6b", "zamba2-7b",
+                             "mixtral-8x7b")
 # changes to the reduced config beside the dtype: zamba2 with a tail
 CHANGES = {HYBRID: {"num_layers": 5}}
 BF16_TOL = 2e-2
@@ -222,6 +230,18 @@ def test_hybrid_engine_matches_reference(scenario, scheduler):
     assert reqs
 
 
+@pytest.mark.parametrize("scheduler", ["stream", "wave"])
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_moe_engine_matches_reference(scenario, scheduler):
+    """The same scenarios on the MoE family: each slot's token routes to
+    its experts within its own row, whatever the other slots hold."""
+    ref_reqs, ref_stats = _record(*SCENARIOS[scenario](RR, scheduler, MOE))
+    reqs, stats = _record(*SCENARIOS[scenario](PR, scheduler, MOE))
+    assert reqs == ref_reqs
+    assert stats == ref_stats
+    assert reqs
+
+
 def _host(x, dtype):
     """A step's tokens or logits as a numpy array, from either package."""
     if isinstance(x, torch.Tensor):
@@ -243,21 +263,72 @@ def _logged(eng, log):
     return eng
 
 
-def _first_parting(ref_log, log):
+def _first_parting(ref_log, log, routes=None):
     """The first step whose greedy choices part, checked to be a bf16
-    near-tie after identical inputs; None if no step parts."""
+    near-tie after identical inputs; None if no step parts. With ``routes``
+    (an MoE's router choices, ``_log_routes``), the first step whose logits
+    part beyond the tolerance may instead follow a router near-tie."""
     for t, ((ref_toks, ref), (toks, out)) in enumerate(zip(ref_log, log)):
         assert np.array_equal(toks, ref_toks), f"inputs part at step {t}"
         ref_pick, pick = ref.argmax(-1), out.argmax(-1)
+        scale = np.abs(ref).max()
+        apart = np.abs(out - ref).max(-1) > BF16_TOL * scale
+        if routes is not None and apart.any():
+            layers = len(routes[RR]) // len(ref_log)
+            _router_near_tie(routes, layers, t, np.nonzero(apart)[0])
+            return t
         if np.array_equal(ref_pick, pick):
             continue
-        scale = np.abs(ref).max()
         assert np.abs(out - ref).max() <= BF16_TOL * scale, t
         rows = np.nonzero(ref_pick != pick)[0]
         margin = ref[rows, ref_pick[rows]] - ref[rows, pick[rows]]
         assert (margin <= BF16_TOL * scale).all(), (t, margin / scale)
         return t
     return None
+
+
+def _log_routes(monkeypatch, routes):
+    """Record (expert ids, router probabilities) of every ``route`` call in
+    both packages, in order: one a layer a decode step."""
+    ref_route, port_route = ref_moe.route, port_moe.route
+
+    def ref_logged(cfg, p, x):
+        w, ids, aux = ref_route(cfg, p, x)
+        probs = jax.nn.softmax(x.astype(jnp.float32) @ p["router"], -1)
+        jax.debug.callback(lambda i, pr: routes[RR].append(
+            (np.asarray(i), np.asarray(pr))), ids, probs, ordered=True)
+        return w, ids, aux
+
+    def port_logged(cfg, p, x):
+        w, ids, aux = port_route(cfg, p, x)
+        probs = torch.softmax(x.float() @ p["router"], -1)
+        routes[PR].append((ids.numpy(), probs.numpy()))
+        return w, ids, aux
+
+    monkeypatch.setattr(ref_moe, "route", ref_logged)
+    monkeypatch.setattr(port_moe, "route", port_logged)
+
+
+def _router_near_tie(routes, layers, step, rows):
+    """Some layer of each of ``rows`` chose other experts in the two
+    packages at or before ``step``; the first such choice a near-tie of the
+    reference's router: the probability of each expert only it chose
+    exceeds that of each expert only the port chose by at most BF16_TOL of
+    its largest."""
+    for row in rows:
+        for i in range((step + 1) * layers):
+            (ref_ids, probs), (ids, _) = routes[RR][i], routes[PR][i]
+            ref_set, port_set = set(ref_ids[row, 0]), set(ids[row, 0])
+            if ref_set == port_set:
+                continue
+            p = probs[row, 0]
+            margin = (min(p[e] for e in ref_set - port_set)
+                      - max(p[e] for e in port_set - ref_set))
+            assert 0 <= margin <= BF16_TOL * p.max(), (step, row, i, margin)
+            break
+        else:
+            raise AssertionError(f"logits of row {row} part at step {step} "
+                                 "with no router choice parted")
 
 
 def _greedy(pkg, arch, log, prompt_len=6, new_tokens=16):
@@ -289,11 +360,15 @@ def _greedy(pkg, arch, log, prompt_len=6, new_tokens=16):
 @pytest.mark.parametrize("run", ["greedy", *(
     f"{scenario}-{scheduler}" for scenario in ("ragged_six", "ragged_five")
     for scheduler in ("stream", "wave"))])
-@pytest.mark.parametrize("arch", [DENSE, RWKV, HYBRID])
-def test_bf16_greedy_tokens_match_reference(arch, run):
+@pytest.mark.parametrize("arch", [DENSE, RWKV, HYBRID, MOE])
+def test_bf16_greedy_tokens_match_reference(arch, run, monkeypatch):
     """bf16 greedy tokens of both packages on the same weights and prompts:
     identical, or parted first at a bf16 near-tie (the module docstring)."""
     logs = {RR: [], PR: []}
+    routes = None
+    if arch == MOE:
+        routes = {RR: [], PR: []}
+        _log_routes(monkeypatch, routes)
     if run == "greedy":
         out = {pkg: _greedy(pkg, arch, logs[pkg]) for pkg in (RR, PR)}
         same = np.array_equal(out[RR], out[PR])
@@ -308,10 +383,13 @@ def test_bf16_greedy_tokens_match_reference(arch, run):
             rec[pkg] = _record(eng, done)
         same = rec[RR][0] == rec[PR][0]
         stats_same = rec[RR][1] == rec[PR][1]
+    if routes is not None:
+        layers = _models(arch, "bfloat16")[PR][0].num_layers
+        assert len(routes[RR]) == len(routes[PR]) == layers * len(logs[RR])
     if same:
         assert stats_same
         return
-    assert _first_parting(logs[RR], logs[PR]) is not None
+    assert _first_parting(logs[RR], logs[PR], routes) is not None
 
 
 @pytest.mark.parametrize("n,slots,max_len", [(5, 2, 24), (8, 3, 32)])
@@ -325,6 +403,10 @@ def test_rwkv_stream_matches_wave_in_the_port():
 
 def test_hybrid_stream_matches_wave_in_the_port():
     _stream_matches_wave(HYBRID, 8, 3, 32)
+
+
+def test_moe_stream_matches_wave_in_the_port():
+    _stream_matches_wave(MOE, 8, 3, 32)
 
 
 def _stream_matches_wave(arch, n, slots, max_len):
@@ -384,6 +466,15 @@ def test_serve_rwkv_on_cpu_completes_every_request(scheduler):
 @pytest.mark.parametrize("scheduler", ["stream", "wave"])
 def test_serve_hybrid_on_cpu_completes_every_request(scheduler):
     out = serve(HYBRID, num_requests=5, slots=2, max_new_tokens=4,
+                scheduler=scheduler, device="cpu")
+    assert out["completed"] == 5 and out["rejected"] == 0
+    assert out["decode_tokens"] == 5 * 3
+    assert all(len(o) == 4 for o in out["outputs"].values())
+
+
+@pytest.mark.parametrize("scheduler", ["stream", "wave"])
+def test_serve_moe_on_cpu_completes_every_request(scheduler):
+    out = serve(MOE, num_requests=5, slots=2, max_new_tokens=4,
                 scheduler=scheduler, device="cpu")
     assert out["completed"] == 5 and out["rejected"] == 0
     assert out["decode_tokens"] == 5 * 3
