@@ -9,10 +9,11 @@ is built and loaded by ``kernels/_build.py`` without ``--fmad=false``.
 ``kernel_for`` chooses the kernel from dtype and head dim: bfloat16 at head
 dims 64, 112 and 128 takes the tensor-core kernel (wgmma, TMA), everything
 else (float32, head dim 16) the scalar f32 kernel. The choice is made
-before the launch and never after a failure. Of the three LM families the
-port runs, two attend: the dense one (llama3.2-3b, head dim 128) and the
-hybrid one (zamba2-7b's shared attention, head dim 112); RWKV has no
-attention, and the reduced configs use head dim 16.
+before the launch and never after a failure. Every LM family the port
+runs attends through it but RWKV: at head dim 128 (llama3.2-3b,
+mixtral-8x7b, llava-next-mistral-7b), 112 (zamba2-7b's shared attention)
+and 64 (seamless-m4t-medium, causal in its decoder and unmasked in its
+encoder); the reduced configs use head dim 16.
 
 Unlike the Pallas wrapper, this one takes any sequence length (the kernels
 mask the ragged edge) and K/V with fewer heads than q (GQA: the kernels

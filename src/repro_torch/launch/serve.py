@@ -5,8 +5,12 @@ on one card.
 Counterpart of the JAX package's ``launch/serve.py`` for one engine.
 ``--full`` serves the published config (``python -m repro_torch.launch.serve
 --full`` serves llama3.2-3b at full width and depth on the card, ``--arch
-rwkv6-1.6b --full`` rwkv6-1.6b, ``--arch zamba2-7b --full`` zamba2-7b);
-without it the reduced config is served, as ``--arch mixtral-8x7b`` and
+rwkv6-1.6b --full`` rwkv6-1.6b, ``--arch zamba2-7b --full`` zamba2-7b,
+``--arch seamless-m4t-medium --full`` the enc-dec seamless-m4t-medium and
+``--arch llava-next-mistral-7b --full`` the VLM llava-next-mistral-7b;
+requests are tokens only, as in the reference, so the enc-dec decoder
+attends to a zero memory and the VLM takes no patches); without it the
+reduced config is served, as ``--arch mixtral-8x7b`` and
 ``--arch grok-1-314b`` serve the MoE family's on the card. Their published
 configs do not fit one card: ``--full`` would need 93.4 GB of bf16 weights
 for mixtral-8x7b and 633 GB for grok-1-314b, where an H100 holds 80 GB.

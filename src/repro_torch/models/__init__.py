@@ -1,9 +1,10 @@
-"""The port's LMs (dense, MoE, RWKV and hybrid families): parameters,
-forward (prefill) and decode."""
+"""The port's LMs (dense, MoE, RWKV, hybrid, enc-dec and VLM families):
+parameters, forward (prefill) and decode."""
 from repro_torch.models.inputs import batch_structure, synthetic_batch
 from repro_torch.models import moe
 from repro_torch.models.transformer import (
     TransformerLM,
+    decode_state_cache_keys,
     decode_step,
     forward,
     init_decode_state,
@@ -16,6 +17,7 @@ from repro_torch.models.weights import params_from_reference
 __all__ = [
     "TransformerLM",
     "batch_structure",
+    "decode_state_cache_keys",
     "decode_step",
     "forward",
     "init_decode_state",

@@ -1,14 +1,19 @@
-"""Attention: GQA/MQA/MHA, RoPE, sliding window; full-sequence attention
-through kernel B3 and single-token decode against a KV cache.
+"""Attention: GQA/MQA/MHA, RoPE, sliding window; full-sequence
+self-attention through kernel B3, cross-attention, and single-token decode
+against a KV cache or a fixed memory.
 
 Counterpart of the JAX package's ``models/attention.py``. Its ``attention()``
 runs the einsum ``_sdpa`` over query chunks (``mode="exec"``, a scan, or
-``"probe"``, unrolled); here both modes are one call of the flash kernel,
-which skips fully-masked KV tiles and reads each K/V head for its H/K query
-heads itself, so nothing repeats K/V. ``decode_attention`` stays PyTorch
-ops, as the reference computes it with einsums outside any kernel, and it
-writes the new K/V rows into the cache in place. Cross-attention (``kv_x``,
-``kv_memory``) waits for the enc-dec slice.
+``"probe"``, unrolled); here self-attention in both modes is one call of
+the flash kernel, which skips fully-masked KV tiles and reads each K/V head
+for its H/K query heads itself, so nothing repeats K/V. Cross-attention
+(``kv_x``: queries from ``x``, keys and values from the encoder's memory,
+whose length may differ, no rope, no mask) and ``decode_attention`` stay
+PyTorch ops, as the reference computes them with einsums outside any
+kernel (B3 takes q and k/v of one length); both group the query heads over
+the K/V heads rather than repeat K/V. ``decode_attention`` writes the new
+K/V rows into the cache in place, or reads a fixed memory (``kv_memory``)
+and writes nothing.
 """
 from __future__ import annotations
 
@@ -21,9 +26,6 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models.layers import apply_rope
 from repro_torch.parallel.sharding import PDef
-
-_CROSS = "cross-attention waits for the enc-dec slice (slice 3) of the port"
-
 
 def attention_defs(cfg: ArchConfig, cross: bool = False) -> dict:
     d, h, k, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -80,8 +82,29 @@ def _promote(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
     return torch.promote_types(a.dtype, b.dtype)
 
 
+def _grouped_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's ``_sdpa`` with each K/V head serving its H/K query
+    heads in place of ``_repeat_kv``: q (B, S, H, hd), k and v (B, T, K,
+    hd), ``mask`` None or (B, T). The scores are the einsum in the
+    operands' (promoted) dtype, then cast to f32 and scaled, as the
+    reference's einsum rounds bf16 scores before its cast; softmax in f32,
+    the probabilities cast to v's dtype. Returns (B, S, H, hd)."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, s, kh, h // kh, hd)
+    dt = _promote(qg, k)
+    scores = torch.einsum("bqkgd,btkd->bkgqt", qg.to(dt),
+                          k.to(dt)).float() * hd ** -0.5
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqt,btkd->bqkgd", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
 # ---------------------------------------------------------------------------
-# Full-sequence attention (train / prefill): kernel B3
+# Full-sequence attention (train / prefill): kernel B3 for self-attention
 # ---------------------------------------------------------------------------
 
 def attention(
@@ -96,13 +119,19 @@ def attention(
     mode: str = "exec",
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Self-attention over full sequences through the flash kernel (causal
-    with an optional window, or full). ``mode`` is accepted for the
-    reference's signature; both of its modes are the same kernel call."""
-    if kv_x is not None:
-        raise NotImplementedError(_CROSS)
+    """Self-attention (``kv_x`` None) over full sequences through the flash
+    kernel (causal with an optional window, or full), or cross-attention
+    over ``kv_x`` (B, T, D) as PyTorch ops, with no rope and no mask.
+    ``mode`` is accepted for the reference's signature; both of its modes
+    compute the same function."""
     s = x.shape[1]
     q = _project_q(cfg, p, x)
+    if kv_x is not None:
+        if causal:
+            raise ValueError("cross-attention takes no causal mask")
+        k, v = _project_kv(cfg, p, kv_x)
+        out = _grouped_sdpa(q, k, v, mask=None)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
     k, v = _project_kv(cfg, p, x)
     if rope:
         pos = (positions if positions is not None
@@ -152,18 +181,33 @@ def decode_attention(
     (index assignment at slot ``pos``, or ``pos % length`` in a
     sliding-window ring buffer), so the returned cache is the one passed in:
     the reference's functional ``.at[].set`` under a donated jit buffer.
+    With ``kv_memory`` (k, v: (B, T, K, hd), an encoder's memory), the
+    query attends to it unmasked and ``cache`` is returned untouched.
     """
-    if kv_memory is not None:
-        raise NotImplementedError(_CROSS)
     b = x.shape[0]
-    hd = cfg.resolved_head_dim
-    scale = hd ** -0.5
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
 
     q = _project_q(cfg, p, x)
-    k_new, v_new = _project_kv(cfg, p, x)
     if rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    if kv_memory is not None:  # cross-attention: a fixed memory
+        k, v = kv_memory
+        mask = None
+    else:
+        k, v, mask = _write_cache(cfg, p, x, cache, pos, window=window,
+                                  rope=rope)
+    out = _grouped_sdpa(q, k, v, mask=mask)
+    dt = _promote(out, p["wo"])
+    return torch.einsum("bshk,hkd->bsd", out.to(dt), p["wo"].to(dt)), cache
+
+
+def _write_cache(cfg: ArchConfig, p, x: torch.Tensor, cache: dict,
+                 pos: torch.Tensor, *, window: int, rope: bool):
+    """Write x's new K/V rows into ``cache`` in place; returns the cache's
+    k, v and the (B, length) mask of the rows each slot may see."""
+    b = x.shape[0]
+    k_new, v_new = _project_kv(cfg, p, x)
+    if rope:
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     k, v = cache["k"], cache["v"]
     length = k.shape[1]
@@ -185,17 +229,4 @@ def decode_attention(
         # stream restarted at 0 can only see cache entries they have
         # (re)written since the reset.
         mask = idx[None, :] <= pos[:, None]
-
-    # grouped GQA: no repeated copy of the cache
-    kh = k.shape[2]
-    g = cfg.num_heads // kh
-    qg = q.reshape(b, q.shape[1], kh, g, hd)
-    dt = _promote(qg, k)
-    scores = torch.einsum("bqkgd,btkd->bkgqt", qg.to(dt),
-                          k.to(dt)).float() * scale
-    scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqt,btkd->bqkgd", probs, v)
-    out = out.reshape(b, q.shape[1], cfg.num_heads, hd)
-    dt = _promote(out, p["wo"])
-    return torch.einsum("bshk,hkd->bsd", out.to(dt), p["wo"].to(dt)), cache
+    return k, v, mask

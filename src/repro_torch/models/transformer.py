@@ -1,16 +1,21 @@
-"""Model assembly, dense, MoE, RWKV and hybrid families: a decoder-only LM
-over per-layer blocks.
+"""Model assembly, every family of ``configs/archs.py``: an LM over
+per-layer blocks, with an encoder for the enc-dec family.
 
-Counterpart of the dense, MoE (the dense block with ``moe_apply`` in place
-of the MLP), RWKV (``family == "ssm"``) and hybrid (Mamba2 blocks with one
-shared attention block heading each group of ``attn_every``, as in zamba2)
-branches of the JAX package's ``models/transformer.py``. The parameters
-live in a :class:`TransformerLM` (an ``nn.Module``) under the reference's
-names and layouts (``wq`` stays ``(d, h, hd)``), with the reference's
-stacked layer axes split per layer: one entry of ``layers`` a layer
-(dense, MoE, RWKV), or ``groups[g][i]`` and ``tail[j]`` (hybrid). The
-module-level functions keep the reference's public signatures, with the
-module in the place of ``params``.
+Counterpart of the JAX package's ``models/transformer.py``: its dense, MoE
+(the dense block with ``moe_apply`` in place of the MLP), RWKV (``family ==
+"ssm"``), hybrid (Mamba2 blocks with one shared attention block heading
+each group of ``attn_every``, as in zamba2), enc-dec (``is_encdec``:
+stubbed audio frames through ``frontend.proj`` into an unmasked encoder,
+then decoder blocks with cross-attention over its memory, as in
+seamless-m4t) and VLM (the dense block, with stubbed patch embeddings
+through ``frontend.proj`` and ``frontend.ln`` put in front of the tokens,
+as in llava) branches. The parameters live in a :class:`TransformerLM`
+(an ``nn.Module``) under the reference's names and layouts (``wq`` stays
+``(d, h, hd)``), with the reference's stacked layer axes split per layer:
+one entry of ``layers`` a layer (dense, MoE, RWKV, VLM, and the enc-dec
+decoder), of ``encoder`` an encoder layer, or ``groups[g][i]`` and
+``tail[j]`` (hybrid). The module-level functions keep the reference's
+public signatures, with the module in the place of ``params``.
 
 Public surface:
     model_defs(cfg)                   -> PDef tree (single source of truth)
@@ -20,13 +25,15 @@ Public surface:
     decode_step(cfg, model, state, tokens)   -> (logits, state) [serve]
 
 The decode state is updated in place: ``decode_step`` writes each layer's
-new K/V rows into the stacked cache (dense, MoE, and each hybrid group's
-shared attention), or its WKV state, ``tm_x`` and ``cm_x`` (RWKV), or its
-Mamba ``ssm`` and ``conv`` leaves (hybrid) into the stacked recurrent
-leaves, replaces ``state["pos"]``, and returns the same dict. Enc-dec and
-VLM configs raise ``NotImplementedError``: they wait for slice 3d of the
-port, and ``extract_decode_slot``/``restore_decode_slot`` (migration) for
-slice 3e.
+new K/V rows into the stacked cache (dense, MoE, VLM, the enc-dec
+decoder's self-attention, and each hybrid group's shared attention), or
+its WKV state, ``tm_x`` and ``cm_x`` (RWKV), or its Mamba ``ssm`` and
+``conv`` leaves (hybrid) into the stacked recurrent leaves, replaces
+``state["pos"]``, and returns the same dict. Decode takes tokens only, as
+in the reference: no patches, and the enc-dec decoder attends to the
+state's ``cross_k``/``cross_v``, which nothing but ``reset_decode_slots``
+writes (zeros, as the reference leaves them). ``extract_decode_slot`` and
+``restore_decode_slot`` (migration) wait for slice 3e.
 """
 from __future__ import annotations
 
@@ -42,19 +49,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.parallel.sharding import init_from_defs, stack_defs
+from repro_torch.parallel.sharding import PDef, init_from_defs, stack_defs
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def require_ported(cfg: ArchConfig) -> None:
-    """The dense, MoE, RWKV and hybrid families are ported; the others
-    raise."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.is_encdec or cfg.frontend != "none"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense, MoE, RWKV and "
-            "hybrid families are ported; enc-dec and VLM wait for slice 3d")
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +87,22 @@ def _mamba_layer_defs(cfg: ArchConfig) -> dict:
             "mamba": ssm_mod.mamba_defs(cfg)}
 
 
+def _encoder_layer_defs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": L.rms_norm_defs(cfg.d_model),
+        "attn": attn.attention_defs(cfg),
+        "ln2": L.rms_norm_defs(cfg.d_model),
+        "mlp": L.mlp_defs(cfg),
+    }
+
+
+def _decoder_xattn_layer_defs(cfg: ArchConfig) -> dict:
+    defs = _encoder_layer_defs(cfg)
+    defs["ln_x"] = L.rms_norm_defs(cfg.d_model)
+    defs["xattn"] = attn.attention_defs(cfg, cross=True)
+    return defs
+
+
 def hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
     """(num_groups, tail): zamba's shared attention block heads each group
     of ``attn_every`` Mamba layers; the ``tail`` layers after the last
@@ -99,7 +112,6 @@ def hybrid_groups(cfg: ArchConfig) -> tuple[int, int]:
 
 
 def model_defs(cfg: ArchConfig) -> dict:
-    require_ported(cfg)
     defs = {"embedding": L.embedding_defs(cfg),
             "final_norm": L.rms_norm_defs(cfg.d_model)}
     if cfg.family == "hybrid":
@@ -110,18 +122,32 @@ def model_defs(cfg: ArchConfig) -> dict:
             defs["tail"] = stack_defs(_mamba_layer_defs(cfg), tail)
         defs["shared_attn"] = {"ln": L.rms_norm_defs(cfg.d_model),
                                "attn": attn.attention_defs(cfg)}
-    else:
+    elif cfg.is_encdec:
+        defs["encoder"] = stack_defs(_encoder_layer_defs(cfg),
+                                     cfg.encoder_layers)
+        defs["enc_norm"] = L.rms_norm_defs(cfg.d_model)
+        defs["layers"] = stack_defs(_decoder_xattn_layer_defs(cfg),
+                                    cfg.num_layers)
+    else:  # dense, MoE, VLM, RWKV
         layer = _rwkv_layer_defs if cfg.family == "ssm" else _dense_layer_defs
         defs["layers"] = stack_defs(layer(cfg), cfg.num_layers)
+    if cfg.frontend != "none":  # audio: proj; vision: proj and ln
+        d = cfg.d_model
+        defs["frontend"] = {"proj": PDef((d, d), ("fsdp", "embed"))}
+        if cfg.frontend == "vision":
+            defs["frontend"]["ln"] = L.rms_norm_defs(d)
     return defs
 
 
 def _module(tree: dict) -> nn.Module:
-    """Nested dicts of tensors -> ModuleDicts over ParameterDicts."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                                 for k, v in tree.items()})
-    return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
+    """Nested dicts of tensors -> ModuleDicts over ParameterDicts (a
+    ParameterDict where a level holds a tensor, its dicts inside it)."""
+    if not any(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
+    return nn.ParameterDict({
+        k: nn.Parameter(v, requires_grad=False)
+        if isinstance(v, torch.Tensor) else _module(v)
+        for k, v in tree.items()})
 
 
 def _tree_map(fn, tree):
@@ -131,13 +157,16 @@ def _tree_map(fn, tree):
 
 
 class TransformerLM(nn.Module):
-    """A decoder LM's parameters: ``embedding`` (``embed``, and
-    ``unembed`` unless tied), ``final_norm``, and ``layers[i]`` (dense:
-    ``ln1``, ``attn``, ``ln2``, ``mlp``; MoE: ``moe`` in place of ``mlp``;
-    RWKV: ``ln1``, ``tm``, ``ln2``) or, for the hybrid family,
-    ``groups[g][i]`` and ``tail[j]`` (Mamba layers: ``ln``, ``mamba``) with
-    one ``shared_attn`` (``ln``, ``attn``) that heads every group; each
-    leaf under the reference's name and layout.
+    """An LM's parameters: ``embedding`` (``embed``, and ``unembed`` unless
+    tied), ``final_norm``, and ``layers[i]`` (dense and VLM: ``ln1``,
+    ``attn``, ``ln2``, ``mlp``; MoE: ``moe`` in place of ``mlp``; RWKV:
+    ``ln1``, ``tm``, ``ln2``; the enc-dec decoder: the dense layer's and
+    ``ln_x``, ``xattn``) or, for the hybrid family, ``groups[g][i]`` and
+    ``tail[j]`` (Mamba layers: ``ln``, ``mamba``) with one ``shared_attn``
+    (``ln``, ``attn``) that heads every group. The enc-dec family also has
+    ``encoder[j]`` (``ln1``, ``attn``, ``ln2``, ``mlp``) and ``enc_norm``;
+    a config with a frontend has ``frontend`` (``proj``, and ``ln`` for
+    vision). Each leaf under the reference's name and layout.
     Built from ``init_params`` or from the reference's weights
     (``models/weights.py``)."""
 
@@ -145,12 +174,19 @@ class TransformerLM(nn.Module):
                  layers: Optional[list[dict]] = None, *,
                  groups: Optional[list[list[dict]]] = None,
                  tail: Optional[list[dict]] = None,
-                 shared_attn: Optional[dict] = None):
+                 shared_attn: Optional[dict] = None,
+                 encoder: Optional[list[dict]] = None,
+                 enc_norm: Optional[dict] = None,
+                 frontend: Optional[dict] = None):
         super().__init__()
-        require_ported(cfg)
         self.cfg = cfg
         self.embedding = _module(embedding)
         self.final_norm = _module(final_norm)
+        if frontend is not None:
+            self.frontend = _module(frontend)
+        if cfg.is_encdec:
+            self.encoder = nn.ModuleList(_module(p) for p in encoder)
+            self.enc_norm = _module(enc_norm)
         if cfg.family == "hybrid":
             ng, nt = hybrid_groups(cfg)
             tail = tail or []
@@ -174,19 +210,25 @@ class TransformerLM(nn.Module):
     @classmethod
     def from_stacked(cls, cfg: ArchConfig, tree: dict) -> "TransformerLM":
         """From a tree shaped like ``model_defs(cfg)``: the stacked layer
-        leaves (leading axis L; hybrid: ``groups`` (ng, attn_every, ...)
-        and ``tail`` (tail, ...)) are split into per-layer views."""
+        leaves (leading axis L; ``encoder``'s leading axis its layers;
+        hybrid: ``groups`` (ng, attn_every, ...) and ``tail`` (tail, ...))
+        are split into per-layer views."""
+        def split(stack, n):
+            return [_tree_map(lambda t, i=i: t[i], stack) for i in range(n)]
+
+        extra = {"frontend": tree.get("frontend")}
+        if cfg.is_encdec:
+            extra.update(encoder=split(tree["encoder"], cfg.encoder_layers),
+                         enc_norm=tree["enc_norm"])
         if cfg.family != "hybrid":
-            layers = [_tree_map(lambda t, i=i: t[i], tree["layers"])
-                      for i in range(cfg.num_layers)]
-            return cls(cfg, tree["embedding"], tree["final_norm"], layers)
+            return cls(cfg, tree["embedding"], tree["final_norm"],
+                       split(tree["layers"], cfg.num_layers), **extra)
         ng, nt = hybrid_groups(cfg)
         groups = [[_tree_map(lambda t, g=g, i=i: t[g, i], tree["groups"])
                    for i in range(cfg.attn_every)] for g in range(ng)]
-        tail = [_tree_map(lambda t, j=j: t[j], tree["tail"])
-                for j in range(nt)]
+        tail = split(tree["tail"], nt) if nt else []
         return cls(cfg, tree["embedding"], tree["final_norm"], groups=groups,
-                   tail=tail, shared_attn=tree["shared_attn"])
+                   tail=tail, shared_attn=tree["shared_attn"], **extra)
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -250,17 +292,66 @@ def _mamba_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
         cfg, p["mamba"], L.rms_norm(x, p["ln"], cfg.norm_eps), mode=mode)
 
 
+def _encoder_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
+    """Unmasked self-attention (B3), then the MLP."""
+    x = x + attn.attention(cfg, p["attn"],
+                           L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                           causal=False, mode=mode)
+    return x + L.mlp_apply(cfg, p["mlp"],
+                           L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _decoder_xattn_block(cfg: ArchConfig, p, x: torch.Tensor,
+                         memory: torch.Tensor, *, mode: str):
+    """Causal self-attention (B3), cross-attention over the encoder's
+    memory (PyTorch ops), then the MLP."""
+    x = x + attn.attention(cfg, p["attn"],
+                           L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                           causal=True, mode=mode)
+    x = x + attn.attention(cfg, p["xattn"],
+                           L.rms_norm(x, p["ln_x"], cfg.norm_eps),
+                           kv_x=memory, causal=False, rope=False, mode=mode)
+    return x + L.mlp_apply(cfg, p["mlp"],
+                           L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _embed_inputs(cfg: ArchConfig, model: TransformerLM,
+                  batch: dict) -> torch.Tensor:
+    """Token embeddings; for a vision config with ``patches`` (B, P, D) in
+    the batch, the patches cast to the model's dtype, through
+    ``frontend.proj`` and ``frontend.ln`` (B2), in front of them."""
+    x = L.embed_tokens(cfg, model.embedding, batch["tokens"])
+    if cfg.frontend == "vision" and "patches" in batch:
+        fp = model.frontend
+        patches = batch["patches"].to(x.dtype) @ fp["proj"]
+        x = torch.cat([L.rms_norm(patches, fp["ln"], cfg.norm_eps), x],
+                      dim=1)
+    return x
+
+
+def _encode(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
+            mode: str) -> torch.Tensor:
+    """The enc-dec family's memory: the stubbed ``frames`` (B, T, D) cast
+    to the model's dtype, through ``frontend.proj``, the encoder layers and
+    ``enc_norm``."""
+    x = batch["frames"].to(DTYPES[cfg.dtype]) @ model.frontend["proj"]
+    for p_l in model.encoder:
+        x = _encoder_block(cfg, p_l, x, mode=mode)
+    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+
+
 @torch.no_grad()
 def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
             mode: str = "exec", remat: Optional[str] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits, aux): logits (B, S, padded vocab) in the model's
-    dtype, aux the reference's MoE auxiliary loss, an f32 scalar: the sum
-    of the MoE layers' losses, 0 for the other families. ``remat`` is
-    accepted for the reference's signature; nothing here keeps activations
-    for a backward pass."""
-    require_ported(cfg)
-    x = L.embed_tokens(cfg, model.embedding, batch["tokens"])
+    dtype (VLM with ``patches``: over P + S positions, the patches first),
+    aux the reference's MoE auxiliary loss, an f32 scalar: the sum of the
+    MoE layers' losses, 0 for the other families. The enc-dec family reads
+    ``frames`` (B, T, D) beside ``tokens``. ``remat`` is accepted for the
+    reference's signature; nothing here keeps activations for a backward
+    pass."""
+    x = _embed_inputs(cfg, model, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for p_g in model.groups:
@@ -268,6 +359,10 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
                                     mode=mode)
         for p_l in model.tail:
             x = _mamba_block(cfg, p_l, x, mode=mode)
+    elif cfg.is_encdec:
+        memory = _encode(cfg, model, batch, mode=mode)
+        for p_l in model.layers:
+            x = _decoder_xattn_block(cfg, p_l, x, memory, mode=mode)
     else:
         block = _rwkv_block if cfg.family == "ssm" else _dense_block
         for p_l in model.layers:
@@ -289,7 +384,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
     """``{"pos": (batch,) int32, "kv": {"k", "v": (L, batch, len, K, hd)
     bf16}}`` (dense and MoE; ``len`` at most the sliding window, a ring
     buffer then), ``{"pos", "rwkv": {"wkv": (L, batch, H, hd, hd)
-    f32, "tm_x", "cm_x": (L, batch, D) bf16}}`` (RWKV, no cache length) or
+    f32, "tm_x", "cm_x": (L, batch, D) bf16}}`` (RWKV, no cache length),
+    ``{"pos", "self": {"k", "v"}, "cross_k", "cross_v": (L, batch, len, K,
+    hd) bf16 zeros}}`` (enc-dec: ``cross_*`` bf16 whatever the model's
+    dtype, as in the reference) or
     ``{"pos", "mamba": {"ssm": (ng*attn_every, batch, H, hd, N) f32,
     "conv": (ng*attn_every, batch, K-1, C)}, "mamba_tail": (the same over
     the tail's layers, if any), "attn": {"k", "v": (ng, batch, len, K,
@@ -298,7 +396,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
     card). Every slot carries its own position stream, so a serving slot
     can be reset and re-admitted mid-stream without aliasing cache
     positions across requests."""
-    require_ported(cfg)
     device = resolve_device(device)
 
     def rep(per: dict, n: int) -> dict:
@@ -318,6 +415,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
             state["mamba_tail"] = rep(m, tail)
         state["attn"] = rep(attn.init_kv_cache(cfg, batch, cache_len,
                                                device=device), ng)
+    elif cfg.is_encdec:
+        state["self"] = rep(attn.init_kv_cache(cfg, batch, cache_len,
+                                               device=device),
+                            cfg.num_layers)
+        state["cross_k"] = torch.zeros(
+            (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim), dtype=torch.bfloat16, device=device)
+        state["cross_v"] = torch.zeros_like(state["cross_k"])
     else:
         state["kv"] = rep(attn.init_kv_cache(cfg, batch, cache_len,
                                              window=cfg.sliding_window,
@@ -337,16 +442,18 @@ def reset_decode_slots(cfg: ArchConfig, state: dict, reset_mask) -> dict:
     their history densely in their state, so their leaves (RWKV's three;
     the hybrid's ``ssm`` and ``conv`` in ``mamba`` and ``mamba_tail``, not
     its KV caches) are zeroed in place under the mask: the fresh state of
-    ``init_rwkv_state`` and ``init_ssm_state``. Returns ``state``."""
-    require_ported(cfg)
+    ``init_rwkv_state`` and ``init_ssm_state``. The enc-dec family's
+    per-request memory, ``cross_k`` and ``cross_v``, is zeroed for the same
+    reason. Returns ``state``."""
     pos = state["pos"]
     reset = torch.as_tensor(reset_mask, dtype=torch.bool, device=pos.device)
     state["pos"] = torch.where(reset, torch.zeros_like(pos), pos)
+    leaves = [state[key] for key in ("cross_k", "cross_v") if key in state]
     for key in ("rwkv", "mamba", "mamba_tail"):
-        for leaf in state.get(key, {}).values():
-            # batch is axis 1 of every stacked leaf
-            leaf.masked_fill_(reset.view((1, -1) + (1,) * (leaf.dim() - 2)),
-                              0)
+        leaves += state.get(key, {}).values()
+    for leaf in leaves:
+        # batch is axis 1 of every stacked leaf
+        leaf.masked_fill_(reset.view((1, -1) + (1,) * (leaf.dim() - 2)), 0)
     return state
 
 
@@ -373,7 +480,6 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, state: dict,
     ``state["pos"]`` is a per-slot (B,) position vector (a scalar is
     broadcast); each batch row attends within its own stream only. The
     state is updated in place and returned."""
-    require_ported(cfg)
     pos = torch.as_tensor(state["pos"], dtype=torch.int32,
                           device=tokens.device).expand(tokens.shape[0])
     x = L.embed_tokens(cfg, model.embedding, tokens[:, None])
@@ -381,6 +487,8 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, state: dict,
         x = _rwkv_decode_layers(cfg, model, state["rwkv"], x)
     elif cfg.family == "hybrid":
         x = _hybrid_decode_layers(cfg, model, state, pos, x)
+    elif cfg.is_encdec:
+        x = _encdec_decode_layers(cfg, model, state, pos, x)
     else:
         x = _dense_decode_layers(cfg, model, state["kv"], pos, x)
     state["pos"] = pos + 1
@@ -421,6 +529,26 @@ def _dense_decode_layers(cfg: ArchConfig, model: TransformerLM, kv: dict,
                                      window=cfg.sliding_window)
         x = x + y
         x = x + _ffn(cfg, p_l, L.rms_norm(x, p_l["ln2"], cfg.norm_eps))[0]
+    return x
+
+
+def _encdec_decode_layers(cfg: ArchConfig, model: TransformerLM, state: dict,
+                          pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One token through every decoder layer: self-attention against the
+    layer's ``self`` cache (its new K/V rows written in place), then
+    cross-attention to the layer's ``cross_k``/``cross_v``, which it leaves
+    as they are."""
+    kv = state["self"]
+    for i, p_l in enumerate(model.layers):
+        cache = {"k": kv["k"][i], "v": kv["v"][i]}
+        xn = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+        x = x + attn.decode_attention(cfg, p_l["attn"], xn, cache, pos)[0]
+        xn = L.rms_norm(x, p_l["ln_x"], cfg.norm_eps)
+        x = x + attn.decode_attention(
+            cfg, p_l["xattn"], xn, {}, pos, rope=False,
+            kv_memory=(state["cross_k"][i], state["cross_v"][i]))[0]
+        x = x + L.mlp_apply(cfg, p_l["mlp"],
+                            L.rms_norm(x, p_l["ln2"], cfg.norm_eps))
     return x
 
 

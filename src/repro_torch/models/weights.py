@@ -3,8 +3,10 @@
 ``params_from_reference`` takes the reference's ``init_params`` tree as
 nested dicts of numpy arrays (``np.asarray`` of each leaf; bf16 arrays keep
 their 2-byte ``bfloat16`` dtype), with the stacked layer leaves of leading
-axis L (hybrid: ``groups`` of leading axes (groups, attn_every), ``tail``
-of leading axis tail, and ``shared_attn`` unstacked). It checks every leaf
+axis L (enc-dec: ``encoder`` of leading axis ``encoder_layers`` too, and
+``enc_norm`` and ``frontend`` unstacked; hybrid: ``groups`` of leading
+axes (groups, attn_every), ``tail`` of leading axis tail, and
+``shared_attn`` unstacked). It checks every leaf
 against ``model_defs(cfg)`` by name and shape, moves it to the device and
 splits the stacks per layer (``TransformerLM.from_stacked``). Nothing of the
 host copy is kept once the leaf is on the device. The tests use it so that

@@ -12,7 +12,8 @@ values into the cache.
 The tier-1 test runs reduced configs. Run as a script, the file measures
 the gap at one of ``chip_smoke.py``'s model checks (full width, float32,
 4 layers, or 7 for zamba2-7b: one group of 6 and a tail of 1, or 2 for
-mixtral-8x7b; 2 x 512 tokens) on the CPU and prints one JSON line:
+mixtral-8x7b, or 4 encoder and 4 decoder layers for seamless-m4t-medium;
+2 x 512 tokens) on the CPU and prints one JSON line:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py \
@@ -21,6 +22,8 @@ mixtral-8x7b; 2 x 512 tokens) on the CPU and prints one JSON line:
         zamba2-7b
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py \
         mixtral-8x7b
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_decode_gap.py \
+        seamless-m4t-medium
 
 llama3.2-3b (the default) needs about 6 GiB of host memory and about 5
 minutes. The hybrid's decode reads its shared attention's K and V from the
@@ -32,6 +35,12 @@ there (8 in the reduced config), where it is finite. Random init leaves
 RWKV's token-shift mixes and bonus at 0, so those bf16 leaves would not
 reach the logits: the script, as the smoke, runs RWKV on ``shift_rwkv``'s
 weights.
+
+The enc-dec family's forward runs on zero frames. Its encoder's memory is
+then exactly 0, as the memory decode attends to is: the state's
+``cross_k``/``cross_v``, which neither package ever fills (zeros). So the
+cross-attention adds exactly 0 in both, and the gap is that of the
+decoder's self-attention reading its bf16 cache, as the dense family's.
 
 MoE runs at capacity factor E/k, where the forward drops no choice (a
 decode step never drops one): at the config's 1.25 the forward drops
@@ -73,6 +82,8 @@ def _cfgs(arch, layers, small):
     if small:
         rcfg, cfg = ref_reduced(rcfg), reduced(cfg)
     changes = dict(dtype="float32", num_layers=layers)
+    if cfg.is_encdec:  # as many encoder layers as decoder layers
+        changes["encoder_layers"] = layers
     if cfg.family == "ssm":  # where the reference's chunked WKV is finite
         changes["ssm_chunk"] = min(cfg.ssm_chunk, 16)
     if cfg.num_experts:  # every expert can take a whole row: no drops
@@ -148,6 +159,14 @@ class HeldRouting:
         return w.astype(x.dtype), jnp.asarray(held), aux
 
 
+def zero_frames(cfg, tokens):
+    """The enc-dec family's frames, (B, S, D) zeros (float32; both forwards
+    cast them to the model's dtype); None for the other families."""
+    if not cfg.is_encdec:
+        return None
+    return np.zeros(tokens.shape + (cfg.d_model,), np.float32)
+
+
 def reference_gap(rcfg, params, tokens):
     """The JAX package's gap, its forward logits, and the decode tokens
     whose own routing differed from the forward's. An MoE runs without
@@ -157,9 +176,11 @@ def reference_gap(rcfg, params, tokens):
     with (jax.disable_jit() if moe else contextlib.nullcontext()), \
             HeldRouting(ref_moe, rcfg, False) as routing:
         # remat traces its function even without jit; it changes no value
+        batch = {"tokens": jnp.asarray(tokens)}
+        if rcfg.is_encdec:
+            batch["frames"] = jnp.asarray(zero_frames(rcfg, tokens))
         full, _ = jax.jit(functools.partial(
-            RM.forward, rcfg, remat="none" if moe else None))(
-            params, {"tokens": jnp.asarray(tokens)})
+            RM.forward, rcfg, remat="none" if moe else None))(params, batch)
         full = np.asarray(full)
         routing.hold()
         step = jax.jit(functools.partial(RM.decode_step, rcfg))
@@ -177,7 +198,10 @@ def port_gap(cfg, model, tokens):
     tok = torch.from_numpy(tokens)
     with torch.inference_mode(), HeldRouting(port_moe, cfg,
                                              True) as routing:
-        full, _ = M.forward(cfg, model, {"tokens": tok})
+        batch = {"tokens": tok}
+        if cfg.is_encdec:
+            batch["frames"] = torch.from_numpy(zero_frames(cfg, tokens))
+        full, _ = M.forward(cfg, model, batch)
         routing.hold()
         st = M.init_decode_state(cfg, tokens.shape[0], tokens.shape[1],
                                  device="cpu")
@@ -217,7 +241,9 @@ def measure(arch, layers, seq, small, shifted=False):
     pytest.param("rwkv6-1.6b", True, 2, id="rwkv6-1.6b-shifted"),
     # two groups of attn_every = 2 and a tail of 1
     pytest.param("zamba2-7b", False, 5, id="zamba2-7b"),
-    pytest.param("mixtral-8x7b", False, 2, id="mixtral-8x7b")])
+    pytest.param("mixtral-8x7b", False, 2, id="mixtral-8x7b"),
+    # zero frames: two encoder and two decoder layers
+    pytest.param("seamless-m4t-medium", False, 2, id="seamless-m4t-medium")])
 def test_port_gap_equals_reference_gap(arch, shifted, layers):
     out = measure(arch, layers, 32, small=True, shifted=shifted)
     assert out["port_vs_reference_forward"] < 1e-4
@@ -232,5 +258,6 @@ if __name__ == "__main__":
     family = get_config(arch).family
     layers = {"hybrid": 7, "moe": 2}.get(family, 4)
     out = measure(arch, layers, 512, small=False, shifted=family == "ssm")
+    out["encoder_layers"] = layers if get_config(arch).is_encdec else 0
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)

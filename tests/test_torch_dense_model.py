@@ -185,22 +185,16 @@ def test_params_from_reference_checks_names_and_shapes():
                                   "seamless-m4t-medium",
                                   "llava-next-mistral-7b"])
 def test_other_families_wait_for_slice_3(arch):
-    """Enc-dec and VLM wait for the rest of slice 3 and raise; the hybrid
-    family (zamba2-7b) came with slice 3b and MoE (mixtral-8x7b) with
-    slice 3c, and both build."""
+    """Every family beside the dense one builds now: the hybrid family
+    (zamba2-7b) came with slice 3b, MoE (mixtral-8x7b) with slice 3c, and
+    enc-dec (seamless-m4t-medium) and VLM (llava-next-mistral-7b) with
+    slice 3d. Each holds the parameters its config counts, and its decode
+    state has the JAX package's keys."""
     cfg = reduced(get_config(arch))
-    state_keys = {"hybrid": {"pos", "mamba", "attn"}, "moe": {"pos", "kv"}}
-    if cfg.family in state_keys:
-        model = M.init_params(cfg, device="cpu")
-        assert sum(p.numel() for p in model.parameters()) \
-            == cfg.param_count()
-        assert set(M.init_decode_state(cfg, 2, 8, device="cpu")) \
-            == state_keys[cfg.family]
-        return
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        M.init_decode_state(cfg, 2, 8, device="cpu")
+    model = M.init_params(cfg, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+    ref = RM.init_decode_state(ref_reduced(ref_get_config(arch)), 2, 8)
+    assert set(M.init_decode_state(cfg, 2, 8, device="cpu")) == set(ref)
 
 
 def test_primitives_match_reference():
@@ -225,10 +219,22 @@ def test_primitives_match_reference():
 
 
 def test_attention_cross_waits_for_encdec_slice():
-    _, _, cfg, model = _pair("llama3.2-3b", "float32")
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        attn.attention(cfg, model.layers[0]["attn"], x, kv_x=x)
+    """Cross-attention came with the enc-dec slice: ``attention(kv_x=...)``
+    with a layer of the reduced llama3.2-3b against the reference's, 8
+    queries over a memory of 5, no rope and no mask (grouped K/V heads:
+    ``tests/test_torch_encdec_model.py``)."""
+    rcfg, params, cfg, model = _pair("llama3.2-3b", "float32")
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32)
+    mem = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+    p_ref = jax.tree.map(lambda v: v[0], params["layers"])["attn"]
+    ref = ref_attn.attention(rcfg, p_ref, jnp.asarray(x),
+                             kv_x=jnp.asarray(mem), causal=False, rope=False)
+    out = attn.attention(cfg, model.layers[0]["attn"], torch.from_numpy(x),
+                         kv_x=torch.from_numpy(mem), causal=False,
+                         rope=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])

@@ -79,6 +79,25 @@ def test_head_dim_112_matches_oracle_and_pallas(causal, window, dtype):
                                    atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 2, 64, 64), (1, 3, 48, 64)])
+def test_unmasked_head_dim_64_matches_oracle_and_pallas(shape, dtype):
+    """The enc-dec encoder's attention: head dim 64, no mask (every key
+    tile of every row), which the card's tensor-core kernel takes in
+    bf16."""
+    q, k, v = _qkv(shape, 64 + shape[2])
+    out = _port(q, k, v, dtype, causal=False)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    qj, kj, vj = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    oracle = jax_attention(qj, kj, vj, causal=False)
+    pallas = flash_attention_pallas(qj, kj, vj, causal=False, block_q=16,
+                                    block_k=16, interpret=True)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for ref in (oracle, pallas):
+        np.testing.assert_allclose(out, np.asarray(ref.astype(jnp.float32)),
+                                   atol=tol, rtol=0)
+
+
 @pytest.mark.parametrize("shape", [(1, 4, 37, 16), (2, 2, 50, 64),
                                    (1, 1, 333, 16)])
 @pytest.mark.parametrize("causal,window", MASKS)

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` imports JAX or the
-JAX package (``models/ssm.py``, ``models/moe.py`` and the hybrid and MoE
-entry points included), and its entry points raise without CUDA instead of
-falling back to the CPU."""
+JAX package (``models/ssm.py``, ``models/moe.py`` and the hybrid, MoE,
+enc-dec and VLM entry points included), and its entry points raise without
+CUDA instead of falling back to the CPU."""
 import ast
 import os
 import subprocess
@@ -118,6 +118,18 @@ st = init_decode_state(mixtral, 2, 8, device="cpu")
 decode_step(mixtral, moe_lm, st, torch.zeros(2, dtype=torch.int32))
 forward(mixtral, moe_lm, {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
 moe.moe_apply(mixtral, moe_lm.layers[0]["moe"], torch.zeros(1, 4, 64))
+
+for arch, extra in (("seamless-m4t-medium", "frames"),
+                    ("llava-next-mistral-7b", "patches")):
+    small = reduced(get_config(arch))
+    raises(lambda: init_params(small), RuntimeError)
+    raises(lambda: init_decode_state(small, 2, 8), RuntimeError)
+    raises(lambda: serve(arch), RuntimeError)
+    lm = init_params(small, device="cpu")
+    st = init_decode_state(small, 2, 8, device="cpu")
+    decode_step(small, lm, st, torch.zeros(2, dtype=torch.int32))
+    forward(small, lm, {"tokens": torch.zeros(1, 4, dtype=torch.int64),
+                        extra: torch.zeros(1, 3, 64, dtype=torch.bfloat16)})
 print("ISOLATED", len(mods))
 """
 

@@ -3,16 +3,19 @@
 The scenarios of ``tests/test_slot_stream.py`` (ragged lengths, finish
 reasons, the length cap, placement-epoch attribution, energy correction,
 SLO-aware admission, a mid-run submit) run through both packages on the
-same weights (the reduced llama3.2-3b, rwkv6-1.6b, zamba2-7b and
-mixtral-8x7b, at float32, drawn by the reference's ``init_params`` and
-carried across), under both schedulers. The greedy outputs must be
+same weights (the reduced llama3.2-3b, rwkv6-1.6b, zamba2-7b,
+mixtral-8x7b, seamless-m4t-medium and llava-next-mistral-7b, at float32,
+drawn by the reference's ``init_params`` and carried across), under both
+schedulers. Requests are tokens only: the enc-dec decoder attends to the
+state's ``cross_k``/``cross_v``, zeros that admission resets, and the VLM
+serves its dense block on tokens, as in the reference. The greedy outputs must be
 token-identical and every field of ``EngineStats`` equal. zamba2 runs at 5 layers, two groups and a tail
 (its stock reduced config has no tail).
 
 In bfloat16 the two packages round at other places, so a greedy choice
 between two logits closer than that rounding could part.
 ``test_bf16_greedy_tokens_match_reference`` holds greedy decode and the
-ragged scenarios of all four families in bf16 to identical tokens; where a
+ragged scenarios of all six families in bf16 to identical tokens; where a
 run parts, the first parting step must be a bf16 near-tie: every token
 before it identical, both packages' logits within 2e-2 of max |logits|
 there, and the reference's own margin between the two choices within that
@@ -46,6 +49,7 @@ from repro_torch.models import moe as port_moe
 
 DENSE, RWKV, HYBRID, MOE = ("llama3.2-3b", "rwkv6-1.6b", "zamba2-7b",
                              "mixtral-8x7b")
+ENCDEC, VLM = "seamless-m4t-medium", "llava-next-mistral-7b"
 # changes to the reduced config beside the dtype: zamba2 with a tail
 CHANGES = {HYBRID: {"num_layers": 5}}
 BF16_TOL = 2e-2
@@ -242,6 +246,19 @@ def test_moe_engine_matches_reference(scenario, scheduler):
     assert reqs
 
 
+@pytest.mark.parametrize("scheduler", ["stream", "wave"])
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+@pytest.mark.parametrize("arch", [ENCDEC, VLM])
+def test_encdec_and_vlm_engines_match_reference(arch, scenario, scheduler):
+    """The same scenarios on the enc-dec family (its memory leaves reset
+    at admission) and on the VLM (the dense block on tokens)."""
+    ref_reqs, ref_stats = _record(*SCENARIOS[scenario](RR, scheduler, arch))
+    reqs, stats = _record(*SCENARIOS[scenario](PR, scheduler, arch))
+    assert reqs == ref_reqs
+    assert stats == ref_stats
+    assert reqs
+
+
 def _host(x, dtype):
     """A step's tokens or logits as a numpy array, from either package."""
     if isinstance(x, torch.Tensor):
@@ -360,7 +377,7 @@ def _greedy(pkg, arch, log, prompt_len=6, new_tokens=16):
 @pytest.mark.parametrize("run", ["greedy", *(
     f"{scenario}-{scheduler}" for scenario in ("ragged_six", "ragged_five")
     for scheduler in ("stream", "wave"))])
-@pytest.mark.parametrize("arch", [DENSE, RWKV, HYBRID, MOE])
+@pytest.mark.parametrize("arch", [DENSE, RWKV, HYBRID, MOE, ENCDEC, VLM])
 def test_bf16_greedy_tokens_match_reference(arch, run, monkeypatch):
     """bf16 greedy tokens of both packages on the same weights and prompts:
     identical, or parted first at a bf16 near-tie (the module docstring)."""
@@ -407,6 +424,11 @@ def test_hybrid_stream_matches_wave_in_the_port():
 
 def test_moe_stream_matches_wave_in_the_port():
     _stream_matches_wave(MOE, 8, 3, 32)
+
+
+@pytest.mark.parametrize("arch", [ENCDEC, VLM])
+def test_encdec_and_vlm_stream_matches_wave_in_the_port(arch):
+    _stream_matches_wave(arch, 8, 3, 32)
 
 
 def _stream_matches_wave(arch, n, slots, max_len):
@@ -475,6 +497,16 @@ def test_serve_hybrid_on_cpu_completes_every_request(scheduler):
 @pytest.mark.parametrize("scheduler", ["stream", "wave"])
 def test_serve_moe_on_cpu_completes_every_request(scheduler):
     out = serve(MOE, num_requests=5, slots=2, max_new_tokens=4,
+                scheduler=scheduler, device="cpu")
+    assert out["completed"] == 5 and out["rejected"] == 0
+    assert out["decode_tokens"] == 5 * 3
+    assert all(len(o) == 4 for o in out["outputs"].values())
+
+
+@pytest.mark.parametrize("scheduler", ["stream", "wave"])
+@pytest.mark.parametrize("arch", [ENCDEC, VLM])
+def test_serve_encdec_and_vlm_on_cpu_complete_every_request(arch, scheduler):
+    out = serve(arch, num_requests=5, slots=2, max_new_tokens=4,
                 scheduler=scheduler, device="cpu")
     assert out["completed"] == 5 and out["rejected"] == 0
     assert out["decode_tokens"] == 5 * 3
