@@ -43,19 +43,31 @@ tensor-core kernel. Then:
   ``launch.serve.serve`` (for a cut config, which ``serve`` cannot build,
   ``ServingEngine`` with ``serve``'s requests), a ragged run through
   ``ServingEngine`` (not for llava: its decode step is the dense block on
-  tokens, which llama3.2-3b's ragged run drives) and one forward of 2x2048
+  tokens, which llama3.2-3b's ragged run drives; llama3.2-3b's over its
+  first 14 layers, mixtral-8x7b's over its first 12, to fit the run's
+  budget) and one forward of 2x2048
   tokens (seamless: over 2x2048 frames; llava: 2x5760 positions), each
   metered on the GPU's power counter, and then profiled windows of decode
-  steps and of a forward;
+  steps and of a forward. ``serve`` runs under the static placements the
+  reference's ``serve()`` applies, and its line reports their modeled
+  Watt·s (a TPU v5e model's, not the card's) beside the metered ones;
+* slices 3e and 4a, on llama3.2-3b's and rwkv6-1.6b's full-width models:
+  ``migration``, ``serve()``'s requests on two engines that share the
+  model, a live slot moved between them at admission, mid-decode and one
+  token before its end (on llama also into an engine of half the cache),
+  its tokens held to the never-migrated baseline's; and ``placement``,
+  ``serve(..., adaptive=True)`` with its controller's planning time, and
+  the metered GPU W·s a decode token fed back through ``note_metered``;
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
   all-CPU placement and the paper's pattern, and ``search_himeno`` over
   that backend.
 
-The kernels' launch counts are set to 0 just before each main path and
-read just after; a kernel's ``launches`` in the kernels line add up the
-paths it ran on (``launches_by_path`` keeps them apart). Every phase prints
+The kernels' launch counts are set to 0 just before each main path (the
+migration and adaptive runs each count as a path of their own) and read
+just after; a kernel's ``launches`` in the kernels line add up the paths
+it ran on (``launches_by_path`` keeps them apart). Every phase prints
 one JSON line; then the kernels' line; the line before the last is the
 card's name and power limit as ``nvidia-smi`` gives them, the last line is
 ``{"ok": true, "device": {...}}``. Any failed check, or a run over
@@ -131,6 +143,12 @@ CHECK_LAYERS = 4   # depth of the f32 full-width model checks
 CHECK_SEQ = 512
 RAGGED = dict(slots=8, max_len=1024, requests=16, prompt=(64, 512),
               max_new_tokens=64, seed=0)
+# Depth of the ragged run of llama3.2-3b and of mixtral-8x7b, cut to fit
+# the run's budget once migration and placement joined it: over the first
+# 14 of llama's 28 layers and 12 of mixtral's 24 (a view of the path's
+# model, sharing its weights), where the full depths took 61 s and 82 s
+# of a run of 862 s on a slow host.
+RAGGED_LAYERS = {"llama3.2-3b": 14, "mixtral-8x7b": 12}
 PREFILL = (2, 2048)  # batch x tokens of the main path's forward
 RMS_SHAPES = (((8, 1, 3072), "bfloat16"), ((2, 2048, 3072), "bfloat16"),
               ((8, 1, 3584), "bfloat16"), ((2, 2048, 3584), "bfloat16"),
@@ -141,6 +159,10 @@ RMS_SHAPES = (((8, 1, 3072), "bfloat16"), ((2, 2048, 3072), "bfloat16"),
               ((8, 1, 1024), "bfloat16"), ((2, 2048, 1024), "bfloat16"),
               ((2, 2880, 4096), "bfloat16"), ((2, 5760, 4096), "bfloat16"),
               ((4, 1, 1024), "bfloat16"), ((4, 1, 4096), "bfloat16"),
+              # rwkv6-1.6b's width; the serve() and migration batch of 4
+              # slots of llama3.2-3b and rwkv6-1.6b
+              ((8, 1, 2048), "bfloat16"), ((2, 2048, 2048), "bfloat16"),
+              ((4, 1, 3072), "bfloat16"), ((4, 1, 2048), "bfloat16"),
               ((37, 5632), "float32"))
 # (B, H, K, S, D, dtype, causal, window); bf16 at D = 64 and 128 takes the
 # tensor-core kernel, the rest the scalar one. The main path's shape also
@@ -177,6 +199,14 @@ FLASH_SHAPES = ((2, 24, 8, 2048, 128, "bfloat16", True, 0),
 # bound between the two packages' models on the CPU (PERF.md section 7)
 MODEL_B3_BF16_RTOL = 2e-2
 HOST_CALLS = 10_000  # calls each step of B2's and B4's launch paths is timed
+# Slice 3e: mid-flight migration on llama3.2-3b's and rwkv6-1.6b's main
+# paths: serve()'s requests on engines of 4 slots and max_len 1024; on
+# llama also one move into an engine of max_len 512 (a resize), whose
+# request must keep its tokens or part only at a bf16 near-tie, within
+# NEAR_TIE_RTOL of max |logits| (tests/test_torch_serving.py's bf16 rule).
+MIGRATION = dict(slots=4, max_len=1024, requests=8, max_new_tokens=32,
+                 resize_len=512, resize_rid=2)
+NEAR_TIE_RTOL = 2e-2
 
 # Slice 3b: the hybrid LM path (zamba2-7b) through kernels B2 and B3.
 HYBRID_ARCH = "zamba2-7b"
@@ -275,6 +305,8 @@ MODEL_LW = (-1.61, -0.64)  # log-decays of the random-init model (Motivation)
 # (B, H, S, D), lw range, initial state, the model's (B,S,H,D) layout, label
 WKV_CASES = (((2, 32, 2048, 64), MODEL_LW, False, True, "forward"),
              ((8, 32, 1, 64), MODEL_LW, True, True, "decode"),
+             # serve()'s and the migration runs' batch of 4 slots
+             ((4, 32, 1, 64), MODEL_LW, True, True, "serve_decode"),
              ((2, 32, 333, 64), MODEL_LW, True, True, "ragged"),
              ((1, 32, 2048, 64), (-0.01, 0.0), True, False, "weak"),
              ((2, 32, 512, 64), (-20.0, 0.0), True, False, "strong"))
@@ -620,6 +652,20 @@ def kernel_vs_plain(cfg, model, batch, module, attr, plain, baseline=None,
     return full, rel
 
 
+def first_layers(cfg, model, layers: int):
+    """(config, model) of ``model``'s first ``layers`` layers: a shallow
+    copy whose layer list is a slice of the model's, sharing every weight,
+    so a cut run of a 70 GB model needs no second copy of it."""
+    import copy
+    import dataclasses
+
+    cut = copy.copy(model)
+    cut._modules = dict(model._modules)  # the copy's own module table
+    cut.layers = model.layers[:layers]
+    cut.cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cut.cfg, cut
+
+
 def metered(fn):
     """Run ``fn`` under the port's EnergyMeter over the machine's counters;
     returns (result, seconds, GPU Watt·s, trace samples)."""
@@ -642,6 +688,7 @@ class Smoke:
         self.card = ""
         self.kernels: dict[str, dict] = {}
         self.path_launches: dict[str, dict[str, int]] = {}  # path -> counts
+        self.serve_out: dict[str, dict] = {}  # arch -> its serve phase
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -1021,7 +1068,7 @@ class Smoke:
             "src/repro/kernels/rmsnorm/kernel.py:17",
             rows[("rms_norm", (2, 2048, 3072))],
             rows[("rms_norm", (8, 1, 3072))])
-        for width in (3584, 4096, 1024):
+        for width in (3584, 4096, 1024, 2048):
             self.kernels["rms_norm"][f"d{width}"] = {
                 **{k: rows[("rms_norm", (2, 2048, width))][k] for k in keys},
                 **{f"decode_{k}": rows[("rms_norm", (8, 1, width))][k]
@@ -1033,7 +1080,9 @@ class Smoke:
             k: rows[("rms_norm", (2, 2880, 4096))][k] for k in keys}
         self.kernels["rms_norm"]["vlm_forward"] = {
             k: rows[("rms_norm", (2, 5760, 4096))][k] for k in keys}
-        for width in (1024, 4096):
+        self.kernels["rms_norm"]["serve_decode"] = {
+            k: rows[("rms_norm", (4, 1, 3072))][k] for k in keys}
+        for width in (1024, 4096, 2048):
             self.kernels["rms_norm"][f"d{width}"]["serve_decode"] = {
                 k: rows[("rms_norm", (4, 1, width))][k] for k in keys}
 
@@ -1122,7 +1171,7 @@ class Smoke:
         final state within WKV_RTOL of their max, a given state updated in
         place, a repeat bit for bit; the dispatch's choice checked at each.
         Both timed at the forward's shape in this run, the dispatched
-        (sequential) kernel at decode's."""
+        (sequential) kernel at decode's two batches (8 and 4 slots)."""
         import numpy as np
         import torch
         from repro_torch.kernels.wkv import kernel as b4
@@ -1187,7 +1236,7 @@ class Smoke:
             self.check((wkv_cuda.launches_tc - n_tc == 1)
                        == (row["dispatch"] == "tensor_core") == (s >= 64),
                        f"wkv {label}: dispatched to the wrong kernel")
-            if label in ("forward", "decode"):  # the main path's shapes
+            if label in ("forward", "decode", "serve_decode"):  # main paths
                 buf = None if st is None else st.clone()
                 row.update(timed_pair(
                     lambda: wkv_cuda(r, k, v, lw, u, buf),
@@ -1222,7 +1271,9 @@ class Smoke:
             "max_abs_err": errs["sequential"], "ms": dec["ms"],
             "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
             "bound_by": dec["bound_by"], "shape": dec["shape"],
-            "forward_ms": fwd["sequential_ms"], "forward_shape": fwd["shape"]}
+            "forward_ms": fwd["sequential_ms"], "forward_shape": fwd["shape"],
+            "serve_decode": {k: rows["serve_decode"][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by")}}
         # the chunked kernel: the forward's (every prefill WKV)
         self.kernels["wkv_tc"] = {
             "name": "wkv_tc", **common, "kernel": "tensor_core",
@@ -1681,31 +1732,40 @@ class Smoke:
 
     # -- phase 7: the LM main paths, full width and depth, bf16 ----------
     def lm_main_path(self, cfg, per_step: dict, per_forward: dict,
-                     make_batch=None, ragged: bool = True):
+                     make_batch=None, ragged: bool = True, then=None):
         """``serve()``, the ragged run and one forward of ``cfg`` at full
         width, each metered; ``per_step`` and ``per_forward`` are the
         launches of each LM kernel a decode step and a forward. A config
         cut from its published one, which ``serve()`` cannot build, serves
         ``serve()``'s requests through ``ServingEngine`` on the path's
-        model. ``make_batch()`` gives the forward's inputs (default: PREFILL
+        model, under the static placements ``serve()`` applies. The modeled
+        Watt·s of the placements (a TPU v5e model's, not the card's) must be
+        the placements' per-token rates over the tokens served.
+        ``make_batch()`` gives the forward's inputs (default: PREFILL
         tokens from the ragged run's numpy stream); the logits' shape is
         checked against them. ``ragged=False`` leaves the ragged run out
-        (the caller says why in its own phase line). The counts are set to 0 before
-        the path and read after it; the path's peak device memory is read
-        after the forward."""
+        (the caller says why in its own phase line); ``ragged=(layers,
+        per_step)`` runs it over the model's first ``layers`` layers, with
+        that step's launches. The counts are set to
+        0 before the path and read after it; the path's peak device memory
+        is read after the forward. ``then(cfg, model, per_step)`` runs a
+        further path on the same model after that, with counts of its own.
+        """
         import numpy as np
         import torch
         from repro_torch import models as M
         from repro_torch.configs import get_config
-        from repro_torch.launch.serve import _requests, serve
-        from repro_torch.runtime import ServingEngine
+        from repro_torch.launch.serve import DEFAULT_MESH, _requests, serve
+        from repro_torch.runtime import ServingEngine, static_placements
 
         arch = cfg.name
         entry = "serve" if cfg == get_config(arch) else "engine"
+        rates = static_placements(arch, DEFAULT_MESH)
 
         def engine_serve():
-            # serve()'s engine and requests, on this path's model
+            # serve()'s engine, placements and requests, on this path's model
             engine = ServingEngine(cfg, model, slots=4, max_len=64)
+            engine.reconfigure(rates)
             for r in _requests(8, 32):
                 engine.submit(r)
             t0 = time.time()
@@ -1717,7 +1777,10 @@ class Smoke:
                     "decode_tokens": st.decode_tokens,
                     "total_tokens": st.total_tokens, "wall_s": wall,
                     "tokens_per_s": st.decode_tokens / wall,
-                    "energy_note": "no placement epoch, as serve()"}
+                    "energy_ws": st.energy_ws,
+                    "ws_per_1k_tokens": st.energy_ws / st.total_tokens * 1e3,
+                    "placements": {k: (p.destination, p.clock, p.source)
+                                   for k, p in engine.placements.items()}}
 
         torch.cuda.reset_peak_memory_stats()
         reset_all_launches()
@@ -1747,18 +1810,34 @@ class Smoke:
               "ms_per_step": 1e3 * out["wall_s"] / out["steps"],
               "metered_gpu_ws": ws, "trace_samples": samples,
               "j_per_token": ws / out["total_tokens"],
-              "launches": n, "energy_note": out["energy_note"],
-              "card": self.card})
+              "modeled_energy_ws": out["energy_ws"],
+              "modeled_ws_per_1k_tokens": out["ws_per_1k_tokens"],
+              "modeled_by": "TpuPowerModel (TPU v5e), static placements on "
+                            f"{out['placements']['decode'][0]}",
+              "launches": n, "card": self.card})
+        self.serve_out[arch] = dict(out, metered_gpu_ws=ws)
         self.check(out["completed"] == 8, f"{arch} serve: not every request "
                                           "done")
+        prefill = out["total_tokens"] - out["decode_tokens"]
+        want_ws = (prefill * rates["prefill"].energy_per_token_ws
+                   + out["decode_tokens"]
+                   * rates["decode"].energy_per_token_ws)
+        self.check(out["energy_ws"] > 0 and abs(out["energy_ws"] - want_ws)
+                   <= 1e-9 * want_ws,
+                   f"{arch} serve: modeled energy_ws {out['energy_ws']}, the "
+                   f"static placements' rates give {want_ws}")
         self.check(n == {k: v * out["steps"] for k, v in per_step.items()},
                    f"{arch} serve: launches {n} over {out['steps']} steps, "
                    f"want {per_step} a step")
 
         # 2. a ragged run through the engine
         rng = np.random.default_rng(RAGGED["seed"])
-        if ragged:
+        if ragged is True:
             self.ragged_run(cfg, model, rng, per_step)
+        elif ragged:
+            layers, cut_per_step = ragged
+            self.ragged_run(*first_layers(cfg, model, layers), rng,
+                            cut_per_step, cut_from=cfg.num_layers)
 
         # 3. one forward (prefill): PREFILL tokens, or make_batch()'s inputs
         batch = make_batch() if make_batch else {"tokens": torch.from_numpy(
@@ -1792,6 +1871,8 @@ class Smoke:
         # the path's launches: serve, the ragged run and the forward
         self.path_launches[arch] = lm_launches()
         del logits
+        if then is not None:
+            then(cfg, model, per_step)
         # where a decode step's and the forward's time go; after the counts
         # are read, since these runs are not the main path
         self.profile_decode(cfg, model)
@@ -1799,10 +1880,12 @@ class Smoke:
         del model, batch
         torch.cuda.empty_cache()
 
-    def ragged_run(self, cfg, model, rng, per_step: dict):
+    def ragged_run(self, cfg, model, rng, per_step: dict,
+                   cut_from=None):
         """RAGGED's requests, prompts drawn from ``rng``, through
         ``ServingEngine``, metered; every decode step's logits checked
-        finite and its launches counted."""
+        finite and its launches counted. ``cut_from``: the path's depth,
+        where ``model`` is a view of its first ``cfg.num_layers``."""
         import torch
         from repro_torch.runtime import Request, ServingEngine
 
@@ -1831,6 +1914,7 @@ class Smoke:
         n = launches_since(before)
         st = engine.stats
         emit({"phase": "ragged", "arch": arch, "layers": cfg.num_layers,
+              "cut_from_layers": cut_from,
               **RAGGED, "seconds": secs, "completed": len(done),
               "steps": st.steps, "occupancy": st.occupancy,
               "prefill_tokens": st.prefill_tokens,
@@ -1850,20 +1934,300 @@ class Smoke:
                               f"steps, want {per_step} a step")
         del engine
 
-    def attention_main_path(self, cfg):
+    def migration_run(self, cfg, model, per_step: dict,
+                      resize: bool = False):
+        """Mid-flight migration on the path's model: ``serve()``'s requests
+        (8, 32 new tokens) on one engine of MIGRATION's slots and
+        ``max_len`` (the baseline), then on engine A with rid 0 moved to an
+        engine B of the same geometry right after its admission, back to A
+        mid-decode (into the slot rid 1 leaves for B just before: A's
+        queue refills a freed slot at its next step) and to B again one
+        token before its end. At equal geometry each row's arithmetic is
+        the same kernels on the same shapes: tokens and finish reasons must
+        equal the baseline's exactly. With ``resize``, rid 2 also moves
+        mid-decode into an engine C of MIGRATION's ``resize_len`` (its cache
+        truncated): its tokens must equal the baseline's or part only at a
+        bf16 near-tie (``near_tie``). The engines share the model; all
+        serve under the static placements. The counts are set to 0 before
+        the baseline and read after the migrated run."""
+        import torch
+        from repro_torch.launch.serve import DEFAULT_MESH, _requests
+        from repro_torch.runtime import ServingEngine, static_placements
+
+        arch = cfg.name
+        slots, max_len = MIGRATION["slots"], MIGRATION["max_len"]
+        new_tokens = MIGRATION["max_new_tokens"]
+        rates = static_placements(arch, DEFAULT_MESH)
+        watch = MIGRATION["resize_rid"] if resize else None
+
+        def engine(name, length, log):
+            eng = ServingEngine(cfg, model, slots=slots, max_len=length,
+                                name=name)
+            eng.reconfigure(rates)
+            step = eng._step
+
+            def logged(model, state, tokens):
+                # the watched request's logits at each of its steps
+                logits, state = step(model, state, tokens)
+                for i, r in enumerate(eng._stream["slot_req"]):
+                    if r is not None and r.rid == watch:
+                        log.append(logits[i].float())
+                return logits, state
+
+            if watch is not None:
+                eng._step = logged
+            return eng
+
+        def serve_on(engines, moves):
+            """Steps every engine in turn until all are drained; before a
+            round, ``moves`` (rid, from, to, when(request)) fire once."""
+            reqs = _requests(MIGRATION["requests"], new_tokens)
+            for r in reqs:
+                engines[0].submit(r)
+            for e in engines:
+                e.stream_open()
+            pending, done = list(moves), []
+            for _ in range(100_000):
+                for move in list(pending):
+                    rid, src, dst, when = move
+                    req = reqs[rid]
+                    slot_req = engines[src]._stream["slot_req"]
+                    if req in slot_req and when(req):
+                        done.append(self.move(engines[src], engines[dst],
+                                              slot_req.index(req)))
+                        pending.remove(move)
+                outs = [e.stream_step() for e in engines]
+                if all(o is None for o in outs):
+                    break
+            for e in engines:
+                e.stream_close()
+            self.check(not pending, f"{arch} migration: moves {pending} "
+                                    "never fired")
+            return reqs, done
+
+        reset_all_launches()
+        before = lm_launches()
+        base_log, moved_log = [], []
+        t0 = time.perf_counter()
+        base_engine = engine("baseline", max_len, base_log)
+        base, _ = serve_on([base_engine], ())
+        base_s = time.perf_counter() - t0
+        engines = [engine("a", max_len, moved_log),
+                   engine("b", max_len, moved_log)]
+        half = new_tokens // 2
+        # (rid, from, to, when): checked in order before each round
+        moves = [(0, 0, 1, lambda r: True),  # the step after admission
+                 (1, 0, 1, lambda r: len(r.output) == half),
+                 (0, 1, 0, lambda r: len(r.output) == half),
+                 (0, 0, 1, lambda r: len(r.output) == new_tokens - 1)]
+        if resize:
+            engines.append(engine("c", MIGRATION["resize_len"], moved_log))
+            moves.append((watch, 0, 2, lambda r: len(r.output) == half // 2))
+        (reqs, made), secs, ws, samples = metered(
+            lambda: serve_on(engines, moves))
+        n = launches_since(before)
+        self.path_launches[f"{arch} migration"] = lm_launches()
+
+        steps = base_engine.stats.steps + sum(e.stats.steps for e in engines)
+        want = {k: v * steps for k, v in per_step.items()}
+        self.check(n == want, f"{arch} migration: launches {n} over {steps} "
+                              f"steps, want {per_step} a step")
+        record = {r.rid: (r.output, r.finish_reason) for r in reqs}
+        wanted = {r.rid: (r.output, r.finish_reason) for r in base}
+        exact = [rid for rid in record if rid != watch]
+        parted = [rid for rid in exact if record[rid] != wanted[rid]]
+        self.check(not parted, f"{arch} migration: tokens of {parted} differ "
+                               "from the baseline's at equal geometry")
+        self.check(all(r.done for r in reqs) and all(
+            len(r.output) == new_tokens for r in reqs),
+            f"{arch} migration: not every request generated its tokens")
+        resized = None
+        if resize:
+            resized = self.near_tie(reqs[watch], base[watch], base_log,
+                                    moved_log)
+            self.check(resized["ok"], f"{arch} migration: the resized move "
+                                      f"parts from the baseline: {resized}")
+        stats = [e.stats for e in engines]
+        self.check(sum(s.migrations_in for s in stats) == len(made)
+                   == sum(s.migrations_out for s in stats),
+                   f"{arch} migration: {len(made)} moves, ledger "
+                   f"{[(s.migrations_in, s.migrations_out) for s in stats]}")
+        emit({"phase": "migration", "arch": arch, "layers": cfg.num_layers,
+              "slots": slots, "max_len": max_len,
+              "requests": MIGRATION["requests"], "max_new_tokens": new_tokens,
+              "moves": made, "baseline_seconds": base_s,
+              "baseline_steps": base_engine.stats.steps,
+              "steps": sum(s.steps for s in stats), "seconds": secs,
+              "metered_gpu_ws": ws, "trace_samples": samples,
+              "exact_requests": len(exact), "resized": resized,
+              "migration_ws": sum(s.migration_ws for s in stats),
+              "modeled_energy_ws": sum(s.energy_ws for s in stats),
+              "launches": n, "card": self.card})
+        del engines, base_engine, base_log, moved_log
+        torch.cuda.empty_cache()
+
+    def move(self, src, dst, slot) -> dict:
+        """One timed move: snapshot (the device-to-host copy), restore (the
+        host-to-device writes, synchronised) and detach, the steps of
+        ``migrate``; a move into an engine of another ``max_len`` goes
+        through ``migrate`` itself, untimed by halves, its bytes read back
+        from the transfer-cost ledger."""
+        import torch
+        from repro_torch.runtime import migrate, migration
+
+        rid = src._stream["slot_req"][slot].rid
+        rate = migration.DEFAULT_TRANSFER_WS_PER_MIB
+        if src.max_len != dst.max_len:
+            billed = dst.stats.migration_ws
+            t0 = time.perf_counter()
+            dst_slot = migrate(src, dst, slot)
+            torch.cuda.synchronize()
+            ws = dst.stats.migration_ws - billed
+            return {"rid": rid, "from": src.name, "to": dst.name,
+                    "slot": dst_slot, "nbytes": round(ws / rate * (1 << 20)),
+                    "resized": [src.max_len, dst.max_len],
+                    "migrate_ms": 1e3 * (time.perf_counter() - t0),
+                    "migration_ws": ws}
+        t0 = time.perf_counter()
+        snap = src.snapshot_slot(slot)
+        t1 = time.perf_counter()
+        dst_slot = dst.restore_slot(snap)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        migration.detach_slot(src, slot)
+        return {"rid": rid, "from": src.name, "to": dst.name,
+                "slot": dst_slot, "pos": snap.pos, "cursor": snap.cursor,
+                "nbytes": snap.nbytes, "snapshot_ms": 1e3 * (t1 - t0),
+                "restore_ms": 1e3 * (t2 - t1),
+                "migration_ws": snap.nbytes / (1 << 20) * rate}
+
+    @staticmethod
+    def near_tie(got, want, got_log, want_log) -> dict:
+        """The rule of ``tests/test_torch_serving.py``'s bf16 greedy test:
+        equal tokens, or a first parting after identical inputs where the
+        two runs' logits lie within NEAR_TIE_RTOL of max |logits| and the
+        baseline's own margin between the two choices lies within it too."""
+        if (got.output, got.finish_reason) == (want.output,
+                                                want.finish_reason):
+            return {"ok": True, "parted": False}
+        j = next((i for i, (a, b) in enumerate(zip(got.output, want.output))
+                  if a != b), None)
+        if j is None:
+            return {"ok": False, "parted": True, "lengths":
+                    [len(got.output), len(want.output)]}
+        k = len(want.prompt) - 1 + j  # the request's step that emitted j
+        a, b = want_log[k], got_log[k]
+        scale = float(a.abs().max())
+        diff = float((a - b).abs().max()) / scale
+        margin = float(a[want.output[j]] - a[got.output[j]]) / scale
+        return {"ok": diff <= NEAR_TIE_RTOL and margin <= NEAR_TIE_RTOL,
+                "parted": True, "at_output": j, "logits_diff_over_max": diff,
+                "baseline_margin_over_max": margin, "limit": NEAR_TIE_RTOL}
+
+    def placement_phase(self):
+        """serve() of llama3.2-3b at full width with ``adaptive=True`` (a
+        cold measurement cache in a temporary directory), metered: its
+        reconfigurations, new measurements, the host seconds its
+        controller spent planning (``PlacementController.update``, timed
+        here) against the call's wall time. Then the metered GPU W·s a
+        decode token goes back through ``note_metered("decode", ...)``, and
+        the drift it finds is reported. The static run is the llama serve
+        phase's. The counts are set to 0 before the call and read after.
+        The controller and its engine refer to each other, so the model
+        that ``serve()`` built is freed by the garbage collector, run
+        here before the next path measures its peak memory."""
+        import gc
+        import tempfile
+
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import serve
+        from repro_torch.runtime import placement
+
+        cfg = get_config(ARCH)
+        per_step = {"rms_norm": 2 * cfg.num_layers + 1, "flash_attention": 0,
+                    "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+        planned = []
+        update = placement.PlacementController.update
+
+        def timed_update(ctl):
+            t0 = time.perf_counter()
+            report = update(ctl)
+            planned.append((ctl, time.perf_counter() - t0))
+            return report
+
+        placement.PlacementController.update = timed_update
+        reset_all_launches()
+        before = lm_launches()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                out, secs, ws, samples = metered(lambda: serve(
+                    ARCH, use_reduced=False, num_requests=8, slots=4,
+                    max_new_tokens=32, adaptive=True,
+                    cache_path=str(Path(tmp) / "eval_cache.jsonl")))
+        finally:
+            placement.PlacementController.update = update
+        n = launches_since(before)
+        self.path_launches[f"{ARCH} adaptive"] = lm_launches()
+        self.check(n == {k: v * out["steps"] for k, v in per_step.items()},
+                   f"{ARCH} adaptive serve: launches {n} over {out['steps']} "
+                   f"steps, want {per_step} a step")
+        self.check(out["completed"] == 8 and out["energy_ws"] > 0
+                   and out["new_measurements"] > 0 and planned,
+                   f"{ARCH} adaptive serve: {out['completed']} done, "
+                   f"energy_ws {out['energy_ws']}, {out['new_measurements']} "
+                   f"measurements, {len(planned)} plans")
+        static = self.serve_out.get(ARCH, {})
+        self.check(out["outputs"] == static.get("outputs"),
+                   f"{ARCH} adaptive serve: tokens differ from the static "
+                   "run's")
+        ctl = planned[-1][0]
+        modeled = ctl.engine.placements["decode"].energy_per_token_ws
+        metered_rate = ws / out["decode_tokens"]
+        resweep = ctl.note_metered("decode", metered_rate)
+        self.check("decode" in ctl.drift, "note_metered found no drift")
+        emit({"phase": "placement", "arch": ARCH, "full": True,
+              "static": {k: static.get(k) for k in (
+                  "energy_ws", "ws_per_1k_tokens", "placements", "steps",
+                  "wall_s", "metered_gpu_ws")},
+              "adaptive": {k: out[k] for k in (
+                  "energy_ws", "ws_per_1k_tokens", "placements",
+                  "reconfigurations", "new_measurements", "steps",
+                  "wall_s")},
+              "plans": len(planned),
+              "planning_host_s": sum(t for _, t in planned),
+              "planning_share_of_wall": sum(t for _, t in planned)
+              / out["wall_s"],
+              "seconds": secs, "metered_gpu_ws": ws, "trace_samples": samples,
+              "modeled_decode_ws_per_token": modeled,
+              "metered_gpu_ws_per_decode_token": metered_rate,
+              "drift": ctl.drift["decode"], "resweep_triggered": resweep,
+              "modeled_by": "TpuPowerModel (TPU v5e); metered: the card's "
+                            "GPU power domain",
+              "launches": n, "card": self.card})
+        del ctl, planned
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def attention_main_path(self, cfg, then=None):
         """The dense and MoE paths: ln1 and ln2 a layer and the final norm;
         B3 once a layer in the forward, on the tensor cores, since decode
-        attention is PyTorch ops."""
-        n = cfg.num_layers
-        per = {"rms_norm": 2 * n + 1, "flash_attention": 0,
-               "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+        attention is PyTorch ops. The ragged run at RAGGED_LAYERS' depth."""
+        def per_step(n):
+            return {"rms_norm": 2 * n + 1, "flash_attention": 0,
+                    "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+
+        n, cut = cfg.num_layers, RAGGED_LAYERS[cfg.name]
+        per = per_step(n)
         self.lm_main_path(cfg, per, {**per, "flash_attention": n,
-                                     "flash_attention_tc": n})
+                                     "flash_attention_tc": n},
+                          ragged=(cut, per_step(cut)), then=then)
 
     def dense_main_path(self):
         from repro_torch.configs import get_config
 
-        self.attention_main_path(get_config(ARCH))
+        self.attention_main_path(get_config(ARCH), then=functools.partial(
+            self.migration_run, resize=True))
 
     def moe_main_path(self):
         import dataclasses
@@ -1882,7 +2246,8 @@ class Smoke:
         # the forward's on the tensor-core kernel
         per = {"rms_norm": 2 * n + 1, "flash_attention": 0,
                "flash_attention_tc": 0, "wkv": n, "wkv_tc": 0}
-        self.lm_main_path(cfg, per, {**per, "wkv_tc": n})
+        self.lm_main_path(cfg, per, {**per, "wkv_tc": n},
+                          then=self.migration_run)
 
     def hybrid_main_path(self):
         import dataclasses
@@ -1998,7 +2363,8 @@ def main() -> int:
                   smoke.moe_model_check, smoke.moe_bf16_model_check,
                   smoke.encdec_model_check, smoke.encdec_bf16_model_check,
                   smoke.vlm_model_check, smoke.vlm_bf16_model_check,
-                  smoke.dense_main_path, smoke.rwkv_main_path,
+                  smoke.dense_main_path, smoke.placement_phase,
+                  smoke.rwkv_main_path,
                   smoke.hybrid_main_path, smoke.moe_main_path,
                   smoke.encdec_main_path, smoke.vlm_main_path,
                   smoke.lm_kernel_launches, smoke.main_path):

@@ -32,8 +32,10 @@ its WKV state, ``tm_x`` and ``cm_x`` (RWKV), or its Mamba ``ssm`` and
 ``state["pos"]``, and returns the same dict. Decode takes tokens only, as
 in the reference: no patches, and the enc-dec decoder attends to the
 state's ``cross_k``/``cross_v``, which nothing but ``reset_decode_slots``
-writes (zeros, as the reference leaves them). ``extract_decode_slot`` and
-``restore_decode_slot`` (migration) wait for slice 3e.
+writes (zeros, as the reference leaves them). ``extract_decode_slot``
+copies one slot's share of the state to the host and
+``restore_decode_slot`` writes such a copy back into one slot, in place
+(mid-flight migration, ``runtime/migration.py``).
 """
 from __future__ import annotations
 
@@ -459,10 +461,11 @@ def reset_decode_slots(cfg: ArchConfig, state: dict, reset_mask) -> dict:
 
 def decode_state_cache_keys(cfg: ArchConfig) -> tuple[str, ...]:
     """State keys whose leaves carry the **cache length** axis (``cache_len``
-    at init; axis 2 of the stacked ``(layers, batch, len, ...)`` leaf).
-    These are the leaves mid-flight migration must pad/truncate when source
-    and target engines disagree on ``max_len``; recurrent leaves (RWKV/Mamba)
-    are length-free and move unchanged."""
+    at init; axis 2 of the stacked ``(layers, batch, len, ...)`` leaf, axis 1
+    after :func:`extract_decode_slot` drops the batch axis). These are the
+    leaves mid-flight migration must pad/truncate when source and target
+    engines disagree on ``max_len``; recurrent leaves (RWKV/Mamba) are
+    length-free and move unchanged."""
     if cfg.family == "ssm":
         return ()
     if cfg.family == "hybrid":
@@ -470,6 +473,44 @@ def decode_state_cache_keys(cfg: ArchConfig) -> tuple[str, ...]:
     if cfg.is_encdec:
         return ("self", "cross_k", "cross_v")
     return ("kv",)
+
+
+def extract_decode_slot(cfg: ArchConfig, state: dict, slot: int
+                        ) -> tuple[dict, int]:
+    """Host copy of ONE slot's decode state: ``(leaves, pos)``.
+
+    Every stacked state leaf carries batch at axis 1 (the layout
+    :func:`reset_decode_slots` relies on), so one slot's share is the
+    ``[:, slot]`` slice of each non-``pos`` leaf, copied into a fresh
+    contiguous CPU tensor. A copy, not a view: the engine updates the state
+    in place, so a view would change as the slot decodes on or is reset."""
+    def host(v: torch.Tensor) -> torch.Tensor:
+        part = v[:, slot]
+        return torch.empty(part.shape, dtype=part.dtype).copy_(part)
+
+    leaves = {key: _tree_map(host, val)
+              for key, val in state.items() if key != "pos"}
+    return leaves, int(state["pos"][slot])
+
+
+def restore_decode_slot(cfg: ArchConfig, state: dict, slot: int,
+                        leaves: dict, pos: int) -> dict:
+    """Masked single-slot **write**, the restore-side dual of
+    :func:`reset_decode_slots`: overwrite slot ``slot``'s share of every
+    state leaf with ``leaves`` (an :func:`extract_decode_slot` payload,
+    already resized to this state's cache length; cast to each leaf's
+    dtype) and pin its position stream at ``pos``, in place, WITHOUT
+    touching the other slots. Returns ``state``."""
+    state["pos"][slot] = pos
+    for key, val in state.items():
+        if key == "pos":
+            continue
+        if isinstance(val, dict):
+            for name, cur in val.items():
+                cur[:, slot].copy_(leaves[key][name])
+        else:
+            val[:, slot].copy_(leaves[key])
+    return state
 
 
 @torch.no_grad()

@@ -1,8 +1,8 @@
 """Batched serving loop — slot-stream continuous batching (default) with the
 legacy wave scheduler kept behind ``scheduler="wave"``.
 
-Counterpart of the JAX package's ``runtime/serving.py``, for the families
-the port's model serves (dense and RWKV). The schedulers, power states,
+Counterpart of the JAX package's ``runtime/serving.py``, for every family
+the port's model serves. The schedulers, power states,
 ``reconfigure`` and the energy, idle and SLO ledgers are the reference's,
 line for line. What differs: the engine holds a ``TransformerLM`` and a
 ``device`` (None: the card; the model must lie there), and its step is an
@@ -10,9 +10,8 @@ eager ``decode_step`` that **updates the decode state in place** — each
 layer's new K/V rows, or its WKV state and token-shift rows, are written
 into the existing state tensors — where the reference jits the step and
 donates the state buffer. The per-step argmax stays one host sync a step.
-``snapshot_slot``/``restore_slot`` (mid-flight migration) wait for slice 3;
-placements come from the caller, since ``runtime/placement.py`` waits for
-slice 4.
+``snapshot_slot``/``restore_slot`` move a live slot between engines
+(``runtime/migration.py``); placements come from ``runtime/placement.py``.
 
 **Slot streams** (``scheduler="stream"``): each of the B slots carries its own
 position stream inside one shared decode state (``models/transformer.py``
@@ -636,6 +635,30 @@ class ServingEngine:
                 self.stats.incomplete += 1
                 self.active.remove(req)
         self._stream = None
+
+    # ------------------------------------------------------------------
+    # Mid-flight migration (runtime/migration.py holds the machinery)
+    # ------------------------------------------------------------------
+    def snapshot_slot(self, slot: int):
+        """Host-side :class:`~repro_torch.runtime.migration.SlotSnapshot`
+        of one occupied slot of the open session (stream or wave).
+        Read-only: detaching the slot is the transactional move's job
+        (:func:`repro_torch.runtime.migration.migrate`)."""
+        from repro_torch.runtime import migration
+        return migration.snapshot_slot(self, slot)
+
+    def restore_slot(self, snap, *, now: Optional[float] = None,
+                     transfer_ws_per_mib: Optional[float] = None) -> int:
+        """Restore a :class:`~repro_torch.runtime.migration.SlotSnapshot`
+        into a free slot of this engine's open session; returns the slot
+        index. Refuses deterministically (``MigrationError``) when the
+        geometry cannot hold the snapshot or this engine is not awake —
+        with a clock, a wake is initiated (wake-charged) first."""
+        from repro_torch.runtime import migration
+        kwargs = {}
+        if transfer_ws_per_mib is not None:
+            kwargs["transfer_ws_per_mib"] = transfer_ws_per_mib
+        return migration.restore_slot(self, snap, now=now, **kwargs)
 
     def _run_stream(self, max_steps: int) -> list[Request]:
         self.stream_open()

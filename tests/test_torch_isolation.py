@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` imports JAX or the
-JAX package (``models/ssm.py``, ``models/moe.py`` and the hybrid, MoE,
-enc-dec and VLM entry points included), and its entry points raise without
-CUDA instead of falling back to the CPU."""
+JAX package (``models/ssm.py``, ``models/moe.py``, the hybrid, MoE, enc-dec
+and VLM entry points, migration and placement included), and its entry
+points raise without CUDA instead of falling back to the CPU."""
 import ast
 import os
 import subprocess
@@ -74,6 +74,7 @@ raises(lambda: init_decode_state(cfg, 2, 8), RuntimeError)
 raises(lambda: synthetic_batch(cfg, smoke_shape("prefill")), RuntimeError)
 raises(lambda: params_from_reference(cfg, {}, None), RuntimeError)
 raises(serve, RuntimeError)
+raises(lambda: serve(adaptive=True), RuntimeError)
 raises(rms_library, RuntimeError)
 raises(flash_library, RuntimeError)
 raises(lambda: rms_norm(torch.zeros(2, 64, device="meta"),
@@ -130,6 +131,17 @@ for arch, extra in (("seamless-m4t-medium", "frames"),
     decode_step(small, lm, st, torch.zeros(2, dtype=torch.int32))
     forward(small, lm, {"tokens": torch.zeros(1, 4, dtype=torch.int64),
                         extra: torch.zeros(1, 3, 64, dtype=torch.bfloat16)})
+from repro_torch.runtime import Request, migrate, static_placements
+
+engines = [ServingEngine(cfg, model, slots=2, max_len=16, device="cpu",
+                         name=name) for name in ("a", "b")]
+engines[0].submit(Request(rid=0, prompt=[1, 2], max_new_tokens=3))
+for eng in engines:
+    eng.stream_open()
+engines[0].stream_step()
+assert migrate(engines[0], engines[1], 0) == 0
+engines[1].reconfigure(static_placements("llama3.2-3b",
+                                         {"data": 16, "model": 16}))
 print("ISOLATED", len(mods))
 """
 

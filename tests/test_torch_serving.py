@@ -465,15 +465,29 @@ def test_engine_refuses_a_model_on_another_device():
         PR.ServingEngine(cfg, model, device="meta")
 
 
-def test_serve_on_cpu_completes_every_request():
+def test_serve_on_cpu_completes_every_request(tmp_path):
+    """serve() bills its tokens under the static placements, as the
+    reference's does, and serves under the adaptive controller too
+    (``tests/test_torch_placement.py`` holds both to the reference)."""
     out = serve("llama3.2-3b", num_requests=5, slots=2, max_new_tokens=4,
                 device="cpu")
     assert out["completed"] == 5 and out["rejected"] == 0
     assert out["decode_tokens"] == 5 * 3  # the first token rides on prefill
     assert all(len(o) == 4 for o in out["outputs"].values())
-    assert out["energy_ws"] == 0.0 and "slice 4" in out["energy_note"]
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        serve("llama3.2-3b", adaptive=True, device="cpu")
+    rates = PR.static_placements("llama3.2-3b", {"data": 16, "model": 16})
+    prefill = out["total_tokens"] - out["decode_tokens"]
+    assert out["energy_ws"] > 0.0
+    assert out["energy_ws"] == pytest.approx(
+        prefill * rates["prefill"].energy_per_token_ws
+        + out["decode_tokens"] * rates["decode"].energy_per_token_ws,
+        rel=1e-12)
+    assert set(out["placements"]) == {"prefill", "decode"}
+    assert all(d == "data16xmodel16" for _, d in out["served_by"].values())
+    adaptive = serve("llama3.2-3b", num_requests=5, slots=2,
+                     max_new_tokens=4, adaptive=True, interval_steps=4,
+                     cache_path=str(tmp_path / "cache.jsonl"), device="cpu")
+    assert adaptive["outputs"] == out["outputs"]
+    assert adaptive["new_measurements"] > 0
 
 
 @pytest.mark.parametrize("scheduler", ["stream", "wave"])
