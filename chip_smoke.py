@@ -44,8 +44,9 @@ tensor-core kernel. Then:
   ``ServingEngine`` with ``serve``'s requests), a ragged run through
   ``ServingEngine`` (not for llava: its decode step is the dense block on
   tokens, which llama3.2-3b's ragged run drives; llama3.2-3b's over its
-  first 14 layers, mixtral-8x7b's over its first 12, to fit the run's
-  budget) and one forward of 2x2048
+  first 14 layers, mixtral-8x7b's over its first 12 and zamba2-7b's over
+  its first group and a tail layer, 7 layers, to fit the run's budget) and
+  one forward of 2x2048
   tokens (seamless: over 2x2048 frames; llava: 2x5760 positions), each
   metered on the GPU's power counter, and then profiled windows of decode
   steps and of a forward. ``serve`` runs under the static placements the
@@ -58,6 +59,16 @@ tensor-core kernel. Then:
   its tokens held to the never-migrated baseline's; and ``placement``,
   ``serve(..., adaptive=True)`` with its controller's planning time, and
   the metered GPU W·s a decode token fed back through ``note_metered``;
+* slice 4b, the fleet, on llama3.2-3b at full width and depth through B2:
+  ``launch.serve.serve_fleet`` on the mixed fleet (pod2_v5e, mxu_dense,
+  hbm_lp; 2 slots each) with the energy policy, with ``adaptive=True``
+  and with ``provision_budget_w`` (the capacity planner's fleet);
+  ``FleetRouter.run(concurrent=True)`` on worker threads against one
+  worker, token- and ledger-identical; and ``workload.simulate`` of a
+  seeded bursty trace with autoscaling and live rebalancing, its moved
+  requests' tokens held to a never-migrated run's. Each run's modeled
+  ledger (no request has an eos, so it does not depend on tokens) must
+  equal the same call's on the CPU at the reduced config, run here too;
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
@@ -65,8 +76,8 @@ tensor-core kernel. Then:
   that backend.
 
 The kernels' launch counts are set to 0 just before each main path (the
-migration and adaptive runs each count as a path of their own) and read
-just after; a kernel's ``launches`` in the kernels line add up the paths
+migration and adaptive runs and each fleet run count as a path of their
+own) and read just after; a kernel's ``launches`` in the kernels line add up the paths
 it ran on (``launches_by_path`` keeps them apart). Every phase prints
 one JSON line; then the kernels' line; the line before the last is the
 card's name and power limit as ``nvidia-smi`` gives them, the last line is
@@ -149,6 +160,10 @@ RAGGED = dict(slots=8, max_len=1024, requests=16, prompt=(64, 512),
 # model, sharing its weights), where the full depths took 61 s and 82 s
 # of a run of 862 s on a slow host.
 RAGGED_LAYERS = {"llama3.2-3b": 14, "mixtral-8x7b": 12}
+# zamba2-7b's ragged run over its first group of 6 and one tail layer (a
+# view sharing the weights), cut to make room for the fleet: its 27 layers
+# took ~42 s of the run.
+HYBRID_RAGGED_LAYERS = 7
 PREFILL = (2, 2048)  # batch x tokens of the main path's forward
 RMS_SHAPES = (((8, 1, 3072), "bfloat16"), ((2, 2048, 3072), "bfloat16"),
               ((8, 1, 3584), "bfloat16"), ((2, 2048, 3584), "bfloat16"),
@@ -163,7 +178,12 @@ RMS_SHAPES = (((8, 1, 3072), "bfloat16"), ((2, 2048, 3072), "bfloat16"),
               # slots of llama3.2-3b and rwkv6-1.6b
               ((8, 1, 2048), "bfloat16"), ((2, 2048, 2048), "bfloat16"),
               ((4, 1, 3072), "bfloat16"), ((4, 1, 2048), "bfloat16"),
+              # the fleet's decode step of llama3.2-3b: 2 slots an engine
+              ((2, 1, 3072), "bfloat16"),
               ((37, 5632), "float32"))
+# B2 at rwkv6-1.6b's prefill width, the one shape where F.rms_norm read
+# faster (0.0114 ms against 0.0127, timed once): timed with twice the reps
+RMS_REMEASURE = ((2, 2048, 2048), "bfloat16")
 # (B, H, K, S, D, dtype, causal, window); bf16 at D = 64 and 128 takes the
 # tensor-core kernel, the rest the scalar one. The main path's shape also
 # in f32, where F32_ATOL can catch a dropped or misplaced key tile that
@@ -207,6 +227,29 @@ HOST_CALLS = 10_000  # calls each step of B2's and B4's launch paths is timed
 MIGRATION = dict(slots=4, max_len=1024, requests=8, max_new_tokens=32,
                  resize_len=512, resize_rid=2)
 NEAR_TIE_RTOL = 2e-2
+
+# Slice 4b: the fleet on llama3.2-3b's full-width model. serve_fleet's
+# requests (3-token prompts, no eos) on the mixed fleet, 2 slots and
+# max_len 64 an engine; PROVISION_W is the nameplate budget under which the
+# capacity planner builds two destination types (mxu_dense and hbm_lp: 30
+# kW builds one mxu_dense, 50 kW one of each). FLEET_REPLAY is a seeded
+# bursty trace of 24 requests of serve's two tenants (chat with an SLO,
+# batch) and the replay's options: autoscaling ticks, and a live rebalance
+# every millisecond of the virtual clock off engines whose queue holds more
+# than their slots, which moves admitted slots (2 on the CPU's run).
+FLEET = dict(num_requests=8, max_new_tokens=32)
+# the threaded executor's run: serve_fleet's requests at 16 new tokens
+FLEET_THREADS = dict(num_requests=8, max_new_tokens=16)
+PROVISION_W = 50_000.0
+FLEET_REPLAY = dict(
+    spec=dict(seed=0, duration_s=0.012, rate_rps=2400.0, max_len=64,
+              arrival="bursty"),
+    router=dict(slots=2, max_len=64, autoscale=True, saturation_factor=1.0),
+    simulate=dict(autoscale_every_s=0.002, rebalance_every_s=0.001,
+                  rebalance_live=True))
+# ServingEngine and serve_fleet report fields that may differ between the
+# card's run and the CPU's: wall-clock ones, the tokens and the device
+FLEET_UNMODELED = frozenset({"wall_s", "tokens_per_s", "outputs", "device"})
 
 # Slice 3b: the hybrid LM path (zamba2-7b) through kernels B2 and B3.
 HYBRID_ARCH = "zamba2-7b"
@@ -655,14 +698,23 @@ def kernel_vs_plain(cfg, model, batch, module, attr, plain, baseline=None,
 def first_layers(cfg, model, layers: int):
     """(config, model) of ``model``'s first ``layers`` layers: a shallow
     copy whose layer list is a slice of the model's, sharing every weight,
-    so a cut run of a 70 GB model needs no second copy of it."""
+    so a cut run of a 70 GB model needs no second copy of it. A hybrid's
+    cut keeps its first groups and the first layers of its tail, as many
+    as ``hybrid_groups`` gives the cut config."""
     import copy
     import dataclasses
 
+    from repro_torch.models.transformer import hybrid_groups
+
     cut = copy.copy(model)
     cut._modules = dict(model._modules)  # the copy's own module table
-    cut.layers = model.layers[:layers]
     cut.cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.family == "hybrid":
+        groups, tail = hybrid_groups(cut.cfg)
+        cut.groups = model.groups[:groups]
+        cut.tail = model.tail[:tail]
+    else:
+        cut.layers = model.layers[:layers]
     return cut.cfg, cut
 
 
@@ -967,9 +1019,10 @@ class Smoke:
             row = {"shape": list(shape), "dtype": dt,
                    "max_abs_err": float(err.max()), "tolerance": tol}
             weight = scale.to(x.dtype)  # the library call takes one dtype
+            row["reps"] = REPS * (2 if (shape, dt) == RMS_REMEASURE else 1)
             row.update(timed_pair(
                 lambda: rms_norm_cuda(x, scale),
-                lambda: rms_norm_ref(x, scale), REPS,
+                lambda: rms_norm_ref(x, scale), row["reps"],
                 lambda: F.rms_norm(x, (shape[-1],), weight, 1e-5)))
             row["bound_ms"], row["bound_by"] = rms_bound_ms(
                 shape, x.element_size())
@@ -1082,6 +1135,8 @@ class Smoke:
             k: rows[("rms_norm", (2, 5760, 4096))][k] for k in keys}
         self.kernels["rms_norm"]["serve_decode"] = {
             k: rows[("rms_norm", (4, 1, 3072))][k] for k in keys}
+        self.kernels["rms_norm"]["fleet_decode"] = {
+            k: rows[("rms_norm", (2, 1, 3072))][k] for k in keys}
         for width in (1024, 4096, 2048):
             self.kernels["rms_norm"][f"d{width}"]["serve_decode"] = {
                 k: rows[("rms_norm", (4, 1, width))][k] for k in keys}
@@ -2209,6 +2264,305 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
 
+    def fleet_main_path(self):
+        """Slice 4b on llama3.2-3b at full width and depth: five runs of
+        the fleet, each a path of its own (the counts set to 0 before it
+        and read after), metered, its peak device memory read. Every engine
+        of a fleet shares one model; caches lie in a temporary directory.
+
+        1-3. ``serve_fleet`` (energy policy; ``adaptive=True``;
+           ``provision_budget_w=PROVISION_W``), which builds its own model;
+        4. ``FleetRouter.run(concurrent=True)`` on worker threads, one
+           engine a thread, against ``max_workers=1`` on a second fleet of
+           the same requests (round robin, so every engine has work):
+           tokens, finish reasons and every ``EngineStats`` field equal;
+        5. ``workload.simulate`` of FLEET_REPLAY's trace with autoscaling
+           and live rebalancing; the moved requests' tokens must equal a
+           never-migrated run's (one engine of the same geometry).
+
+        No request has an eos, so the modeled ledger does not depend on
+        token values: each run's report (wall clock, tokens and device
+        aside), plans, routing and ledgers must equal the same call's on
+        the CPU at the reduced config, run here with the port. One ledger
+        line depends on the model's size: a move's ``migration_ws`` is its
+        snapshot's bytes at ``transfer_ws_per_mib``, so on each device it
+        must equal that rate over a slot of its own config's decode state,
+        and everything else must be equal. B2 must launch 2n+1 times a
+        step of every engine, threads or not."""
+        import dataclasses
+        import gc
+        import tempfile
+        from collections import Counter
+
+        import torch
+        from repro_torch import models as M
+        from repro_torch.checkpoint import tree_paths
+        from repro_torch.configs import get_config, mixed_fleet, reduced
+        from repro_torch.launch.serve import TENANTS, _requests, serve_fleet
+        from repro_torch.models.transformer import init_decode_state
+        from repro_torch.runtime import (FleetRouter, Request, ServingEngine,
+                                         migration)
+        from repro_torch.workload import WorkloadSpec, generate, simulate
+
+        cfg = get_config(ARCH)
+        small = reduced(cfg)
+        n = cfg.num_layers
+        per_step = {"rms_norm": 2 * n + 1, "flash_attention": 0,
+                    "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+        tmp = tempfile.TemporaryDirectory()
+
+        def cache(name):
+            return str(Path(tmp.name) / f"{name}.jsonl")
+
+        def measured(label, fn):
+            """``fn()`` metered as the path ``label``: (result, seconds,
+            GPU W·s, samples, launches, peak bytes)."""
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_launches()
+            before = lm_launches()
+            out, secs, ws, samples = metered(fn)
+            launches = launches_since(before)
+            self.path_launches[f"{ARCH} fleet {label}"] = lm_launches()
+            return (out, secs, ws, samples, launches,
+                    torch.cuda.max_memory_allocated())
+
+        def check_launches(label, launches, steps):
+            want = {k: v * steps for k, v in per_step.items()}
+            self.check(steps > 0 and launches == want,
+                       f"fleet {label}: launches {launches} over {steps} "
+                       f"engine steps, want {per_step} a step")
+
+        def line(label, *, steps, tokens, wall, energy_ws, occupancy, secs,
+                 ws, samples, launches, peak, **extra):
+            emit({"phase": "fleet", "run": label, "arch": ARCH, "layers": n,
+                  "full": True, "steps": steps, "wall_s": wall,
+                  "tokens_per_s": tokens / wall,
+                  "ms_per_engine_step": 1e3 * wall / steps,
+                  "occupancy": occupancy, "modeled_energy_ws": energy_ws,
+                  "modeled_ws_per_1k_tokens": energy_ws / tokens * 1e3,
+                  "modeled_by": "TpuPowerModel (TPU v5e) of each "
+                                "destination, not the card's draw",
+                  "seconds": secs, "metered_gpu_ws": ws,
+                  "trace_samples": samples,
+                  "max_memory_allocated_bytes": peak, "launches": launches,
+                  **extra, "card": self.card})
+
+        def modeled(report):
+            return {k: v for k, v in report.items()
+                    if k not in FLEET_UNMODELED}
+
+        # 1-3. the serve_fleet entry point
+        for label, kw in (("energy", {}), ("adaptive", {"adaptive": True}),
+                          ("provisioned",
+                           {"provision_budget_w": PROVISION_W})):
+            want = serve_fleet(ARCH, use_reduced=True, device="cpu",
+                               cache_path=cache(f"{label}-cpu"), **FLEET,
+                               **kw)
+            out, secs, ws, samples, launches, peak = measured(
+                label, lambda: serve_fleet(
+                    ARCH, use_reduced=False, device="cuda",
+                    cache_path=cache(label), **FLEET, **kw))
+            got = modeled(out)
+            self.check(got == modeled(want),
+                       f"fleet {label}: the modeled report differs from the "
+                       "CPU's in " + str(sorted(
+                           k for k in got if got[k] != want.get(k))))
+            self.check(out["completed"] == FLEET["num_requests"] and all(
+                len(o) == FLEET["max_new_tokens"]
+                for o in out["outputs"].values()),
+                f"fleet {label}: not every request generated its tokens")
+            check_launches(label, launches, out["steps"])
+            line(label, steps=out["steps"], tokens=out["total_tokens"],
+                 wall=out["wall_s"], energy_ws=out["energy_ws"],
+                 occupancy=out["occupancy"], secs=secs, ws=ws,
+                 samples=samples, launches=launches, peak=peak,
+                 entry="serve_fleet", policy="energy", engines=list(
+                     out["engines"]),
+                 served_by=dict(Counter(e for e, _ in
+                                        out["served_by"].values())),
+                 new_measurements=out["new_measurements"],
+                 reconfigurations=out["reconfigurations"],
+                 modeled_equals_cpu=got == modeled(want), **kw)
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # one model for runs 4 and 5, shared by every engine
+        generator = torch.Generator(device="cuda")
+        generator.manual_seed(0)
+        model = M.init_params(cfg, generator)
+        cpu_generator = torch.Generator()
+        cpu_generator.manual_seed(0)
+        cpu_model = M.init_params(small, cpu_generator)
+
+        def ledger(router):
+            return {name: dataclasses.asdict(st)
+                    for name, st in router.per_engine_stats().items()}
+
+        def summed(router):
+            fleet = dataclasses.asdict(router.fleet_stats())
+            return all(fleet[f] == sum(s[f] for s in ledger(router).values())
+                       for f in fleet)
+
+        # 4. the lockstep executor: worker threads against one worker
+        def fleet(c, m, device, name):
+            router = FleetRouter(c, m, mixed_fleet(), arch=ARCH,
+                                 policy="round_robin", slots=2, max_len=64,
+                                 cache_path=cache(name), device=device)
+            for r in _requests(**FLEET_THREADS):
+                router.submit(r)
+            return router
+
+        def drain(router, workers):
+            """The executor's drain: (finished, wall seconds)."""
+            t0 = time.perf_counter()
+            done = router.run(concurrent=True, max_workers=workers)
+            torch.cuda.synchronize()
+            return done, time.perf_counter() - t0
+
+        def record(done):
+            return [(r.rid, r.output, r.finish_reason, r.served_by)
+                    for r in done]
+
+        wide, one = fleet(cfg, model, "cuda", "wide"), fleet(cfg, model,
+                                                              "cuda", "one")
+        (done_w, wall_w), secs_w, ws_w, samples_w, n_w, peak_w = \
+            measured("concurrent", lambda: drain(wide, None))
+        (done_1, wall_1), secs_1, ws_1, samples_1, n_1, _ = \
+            measured("single-worker", lambda: drain(one, 1))
+        cpu = fleet(small, cpu_model, "cpu", "cpu")
+        cpu.run(concurrent=True)
+        self.check(record(done_w) == record(done_1),
+                   "fleet concurrent: tokens or finish reasons differ from "
+                   "the single-worker run's")
+        same = ledger(wide) == ledger(one) == ledger(cpu)
+        self.check(same and wide.assignments == cpu.assignments
+                   and summed(wide),
+                   "fleet concurrent: ledgers or routing differ between "
+                   "the concurrent, single-worker and CPU runs")
+        self.check(len(done_w) == FLEET_THREADS["num_requests"],
+                   f"fleet concurrent: {len(done_w)} requests done")
+        ws_stats = wide.fleet_stats()
+        check_launches("concurrent", n_w, ws_stats.steps)
+        check_launches("single-worker", n_1, one.fleet_stats().steps)
+        line("concurrent", steps=ws_stats.steps,
+             tokens=ws_stats.total_tokens, wall=wall_w,
+             energy_ws=ws_stats.energy_ws, occupancy=ws_stats.occupancy,
+             secs=secs_w, ws=ws_w, samples=samples_w, launches=n_w,
+             peak=peak_w, entry="FleetRouter.run", policy="round_robin",
+             requests=FLEET_THREADS["num_requests"],
+             max_new_tokens=FLEET_THREADS["max_new_tokens"],
+             engines={b.name: b.engine.stats.steps for b in wide.bindings},
+             concurrent_wall_s=wall_w, sequential_wall_s=wall_1,
+             sequential_over_concurrent=wall_1 / wall_w,
+             sequential_metered_gpu_ws=ws_1,
+             sequential_trace_samples=samples_1, sequential_launches=n_1,
+             ledger_equals_single_worker_and_cpu=same)
+        del wide, one, done_w, done_1
+
+        # 5. the virtual-clock replay with live rebalancing
+        def replay(c, m, device, name):
+            trace = generate(WorkloadSpec(tenants=TENANTS,
+                                          **FLEET_REPLAY["spec"]))
+            router = FleetRouter(c, m, mixed_fleet(), arch=ARCH,
+                                 cache_path=cache(name), device=device,
+                                 **FLEET_REPLAY["router"])
+            return trace, router, simulate(router, trace,
+                                           **FLEET_REPLAY["simulate"])
+
+        (trace, router, report), secs, ws, samples, n5, peak = measured(
+            "replay", lambda: replay(cfg, model, "cuda", "replay"))
+        moves = router.moves
+        _, cpu_router, cpu_report = replay(small, cpu_model, "cpu",
+                                           "replay-cpu")
+
+        def transfer_ws(c, device, moved):
+            """The transfer-cost ledger of ``moved`` moves of a slot of
+            ``c``'s decode state (every leaf but ``pos``), summed as the
+            engines bill it."""
+            st = init_decode_state(c, 1, FLEET_REPLAY["router"]["max_len"],
+                                   device=device)
+            nbytes = sum(t.numel() * t.element_size() for path, t in
+                         tree_paths({k: v for k, v in st.items()
+                                     if k != "pos"}))
+            total = 0.0
+            for _ in range(moved):
+                total += (nbytes / (1 << 20)
+                          * migration.DEFAULT_TRANSFER_WS_PER_MIB)
+            return total
+
+        def sized(x):
+            """``x`` (a SimReport or a ledger, as dicts) without the
+            ledger line that depends on the model's size."""
+            if isinstance(x, dict):
+                return {k: sized(v) for k, v in x.items()
+                        if k != "migration_ws"}
+            return x
+
+        diff = sorted(k for k, v in sized(dataclasses.asdict(
+            report)).items() if v != sized(dataclasses.asdict(
+                cpu_report))[k])
+        same = (not diff and sized(ledger(router)) == sized(ledger(
+            cpu_router)) and router.assignments == cpu_router.assignments)
+        self.check(same, f"fleet replay: SimReport fields {diff}, ledgers "
+                         "or routing differ from the CPU's")
+        bills = {"cuda": (report.migration_ws,
+                          transfer_ws(cfg, "cuda", report.migrations)),
+                 "cpu": (cpu_report.migration_ws,
+                         transfer_ws(small, "cpu", cpu_report.migrations))}
+        self.check(all(abs(got - want) <= 1e-12 * want
+                       for got, want in bills.values()),
+                   f"fleet replay: migration_ws against slot bytes: {bills}")
+        fs = router.fleet_stats()
+        self.check(report.completed == report.submitted == len(trace)
+                   and summed(router),
+                   f"fleet replay: {report.completed} of {len(trace)} done")
+        self.check(report.migrations >= 1 and len(moves) == report.migrations
+                   == fs.migrations_in == fs.migrations_out,
+                   f"fleet replay: {report.migrations} migrations, "
+                   f"{len(moves)} moves, ledger {fs.migrations_in} in, "
+                   f"{fs.migrations_out} out")
+        check_launches("replay", n5, report.steps)
+        # the never-migrated run: the moved requests on one engine of the
+        # fleet's geometry, where each row's arithmetic is the same
+        by_rid = {t.rid: t.request for t in trace}
+        fresh = [Request(rid=rid, prompt=list(by_rid[rid].prompt),
+                         max_new_tokens=by_rid[rid].max_new_tokens)
+                 for rid in sorted({rid for rid, _, _ in moves})]
+        solo = ServingEngine(cfg, model, slots=2,
+                             max_len=FLEET_REPLAY["router"]["max_len"],
+                             device="cuda")
+        for r in fresh:
+            solo.submit(r)
+        solo.run()
+        parted = [r.rid for r in fresh
+                  if (r.output, r.finish_reason)
+                  != (by_rid[r.rid].output, by_rid[r.rid].finish_reason)]
+        self.check(not parted, f"fleet replay: the moved requests {parted} "
+                               "part from their never-migrated tokens")
+        line("replay", steps=report.steps, tokens=report.tokens, wall=secs,
+             energy_ws=report.energy_ws, occupancy=fs.occupancy, secs=secs,
+             ws=ws, samples=samples, launches=n5, peak=peak,
+             entry="workload.simulate", policy="energy",
+             engines={b.name: b.engine.stats.steps for b in router.bindings},
+             requests=len(trace), completed=report.completed,
+             migrations=report.migrations,
+             moves=[{"rid": rid, "from": a, "to": b} for rid, a, b in moves],
+             moved_tokens_equal_baseline=not parted,
+             modeled_idle_ws=report.idle_ws,
+             modeled_migration_ws=report.migration_ws,
+             cpu_modeled_migration_ws=cpu_report.migration_ws,
+             modeled_total_ws=report.total_ws,
+             modeled_full_bill_ws_per_1k_tokens=report.ws_per_1k_tokens,
+             simulated_s=report.duration_s,
+             slo_violations=report.slo_violations,
+             power_log=len(report.power_log),
+             report_equals_cpu=same)
+        del router, cpu_router, model, cpu_model, solo, trace
+        tmp.cleanup()
+        gc.collect()
+        torch.cuda.empty_cache()
+
     def attention_main_path(self, cfg, then=None):
         """The dense and MoE paths: ln1 and ln2 a layer and the final norm;
         B3 once a layer in the forward, on the tensor cores, since decode
@@ -2255,17 +2609,23 @@ class Smoke:
         from repro_torch.configs import get_config
         from repro_torch.models.transformer import hybrid_groups
 
+        def per_step(n):
+            # the shared attention's ln a group, each Mamba layer's ln and
+            # the final norm
+            groups, _ = hybrid_groups(dataclasses.replace(cfg, num_layers=n))
+            return {"rms_norm": groups + n + 1, "flash_attention": 0,
+                    "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+
         cfg = dataclasses.replace(get_config(HYBRID_ARCH),
                                   num_layers=HYBRID_LAYERS)
         groups, _ = hybrid_groups(cfg)
-        # the shared attention's ln a group, each Mamba layer's ln and the
-        # final norm; B3 once a group in the forward, on the tensor cores,
-        # since decode attention is PyTorch ops
-        per = {"rms_norm": groups + cfg.num_layers + 1, "flash_attention": 0,
-               "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+        per, cut = per_step(cfg.num_layers), HYBRID_RAGGED_LAYERS
+        # B3 once a group in the forward, on the tensor cores, since decode
+        # attention is PyTorch ops
         self.lm_main_path(cfg, per,
                           {**per, "flash_attention": groups,
-                           "flash_attention_tc": groups})
+                           "flash_attention_tc": groups},
+                          ragged=(cut, per_step(cut)))
 
     def encdec_main_path(self):
         """seamless-m4t-medium at full width and depth. A decode step: ln1,
@@ -2364,7 +2724,7 @@ def main() -> int:
                   smoke.encdec_model_check, smoke.encdec_bf16_model_check,
                   smoke.vlm_model_check, smoke.vlm_bf16_model_check,
                   smoke.dense_main_path, smoke.placement_phase,
-                  smoke.rwkv_main_path,
+                  smoke.fleet_main_path, smoke.rwkv_main_path,
                   smoke.hybrid_main_path, smoke.moe_main_path,
                   smoke.encdec_main_path, smoke.vlm_main_path,
                   smoke.lm_kernel_launches, smoke.main_path):

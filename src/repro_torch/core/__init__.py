@@ -3,7 +3,8 @@
 GA search (ga, genome, fitness) + evaluation substrate (evaluator, with the
 disk-persisted cache in cache_store) + power models (power) + unit-cost
 models (arithmetic_intensity) + the LM verification environment
-(lm_cost_model) + mixed-environment selection (device_select) + the paper's
+(lm_cost_model) + static narrowing (candidates) + runtime reconfiguration
+(reconfigure) + mixed-environment selection (device_select) + the paper's
 search entry point (offload_search.search_himeno) and the fleet sweeps with
 their time/energy Pareto frontiers (offload_search.search_fleet, pareto).
 The verification backends live in ``repro_torch.core.verifier``, which
@@ -37,6 +38,7 @@ from repro_torch.core.offload_search import (
     CellSpec, FleetCellResult, FleetResult, lm_cell_key, lm_genome_space,
     mesh_label, search_fleet, search_himeno, search_lm_cell,
 )
+from repro_torch.core.candidates import NarrowingConfig, narrow_and_measure
 from repro_torch.core.device_select import Destination, select_destination
 
 __all__ = [
@@ -56,5 +58,6 @@ __all__ = [
     "CellSpec", "FleetCellResult", "FleetResult", "lm_cell_key",
     "lm_genome_space", "mesh_label", "search_fleet", "search_himeno",
     "search_lm_cell",
+    "NarrowingConfig", "narrow_and_measure",
     "Destination", "select_destination",
 ]

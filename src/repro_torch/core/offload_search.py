@@ -269,8 +269,8 @@ class FleetResult:
     evaluations: int  # distinct measurements actually performed
     cache_hits: int
     wall_s: float
-    # Static pre-screen outcome in the JAX package; always None here, since
-    # the port has no pre-screen yet (search_fleet refuses screen=...).
+    # Static pre-screen outcome (analysis/screen.py ScreenReport) when
+    # search_fleet ran with screen=...; None means every cell was measured.
     screen: Optional[object] = None
 
     @property
@@ -309,18 +309,24 @@ def search_fleet(
     to a preferred operating point (lowest energy satisfying the
     requirement, the paper's §3.3 flow).
 
-    ``screen`` — the JAX package's static pre-screen
-    (``analysis/screen.py``) is not in the port yet; any value but None or
-    False raises ``NotImplementedError`` rather than sweeping unscreened.
+    ``screen`` — pass ``True`` or an ``analysis.screen.ScreenPolicy`` to
+    run the static pre-screen first: cells it proves dead (infeasible /
+    dominated / below the intensity floor) are dropped before measurement
+    and recorded on ``FleetResult.screen`` + ``engine.screened_cells``.
+    Survivors' GA winners, operating points, and the fleet frontier are
+    bit-identical to the unscreened sweep (the screen's dominance proof
+    quantifies over the dropped cells' whole genome spaces).
     """
     from repro_torch.configs import get_config
 
-    if screen:
-        raise NotImplementedError(
-            "search_fleet(screen=...) needs analysis/screen.py, which waits "
-            "for slice 6 of the port")
     eng = engine or EvalEngine(executor=VectorizedExecutor())
     screen_report = None
+    if screen:
+        from repro_torch.analysis.screen import ScreenPolicy, screen_cells
+        policy = screen if isinstance(screen, ScreenPolicy) else None
+        screen_report = screen_cells(cells, policy=policy, power=power)
+        cells = screen_report.kept
+        eng.note_screened([d.key for d in screen_report.dropped])
     stats_before = eng.cache.stats()
     t_start = time.perf_counter()
 

@@ -8,7 +8,8 @@ with ctypes. A build writes a temporary file and renames it into place, so
 two processes that build at once never load half a library. Every library
 exports ``<prefix>_error_string(int)``, CUDA's name for an error code. Every
 wrapper launches through ``KernelLibrary.launcher``, on PyTorch's current
-stream of the operands' device.
+stream of the operands' device, and counts the launch with
+``count_launch``, which stays exact when engines step on several threads.
 """
 from __future__ import annotations
 
@@ -34,6 +35,27 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # a build of PyTorch without CUDA has neither (and launches nothing).
 _current_device = getattr(torch._C, "_cuda_getDevice", None)
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+# One lock for every wrapper's launch counts: ``fn.launches += 1`` is a
+# read, an add and a write, and a thread switch between them loses a count.
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, *names: str) -> None:
+    """Add one to each of ``fn``'s integer attributes ``names`` (default
+    ``launches``) under a lock, so that concurrent launches are all counted.
+    Readers read the attribute as a plain int."""
+    with _COUNT_LOCK:
+        for name in names or ("launches",):
+            setattr(fn, name, getattr(fn, name) + 1)
+
+
+def reset_counts(fn, *names: str) -> None:
+    """Set each of ``fn``'s counts ``names`` (default ``launches``) to 0."""
+    with _COUNT_LOCK:
+        for name in names or ("launches",):
+            setattr(fn, name, 0)
 
 
 def nvcc() -> str:

@@ -34,7 +34,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._build import KernelLibrary, count_launch, \
+    reset_counts
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,10 +122,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.shape[1], s, d, scale, int(causal), int(window))
     if kernel_for(q.dtype, d) == "tensor_core":
         _tensor_core(q.get_device(), *args)
-        flash_attention_cuda.launches_tc += 1
+        count_launch(flash_attention_cuda, "launches", "launches_tc")
     else:
         _scalar(q.get_device(), *args, DTYPES[q.dtype])
-    flash_attention_cuda.launches += 1
+        count_launch(flash_attention_cuda)
     return out
 
 
@@ -133,5 +134,4 @@ flash_attention_cuda.launches_tc = 0
 
 
 def reset_launches() -> None:
-    flash_attention_cuda.launches = 0
-    flash_attention_cuda.launches_tc = 0
+    reset_counts(flash_attention_cuda, "launches", "launches_tc")

@@ -24,7 +24,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._build import KernelLibrary, count_launch, \
+    reset_counts
 from repro_torch.kernels.himeno.ref import jacobi_ref, stencil_parts_ref
 
 
@@ -94,7 +95,7 @@ def himeno_sweep(p, a, b, c, bnd, wrk1, omega: float = 0.8):
         return jacobi_ref(p, a, b, c, bnd, wrk1, omega=omega)
     p_new = torch.empty_like(p)
     parts = _launch(_sweep, p_new, p, a, b, c, bnd, wrk1, omega)
-    himeno_sweep.launches += 1
+    count_launch(himeno_sweep)
     return p_new, torch.sum(parts)
 
 
@@ -106,7 +107,7 @@ def himeno_stencil(p, a, b, c, bnd, wrk1):
     I, J, K = p.shape
     ss = torch.empty((I - 2, J - 2, K - 2), dtype=p.dtype, device=p.device)
     parts = _launch(_stencil, ss, p, a, b, c, bnd, wrk1)
-    himeno_stencil.launches += 1
+    count_launch(himeno_stencil)
     return ss, parts
 
 
@@ -117,4 +118,4 @@ WRAPPERS = (himeno_sweep, himeno_stencil)
 
 def reset_launches() -> None:
     for fn in WRAPPERS:
-        fn.launches = 0
+        reset_counts(fn)

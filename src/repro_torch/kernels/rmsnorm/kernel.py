@@ -29,7 +29,8 @@ import struct
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._build import KernelLibrary, count_launch, \
+    reset_counts
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 
 MAX_VECTORS = 8 * 256  # 16-byte vectors a row may hold (8 a thread, 256)
@@ -100,7 +101,7 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
     if rows:
         _forward(device, _pack(xp, sp, y.data_ptr(), rows, d, eps,
                                x.dtype is torch.bfloat16))
-        rms_norm_cuda.launches += 1
+        count_launch(rms_norm_cuda)
     return y
 
 
@@ -108,4 +109,4 @@ rms_norm_cuda.launches = 0
 
 
 def reset_launches() -> None:
-    rms_norm_cuda.launches = 0
+    reset_counts(rms_norm_cuda)

@@ -45,7 +45,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._build import KernelLibrary, count_launch, \
+    reset_counts
 from repro_torch.kernels.wkv.ref import CHUNK, wkv_ref
 
 HEAD_DIMS = (16, 64)
@@ -180,8 +181,9 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   0 if state is None else pf, pf, po, b, h,
                                   s, d, *strides[:3], *out.stride()[:3]))
     if kernel == "tensor_core":
-        wkv_cuda.launches_tc += 1
-    wkv_cuda.launches += 1
+        count_launch(wkv_cuda, "launches", "launches_tc")
+    else:
+        count_launch(wkv_cuda)
     return out, final
 
 
@@ -190,5 +192,4 @@ wkv_cuda.launches_tc = 0
 
 
 def reset_launches() -> None:
-    wkv_cuda.launches = 0
-    wkv_cuda.launches_tc = 0
+    reset_counts(wkv_cuda, "launches", "launches_tc")

@@ -21,16 +21,25 @@ closed-form model:
 
 Either way the returned :class:`~repro_torch.core.fitness.Measurement`
 carries the metered energy, keeps the model's closed-form value in
-``detail["metered"]["modeled_ws"]``, and reports their relative error.
+``detail["metered"]["modeled_ws"]``, and reports their relative error — the
+modeled-vs-metered comparison ``telemetry/calibrate.py`` fits against.
+
+``metered_lm_backend`` is the fleet-cell form, registered under the name
+``"metered"`` (see :func:`repro_torch.core.evaluator.register_backend`): a
+``CellSpec(..., backend="metered")`` cell then evaluates meter-backed through
+the same engine and cache as its model-backed neighbours.
 """
 from __future__ import annotations
 
 from dataclasses import replace
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.core.evaluator import register_backend
 from repro_torch.core.fitness import Measurement
-from repro_torch.core.power import PaperPowerModel
-from repro_torch.telemetry.meter import EnergyMeter, meter_trace
+from repro_torch.core.lm_cost_model import Decisions, analyze_cell
+from repro_torch.core.power import PaperPowerModel, TpuPowerModel
+from repro_torch.telemetry.meter import EnergyMeter, meter_trace, trapezoid_ws
 from repro_torch.telemetry.sampler import (
     CounterSampler, ModeledSampler, PowerSampler, PowerTrace,
 )
@@ -146,3 +155,50 @@ class MeteredBackend:
                                              t_total)))
         spans = {n: s.energy_ws for n, s in reading.spans.items()}
         return _remeter(m, reading.total_ws, trace, spans)
+
+
+def metered_lm_backend(
+    cfg: ArchConfig,
+    shape: ShapeSpec,
+    mesh_shape: dict[str, int],
+    power: TpuPowerModel = TpuPowerModel(),
+    *,
+    hz: float = DEFAULT_HZ,
+    true_power: Optional[TpuPowerModel] = None,
+) -> Callable[[Decisions], Measurement]:
+    """Meter-backed measure function for one LM fleet cell.
+
+    Runs the analytic model for the *time* side, then synthesizes the
+    per-domain watts trace from the cell's roofline component utilizations
+    (DVFS clock applied) and integrates it — the metered energy. With
+    ``true_power`` the trace is synthesized under a different ("real
+    machine") power model than the one the cost model assumes, which is how
+    calibration experiments create a modeled-vs-metered gap to fit.
+    """
+    synth_power = true_power or power
+
+    def measure(dec: Decisions) -> Measurement:
+        cost = analyze_cell(cfg, shape, mesh_shape, dec, power=power)
+        if not cost.fits:
+            return Measurement(time_s=cost.step_time, energy_ws=cost.energy,
+                               feasible=False, detail=cost.breakdown)
+        modeled = Measurement(
+            time_s=cost.step_time, energy_ws=cost.energy,
+            avg_watts=cost.energy / max(cost.step_time, 1e-12)
+            / cost.terms.chips,
+            detail=cost.breakdown)
+        sampler = ModeledSampler.from_components(
+            cost.step_time, cost.terms.t_compute, cost.terms.t_memory,
+            cost.terms.t_collective, cost.terms.chips, power=synth_power,
+            clock=dec.clock, overlap=dec.overlap,
+            hz=effective_hz(cost.step_time, hz))
+        trace = sampler.trace()
+        return _remeter(modeled, trapezoid_ws(trace), trace)
+
+    return measure
+
+
+# Fleet cells opt in with CellSpec(..., backend="metered"). Importing
+# repro_torch.telemetry is what makes the name available (core never
+# imports up).
+register_backend("metered", metered_lm_backend)

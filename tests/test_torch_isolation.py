@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` imports JAX or the
 JAX package (``models/ssm.py``, ``models/moe.py``, the hybrid, MoE, enc-dec
-and VLM entry points, migration and placement included), and its entry
-points raise without CUDA instead of falling back to the CPU."""
+and VLM entry points, migration, placement and the fleet included), and its
+entry points raise without CUDA instead of falling back to the CPU."""
 import ast
 import os
 import subprocess
@@ -142,6 +142,23 @@ engines[0].stream_step()
 assert migrate(engines[0], engines[1], 0) == 0
 engines[1].reconfigure(static_placements("llama3.2-3b",
                                          {"data": 16, "model": 16}))
+from repro_torch.configs import mixed_fleet
+from repro_torch.launch.serve import serve_fleet
+from repro_torch.runtime import FleetRouter
+from repro_torch.workload import TenantSpec, WorkloadSpec, generate, simulate
+
+raises(serve_fleet, RuntimeError)
+raises(lambda: serve_fleet(adaptive=True), RuntimeError)
+raises(lambda: serve_fleet(provision_budget_w=50_000.0), RuntimeError)
+raises(lambda: FleetRouter(cfg, model, mixed_fleet(), arch="llama3.2-3b",
+                           cache_path=None), RuntimeError)
+fleet = FleetRouter(cfg, model, mixed_fleet(), arch="llama3.2-3b",
+                    cache_path=None, slots=2, max_len=16, device="cpu")
+trace = generate(WorkloadSpec(seed=0, duration_s=0.004, rate_rps=1000.0,
+                              max_len=16, tenants=(TenantSpec("t"),)))
+report = simulate(fleet, trace, rebalance_every_s=0.001, rebalance_live=True)
+assert report.completed == len(trace) > 0
+done = fleet.run(concurrent=True)
 print("ISOLATED", len(mods))
 """
 

@@ -27,7 +27,7 @@ The refusals, the cap carry, the wave scheduler, the sleep→migrate→drain
 power guard, a snapshot→resize→restore roundtrip property and
 ``resize_axis``'s edges run on the port alone. The router-bound cases of the
 reference's file (``FleetRouter.rebalance``, the fleet ledger under the
-router, the concurrent run) wait for the router, slice 4b.
+router, the concurrent run) are in ``tests/test_torch_fleet.py``.
 """
 import dataclasses
 import functools

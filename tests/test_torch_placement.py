@@ -98,8 +98,8 @@ def test_package_surfaces_match():
               "search_fleet", "search_lm_cell", "Destination",
               "select_destination"}
     assert ported <= set(ref_core.__all__) & set(core.__all__)
-    assert set(ref_core.__all__) - set(core.__all__) == {
-        "NarrowingConfig", "narrow_and_measure"}  # candidates.py, slice 4b
+    # candidates.py came with slice 4b: the port's core exports them all
+    assert set(ref_core.__all__) - set(core.__all__) == set()
 
 
 # ---------------------------------------------------------------------------
@@ -344,10 +344,19 @@ def test_search_lm_cell_bit_identical_and_threaded_fleet_agrees():
 
 
 def test_search_fleet_refuses_the_screen():
+    """The screen came with slice 4b (``analysis/screen.py``): where the
+    port refused ``screen=...``, it now screens as the reference does."""
+    ga = GAConfig(population=4, generations=3, seed=0)
+    rga = RefGAConfig(population=4, generations=3, seed=0)
     cells = [OS.CellSpec.create("llama3.2-3b", "decode_32k",
                                 PL.DEFAULT_MESH_OPTIONS[0])]
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        OS.search_fleet(cells, screen=True)
+    rcells = [ROS.CellSpec.create("llama3.2-3b", "decode_32k",
+                                  PL.DEFAULT_MESH_OPTIONS[0])]
+    got = OS.search_fleet(cells, screen=True, ga_config=ga, cell_workers=1)
+    want = ROS.search_fleet(rcells, screen=True, ga_config=rga,
+                            cell_workers=1)
+    assert got.screen is not None
+    assert _plain(got) == _plain(want)
     assert OS.search_fleet(cells, screen=None).screen is None
 
 
