@@ -43,9 +43,11 @@ tensor-core kernel. Then:
   ``launch.serve.serve`` (for a cut config, which ``serve`` cannot build,
   ``ServingEngine`` with ``serve``'s requests), a ragged run through
   ``ServingEngine`` (not for llava: its decode step is the dense block on
-  tokens, which llama3.2-3b's ragged run drives; llama3.2-3b's over its
-  first 14 layers, mixtral-8x7b's over its first 12 and zamba2-7b's over
-  its first group and a tail layer, 7 layers, to fit the run's budget) and
+  tokens, which llama3.2-3b's ragged run drives; each over the first
+  layers of its model, ``RAGGED_LAYERS``: 7 of llama3.2-3b's, 8 of
+  rwkv6-1.6b's, 6 of mixtral-8x7b's, 4 of seamless-m4t-medium's decoder
+  layers, and zamba2-7b's first group and a tail layer, 7 layers, to fit
+  the run's budget) and
   one forward of 2x2048
   tokens (seamless: over 2x2048 frames; llava: 2x5760 positions), each
   metered on the GPU's power counter, and then profiled windows of decode
@@ -69,11 +71,30 @@ tensor-core kernel. Then:
   requests' tokens held to a never-migrated run's. Each run's modeled
   ledger (no request has an eos, so it does not depend on tokens) must
   equal the same call's on the CPU at the reduced config, run here too;
+* slices 6a + 7a, single-device training through B2 and B3 with their
+  gradients (written out as PyTorch ops in ``kernels/*/ops.py``):
+  ``train_grad_check``, B2's and B3's gradients at the training shapes in
+  f32 and bf16 against autograd through their plain versions, timed beside
+  it; ``train_model_check``, llama3.2-3b at full width, 4 layers, f32:
+  ``forward_loss`` and every parameter's gradient through the kernels
+  against the same through the plain versions; ``train``,
+  ``launch.train.train`` on llama3.2-3b at full width and depth in bf16
+  (8 steps of 2 x 2048 tokens, remat full), metered on the GPU's power
+  counter, its launches of B2 and B3 held to the count the code gives,
+  then one step profiled; ``train_bf16_check``, that bf16 step at full
+  depth through the kernels against the same step through the plain
+  versions from one seeded state (step 1's gradient leaf by leaf against
+  the f32 gradient, two steps' losses and grad norms), then 8 steps on
+  one batch repeated, whose loss must fall;
+  ``train_resume``, at full width over 2 layers, a checkpoint saved after
+  step 2, restored and held bit for bit to the live state that was saved,
+  and steps 3-5 resumed from it against an unbroken run's losses;
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
   all-CPU placement and the paper's pattern, and ``search_himeno`` over
-  that backend.
+  that backend. Fig. 5's backend warms each placement up with one sweep
+(``FIG5_WARMUP_ITERS``) before its runs of 62.
 
 The kernels' launch counts are set to 0 just before each main path (the
 migration and adaptive runs and each fleet run count as a path of their
@@ -115,11 +136,14 @@ ARGS = ("p", "a", "b", "c", "bnd", "wrk1")
 REPS = 20          # kernel launches a timing averages over
 SOLVER_ITERS = 10  # sweeps of the himeno_run phase
 FIG5_ITERS = 62    # sweeps of each Fig. 5 run at L, as in the paper
+FIG5_WARMUP_ITERS = 1  # sweeps of each placement's warm-up run
 # Sweeps of each GA measurement at L. An all-CPU sweep costs about 2 s of
 # NumPy, and the GA makes up to 24 measurements (population 6, 4
 # generations), most of them with host units: at the paper's 62 sweeps the
-# GA alone would take far longer than the smoke's limit of 1200 s.
-GA_ITERS = 2
+# GA alone would take far longer than the smoke's limit of 1200 s. One
+# sweep since training joined the run (at two the GA took 101 s of a run of
+# 1,046 on a slow host).
+GA_ITERS = 1
 SMOKE_LIMIT_S = 1200
 BUDGET_S = 900.0   # a run over this is reported as timed out and fails
 
@@ -154,12 +178,15 @@ CHECK_LAYERS = 4   # depth of the f32 full-width model checks
 CHECK_SEQ = 512
 RAGGED = dict(slots=8, max_len=1024, requests=16, prompt=(64, 512),
               max_new_tokens=64, seed=0)
-# Depth of the ragged run of llama3.2-3b and of mixtral-8x7b, cut to fit
-# the run's budget once migration and placement joined it: over the first
-# 14 of llama's 28 layers and 12 of mixtral's 24 (a view of the path's
-# model, sharing its weights), where the full depths took 61 s and 82 s
-# of a run of 862 s on a slow host.
-RAGGED_LAYERS = {"llama3.2-3b": 14, "mixtral-8x7b": 12}
+# Depth of the ragged runs (a view of the path's model, sharing its
+# weights), cut to fit the run's budget: a ragged step is host-bound and its
+# time goes with the layers it launches. Once migration and placement
+# joined, llama's ran over 14 of its 28 layers and mixtral's over 12 of its
+# 24; once training joined, on a host where the five ragged runs took 229 s
+# of a run of 1,046, over 7 (llama), 6 (mixtral), 8 of rwkv's 24 and 4 of
+# seamless's 12 decoder layers.
+RAGGED_LAYERS = {"llama3.2-3b": 7, "mixtral-8x7b": 6, "rwkv6-1.6b": 8,
+                 "seamless-m4t-medium": 4}
 # zamba2-7b's ragged run over its first group of 6 and one tail layer (a
 # view sharing the weights), cut to make room for the fleet: its 27 layers
 # took ~42 s of the run.
@@ -237,9 +264,11 @@ NEAR_TIE_RTOL = 2e-2
 # batch) and the replay's options: autoscaling ticks, and a live rebalance
 # every millisecond of the virtual clock off engines whose queue holds more
 # than their slots, which moves admitted slots (2 on the CPU's run).
-FLEET = dict(num_requests=8, max_new_tokens=32)
-# the threaded executor's run: serve_fleet's requests at 16 new tokens
-FLEET_THREADS = dict(num_requests=8, max_new_tokens=16)
+# 16 and 8 new tokens since training joined the run (32 and 16 before:
+# the fleet's six runs took 75 s of a run of 1,046 on a slow host)
+FLEET = dict(num_requests=8, max_new_tokens=16)
+# the threaded executor's run: serve_fleet's requests at 8 new tokens
+FLEET_THREADS = dict(num_requests=8, max_new_tokens=8)
 PROVISION_W = 50_000.0
 FLEET_REPLAY = dict(
     spec=dict(seed=0, duration_s=0.012, rate_rps=2400.0, max_len=64,
@@ -353,6 +382,45 @@ WKV_CASES = (((2, 32, 2048, 64), MODEL_LW, False, True, "forward"),
              ((2, 32, 333, 64), MODEL_LW, True, True, "ragged"),
              ((1, 32, 2048, 64), (-0.01, 0.0), True, False, "weak"),
              ((2, 32, 512, 64), (-20.0, 0.0), True, False, "strong"))
+
+
+# Slices 6a + 7a: single-device training of llama3.2-3b through B2 and B3,
+# with their gradients written out as PyTorch ops (kernels/*/ops.py).
+# train_grad_check: B2 at the training shape in f32 and bf16, B3 at the
+# training shape, causal, bf16 on the tensor-core kernel and f32 on the
+# scalar one, against autograd through the plain versions. f32: dx and
+# dscale within GRAD_RMS_RTOL of their max |.|, dq, dk, dv within
+# GRAD_FLASH_RTOL; bf16: each gradient's distance from the f32 plain
+# gradient at most GRAD_BF16_FACTOR times the bf16 plain gradient's own
+# (or the f32 limit, where the plain one lands on the f32 result exactly).
+GRAD_RMS_SHAPE = (2, 2048, 3072)
+GRAD_FLASH_SHAPE = (2, 24, 8, 2048, 128)  # B, H, K, S, D
+GRAD_RMS_RTOL = 1e-5
+GRAD_FLASH_RTOL = 1e-4
+GRAD_BF16_FACTOR = 1.5
+# train_model_check: llama3.2-3b at full width, CHECK_LAYERS deep, f32,
+# 2 x CHECK_SEQ tokens: forward_loss and every parameter's gradient
+# through the kernels against the same through the plain versions
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3  # of each leaf's max |g|
+# train_main_path: launch.train.train at full width and depth in bf16
+TRAIN = dict(steps=8, global_batch=2, seq_len=2048)
+# train_bf16_check: the same step at full width and depth in bf16 through
+# the kernels and through the plain versions, from one seeded state and
+# batches, for BF16_CHECK["steps"] steps at train()'s lr. Step 1's gradient
+# leaf by leaf: its L2 distance from the f32 plain gradient at most
+# GRAD_BF16_FACTOR times the bf16 plain gradient's (a zero, sign-flipped or
+# mis-scaled gradient is 1 or more away); each step's loss and grad norm
+# within BF16_LOSS_RTOL (the CPU end-to-end test's bf16 limit). Then TRAIN's
+# steps on one batch repeated: the loss must fall by "repeat_drop" nats
+BF16_CHECK = dict(steps=2, lr=1e-3, repeat_drop=1.0)
+BF16_LOSS_RTOL = 1e-2
+# resume: full width over 2 layers (about 6 GB of state a checkpoint): an
+# unbroken run of 5 steps, then 2 steps saved at their end, then a run that
+# restores them and takes steps 3-5, whose losses must equal the unbroken
+# run's within RESUME_RTOL
+RESUME = dict(layers=2, steps=5, saved=2)
+RESUME_RTOL = 1e-3
 
 
 def kernel_modules():
@@ -695,6 +763,32 @@ def kernel_vs_plain(cfg, model, batch, module, attr, plain, baseline=None,
     return full, rel
 
 
+def plain_training():
+    """A context in which the LM's RMSNorm and attention run their plain
+    versions (``rms_norm_ref``, ``attention_ref``), so that autograd
+    differentiates them in place of the kernels' written backwards."""
+    import contextlib
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.rmsnorm import rms_norm_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+
+    @contextlib.contextmanager
+    def patched():
+        rms, flash = layers._rms_norm_op, attn.flash_attention
+        layers._rms_norm_op = lambda x, scale, eps: rms_norm_ref(x, scale,
+                                                                 eps)
+        attn.flash_attention = lambda q, k, v, causal, window: attention_ref(
+            q, k, v, causal=causal, window=window)
+        try:
+            yield
+        finally:
+            layers._rms_norm_op, attn.flash_attention = rms, flash
+
+    return patched()
+
+
 def first_layers(cfg, model, layers: int):
     """(config, model) of ``model``'s first ``layers`` layers: a shallow
     copy whose layer list is a slice of the model's, sharing every weight,
@@ -898,10 +992,14 @@ class Smoke:
         solver_s = time.perf_counter() - t0
 
         # 2. Fig. 5 through the metered measured backend
+        # The backend warms both placements up once when it is built (the
+        # CUDA context, B1's library): one sweep each does that, where the
+        # 62 of a run took 110-144 s of the smoke; the runs then sweep 62
         t0 = time.perf_counter()
-        app = HimenoApp(grid=L, iters=FIG5_ITERS)
+        app = HimenoApp(grid=L, iters=FIG5_WARMUP_ITERS)
         fig5 = MeteredBackend.auto(HimenoMeasuredBackend(app,
                                                          budget_s=BUDGET_S))
+        app.iters = FIG5_ITERS
         warm_s = time.perf_counter() - t0
         domains = fig5.sampler.domains() if fig5.sampler else ()
         runs = {}
@@ -935,6 +1033,7 @@ class Smoke:
                 self.check(abs(x - y) <= GOSA_RTOL * abs(y),
                            f"fig5 {key}: {x} on the card vs {y} on the host")
         emit({"phase": "fig5_summary", "warmup_s": warm_s,
+              "warmup_iters": FIG5_WARMUP_ITERS,
               "metered_ratio": (gpu.energy_ws / cpu.energy_ws
                                 if cpu.energy_ws else None),
               "time_ratio": gpu.time_s / cpu.time_s,
@@ -2594,13 +2693,17 @@ class Smoke:
     def rwkv_main_path(self):
         from repro_torch.configs import get_config
 
+        def per_step(n):
+            # every decode step's WKVs on the sequential kernel
+            return {"rms_norm": 2 * n + 1, "flash_attention": 0,
+                    "flash_attention_tc": 0, "wkv": n, "wkv_tc": 0}
+
         cfg = get_config(RWKV_ARCH)
-        n = cfg.num_layers
-        # every decode step's WKVs on the sequential kernel, every one of
-        # the forward's on the tensor-core kernel
-        per = {"rms_norm": 2 * n + 1, "flash_attention": 0,
-               "flash_attention_tc": 0, "wkv": n, "wkv_tc": 0}
+        n, cut = cfg.num_layers, RAGGED_LAYERS[RWKV_ARCH]
+        per = per_step(n)
+        # every one of the forward's WKVs on the tensor-core kernel
         self.lm_main_path(cfg, per, {**per, "wkv_tc": n},
+                          ragged=(cut, per_step(cut)),
                           then=self.migration_run)
 
     def hybrid_main_path(self):
@@ -2638,16 +2741,20 @@ class Smoke:
         from repro_torch import models as M
         from repro_torch.configs import ShapeSpec, get_config
 
+        def per_step(n):
+            return {"rms_norm": 3 * n + 1, "flash_attention": 0,
+                    "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+
         cfg = get_config(ENCDEC_ARCH)
         n, e = cfg.num_layers, cfg.encoder_layers
-        per = {"rms_norm": 3 * n + 1, "flash_attention": 0,
-               "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+        per, cut = per_step(n), RAGGED_LAYERS[ENCDEC_ARCH]
         self.lm_main_path(
             cfg, per, {**per, "rms_norm": 2 * e + 1 + 3 * n + 1,
                        "flash_attention": e + n, "flash_attention_tc": e + n},
             make_batch=lambda: M.synthetic_batch(
                 cfg, ShapeSpec("prefill", "prefill", PREFILL[1], PREFILL[0]),
-                seed=0, device="cuda"))
+                seed=0, device="cuda"),
+            ragged=(cut, per_step(cut)))
 
     def vlm_main_path(self):
         """llava-next-mistral-7b at full width and depth: the dense block,
@@ -2676,6 +2783,485 @@ class Smoke:
                          f"{ARCH}'s ragged run drives; a ragged run at 32 "
                          "layers waits for a CUDA graph of decode_step",
               "card": self.card})
+
+    # -- slices 6a + 7a: training, B2 and B3 with their gradients ---------
+    def train_grad_check(self):
+        """B2's and B3's gradients on the card at the training shapes, each
+        through its ``autograd.Function`` (the kernel forward, the written
+        backward) against autograd through its plain version, with the
+        backward's time beside the plain version's autograd backward."""
+        import numpy as np
+        import torch
+        from repro_torch.kernels.flash_attention import attention_ref
+        from repro_torch.kernels.flash_attention.ops import (
+            flash_attention, flash_attention_backward)
+        from repro_torch.kernels.rmsnorm import rms_norm_ref
+        from repro_torch.kernels.rmsnorm.ops import (
+            rms_norm, rms_norm_backward)
+
+        rng = np.random.default_rng(3)
+        dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+        def draw(shape, dt, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                    .astype(np.float32)).to("cuda", dt)
+
+        def grads(fn, inputs, g):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in inputs]
+            fn(*leaves).backward(g)
+            return [t.grad.float() for t in leaves]
+
+        def held(name, dt, got, plain, f32, rtol, names):
+            """Each gradient against the plain one: f32 within rtol of its
+            max |.|; bf16 within GRAD_BF16_FACTOR of plain's own distance
+            from the f32 plain gradient ``f32``."""
+            out = {}
+            for n, a, p, r in zip(names, got, plain, f32):
+                limit = rtol * float(r.abs().max())
+                err = float((a - r).abs().max())
+                row = {"max_abs_err": err, "max_abs": float(r.abs().max())}
+                if dt == "bfloat16":
+                    own = float((p - r).abs().max())
+                    limit = max(GRAD_BF16_FACTOR * own, limit)
+                    row["plain_bf16_err"] = own
+                row["limit"] = limit
+                self.check(err <= limit, f"{name} {dt} d{n}: {err} > "
+                                         f"{limit}")
+                out[n] = row
+            return out
+
+        rows = {}
+        for dt in ("float32", "bfloat16"):
+            x = draw(GRAD_RMS_SHAPE, dtypes[dt], 2.0)
+            g = draw(GRAD_RMS_SHAPE, dtypes[dt])
+            scale = torch.from_numpy(rng.uniform(
+                0.5, 1.5, GRAD_RMS_SHAPE[-1]).astype(np.float32)).cuda()
+            got = grads(rms_norm, (x, scale), g)
+            plain = grads(rms_norm_ref, (x, scale), g)
+            f32 = grads(rms_norm_ref, (x.float(), scale), g.float())
+            row = {"shape": list(GRAD_RMS_SHAPE), "dtype": dt,
+                   "grads": held("rms_norm", dt, got, plain, f32,
+                                 GRAD_RMS_RTOL, ("x", "scale"))}
+            xr = x.detach().clone().requires_grad_(True)
+            sr = scale.detach().clone().requires_grad_(True)
+            y = rms_norm_ref(xr, sr)
+            row.update(timed_pair(
+                lambda: rms_norm_backward(x, scale, g, 1e-5),
+                lambda: torch.autograd.grad(y, (xr, sr), g,
+                                            retain_graph=True), REPS))
+            del got, plain, f32, y, xr, sr
+            emit({"phase": "train_grad_check", "kernel": "rms_norm", **row,
+                  "card": self.card})
+            rows[("rms_norm", dt)] = row
+            b, h, kh, s_, d = GRAD_FLASH_SHAPE
+            q, k, v = (draw((b, n, s_, d), dtypes[dt]) for n in (h, kh, kh))
+            do = draw((b, h, s_, d), dtypes[dt])
+            got = grads(flash_attention, (q, k, v), do)
+            plain = grads(attention_ref, (q, k, v), do)
+            f32 = grads(attention_ref, (q.float(), k.float(), v.float()),
+                        do.float())
+            row = {"shape": [b, h, s_, d], "kv_heads": kh, "dtype": dt,
+                   "causal": True,
+                   "grads": held("flash_attention", dt, got, plain, f32,
+                                 GRAD_FLASH_RTOL, ("q", "k", "v"))}
+            del got, plain, f32
+            torch.cuda.empty_cache()
+            qr, kr, vr = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            o = attention_ref(qr, kr, vr)
+            row.update(timed_pair(
+                lambda: flash_attention_backward(q, k, v, do),
+                lambda: torch.autograd.grad(o, (qr, kr, vr), do,
+                                            retain_graph=True), REPS // 4))
+            del o, qr, kr, vr, q, k, v, do
+            torch.cuda.empty_cache()
+            emit({"phase": "train_grad_check", "kernel": "flash_attention",
+                  **row, "card": self.card})
+            rows[("flash_attention", dt)] = row
+
+        for name in ("rms_norm", "flash_attention"):
+            self.kernels[name]["gradient"] = {
+                "route": "PyTorch ops, kernels/"
+                         f"{'rmsnorm' if name == 'rms_norm' else name}"
+                         "/ops.py",
+                **{dt: {k: rows[(name, dt)][k] for k in (
+                    "shape", "grads", "ms", "plain_ms")}
+                   for dt in ("float32", "bfloat16")}}
+
+    def train_model_check(self):
+        """llama3.2-3b at full width, CHECK_LAYERS deep, in f32:
+        ``forward_loss`` and every parameter's gradient through the kernels,
+        then through the plain versions (``models.layers``' RMSNorm and
+        ``models.attention``'s attention patched to them)."""
+        import dataclasses
+
+        import torch
+        from repro_torch._tree import leaves
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.data import SyntheticLMStream, device_put_batch
+        from repro_torch.models import transformer as MT
+
+        cfg = dataclasses.replace(get_config(ARCH), num_layers=CHECK_LAYERS,
+                                  dtype="float32")
+        params = MT.init_param_tree(cfg, device="cuda")
+        model = MT.TransformerLM.from_stacked(cfg, params)
+        grads = MT.bind_stacked_grads(model, params)
+        batch = device_put_batch(SyntheticLMStream(cfg, ShapeSpec(
+            "check", "train", CHECK_SEQ, 2)).batch_at(0), "cuda")
+
+        def run():
+            for g in leaves(grads):
+                g.zero_()
+            loss, _ = MT.forward_loss(cfg, model, batch)
+            loss.backward()
+            return float(loss), [g.clone() for g in leaves(grads)]
+
+        before = lm_launches()
+        loss, got = run()
+        n = launches_since(before)
+        with plain_training():
+            plain_loss, want = run()
+        worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(got, want))
+        rel = abs(loss - plain_loss) / abs(plain_loss)
+        layers_n = cfg.num_layers
+        self.check(rel <= TRAIN_LOSS_RTOL, f"train_model_check: loss {loss} "
+                                           f"vs plain {plain_loss}")
+        self.check(worst <= TRAIN_GRAD_RTOL,
+                   f"train_model_check: a gradient leaf {worst} of its max "
+                   f"|g| from plain's")
+        # remat full: the forward and the recompute, both through the kernels
+        self.check(n["rms_norm"] == 4 * layers_n + 1
+                   and n["flash_attention"] == 2 * layers_n,
+                   f"train_model_check launches {n}")
+        emit({"phase": "train_model_check", "arch": ARCH, "dtype": "float32",
+              "layers": layers_n, "tokens": [2, CHECK_SEQ],
+              "remat": cfg.remat, "loss": loss, "plain_loss": plain_loss,
+              "loss_rel_err": rel, "leaves": len(got),
+              "worst_grad_err_over_leaf_max": worst,
+              "limits": {"loss": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_RTOL},
+              "launches": n, "card": self.card})
+        del params, model, grads, got, want
+        torch.cuda.empty_cache()
+
+    def train_main_path(self):
+        """``launch.train.train`` on llama3.2-3b at full width and depth in
+        bf16 (TRAIN's steps, batch and length), metered on the GPU's power
+        counter; its launches of B2 and B3 held to the count the code gives
+        (remat full: 2n+1 norms and n attentions in the forward, 2n and n
+        again in the recompute); then one step profiled, split into
+        forward, backward and optimizer by CUDA events."""
+        import contextlib
+        import gc
+        import io
+        import math
+        import re
+
+        import torch
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.data import SyntheticLMStream, device_put_batch
+        from repro_torch.launch.steps import init_train_state
+        from repro_torch.launch.train import train, train_step
+        from repro_torch.models import transformer as MT
+        from repro_torch.optim import AdamWConfig
+
+        cfg = get_config(ARCH)
+        n, steps = cfg.num_layers, TRAIN["steps"]
+        per_step = {"rms_norm": (2 * n + 1) + 2 * n, "flash_attention": 2 * n,
+                    "flash_attention_tc": 2 * n, "wkv": 0, "wkv_tc": 0}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        reset_all_launches()
+        before = lm_launches()
+        with contextlib.redirect_stdout(log):
+            out, seconds, ws, samples = metered(lambda: train(
+                ARCH, use_reduced=False, log_every=1, **TRAIN))
+        counts = launches_since(before)
+        peak = torch.cuda.max_memory_allocated()
+        self.path_launches[f"{ARCH} train"] = counts
+        step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
+                                              log.getvalue())]
+        losses = out["losses"]
+        tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2] \
+            if len(step_ms) > 1 else None
+        self.check(counts == {k: v * steps for k, v in per_step.items()},
+                   f"train: launches {counts}, the code gives "
+                   f"{per_step} a step x {steps}")
+        self.check(out["steps"] == steps and all(
+            math.isfinite(x) for x in losses), f"train: losses {losses}")
+        lnv = math.log(cfg.vocab_size)
+        self.check(abs(losses[0] - lnv) < 0.5,
+                   f"train: first loss {losses[0]}, ln V = {lnv}")
+        emit({"phase": "train", "arch": ARCH, "layers": n, "dtype": cfg.dtype,
+              "remat": cfg.remat, **TRAIN, "entry": "launch.train.train",
+              "losses": losses, "ln_vocab": lnv, "step_ms": step_ms,
+              "median_step_ms_after_first": steady,
+              "tokens_per_s": (1e3 * tokens / steady if steady else None),
+              "wall_s": out["wall_s"], "seconds_metered": seconds,
+              "metered_gpu_ws": ws,
+              "metered_gpu_ws_per_step": ws / steps if ws else ws,
+              "trace_samples": samples,
+              "max_memory_allocated_gb": peak / 1e9,
+              "launches": counts, "launches_per_step": per_step,
+              "card": self.card})
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one step profiled, on a state of its own
+        state = init_train_state(cfg)
+        model = MT.TransformerLM.from_stacked(cfg, state["params"])
+        grads = MT.bind_stacked_grads(model, state["params"])
+        batch = device_put_batch(SyntheticLMStream(cfg, ShapeSpec(
+            "train", "train", TRAIN["seq_len"], TRAIN["global_batch"])
+        ).batch_at(0), "cuda")
+        events: dict = {}
+
+        def mark(part):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[part] = ev
+
+        run = functools.partial(train_step, cfg, model, state, grads, batch,
+                                AdamWConfig(lr=1e-3), mark)
+        self.profiled("train_profile", "step", run, 1, arch=ARCH, layers=n,
+                      global_batch=TRAIN["global_batch"],
+                      seq_len=TRAIN["seq_len"])
+        torch.cuda.synchronize()
+        parts = ("forward", "backward", "optimizer", "end")
+        emit({"phase": "train_profile_split", "arch": ARCH,
+              "device_timeline_ms": {
+                  a: events[a].elapsed_time(events[b])
+                  for a, b in zip(parts, parts[1:])},
+              "note": "CUDA events at each part's start, on the device's "
+                      "timeline, gaps included; host time is the profiled "
+                      "wall less the device time of train_profile",
+              "card": self.card})
+        del state, model, grads, batch, run, events
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def train_bf16_check(self):
+        """The bf16 step of ``train_main_path`` (full width and depth, remat
+        full, TRAIN's batch) held to the same step through the plain
+        versions. Both start from ``init_train_state``'s seeded state and
+        take BF16_CHECK's steps of ``train_step`` on the same batches.
+        Step 1's gradient, before any update, is held leaf by leaf to the
+        f32 gradient of the plain versions at the same weights (cast up),
+        as the bf16 kernel checks are held: its distance at most
+        GRAD_BF16_FACTOR times the plain bf16 gradient's own. Each step's
+        loss and grad norm must agree with plain's within BF16_LOSS_RTOL.
+        Then TRAIN's steps through the kernels on one batch repeated, whose
+        loss must fall by BF16_CHECK["repeat_drop"]."""
+        import dataclasses
+        import gc
+        import math
+
+        import torch
+        from repro_torch._tree import flatten, tree_map
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.data import SyntheticLMStream, device_put_batch
+        from repro_torch.launch.steps import init_train_state
+        from repro_torch.launch.train import train_step
+        from repro_torch.models import transformer as MT
+        from repro_torch.optim import AdamWConfig
+
+        cfg = get_config(ARCH)
+        stream = SyntheticLMStream(cfg, ShapeSpec(
+            "train", "train", TRAIN["seq_len"], TRAIN["global_batch"]))
+
+        def batch(i):
+            return device_put_batch(stream.batch_at(i), "cuda")
+
+        def free():
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # the f32 gradient at init_train_state's weights, through the plain
+        # versions
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params = tree_map(lambda t: t.float(),
+                          MT.init_param_tree(cfg, device="cuda"))
+        model = MT.TransformerLM.from_stacked(cfg32, params)
+        grads = MT.bind_stacked_grads(model, params)
+        with plain_training():
+            loss32, _ = MT.forward_loss(cfg32, model, batch(0))
+            loss32.backward()
+        f32 = [g for _, g in flatten(grads)]
+        loss32 = float(loss32)
+        del params, model, grads
+        free()
+
+        def run(steps, lr, on_grads=None, repeat=False):
+            state = init_train_state(cfg)
+            model = MT.TransformerLM.from_stacked(cfg, state["params"])
+            grads = MT.bind_stacked_grads(model, state["params"])
+
+            def mark(part):
+                if part == "optimizer":
+                    on_grads(flatten(grads))
+
+            out = []
+            for i in range(steps):
+                m = train_step(cfg, model, state, grads,
+                               batch(0 if repeat else i), AdamWConfig(lr=lr),
+                               mark if i == 0 and on_grads else None)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            del state, model, grads
+            free()
+            return out
+
+        def distance(into):
+            def measure(pairs):
+                for ref, (path, g) in zip(f32, pairs):
+                    into["/".join(map(str, path))] = float(
+                        (g.float() - ref).norm() / ref.norm())
+            return measure
+
+        t0 = time.perf_counter()
+        err, plain_err = {}, {}
+        got = run(BF16_CHECK["steps"], BF16_CHECK["lr"], distance(err))
+        with plain_training():
+            want = run(BF16_CHECK["steps"], BF16_CHECK["lr"],
+                       distance(plain_err))
+        n_leaves = len(f32)
+        del f32
+        free()
+        repeated = run(TRAIN["steps"], BF16_CHECK["lr"], repeat=True)
+        seconds = time.perf_counter() - t0
+
+        ratio = {k: err[k] / plain_err[k] for k in err}
+        worst = max(ratio, key=ratio.get)
+        self.check(len(err) == len(plain_err) == n_leaves > 0,
+                   f"train_bf16_check: {len(err)}, {len(plain_err)} of "
+                   f"{n_leaves} gradient leaves compared")
+        self.check(all(e <= GRAD_BF16_FACTOR * plain_err[k]
+                       for k, e in err.items()),
+                   f"train_bf16_check: gradient leaf {worst} {err[worst]} "
+                   f"from f32, plain bf16's {plain_err[worst]}")
+        rel = [(abs(a - c) / abs(c), abs(b - d) / abs(d))
+               for (a, b), (c, d) in zip(got, want)]
+        self.check(all(math.isfinite(x) and x <= BF16_LOSS_RTOL
+                       for pair in rel for x in pair),
+                   f"train_bf16_check: (loss, grad norm) {got} vs plain "
+                   f"{want}")
+        losses = [x for x, _ in repeated]
+        self.check(all(map(math.isfinite, losses)) and losses[-1] <=
+                   losses[0] - BF16_CHECK["repeat_drop"],
+                   f"train_bf16_check: one batch repeated, losses {losses}")
+        emit({"phase": "train_bf16_check", "arch": ARCH,
+              "layers": cfg.num_layers, "dtype": cfg.dtype,
+              "remat": cfg.remat, **TRAIN, "lr": BF16_CHECK["lr"],
+              "loss_grad_norm": got, "plain_loss_grad_norm": want,
+              "f32_plain_loss": loss32, "rel_diff": rel,
+              "leaves": n_leaves, "grad_rel_l2_from_f32": err,
+              "plain_bf16_grad_rel_l2_from_f32": plain_err,
+              "worst_leaf": worst, "worst_ratio": ratio[worst],
+              "limits": {"grad_factor": GRAD_BF16_FACTOR,
+                         "loss": BF16_LOSS_RTOL,
+                         "repeat_drop": BF16_CHECK["repeat_drop"]},
+              "repeated_batch_losses": losses,
+              "repeated_batch_grad_norms": [x for _, x in repeated],
+              "seconds": seconds, "card": self.card})
+
+    def train_resume(self):
+        """Resume on llama3.2-3b at full width over RESUME's 2 layers: an
+        unbroken run of 5 steps; a run of 2 steps that saves its state at
+        their end, with a host copy of each leaf taken as ``save`` is
+        called; that checkpoint restored on the card, each leaf compared
+        bit for bit with the copy of the live state; a run on the same
+        directory that restores step 2 and takes steps 3-5, whose losses
+        must equal the unbroken run's. In a temporary directory the phase
+        removes."""
+        import dataclasses
+        import gc
+        import os
+        import tempfile
+
+        import numpy as np
+        import torch
+        from repro_torch.checkpoint import Checkpointer
+        from repro_torch.checkpoint.checkpointer import _host_array, \
+            tree_paths
+        from repro_torch.configs import get_config
+        from repro_torch.launch import train as train_mod
+        from repro_torch.launch.steps import init_train_state
+        from repro_torch.launch.train import train
+
+        cfg = dataclasses.replace(get_config(ARCH),
+                                  num_layers=RESUME["layers"])
+        live: dict = {}
+
+        class SnapshotCheckpointer(Checkpointer):
+            """Keeps a host copy of the live state each save is handed."""
+
+            def save(self, step, tree, **kw):
+                live[step] = {key: _host_array(leaf)
+                              for key, leaf in tree_paths(tree)}
+                return super().save(step, tree, **kw)
+
+        kw = dict(use_reduced=False, log_every=0,
+                  global_batch=TRAIN["global_batch"],
+                  seq_len=TRAIN["seq_len"])
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+        try:
+            t0 = time.perf_counter()
+            whole = train(cfg, steps=RESUME["steps"], **kw)
+            train_mod.Checkpointer = SnapshotCheckpointer
+            try:
+                first = train(cfg, steps=RESUME["saved"], checkpoint_dir=tmp,
+                              checkpoint_every=0, **kw)
+            finally:
+                train_mod.Checkpointer = Checkpointer
+            saved = live.pop(RESUME["saved"])
+            saved_bytes = os.path.getsize(os.path.join(
+                tmp, f"step_{RESUME['saved']}", "arrays.npz"))
+            state = Checkpointer(tmp).restore(RESUME["saved"],
+                                              init_train_state(cfg))
+
+            def bits(arr):
+                return arr.view(f"u{arr.itemsize}")
+
+            restored = tree_paths(state)
+            mismatched = [key for key, leaf in restored
+                          if key not in saved or not np.array_equal(
+                              bits(_host_array(leaf)), bits(saved.pop(key)))]
+            mismatched += sorted(saved)  # saved leaves not restored
+            leaves = len(restored)
+            del state, restored
+            gc.collect()
+            torch.cuda.empty_cache()
+            resumed = train(cfg, steps=RESUME["steps"], checkpoint_dir=tmp,
+                            checkpoint_every=0, **kw)
+            seconds = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        want = whole["losses"][RESUME["saved"]:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"],
+                                                      want))
+        self.check(not mismatched, f"resume: {mismatched} not bit-identical")
+        self.check(resumed["steps"] == len(want) and rel <= RESUME_RTOL,
+                   f"resume: losses {resumed['losses']} vs {want}")
+        self.check(first["losses"] == whole["losses"][:RESUME["saved"]]
+                   or max(abs(a - b) / abs(b) for a, b in zip(
+                       first["losses"], whole["losses"])) <= RESUME_RTOL,
+                   f"resume: first steps {first['losses']} vs "
+                   f"{whole['losses']}")
+        emit({"phase": "train_resume", "arch": ARCH,
+              "layers": RESUME["layers"], "steps": RESUME["steps"],
+              "saved_after_step": RESUME["saved"],
+              "checkpoint_gb": saved_bytes / 1e9, "leaves": leaves,
+              "leaves_not_bit_identical": mismatched,
+              "unbroken_losses": whole["losses"],
+              "resumed_losses": resumed["losses"],
+              "max_rel_diff": rel, "limit": RESUME_RTOL,
+              "seconds": seconds, "card": self.card})
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def lm_kernel_launches(self):
         """Each LM kernel's launches in the kernels line: the sum over the
@@ -2723,10 +3309,13 @@ def main() -> int:
                   smoke.moe_model_check, smoke.moe_bf16_model_check,
                   smoke.encdec_model_check, smoke.encdec_bf16_model_check,
                   smoke.vlm_model_check, smoke.vlm_bf16_model_check,
+                  smoke.train_grad_check, smoke.train_model_check,
                   smoke.dense_main_path, smoke.placement_phase,
                   smoke.fleet_main_path, smoke.rwkv_main_path,
                   smoke.hybrid_main_path, smoke.moe_main_path,
                   smoke.encdec_main_path, smoke.vlm_main_path,
+                  smoke.train_main_path, smoke.train_bf16_check,
+                  smoke.train_resume,
                   smoke.lm_kernel_launches, smoke.main_path):
         try:
             phase()

@@ -106,21 +106,29 @@ class KernelLibrary:
         return out
 
     def load(self) -> ctypes.CDLL:
-        """Build (first use) and load the library; raises without CUDA."""
-        if self._lib is not None:
-            return self._lib
+        """Build (first use) and load the library; raises without CUDA.
+
+        ``_lib`` is read and written under ``_lock`` only, and the lock is
+        never held across the build (nvcc) or the load: two threads that
+        both find no library may both build and load it, which ``build``
+        makes safe, and the first to publish wins. Launches pay for none of
+        this, since ``launcher`` binds its function at the first launch."""
+        with self._lock:
+            lib = self._lib
+        if lib is not None:
+            return lib
         if not torch.cuda.is_available():
             raise RuntimeError(f"the {self.prefix} CUDA kernel needs a CUDA "
                                "device")
+        lib = ctypes.CDLL(str(self.build()))
+        err = getattr(lib, f"{self.prefix}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._declare(lib)
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                err = getattr(lib, f"{self.prefix}_error_string")
-                err.argtypes = [ctypes.c_int]
-                err.restype = ctypes.c_char_p
-                self._declare(lib)
                 self._lib = lib
-        return self._lib
+            return self._lib
 
     def launcher(self, name: str) -> Callable[..., None]:
         """A function ``launch(device, *args)`` that calls the library's

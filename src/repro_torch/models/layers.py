@@ -3,9 +3,11 @@
 Counterpart of the JAX package's ``models/layers.py``. ``p`` is the layer's
 parameter dict (an ``nn.ParameterDict`` of the port's ``TransformerLM``)
 under the reference's names and layouts. ``rms_norm`` goes through kernel
-B2. ``cross_entropy_loss`` waits for the training slice.
+B2 (with its gradient, ``kernels/rmsnorm/ops.py``, when one is needed).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -101,3 +103,24 @@ def lm_logits(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["embed"].T
     return x @ p["unembed"]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Masked cross-entropy with z-loss, in f32: the mean over the (masked)
+    positions of lse − logit[label] + z_loss·lse². The row max that steadies
+    the log-sum-exp carries no gradient, as in the reference; the label's
+    logit is a gather where the reference contracts with a one-hot, which
+    computes the same value."""
+    logits = logits.float()
+    m = torch.amax(logits, -1, keepdim=True).detach()
+    z = torch.sum(torch.exp(logits - m), -1)
+    lse = torch.log(z) + m[..., 0]
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - picked
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

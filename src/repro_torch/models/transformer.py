@@ -19,10 +19,23 @@ public signatures, with the module in the place of ``params``.
 
 Public surface:
     model_defs(cfg)                   -> PDef tree (single source of truth)
+    init_param_tree(cfg, generator)   -> the stacked parameter tree
     init_params(cfg, generator)       -> TransformerLM
     forward(cfg, model, batch)        -> (logits, aux)        [prefill]
+    forward_loss(cfg, model, batch)   -> (loss, metrics)      [train]
+    bind_stacked_grads(model, params) -> stacked gradient tree
     init_decode_state(cfg, batch, cache_len) -> state
     decode_step(cfg, model, state, tokens)   -> (logits, state) [serve]
+
+``forward`` and ``forward_loss`` run the same blocks (``_forward``):
+``forward`` under ``no_grad``, so that serving saves nothing for a
+backward and launches B2 and B3 as it always did; ``forward_loss`` with
+autograd on, through the kernels' ``autograd.Function``s, each block
+wrapped by ``_maybe_remat`` (``"full"``: ``torch.utils.checkpoint``
+around the block; ``"dots"``: the same, saving the matmuls' outputs;
+``"none"``). A model built ``from_stacked`` holds per-layer views of the
+stacked leaves, so the training state keeps the reference's stacked tree
+and the model trains in place through it.
 
 The decode state is updated in place: ``decode_step`` writes each layer's
 new K/V rows into the stacked cache (dense, MoE, VLM, the enc-dec
@@ -39,12 +52,14 @@ copies one slot's share of the state to the host and
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -152,12 +167,6 @@ def _module(tree: dict) -> nn.Module:
         for k, v in tree.items()})
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 class TransformerLM(nn.Module):
     """An LM's parameters: ``embedding`` (``embed``, and ``unembed`` unless
     tied), ``final_norm``, and ``layers[i]`` (dense and VLM: ``ln1``,
@@ -216,7 +225,7 @@ class TransformerLM(nn.Module):
         hybrid: ``groups`` (ng, attn_every, ...) and ``tail`` (tail, ...))
         are split into per-layer views."""
         def split(stack, n):
-            return [_tree_map(lambda t, i=i: t[i], stack) for i in range(n)]
+            return [tree_map(lambda t, i=i: t[i], stack) for i in range(n)]
 
         extra = {"frontend": tree.get("frontend")}
         if cfg.is_encdec:
@@ -226,18 +235,20 @@ class TransformerLM(nn.Module):
             return cls(cfg, tree["embedding"], tree["final_norm"],
                        split(tree["layers"], cfg.num_layers), **extra)
         ng, nt = hybrid_groups(cfg)
-        groups = [[_tree_map(lambda t, g=g, i=i: t[g, i], tree["groups"])
+        groups = [[tree_map(lambda t, g=g, i=i: t[g, i], tree["groups"])
                    for i in range(cfg.attn_every)] for g in range(ng)]
         tail = split(tree["tail"], nt) if nt else []
         return cls(cfg, tree["embedding"], tree["final_norm"], groups=groups,
                    tail=tail, shared_attn=tree["shared_attn"], **extra)
 
 
-def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-                *, device=None) -> TransformerLM:
+def init_param_tree(cfg: ArchConfig,
+                    generator: Optional[torch.Generator] = None, *,
+                    device=None) -> dict:
     """Random weights by the reference's rule (``parallel/sharding.py``
-    ``init_from_defs``), drawn from ``generator`` on its device, or from a
-    generator seeded 0 on ``device`` (None: the card)."""
+    ``init_from_defs``) in the stacked tree of ``model_defs(cfg)``, drawn
+    from ``generator`` on its device, or from a generator seeded 0 on
+    ``device`` (None: the card)."""
     defs = model_defs(cfg)
     if generator is None:
         generator = torch.Generator(device=resolve_device(device))
@@ -245,8 +256,55 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     elif device is not None and \
             torch.device(device).type != generator.device.type:
         raise ValueError(f"generator on {generator.device}, device {device}")
+    return init_from_defs(generator, defs, DTYPES[cfg.dtype])
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                *, device=None) -> TransformerLM:
+    """``init_param_tree``'s weights as a TransformerLM."""
     return TransformerLM.from_stacked(
-        cfg, init_from_defs(generator, defs, DTYPES[cfg.dtype]))
+        cfg, init_param_tree(cfg, generator, device=device))
+
+
+def _stacked_pairs(model: TransformerLM, params: dict):
+    """``(stacked leaf, per-layer index, the model's parameter)`` for every
+    parameter of ``model``, a model built ``from_stacked(cfg, params)``:
+    the index is () for an unstacked leaf, (i,) for ``layers``, ``encoder``
+    and ``tail``, (g, i) for ``groups``."""
+    def walk(tree, mod, index):
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                yield from walk(sub, mod[key], index)
+        else:
+            yield tree, index, mod
+
+    for key, sub in params.items():
+        if key in ("layers", "encoder", "tail"):
+            for i, layer in enumerate(getattr(model, key)):
+                yield from walk(sub, layer, (i,))
+        elif key == "groups":
+            for g, group in enumerate(model.groups):
+                for i, layer in enumerate(group):
+                    yield from walk(sub, layer, (g, i))
+        else:
+            yield from walk(sub, getattr(model, key), ())
+
+
+def bind_stacked_grads(model: TransformerLM, params: dict) -> dict:
+    """Turn on gradients for every parameter of ``model`` (built
+    ``from_stacked(cfg, params)``) and give each one, as its ``.grad``, its
+    view of a zeroed stacked gradient leaf; returns the gradient tree, of
+    ``params``' structure, shapes and dtypes. A backward then accumulates
+    into the stacked leaves in place: zero them before the next one."""
+    grads = tree_map(torch.zeros_like, params)
+    for (leaf, index, param), (g_leaf, _, _) in zip(
+            _stacked_pairs(model, params),
+            _stacked_pairs(model, grads)):
+        if param.data_ptr() != leaf[index].data_ptr():
+            raise ValueError("the model is not a view of the given params")
+        param.requires_grad_(True)
+        param.grad = g_leaf[index]
+    return grads
 
 
 # ---------------------------------------------------------------------------
@@ -332,14 +390,84 @@ def _embed_inputs(cfg: ArchConfig, model: TransformerLM,
 
 
 def _encode(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
-            mode: str) -> torch.Tensor:
+            mode: str, remat: str = "none") -> torch.Tensor:
     """The enc-dec family's memory: the stubbed ``frames`` (B, T, D) cast
     to the model's dtype, through ``frontend.proj``, the encoder layers and
     ``enc_norm``."""
     x = batch["frames"].to(DTYPES[cfg.dtype]) @ model.frontend["proj"]
+    block = _maybe_remat(functools.partial(_encoder_block, cfg, mode=mode),
+                         remat)
     for p_l in model.encoder:
-        x = _encoder_block(cfg, p_l, x, mode=mode)
+        x = block(p_l, x)
     return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+
+
+# the matmul ops whose outputs remat "dots" saves
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` with its activations recomputed in the backward: ``"full"``
+    all of them, ``"dots"`` all but the matmuls' outputs (the reference's
+    ``dots_with_no_batch_dims_saveable``: the projections and the MLP's;
+    attention's scores live inside B3), ``"none"``: ``fn`` itself. Remat
+    changes memory, never values."""
+    if remat == "none":
+        return fn
+    from torch.utils.checkpoint import (
+        checkpoint, create_selective_checkpoint_contexts)
+
+    kwargs = {"use_reentrant": False, "preserve_rng_state": False}
+    if remat == "dots":
+        kwargs["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _dots_policy)
+    elif remat != "full":
+        raise ValueError(f"remat must be none, dots or full, got {remat!r}")
+    return lambda *args: checkpoint(fn, *args, **kwargs)
+
+
+def _forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
+             mode: str, remat: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward of ``forward`` and ``forward_loss``, each block through
+    ``_maybe_remat``."""
+    x = _embed_inputs(cfg, model, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        block = _maybe_remat(lambda p_g, x: _hybrid_group_block(
+            cfg, p_g, model.shared_attn, x, mode=mode), remat)
+        for p_g in model.groups:
+            x = block(p_g, x)
+        tail = _maybe_remat(lambda p_l, x: _mamba_block(cfg, p_l, x,
+                                                        mode=mode), remat)
+        for p_l in model.tail:
+            x = tail(p_l, x)
+    elif cfg.is_encdec:
+        memory = _encode(cfg, model, batch, mode=mode, remat=remat)
+        block = _maybe_remat(lambda p_l, x, mem: _decoder_xattn_block(
+            cfg, p_l, x, mem, mode=mode), remat)
+        for p_l in model.layers:
+            x = block(p_l, x, memory)
+    else:
+        block = _maybe_remat(functools.partial(
+            _rwkv_block if cfg.family == "ssm" else _dense_block, cfg,
+            mode=mode), remat)
+        for p_l in model.layers:
+            x, a = block(p_l, x)
+            if a is not None:
+                aux = aux + a
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = L.lm_logits(cfg, model.embedding, x)
+    return logits, aux
 
 
 @torch.no_grad()
@@ -350,30 +478,24 @@ def forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
     dtype (VLM with ``patches``: over P + S positions, the patches first),
     aux the reference's MoE auxiliary loss, an f32 scalar: the sum of the
     MoE layers' losses, 0 for the other families. The enc-dec family reads
-    ``frames`` (B, T, D) beside ``tokens``. ``remat`` is accepted for the
-    reference's signature; nothing here keeps activations for a backward
-    pass."""
-    x = _embed_inputs(cfg, model, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "hybrid":
-        for p_g in model.groups:
-            x = _hybrid_group_block(cfg, p_g, model.shared_attn, x,
-                                    mode=mode)
-        for p_l in model.tail:
-            x = _mamba_block(cfg, p_l, x, mode=mode)
-    elif cfg.is_encdec:
-        memory = _encode(cfg, model, batch, mode=mode)
-        for p_l in model.layers:
-            x = _decoder_xattn_block(cfg, p_l, x, memory, mode=mode)
-    else:
-        block = _rwkv_block if cfg.family == "ssm" else _dense_block
-        for p_l in model.layers:
-            x, a = block(cfg, p_l, x, mode=mode)
-            if a is not None:
-                aux = aux + a
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = L.lm_logits(cfg, model.embedding, x)
-    return logits, aux
+    ``frames`` (B, T, D) beside ``tokens``. Under ``no_grad``: ``remat`` is
+    accepted for the reference's signature, and nothing keeps activations
+    for a backward pass (``forward_loss`` does)."""
+    return _forward(cfg, model, batch, mode=mode, remat="none")
+
+
+def forward_loss(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
+                 mode: str = "exec", remat: Optional[str] = None,
+                 aux_weight: float = 0.01):
+    """(loss, {"ce_loss", "moe_aux"}) with autograd on: the masked
+    cross-entropy of ``batch["labels"]`` (``loss_mask`` if given) plus
+    ``aux_weight`` times the MoE auxiliary loss, each block recomputed in
+    the backward as ``remat`` (None: ``cfg.remat``) says."""
+    remat = cfg.remat if remat is None else remat
+    logits, aux = _forward(cfg, model, batch, mode=mode, remat=remat)
+    loss = L.cross_entropy_loss(logits, batch["labels"],
+                                batch.get("loss_mask"))
+    return loss + aux_weight * aux, {"ce_loss": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +610,7 @@ def extract_decode_slot(cfg: ArchConfig, state: dict, slot: int
         part = v[:, slot]
         return torch.empty(part.shape, dtype=part.dtype).copy_(part)
 
-    leaves = {key: _tree_map(host, val)
+    leaves = {key: tree_map(host, val)
               for key, val in state.items() if key != "pos"}
     return leaves, int(state["pos"][slot])
 

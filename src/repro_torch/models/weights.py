@@ -11,7 +11,9 @@ against ``model_defs(cfg)`` by name and shape, moves it to the device and
 splits the stacks per layer (``TransformerLM.from_stacked``). Nothing of the
 host copy is kept once the leaf is on the device. The tests use it so that
 both packages run on the same weights; the port never reproduces JAX's
-random streams.
+random streams. ``train_state_from_reference`` carries a whole train state
+(params, AdamW moments, counts) across the same way, and
+``state_to_numpy`` carries the port's back.
 """
 from __future__ import annotations
 
@@ -56,3 +58,31 @@ def params_from_reference(cfg: ArchConfig, params: dict,
     device = resolve_device(device)
     return TransformerLM.from_stacked(
         cfg, _convert(model_defs(cfg), params, device, ""))
+
+
+def train_state_from_reference(cfg: ArchConfig, state: dict,
+                               device=None) -> dict:
+    """The reference's train state (``launch/steps.py``
+    ``init_train_state``'s tree, numpy leaves): ``params`` and the AdamW
+    moments ``opt.m``, ``opt.v`` in the stacked tree of ``model_defs(cfg)``
+    (checked by name and shape), ``opt.count`` and ``step``, as the port's
+    train state of tensors on ``device`` (None: the card). The model
+    trains through ``TransformerLM.from_stacked(cfg, out["params"])``."""
+    device = resolve_device(device)
+    defs = model_defs(cfg)
+    opt = state["opt"]
+    return {"params": _convert(defs, state["params"], device, "params"),
+            "opt": {"m": _convert(defs, opt["m"], device, "opt/m"),
+                    "v": _convert(defs, opt["v"], device, "opt/v"),
+                    "count": _tensor(opt["count"], device)},
+            "step": _tensor(state["step"], device)}
+
+
+def state_to_numpy(state: dict) -> dict:
+    """A tree of tensors as a tree of numpy arrays on the host, in the
+    reference's structure: bfloat16 leaves as their uint16 bits (view them
+    as ``ml_dtypes.bfloat16`` to hand them to JAX)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.checkpoint.checkpointer import _host_array
+
+    return tree_map(_host_array, state)

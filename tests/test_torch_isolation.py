@@ -1,7 +1,10 @@
 """The port stands alone: no module of ``repro_torch`` imports JAX or the
 JAX package (``models/ssm.py``, ``models/moe.py``, the hybrid, MoE, enc-dec
 and VLM entry points, migration, placement and the fleet included), and its
-entry points raise without CUDA instead of falling back to the CPU."""
+entry points raise without CUDA instead of falling back to the CPU. The
+training path (``optim/``, ``data/``, the ``Checkpointer``,
+``launch/train.py``) and the race lint are covered too: ``train()``
+raises without CUDA and trains on ``device="cpu"``."""
 import ast
 import os
 import subprocess
@@ -159,6 +162,15 @@ trace = generate(WorkloadSpec(seed=0, duration_s=0.004, rate_rps=1000.0,
 report = simulate(fleet, trace, rebalance_every_s=0.001, rebalance_live=True)
 assert report.completed == len(trace) > 0
 done = fleet.run(concurrent=True)
+from repro_torch.analysis import lint_runtime
+from repro_torch.launch.steps import init_train_state
+from repro_torch.launch.train import train
+
+assert lint_runtime().findings == []
+raises(lambda: init_train_state(cfg), RuntimeError)
+raises(lambda: train(steps=1), RuntimeError)
+out = train(steps=2, log_every=0, global_batch=2, seq_len=16, device="cpu")
+assert out["steps"] == 2
 print("ISOLATED", len(mods))
 """
 

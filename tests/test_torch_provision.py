@@ -68,9 +68,12 @@ def test_package_surfaces_match():
                 "configs"):
         ref, port = getattr(REF, key), getattr(PORT, key)
         if key == "analysis":
-            # the screen's exports; the walker and the lints are JAX-only
-            assert set(port.__all__) == {"CellStatics", "ScreenPolicy",
-                                         "ScreenReport", "screen_cells"}
+            # the screen's and the race lint's exports; the walker and the
+            # offload and kernel lints wait for the trace-based slice
+            assert set(port.__all__) == {
+                "CellStatics", "ScreenPolicy", "ScreenReport", "screen_cells",
+                "ConcurrencyReport", "Finding", "SharedAttr", "lint_runtime",
+                "lint_scan", "scan_paths", "scan_source"}
             assert all(hasattr(ref, n) for n in port.__all__)
             continue
         missing = set(ref.__all__) - set(port.__all__)
