@@ -8,7 +8,8 @@ started together: B1, the Himeno Jacobi sweep (``csrc/himeno.cu``), B2,
 RMSNorm (``csrc/rmsnorm.cu``), B3, the flash-attention forward
 (``csrc/flash_attention.cu``: a tensor-core kernel for bf16, a scalar one
 for f32) and B4, the RWKV6 WKV recurrence (``csrc/wkv.cu``: a chunked
-tensor-core kernel for prefill, a sequential one for decode). Holds every
+tensor-core kernel for prefill, a sequential one for decode, and its
+backward). Holds every
 kernel against its plain PyTorch version on the card at its main path's
 shapes and at ragged ones, and B3's tensor-core kernel also against the
 bound that rounding P and o to bf16 allows, timing each beside its bound,
@@ -44,14 +45,15 @@ tensor-core kernel. Then:
   ``ServingEngine`` with ``serve``'s requests), a ragged run through
   ``ServingEngine`` (not for llava: its decode step is the dense block on
   tokens, which llama3.2-3b's ragged run drives; each over the first
-  layers of its model, ``RAGGED_LAYERS``: 7 of llama3.2-3b's, 8 of
-  rwkv6-1.6b's, 6 of mixtral-8x7b's, 4 of seamless-m4t-medium's decoder
+  layers of its model, ``RAGGED_LAYERS``: 2 of llama3.2-3b's, 2 of
+  rwkv6-1.6b's, 2 of mixtral-8x7b's, 2 of seamless-m4t-medium's decoder
   layers, and zamba2-7b's first group and a tail layer, 7 layers, to fit
-  the run's budget) and
+  the run's budget; 12 requests on 8 slots, so freed slots admit new
+  prompts while others decode) and
   one forward of 2x2048
   tokens (seamless: over 2x2048 frames; llava: 2x5760 positions), each
-  metered on the GPU's power counter, and then profiled windows of decode
-  steps and of a forward. ``serve`` runs under the static placements the
+  metered on the GPU's power counter, and then profiled windows of 2
+  decode steps and of a forward. ``serve`` runs under the static placements the
   reference's ``serve()`` applies, and its line reports their modeled
   Watt·s (a TPU v5e model's, not the card's) beside the metered ones;
 * slices 3e and 4a, on llama3.2-3b's and rwkv6-1.6b's full-width models:
@@ -86,9 +88,27 @@ tensor-core kernel. Then:
   versions from one seeded state (step 1's gradient leaf by leaf against
   the f32 gradient, two steps' losses and grad norms), then 8 steps on
   one batch repeated, whose loss must fall;
-  ``train_resume``, at full width over 2 layers, a checkpoint saved after
+  ``train_resume``, at full width over 1 layer, a checkpoint saved after
   step 2, restored and held bit for bit to the live state that was saved,
-  and steps 3-5 resumed from it against an unbroken run's losses;
+  and steps 3-4 resumed from it against an unbroken run's losses;
+* slice 7b, the other five families train on one card, RWKV through B4's
+  backward kernel (``csrc/wkv.cu``): ``wkv_backward_check``, the backward
+  against autograd through ``wkv_ref`` at the training shape, at S = 333,
+  under weak and strong decay and at head dim 16, timed beside its bound;
+  ``family_grad_check``, B2's and B3's gradients at the families' training
+  shapes; then for rwkv6-1.6b, zamba2-7b (27 layers), mixtral-8x7b (2
+  layers, 8 experts), seamless-m4t-medium and llava-next-mistral-7b (16
+  layers, 5,760 positions): ``family_model_check`` (f32, 2 layers; zamba2
+  7), every gradient leaf through the kernels against the plain versions;
+  ``family_bf16_check``, one bf16 step's gradient at the training depth,
+  leaf by leaf against the f32 plain gradient beside plain bf16's (rwkv
+  also in f32 at that depth, each leaf held within twice what a one-ulp
+  nudge of the embedding moves the plain gradient); and
+  ``family_train``, 3 steps of ``launch.train.train`` (the VLM, which
+  ``train()`` refuses as the reference's fails, ``train_step`` on
+  ``synthetic_batch``), metered, each kernel's launches held to the count
+  the code gives and the first loss to what random init gives
+  (``expected_first_loss``); rwkv and zamba2 also profiled a step;
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
@@ -176,7 +196,7 @@ MODEL_B4_RTOL = 1e-4  # B4 against the plain WKV inside the f32 RWKV model
 RWKV_DECODE_RTOL = 2e-2
 CHECK_LAYERS = 4   # depth of the f32 full-width model checks
 CHECK_SEQ = 512
-RAGGED = dict(slots=8, max_len=1024, requests=16, prompt=(64, 512),
+RAGGED = dict(slots=8, max_len=1024, requests=12, prompt=(64, 512),
               max_new_tokens=64, seed=0)
 # Depth of the ragged runs (a view of the path's model, sharing its
 # weights), cut to fit the run's budget: a ragged step is host-bound and its
@@ -184,14 +204,25 @@ RAGGED = dict(slots=8, max_len=1024, requests=16, prompt=(64, 512),
 # joined, llama's ran over 14 of its 28 layers and mixtral's over 12 of its
 # 24; once training joined, on a host where the five ragged runs took 229 s
 # of a run of 1,046, over 7 (llama), 6 (mixtral), 8 of rwkv's 24 and 4 of
-# seamless's 12 decoder layers.
-RAGGED_LAYERS = {"llama3.2-3b": 7, "mixtral-8x7b": 6, "rwkv6-1.6b": 8,
-                 "seamless-m4t-medium": 4}
+# seamless's 12 decoder layers; once the five families' training joined
+# (a run of 853 s, the ragged runs 39 s of it), 12 requests, not 16, on
+# the 8 slots (more requests than slots, so a freed slot admits a prompt
+# while the others decode), over 2 (llama), 2 (mixtral), 2 (rwkv) and 2
+# (seamless) layers.
+RAGGED_LAYERS = {"llama3.2-3b": 2, "mixtral-8x7b": 2, "rwkv6-1.6b": 2,
+                 "seamless-m4t-medium": 2}
 # zamba2-7b's ragged run over its first group of 6 and one tail layer (a
 # view sharing the weights), cut to make room for the fleet: its 27 layers
 # took ~42 s of the run.
 HYBRID_RAGGED_LAYERS = 7
 PREFILL = (2, 2048)  # batch x tokens of the main path's forward
+# train_step's profiler spans (launch/train.py), left out of a profile's
+# device time, which counts their kernels already
+TRAIN_STEP_SPANS = frozenset({"forward", "backward", "optimizer"})
+# decode steps a decode_profile window profiles (after two to warm up): 10
+# took 95 s of the six paths' profiling in a run of 853 s, most of it the
+# profiler's own processing of ~2,000-4,600 launches a step
+DECODE_PROFILE_STEPS = 2
 RMS_SHAPES = (((8, 1, 3072), "bfloat16"), ((2, 2048, 3072), "bfloat16"),
               ((8, 1, 3584), "bfloat16"), ((2, 2048, 3584), "bfloat16"),
               ((8, 1, 4096), "bfloat16"), ((2, 2048, 4096), "bfloat16"),
@@ -265,10 +296,13 @@ NEAR_TIE_RTOL = 2e-2
 # every millisecond of the virtual clock off engines whose queue holds more
 # than their slots, which moves admitted slots (2 on the CPU's run).
 # 16 and 8 new tokens since training joined the run (32 and 16 before:
-# the fleet's six runs took 75 s of a run of 1,046 on a slow host)
-FLEET = dict(num_requests=8, max_new_tokens=16)
-# the threaded executor's run: serve_fleet's requests at 8 new tokens
-FLEET_THREADS = dict(num_requests=8, max_new_tokens=8)
+# the fleet's six runs took 75 s of a run of 1,046 on a slow host); 8
+# requests on the fleet's 6 slots, so freed slots admit queued ones, at 8
+# new tokens since the five families' training joined (at 16 the fleet
+# took 59 s of a run of 777 on a slow host)
+FLEET = dict(num_requests=8, max_new_tokens=8)
+# the threaded executor's run: serve_fleet's requests at 4 new tokens
+FLEET_THREADS = dict(num_requests=8, max_new_tokens=4)
 PROVISION_W = 50_000.0
 FLEET_REPLAY = dict(
     spec=dict(seed=0, duration_s=0.012, rate_rps=2400.0, max_len=64,
@@ -415,12 +449,80 @@ TRAIN = dict(steps=8, global_batch=2, seq_len=2048)
 # steps on one batch repeated: the loss must fall by "repeat_drop" nats
 BF16_CHECK = dict(steps=2, lr=1e-3, repeat_drop=1.0)
 BF16_LOSS_RTOL = 1e-2
-# resume: full width over 2 layers (about 6 GB of state a checkpoint): an
-# unbroken run of 5 steps, then 2 steps saved at their end, then a run that
-# restores them and takes steps 3-5, whose losses must equal the unbroken
-# run's within RESUME_RTOL
-RESUME = dict(layers=2, steps=5, saved=2)
+# resume: full width over 1 layer (~5 GB of state a checkpoint, most of it
+# the embedding's; 2 layers and 5 steps took 51 s before the five families'
+# training joined): an unbroken run of 4 steps, then 2 steps saved at their
+# end, then a run that restores them and takes steps 3-4, whose losses must
+# equal the unbroken run's within RESUME_RTOL
+RESUME = dict(layers=1, steps=4, saved=2)
 RESUME_RTOL = 1e-3
+
+
+# Slice 7b: single-device training of the other five families, B4's
+# backward kernel (csrc/wkv.cu). wkv_backward_check: the kernel against
+# autograd through wkv_ref, each of dr, dk, dv, dlw, du within
+# WKV_GRAD_RTOL of its max |.|: (B, H, S, D), lw range, the model's
+# (B, S, H, D) layout, label; the training shape first, then S not a
+# multiple of 64, the forward's weak and strong decays, head dim 16
+WKV_GRAD_RTOL = 1e-4
+WKV_GRAD_CASES = (((2, 32, 2048, 64), MODEL_LW, True, "train"),
+                  ((2, 32, 333, 64), MODEL_LW, True, "ragged"),
+                  ((1, 32, 2048, 64), (-0.01, 0.0), False, "weak"),
+                  ((2, 32, 512, 64), (-20.0, 0.0), False, "strong"),
+                  ((2, 32, 512, 16), MODEL_LW, False, "head_dim_16"))
+# family_grad_check: B2 and B3 at the shapes the families train at, bf16:
+# (arch, kernel, shape ((B, S, d) or (B, H, K, S, D)), causal, window)
+FAMILY_GRAD_SHAPES = (
+    ("rwkv6-1.6b", "rms_norm", (2, 2048, 2048), None, None),
+    ("zamba2-7b", "rms_norm", (2, 2048, 3584), None, None),
+    ("mixtral-8x7b", "rms_norm", (2, 2048, 4096), None, None),
+    ("seamless-m4t-medium", "rms_norm", (2, 2048, 1024), None, None),
+    ("llava-next-mistral-7b", "rms_norm", (2, 5760, 4096), None, None),
+    ("llava-next-mistral-7b", "rms_norm", (2, 2880, 4096), None, None),
+    ("zamba2-7b", "flash_attention", (2, 32, 32, 2048, 112), True, 0),
+    ("mixtral-8x7b", "flash_attention", (2, 32, 8, 2048, 128), True, 4096),
+    ("seamless-m4t-medium", "flash_attention", (2, 16, 16, 2048, 64), False,
+     0),
+    ("seamless-m4t-medium", "flash_attention", (2, 16, 16, 2048, 64), True,
+     0),
+    ("llava-next-mistral-7b", "flash_attention", (2, 32, 8, 5760, 128), True,
+     0))
+# (arch, train depth (None: full), f32 check depth, positions a row): the
+# depths one 80 GB card holds at 12 B a parameter (bf16 weights and
+# gradients, f32 moments); zamba2 at its served 27 layers (4 groups and a
+# tail of 3), its check at one group and a tail layer; mixtral at 2 of 32
+# layers with all 8 experts (3 layers, 4.6B parameters, ~55 GB before
+# activations, is too close); llava at 16 of 32 over 2,880 patches and
+# 2,880 tokens a row; seamless's check at 2 encoder and 2 decoder layers
+TRAIN_FAMILIES = (("rwkv6-1.6b", None, 2, 2048),
+                  ("zamba2-7b", 27, 7, 2048),
+                  ("mixtral-8x7b", 2, 2, 2048),
+                  ("seamless-m4t-medium", None, 2, 2048),
+                  ("llava-next-mistral-7b", 16, 2, 5760))
+FAMILY_TRAIN = dict(steps=3)
+# a family's first training loss against expected_first_loss, in nats: the
+# first runs read 0.008-0.032 from it (0.20-0.83 above ln V)
+FIRST_LOSS_ATOL = 0.1
+FAMILY_PROFILED = ("rwkv6-1.6b", "zamba2-7b")
+# family_model_check: every gradient leaf, kernels against plain versions
+# in f32, within FAMILY_GRAD_RTOL of its max |g| (loss: TRAIN_LOSS_RTOL):
+# 1e-5, but 3e-5 for RWKV and 5e-5 for zamba2, whose leaves read up to
+# 1.5e-5 and 3.6e-5. For those two the check also reads how far each
+# leaf's plain gradient moves when the embedding table moves by one f32 ulp
+# (random signs, seeded): the leaf's own sensitivity to a change of
+# rounding in the forward, which is what the kernels (and B4's 3xTF32
+# products) make. Its first run read the two within 1.4x of each other on
+# every family (zamba2's A_log leaves 3.6e-5 and 2.8e-5 against 2.7e-5 and
+# 3.4e-5), so the excess is that sensitivity, not a kernel's error.
+FAMILY_GRAD_RTOL = {"rwkv6-1.6b": 3e-5, "zamba2-7b": 5e-5}
+FAMILY_GRAD_RTOL_DEFAULT = 1e-5
+FAMILY_ULP_LOOK = ("rwkv6-1.6b", "zamba2-7b")
+# family_bf16_check's f32 comparison at the training depth (see there)
+FAMILY_F32_AT_DEPTH = ("rwkv6-1.6b",)
+FAMILY_DEPTH_ULP_FACTOR = 2.0
+# family_bf16_check: each leaf's L2 distance from the f32 plain gradient
+# through the kernels at most FAMILY_BF16_RATIO times plain bf16's
+FAMILY_BF16_RATIO = 1.1
 
 
 def kernel_modules():
@@ -456,12 +558,88 @@ def launches_since(before: dict[str, int]) -> dict[str, int]:
     return {k: n - before[k] for k, n in lm_launches().items()}
 
 
+def wkv_backward_launches() -> int:
+    from repro_torch.kernels.wkv.kernel import wkv_backward_cuda
+    return wkv_backward_cuda.launches
+
+
+def train_launches(cfg) -> dict[str, int]:
+    """Each LM kernel's launches in one training step of ``cfg`` (remat
+    full), as the code gives them: the forward, then each remat block again
+    in the backward (a layer; a hybrid group, the shared attention and its
+    Mamba layers, or a tail layer), B4's backward once a layer. Outside the
+    blocks: the final norm, an encoder's enc_norm, the VLM's patch norm.
+    B3 on the tensor cores in bf16."""
+    from repro_torch.models.transformer import hybrid_groups
+
+    n = cfg.num_layers
+    out = dict(rms_norm=4 * n + 1, flash_attention=2 * n, wkv=0, wkv_tc=0,
+               wkv_backward=0)
+    if cfg.family == "ssm":
+        out.update(flash_attention=0, wkv=2 * n, wkv_tc=2 * n,
+                   wkv_backward=n)
+    elif cfg.family == "hybrid":
+        groups, tail = hybrid_groups(cfg)
+        blocks = groups * (1 + cfg.attn_every) + tail
+        out.update(rms_norm=2 * blocks + 1, flash_attention=2 * groups)
+    elif cfg.is_encdec:
+        e = cfg.encoder_layers
+        out.update(rms_norm=2 * (2 * e + 3 * n) + 2,
+                   flash_attention=2 * (e + n))
+    elif cfg.frontend == "vision":
+        out["rms_norm"] += 1
+    out["flash_attention_tc"] = (out["flash_attention"]
+                                 if cfg.dtype == "bfloat16" else 0)
+    return out
+
+
+def expected_first_loss(cfg) -> float:
+    """The cross-entropy a random-init LM starts at: ln V + sigma^2 / 2,
+    where sigma^2 = d * std^2 is the variance of a logit over the vocabulary
+    (the final norm gives each position an RMS of 1, its scale 1 at init;
+    std is the unembedding's init scale, the embedding's if tied), and ln V
+    + sigma^2 / 2 is E[logsumexp] of V such logits. 0.02 at d 4096 puts it
+    0.82 above ln V."""
+    import math
+
+    from repro_torch.models.transformer import model_defs
+
+    emb = model_defs(cfg)["embedding"]
+    d = emb["embed" if cfg.tie_embeddings else "unembed"]
+    std = d.scale if d.init == "normal" else d.shape[-2] ** -0.5
+    return math.log(cfg.vocab_size) + cfg.d_model * std ** 2 / 2
+
+
+def wkv_backward_bound_ms(b, h, s, d) -> tuple[float, str]:
+    """r, k, v, lw, dout read once, dr, dk, dv, dlw written once, u read and
+    du written once, all f32; the operations the gradient needs: 14 D^2 a
+    token of one head (the state S_{t-1} formed once, 3 D^2: a multiply
+    and a fused multiply-add an element; the reverse step's fused
+    multiply-adds for dr, dk, dlw, dv and G's decay, and r dout^T, 11 D^2)
+    and ~13 D for the bonus terms, v . dout, r . diag(u) k and du. The
+    kernel forms the state twice (once to save a state every 16 tokens,
+    once to replay each segment), 17 D^2 a token: that second pass is its
+    design's cost, not the function's."""
+    nbytes = 4 * (9 * b * h * s * d + 2 * h * d)
+    flops = (14 * d * d + 13 * d) * b * h * s
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def reset_all_launches() -> None:
     for mod in kernel_modules():
         mod.reset_launches()
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``t_s``, the seconds since
+    the run started, so every stretch of the run is accounted for."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -618,15 +796,53 @@ def bf16_ulp(y):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def timed_pair(kernel_fn, plain_fn, reps: int, library_fn=None) -> dict:
+def leaf_errs(got, want) -> dict:
+    """Each leaf's max |got - want| over its max |want|, by path; ``got``
+    a list of leaves, ``want`` a ``flatten``ed tree in the same order."""
+    return {"/".join(map(str, path)): float(
+        (a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        for a, (path, b) in zip(got, want)}
+
+
+def nudged_embedding(params):
+    """A context in which ``params``' embedding table sits one f32 ulp
+    away, up or down at random (seeded): an input change of the size of
+    the rounding the kernels change."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def nudged():
+        embed = params["embedding"]["embed"]
+        kept = embed.clone()
+        gen = torch.Generator(device=embed.device).manual_seed(0)
+        up = torch.rand(embed.shape, generator=gen, device=embed.device) < 0.5
+        with torch.no_grad():
+            embed.copy_(torch.nextafter(embed, torch.where(
+                up, torch.inf, -torch.inf).to(embed.dtype)))
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                embed.copy_(kept)
+
+    return nudged()
+
+
+def timed_pair(kernel_fn, plain_fn, reps: int, library_fn=None,
+               plain_reps=None) -> dict:
     """plain, library, kernel, kernel, library, plain: the better of two
-    means each (the library call only where one is given)."""
-    pl1 = time_ms(plain_fn, max(2, reps // 4))
+    means each (the library call only where one is given); the plain
+    version over ``plain_reps`` calls (default a quarter of ``reps``, at
+    least 2)."""
+    plain_reps = plain_reps or max(2, reps // 4)
+    pl1 = time_ms(plain_fn, plain_reps)
     lib1 = time_ms(library_fn, reps) if library_fn else None
     k1 = time_ms(kernel_fn, reps)
     k2 = time_ms(kernel_fn, reps)
     lib2 = time_ms(library_fn, reps) if library_fn else None
-    pl2 = time_ms(plain_fn, max(2, reps // 4))
+    pl2 = time_ms(plain_fn, plain_reps)
     out = {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": min(pl1, pl2),
            "plain_ms_runs": [pl1, pl2], "library_ms": None}
     if library_fn:
@@ -763,28 +979,60 @@ def kernel_vs_plain(cfg, model, batch, module, attr, plain, baseline=None,
     return full, rel
 
 
+@functools.lru_cache(maxsize=None)
+def plain_wkv_fn():
+    """B4's plain versions as an ``autograd.Function``: ``wkv_ref`` forward,
+    ``wkv_backward_ref`` backward (``wkv_backward_check`` holds the latter
+    to autograd through the former on the card). Autograd through
+    ``wkv_ref`` itself walks ~10 nodes a token, and took 148 s for the two
+    plain runs of rwkv6-1.6b's bf16 check at 24 layers."""
+    import torch
+    from repro_torch.kernels.wkv import wkv_ref
+    from repro_torch.kernels.wkv.ref import wkv_backward_ref
+
+    class PlainWkvFn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, lw, u):
+            ctx.set_materialize_grads(False)
+            ctx.save_for_backward(r, k, v, lw, u)
+            return wkv_ref(r, k, v, lw, u)
+
+        @staticmethod
+        def backward(ctx, dout, dfinal):
+            if dfinal is not None:
+                raise NotImplementedError("no gradient of the final state")
+            return wkv_backward_ref(*ctx.saved_tensors, dout.float())
+
+    return PlainWkvFn
+
+
 def plain_training():
-    """A context in which the LM's RMSNorm and attention run their plain
-    versions (``rms_norm_ref``, ``attention_ref``), so that autograd
-    differentiates them in place of the kernels' written backwards."""
+    """A context in which the LM's RMSNorm, attention and WKV run their
+    plain versions (``rms_norm_ref``, ``attention_ref``, ``wkv_ref`` with
+    ``wkv_backward_ref``), so that autograd differentiates them in place of
+    the kernels' backwards."""
     import contextlib
 
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.rmsnorm import rms_norm_ref
     from repro_torch.models import attention as attn
     from repro_torch.models import layers
+    from repro_torch.models import rwkv
 
     @contextlib.contextmanager
     def patched():
-        rms, flash = layers._rms_norm_op, attn.flash_attention
+        rms, flash, wkv = layers._rms_norm_op, attn.flash_attention, rwkv.wkv
         layers._rms_norm_op = lambda x, scale, eps: rms_norm_ref(x, scale,
                                                                  eps)
         attn.flash_attention = lambda q, k, v, causal, window: attention_ref(
             q, k, v, causal=causal, window=window)
+        rwkv.wkv = lambda r, k, v, lw, u, state=None, chunk=64: \
+            plain_wkv_fn().apply(r, k, v, lw, u)
         try:
             yield
         finally:
-            layers._rms_norm_op, attn.flash_attention = rms, flash
+            layers._rms_norm_op, attn.flash_attention, rwkv.wkv = \
+                rms, flash, wkv
 
     return patched()
 
@@ -1808,7 +2056,7 @@ class Smoke:
         self.bf16_model_check(VLM_ARCH, CHECK_LAYERS, CHECK_LAYERS,
                               VLM_B3_BF16_RTOL)
 
-    def profile_decode(self, cfg, model, steps: int = 10):
+    def profile_decode(self, cfg, model, steps: int = DECODE_PROFILE_STEPS):
         """Where a decode step's time goes: ``steps`` steps at the ragged
         run's batch, half way through its cache, under torch.profiler."""
         import torch
@@ -1838,11 +2086,12 @@ class Smoke:
         """``run`` twice to warm up, then ``count`` times under
         torch.profiler. Device time is the sum of the kernels' own times
         (the events on the card; an operator's event carries its kernels'
-        time again, and CUPTI's "Command Buffer Full" marks a launch that
-        waited for room in the card's queue, so both are left out of the
-        sum); its share of the host's wall clock is the device's busy
-        share. The top lists name operators and kernels, a ``unit``
-        each, and count the launches that waited (``queue_full``)."""
+        time again, as does a ``record_function`` span of ``train_step``,
+        and CUPTI's "Command Buffer Full" marks a launch that waited for
+        room in the card's queue, so all are left out of the sum); its
+        share of the host's wall clock is the device's busy share. The top
+        lists name operators and kernels, a ``unit`` each, and count the
+        launches that waited (``queue_full``)."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -1864,8 +2113,12 @@ class Smoke:
                     or getattr(e, "self_cuda_time_total", 0.0))
 
         full = [e for e in events if e.key == "Command Buffer Full"]
+        # record_function spans (train_step's parts) carry their kernels'
+        # device time again, as GPU annotations
+        spans = [e for e in events if e.key in TRAIN_STEP_SPANS]
         total = sum(device_us(e) for e in events
-                    if e.device_type == DeviceType.CUDA and e not in full)
+                    if e.device_type == DeviceType.CUDA and e not in full
+                    and e not in spans)
         top_device = sorted(events, key=device_us, reverse=True)[:8]
         top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
                           reverse=True)[:10]
@@ -2961,15 +3214,11 @@ class Smoke:
         import torch
         from repro_torch.configs import ShapeSpec, get_config
         from repro_torch.data import SyntheticLMStream, device_put_batch
-        from repro_torch.launch.steps import init_train_state
-        from repro_torch.launch.train import train, train_step
-        from repro_torch.models import transformer as MT
-        from repro_torch.optim import AdamWConfig
+        from repro_torch.launch.train import train
 
         cfg = get_config(ARCH)
         n, steps = cfg.num_layers, TRAIN["steps"]
-        per_step = {"rms_norm": (2 * n + 1) + 2 * n, "flash_attention": 2 * n,
-                    "flash_attention_tc": 2 * n, "wkv": 0, "wkv_tc": 0}
+        per_step = train_launches(cfg)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2980,6 +3229,7 @@ class Smoke:
             out, seconds, ws, samples = metered(lambda: train(
                 ARCH, use_reduced=False, log_every=1, **TRAIN))
         counts = launches_since(before)
+        counts["wkv_backward"] = wkv_backward_launches()
         peak = torch.cuda.max_memory_allocated()
         self.path_launches[f"{ARCH} train"] = counts
         step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
@@ -3013,37 +3263,9 @@ class Smoke:
         torch.cuda.empty_cache()
 
         # one step profiled, on a state of its own
-        state = init_train_state(cfg)
-        model = MT.TransformerLM.from_stacked(cfg, state["params"])
-        grads = MT.bind_stacked_grads(model, state["params"])
-        batch = device_put_batch(SyntheticLMStream(cfg, ShapeSpec(
-            "train", "train", TRAIN["seq_len"], TRAIN["global_batch"])
-        ).batch_at(0), "cuda")
-        events: dict = {}
-
-        def mark(part):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events[part] = ev
-
-        run = functools.partial(train_step, cfg, model, state, grads, batch,
-                                AdamWConfig(lr=1e-3), mark)
-        self.profiled("train_profile", "step", run, 1, arch=ARCH, layers=n,
-                      global_batch=TRAIN["global_batch"],
-                      seq_len=TRAIN["seq_len"])
-        torch.cuda.synchronize()
-        parts = ("forward", "backward", "optimizer", "end")
-        emit({"phase": "train_profile_split", "arch": ARCH,
-              "device_timeline_ms": {
-                  a: events[a].elapsed_time(events[b])
-                  for a, b in zip(parts, parts[1:])},
-              "note": "CUDA events at each part's start, on the device's "
-                      "timeline, gaps included; host time is the profiled "
-                      "wall less the device time of train_profile",
-              "card": self.card})
-        del state, model, grads, batch, run, events
-        gc.collect()
-        torch.cuda.empty_cache()
+        self.train_profile(cfg, device_put_batch(SyntheticLMStream(
+            cfg, ShapeSpec("train", "train", TRAIN["seq_len"],
+                           TRAIN["global_batch"])).batch_at(0), "cuda"))
 
     def train_bf16_check(self):
         """The bf16 step of ``train_main_path`` (full width and depth, remat
@@ -3169,12 +3391,12 @@ class Smoke:
               "seconds": seconds, "card": self.card})
 
     def train_resume(self):
-        """Resume on llama3.2-3b at full width over RESUME's 2 layers: an
-        unbroken run of 5 steps; a run of 2 steps that saves its state at
+        """Resume on llama3.2-3b at full width over RESUME's 1 layer: an
+        unbroken run of 4 steps; a run of 2 steps that saves its state at
         their end, with a host copy of each leaf taken as ``save`` is
         called; that checkpoint restored on the card, each leaf compared
         bit for bit with the copy of the live state; a run on the same
-        directory that restores step 2 and takes steps 3-5, whose losses
+        directory that restores step 2 and takes steps 3-4, whose losses
         must equal the unbroken run's. In a temporary directory the phase
         removes."""
         import dataclasses
@@ -3263,16 +3485,582 @@ class Smoke:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # -- slice 7b: the other five families train, B4 with its backward ----
+    def wkv_backward_check(self):
+        """B4's backward kernel at every WKV_GRAD_CASES entry against
+        autograd through ``wkv_ref``: dr, dk, dv, dlw and du each within
+        WKV_GRAD_RTOL of its max |.|, a repeat bit for bit; through
+        ``WkvFn`` (B4's forward, then the backward kernel) at the training
+        shape too. Timed at the training shape beside the plain version's
+        autograd backward and the bound."""
+        import numpy as np
+        import torch
+        from repro_torch.kernels.wkv import wkv_ref
+        from repro_torch.kernels.wkv.kernel import wkv_backward_cuda
+        from repro_torch.kernels.wkv.ops import wkv
+        from repro_torch.kernels.wkv.ref import wkv_backward_ref
+
+        rng = np.random.default_rng(11)
+        names = ("r", "k", "v", "lw", "u")
+        worst = 0.0
+        for shape, lw_range, model_layout, label in WKV_GRAD_CASES:
+            b, h, s, d = shape
+
+            def seq(draw):
+                if model_layout:  # views of (B, S, H, D) products
+                    return torch.from_numpy(draw((b, s, h, d)).astype(
+                        np.float32)).cuda().transpose(1, 2)
+                return torch.from_numpy(draw(shape).astype(np.float32)).cuda()
+
+            r, k, v = (seq(lambda sh: rng.standard_normal(sh) * 0.5)
+                       for _ in range(3))
+            lw = seq(lambda sh: rng.uniform(*lw_range, sh))
+            u = torch.from_numpy((rng.standard_normal((h, d)) * 0.5).astype(
+                np.float32)).cuda()
+            do = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda()
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (r, k, v, lw, u)]
+            out, _ = wkv_ref(*leaves)
+            want = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            got = wkv_backward_cuda(r, k, v, lw, u, do)
+            again = wkv_backward_cuda(r, k, v, lw, u, do)
+            torch.cuda.synchronize()
+            row = {"shape": list(shape), "case": label,
+                   "model_layout": model_layout, "lw_range": list(lw_range),
+                   "tolerance": WKV_GRAD_RTOL, "grads": {}}
+            for name, a, a2, w in zip(names, got, again, want):
+                err = float((a - w).abs().max())
+                peak = float(w.abs().max())
+                row["grads"][name] = {"max_abs_err": err, "max_abs": peak,
+                                      "err_over_max": err / peak}
+                worst = max(worst, err)
+                self.check(err <= WKV_GRAD_RTOL * peak,
+                           f"wkv_backward {label} d{name}: {err} > "
+                           f"{WKV_GRAD_RTOL} x {peak}")
+                self.check(torch.equal(a, a2),
+                           f"wkv_backward {label} d{name}: not repeatable")
+            if label == "train":
+                through = [t.detach().clone().requires_grad_(True)
+                           for t in (r, k, v, lw, u)]
+                o, _ = wkv(*through)
+                o.backward(do)
+                row["through_wkv_fn"] = {
+                    n: float((t.grad - w).abs().max() / w.abs().max())
+                    for n, t, w in zip(names, through, want)}
+                # the plain backward (the CPU's, wkv_backward_ref) too
+                row["plain_backward"] = {
+                    n: float((p - w).abs().max() / w.abs().max())
+                    for n, p, w in zip(names, wkv_backward_ref(
+                        r, k, v, lw, u, do), want)}
+                self.check(all(e <= WKV_GRAD_RTOL for e in
+                               row["through_wkv_fn"].values()),
+                           f"WkvFn at {shape}: {row['through_wkv_fn']}")
+                del through, o
+                row.update(timed_pair(
+                    lambda: wkv_backward_cuda(r, k, v, lw, u, do),
+                    lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True), REPS // 4,
+                    plain_reps=1))
+                row["bound_ms"], row["bound_by"] = wkv_backward_bound_ms(
+                    b, h, s, d)
+                self.kernels["wkv_backward"] = {
+                    "name": "wkv_backward", "route": "cuda",
+                    "source": "src/repro_torch/csrc/wkv.cu",
+                    "replaces": "src/repro/kernels/wkv/kernel.py:22",
+                    "launches": 0, "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": None,
+                    "shape": list(shape), "dtype": "float32",
+                    "plain": "autograd through wkv_ref", "card": self.card}
+            emit({"phase": "wkv_backward_check", **row, "card": self.card})
+            del r, k, v, lw, u, do, leaves, out, want, got, again
+            torch.cuda.empty_cache()
+        self.kernels["wkv_backward"]["max_abs_err"] = worst
+
+    def family_grad_check(self):
+        """B2's and B3's gradients at the shapes the five families train at
+        (FAMILY_GRAD_SHAPES), in bf16: each through its ``autograd.Function``
+        against the plain version's autograd in bf16 and in f32 (held as
+        ``train_grad_check`` holds bf16), with the backward's ms beside the
+        plain version's."""
+        import numpy as np
+        import torch
+        from repro_torch.kernels.flash_attention import attention_ref
+        from repro_torch.kernels.flash_attention.ops import (
+            flash_attention, flash_attention_backward)
+        from repro_torch.kernels.rmsnorm import rms_norm_ref
+        from repro_torch.kernels.rmsnorm.ops import (
+            rms_norm, rms_norm_backward)
+
+        rng = np.random.default_rng(12)
+        bf16 = torch.bfloat16
+
+        def draw(shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                    .astype(np.float32)).to("cuda", bf16)
+
+        def grads(fn, inputs, g):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in inputs]
+            fn(*leaves).backward(g)
+            return [t.grad.float() for t in leaves]
+
+        rows = {"rms_norm": [], "flash_attention": []}
+        for arch, kind, shape, causal, window in FAMILY_GRAD_SHAPES:
+            t0 = time.perf_counter()
+            if kind == "rms_norm":
+                x, g = draw(shape, 2.0), draw(shape)
+                scale = torch.from_numpy(rng.uniform(0.5, 1.5, shape[-1])
+                                         .astype(np.float32)).cuda()
+                inputs, names = (x, scale), ("x", "scale")
+                kern, plain = rms_norm, rms_norm_ref
+                backward = functools.partial(rms_norm_backward, x, scale,
+                                             g, 1e-5)
+                reps = REPS
+            else:
+                b, h, kh, s, d = shape
+                q, k, v = (draw((b, n, s, d)) for n in (h, kh, kh))
+                g = draw((b, h, s, d))
+                inputs, names = (q, k, v), ("q", "k", "v")
+                kern = functools.partial(flash_attention, causal=causal,
+                                         window=window)
+                plain = functools.partial(attention_ref, causal=causal,
+                                          window=window)
+                backward = functools.partial(
+                    flash_attention_backward, q, k, v, g, causal=causal,
+                    window=window)
+                reps = 2
+            got = grads(kern, inputs, g)
+            want = grads(plain, inputs, g)
+            f32 = grads(plain, [t.float() for t in inputs], g.float())
+            row = {"arch": arch, "kernel": kind, "shape": list(shape),
+                   "dtype": "bfloat16", "causal": causal, "window": window,
+                   "grads": {}}
+            for n, a, p, r in zip(names, got, want, f32):
+                err = float((a - r).abs().max())
+                own = float((p - r).abs().max())
+                limit = GRAD_BF16_FACTOR * own
+                row["grads"][n] = {"max_abs_err": err, "plain_bf16_err": own,
+                                   "max_abs": float(r.abs().max()),
+                                   "limit": limit}
+                self.check(err <= limit, f"{kind} {arch} bf16 d{n}: {err} > "
+                                         f"{limit}")
+            del got, want, f32
+            torch.cuda.empty_cache()
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in inputs]
+            y = plain(*leaves)
+            row.update(timed_pair(
+                backward, lambda: torch.autograd.grad(
+                    y, leaves, g, retain_graph=True), reps))
+            row["seconds"] = time.perf_counter() - t0
+            emit({"phase": "family_grad_check", **row, "card": self.card})
+            rows[kind].append({k: row[k] for k in (
+                "arch", "shape", "grads", "ms", "plain_ms")})
+            del y, leaves, inputs, g
+            torch.cuda.empty_cache()
+        for name, got in rows.items():
+            self.kernels[name].setdefault("gradient", {})["families"] = got
+
+    @staticmethod
+    def family_config(arch, layers, dtype=None):
+        """``arch``'s published config at ``layers`` layers (None: all of
+        them; seamless's encoder cut alike) and, if given, ``dtype``."""
+        import dataclasses
+
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        changes = {} if dtype is None else {"dtype": dtype}
+        if layers is not None:
+            changes["num_layers"] = layers
+            if cfg.is_encdec:
+                changes["encoder_layers"] = min(layers, cfg.encoder_layers)
+        return dataclasses.replace(cfg, **changes)
+
+    @staticmethod
+    def family_batch(cfg, seq):
+        """The batch a family trains on, 2 x ``seq`` positions: the VLM's
+        is ``synthetic_batch`` (train() refuses the VLM: the reference's
+        own train() fails on its labels), every other one
+        ``SyntheticLMStream``'s first, as ``train()`` draws it."""
+        from repro_torch import models as M
+        from repro_torch.configs import ShapeSpec
+        from repro_torch.data import SyntheticLMStream, device_put_batch
+
+        shape = ShapeSpec("train", "train", seq, 2)
+        if cfg.frontend == "vision":
+            return M.synthetic_batch(cfg, shape, seed=0, device="cuda")
+        return device_put_batch(SyntheticLMStream(cfg, shape).batch_at(0),
+                                "cuda")
+
+    def gradient_of(self, cfg, params, batch, *, plain, rows=False,
+                    remat=None):
+        """The gradient tree of ``forward_loss`` at ``params`` (a stacked
+        tree, which this call's model views), through the kernels or, with
+        ``plain``, their plain versions. With ``rows``, accumulated a batch
+        row at a time (the batch's rows hold equal numbers of counted
+        targets, so the halves' mean is the whole batch's loss): the plain
+        attention's f32 probabilities over 5,760 positions then fit beside
+        the model.
+        ``remat`` (None: the config's) changes memory, never values.
+        Returns (loss, gradient tree)."""
+        import contextlib
+
+        from repro_torch.models import transformer as MT
+
+        model = MT.TransformerLM.from_stacked(cfg, params)
+        grads = MT.bind_stacked_grads(model, params)
+        parts = ([{k: t[i:i + 1] for k, t in batch.items()}
+                  for i in range(batch["tokens"].shape[0])] if rows
+                 else [batch])
+        loss = 0.0
+        with (plain_training() if plain else contextlib.nullcontext()):
+            for part in parts:
+                lp, _ = MT.forward_loss(cfg, model, part, remat=remat)
+                (lp / len(parts)).backward()
+                loss += float(lp.detach()) / len(parts)
+        return loss, grads
+
+    def family_model_check(self, arch, layers):
+        """``arch`` at full width, ``layers`` deep, in f32, 2 x CHECK_SEQ
+        positions: ``forward_loss`` and every gradient leaf through the
+        kernels against the same through the plain versions (a MoE's
+        routing held to the kernels' run)."""
+        import torch
+        from repro_torch._tree import flatten, leaves
+        from repro_torch.models import transformer as MT
+
+        t0 = time.perf_counter()
+        cfg = self.family_config(arch, layers, "float32")
+        params = MT.init_param_tree(cfg, device="cuda")
+        if cfg.family == "ssm":  # so that the shifts and the bonus count
+            shift_rwkv(cfg, MT.TransformerLM.from_stacked(cfg, params))
+        batch = self.family_batch(cfg, CHECK_SEQ)
+        before = lm_launches()
+        nb = wkv_backward_launches()
+        with held_routing(cfg) as routing:
+            if routing is not None:
+                routing.record()
+            loss, got = self.gradient_of(cfg, params, batch, plain=False)
+            n = launches_since(before)
+            n["wkv_backward"] = wkv_backward_launches() - nb
+            got = [g.clone() for g in leaves(got)]
+            if routing is not None:
+                routing.hold(routing.recorded.__getitem__)
+            plain_loss, want = self.gradient_of(cfg, params, batch,
+                                                plain=True)
+        want = flatten(want)
+        errs = leaf_errs(got, want)
+        worst_leaf = max(errs, key=errs.get)
+        worst = errs[worst_leaf]
+        limit = FAMILY_GRAD_RTOL.get(arch, FAMILY_GRAD_RTOL_DEFAULT)
+        ulp_spread = None
+        if arch in FAMILY_ULP_LOOK:
+            with nudged_embedding(params):  # remat changes no value
+                _, moved = self.gradient_of(cfg, params, batch, plain=True,
+                                            remat="none")
+            ulp_spread = leaf_errs(leaves(moved), want)
+            del moved
+        rel = abs(loss - plain_loss) / abs(plain_loss)
+        self.check(rel <= TRAIN_LOSS_RTOL, f"family_model_check {arch}: loss "
+                                           f"{loss} vs plain {plain_loss}")
+        self.check(worst <= limit,
+                   f"family_model_check {arch}: a gradient leaf {worst} of "
+                   f"its max |g| from plain's")
+        self.check(all(float(b.abs().max()) > 0 for _, b in want),
+                   f"family_model_check {arch}: a leaf without a gradient")
+        self.check(n == train_launches(cfg), f"family_model_check {arch}: "
+                                             f"launches {n}, the code gives "
+                                             f"{train_launches(cfg)}")
+        emit({"phase": "family_model_check", "arch": arch,
+              "dtype": "float32", "layers": cfg.num_layers,
+              "encoder_layers": cfg.encoder_layers, "tokens": [2, CHECK_SEQ],
+              "remat": cfg.remat, "loss": loss, "plain_loss": plain_loss,
+              "loss_rel_err": rel, "leaves": len(got),
+              "worst_grad_err_over_leaf_max": worst, "worst_leaf": worst_leaf,
+              "grad_err_over_leaf_max": errs,
+              "limits": {"loss": TRAIN_LOSS_RTOL, "grad": limit},
+              "plain_moved_by_an_embedding_ulp": ulp_spread,
+              "launches": n,
+              "routing": routing.stats() if routing is not None else None,
+              "seconds": time.perf_counter() - t0, "card": self.card})
+        del params, got, want
+        torch.cuda.empty_cache()
+
+    def family_bf16_check(self, arch, layers, seq):
+        """One bf16 step's gradient of ``arch`` at full width, ``layers``
+        deep (the depth it trains at), 2 x ``seq`` positions, leaf by leaf:
+        its L2 distance from the f32 gradient of the plain versions at the
+        same weights (cast up), through the kernels and through the plain
+        versions in bf16; the kernels' at most FAMILY_BF16_RATIO times
+        plain's. A MoE runs under ``HeldRouting``, both bf16 runs routed
+        as the f32 one: a random-init router's near-ties move bf16
+        routing. The VLM's gradients are accumulated a row at a time. The
+        RWKV model's plain runs keep every activation (remat none), so its
+        2,048-token plain WKV runs once a layer, not twice. RWKV's weights
+        are ``shift_rwkv``'s, as in its f32 check. At its 24 layers plain
+        bf16's gradient is nearly as far from f32 as a zero gradient on
+        most leaves, so the ratio can fail a wrong B4 backward only through
+        the leaves it leaves informative (the decays'); for the archs of
+        FAMILY_F32_AT_DEPTH the same weights also go through the kernels
+        in f32, each leaf held to the plain f32 gradient within
+        FAMILY_DEPTH_ULP_FACTOR times what a one-ulp nudge of the embedding
+        moves that gradient (at least the arch's FAMILY_GRAD_RTOL)."""
+        import gc
+
+        import torch
+        from repro_torch._tree import flatten, tree_map
+        from repro_torch.models import transformer as MT
+
+        t0 = time.perf_counter()
+        cfg = self.family_config(arch, layers)
+        cfg32 = self.family_config(arch, layers, "float32")
+        batch = self.family_batch(cfg, seq)
+        rows = cfg.frontend == "vision"
+
+        def free():
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        def init():  # RWKV's on shift_rwkv's weights, as its f32 check
+            params = MT.init_param_tree(cfg, device="cuda")
+            if cfg.family == "ssm":
+                shift_rwkv(cfg, MT.TransformerLM.from_stacked(cfg, params))
+            return params
+
+        err, plain_err = {}, {}
+        with held_routing(cfg) as routing:
+            if routing is not None:
+                routing.record()
+            params = tree_map(lambda t: t.float(), init())
+            plain_remat = "none" if cfg.family == "ssm" else None
+            loss32, f32 = self.gradient_of(cfg32, params, batch, plain=True,
+                                           rows=rows, remat=plain_remat)
+            depth32 = None
+            if arch in FAMILY_F32_AT_DEPTH:
+                depth32 = self.f32_at_depth(arch, cfg32, params, batch,
+                                            flatten(f32), plain_remat)
+            del params
+            f32 = [g for _, g in flatten(f32)]
+            free()
+            losses = {}
+            for plain, into in ((False, err), (True, plain_err)):
+                if routing is not None:
+                    routing.hold(routing.recorded.__getitem__)
+                params = init()
+                losses[plain], grads = self.gradient_of(
+                    cfg, params, batch, plain=plain, rows=rows,
+                    remat=plain_remat if plain else None)
+                for ref, (path, g) in zip(f32, flatten(grads)):
+                    into["/".join(map(str, path))] = float(
+                        (g.float() - ref).norm() / ref.norm())
+                del params, grads
+                free()
+            stats = routing.stats() if routing is not None else None
+        del f32
+        free()
+        ratio = {k: err[k] / plain_err[k] for k in err}
+        worst = max(ratio, key=ratio.get)
+        if depth32 is not None:
+            over = {k: e for k, e in depth32["grad_err_over_leaf_max"].items()
+                    if e > depth32["limits"][k]}
+            self.check(not over, f"family_bf16_check {arch}: f32 at depth, "
+                                 f"leaves over their limits: {over}")
+        self.check(len(err) == len(plain_err) > 0 and all(
+            r <= FAMILY_BF16_RATIO for r in ratio.values()),
+                   f"family_bf16_check {arch}: leaf {worst} {err[worst]} "
+                   f"from f32, plain bf16's {plain_err[worst]}")
+        emit({"phase": "family_bf16_check", "arch": arch,
+              "layers": cfg.num_layers, "dtype": cfg.dtype,
+              "remat": cfg.remat, "tokens": [2, seq],
+              "rows_at_a_time": rows, "f32_plain_loss": loss32,
+              "loss": losses[False], "plain_loss": losses[True],
+              "leaves": len(err), "grad_rel_l2_from_f32": err,
+              "plain_bf16_grad_rel_l2_from_f32": plain_err,
+              "worst_leaf": worst, "worst_ratio": ratio[worst],
+              "limit": FAMILY_BF16_RATIO, "routing": stats,
+              "f32_at_depth": depth32,
+              "seconds": time.perf_counter() - t0, "card": self.card})
+
+    def f32_at_depth(self, arch, cfg32, params, batch, want, plain_remat):
+        """``cfg32``'s gradient at ``params`` through the kernels, each leaf
+        against ``want`` (the plain f32 gradient, ``flatten``ed), and the
+        plain gradient again with the embedding nudged by one ulp: each
+        leaf's limit is FAMILY_DEPTH_ULP_FACTOR times how far that moves
+        it, at least the arch's FAMILY_GRAD_RTOL."""
+        from repro_torch._tree import leaves
+
+        loss, got = self.gradient_of(cfg32, params, batch, plain=False)
+        errs = leaf_errs(leaves(got), want)
+        del got
+        with nudged_embedding(params):
+            _, moved = self.gradient_of(cfg32, params, batch, plain=True,
+                                        remat=plain_remat)
+        spread = leaf_errs(leaves(moved), want)
+        del moved
+        floor = FAMILY_GRAD_RTOL.get(arch, FAMILY_GRAD_RTOL_DEFAULT)
+        return {"loss": loss, "grad_err_over_leaf_max": errs,
+                "plain_moved_by_an_embedding_ulp": spread,
+                "limits": {k: max(floor, FAMILY_DEPTH_ULP_FACTOR * v)
+                           for k, v in spread.items()}}
+
+    def family_train(self, arch, layers, seq):
+        """``arch`` trained at full width, ``layers`` deep (None: all), in
+        bf16, remat full, AdamW at lr 1e-3, seeded 0: ``launch.train.train``
+        for FAMILY_TRAIN's steps of 2 x ``seq`` tokens, or, for the VLM,
+        which ``train()`` refuses, ``train_step`` on ``synthetic_batch``.
+        Metered on the GPU's power counter; each kernel's launches a step
+        held to the count the code gives (``train_launches``)."""
+        import contextlib
+        import gc
+        import io
+        import math
+        import re
+
+        import torch
+        from repro_torch.launch.steps import init_train_state
+        from repro_torch.launch.train import train, train_step
+        from repro_torch.models import transformer as MT
+        from repro_torch.optim import AdamWConfig
+
+        t0 = time.perf_counter()
+        cfg = self.family_config(arch, layers)
+        steps = FAMILY_TRAIN["steps"]
+        per_step = train_launches(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+
+        def by_step():
+            state = init_train_state(cfg)
+            model = MT.TransformerLM.from_stacked(cfg, state["params"])
+            grads = MT.bind_stacked_grads(model, state["params"])
+            batch = self.family_batch(cfg, seq)
+            losses, ms = [], []
+            for _ in range(steps):
+                t = time.perf_counter()
+                m = train_step(cfg, model, state, grads, batch,
+                               AdamWConfig(lr=1e-3))
+                losses.append(float(m["loss"]))
+                ms.append(round(1e3 * (time.perf_counter() - t)))
+            print(" ".join(f"({x} ms)" for x in ms))
+            return {"losses": losses, "steps": steps}
+
+        reset_all_launches()
+        before = lm_launches()
+        with contextlib.redirect_stdout(log):
+            out, seconds, ws, samples = metered(
+                by_step if cfg.frontend == "vision" else lambda: train(
+                    cfg, use_reduced=False, log_every=1, steps=steps,
+                    global_batch=2, seq_len=seq))
+        counts = launches_since(before)
+        counts["wkv_backward"] = wkv_backward_launches()
+        peak = torch.cuda.max_memory_allocated()
+        self.path_launches[f"{arch} train"] = counts
+        step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
+                                              log.getvalue())]
+        losses = out["losses"]
+        after = sorted(step_ms[1:])
+        steady = after[len(after) // 2] if after else None
+        self.check(counts == {k: v * steps for k, v in per_step.items()},
+                   f"train {arch}: launches {counts}, the code gives "
+                   f"{per_step} a step x {steps}")
+        self.check(out["steps"] == steps and all(
+            math.isfinite(x) for x in losses), f"train {arch}: losses "
+                                               f"{losses}")
+        lnv = math.log(cfg.vocab_size)
+        first = expected_first_loss(cfg)
+        self.check(abs(losses[0] - first) <= FIRST_LOSS_ATOL,
+                   f"train {arch}: first loss {losses[0]}, random init "
+                   f"gives {first}")
+        tokens = 2 * seq
+        emit({"phase": "family_train", "arch": arch, "layers": cfg.num_layers,
+              "encoder_layers": cfg.encoder_layers, "dtype": cfg.dtype,
+              "remat": cfg.remat, "steps": steps, "global_batch": 2,
+              "seq_len": seq, "entry": ("train_step on synthetic_batch"
+                                        if cfg.frontend == "vision"
+                                        else "launch.train.train"),
+              "losses": losses, "ln_vocab": lnv,
+              "expected_first_loss": first,
+              "first_loss_limit": FIRST_LOSS_ATOL, "step_ms": step_ms,
+              "median_step_ms_after_first": steady,
+              "tokens_per_s": 1e3 * tokens / steady if steady else None,
+              "seconds_metered": seconds, "metered_gpu_ws": ws,
+              "metered_gpu_ws_per_step": ws / steps if ws else ws,
+              "trace_samples": samples,
+              "max_memory_allocated_gb": peak / 1e9,
+              "launches": counts, "launches_per_step": per_step,
+              "seconds": time.perf_counter() - t0, "card": self.card})
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in FAMILY_PROFILED:
+            self.train_profile(cfg, self.family_batch(cfg, seq))
+
+    def train_profile(self, cfg, batch):
+        """One train step of ``cfg`` on ``batch`` profiled (after two to
+        warm up), on a state of its own, and split into forward, backward
+        and optimizer by CUDA events at each part's start."""
+        import gc
+
+        import torch
+        from repro_torch.launch.steps import init_train_state
+        from repro_torch.launch.train import train_step
+        from repro_torch.models import transformer as MT
+        from repro_torch.optim import AdamWConfig
+
+        state = init_train_state(cfg)
+        model = MT.TransformerLM.from_stacked(cfg, state["params"])
+        grads = MT.bind_stacked_grads(model, state["params"])
+        events: dict = {}
+
+        def mark(part):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[part] = ev
+
+        run = functools.partial(train_step, cfg, model, state, grads, batch,
+                                AdamWConfig(lr=1e-3), mark)
+        self.profiled("train_profile", "step", run, 1, arch=cfg.name,
+                      layers=cfg.num_layers, global_batch=2,
+                      seq_len=batch["tokens"].shape[1])
+        torch.cuda.synchronize()
+        parts = ("forward", "backward", "optimizer", "end")
+        emit({"phase": "train_profile_split", "arch": cfg.name,
+              "device_timeline_ms": {
+                  a: events[a].elapsed_time(events[b])
+                  for a, b in zip(parts, parts[1:])},
+              "note": "CUDA events at each part's start, on the device's "
+                      "timeline, gaps included; host time is the profiled "
+                      "wall less the device time of train_profile",
+              "card": self.card})
+        del state, model, grads, batch, run, events
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def families_train(self):
+        """Slice 7b's paths and checks, family by family: the f32 model
+        check, the bf16 gradient at depth, then the training run."""
+        for arch, layers, check_layers, seq in TRAIN_FAMILIES:
+            self.family_model_check(arch, check_layers)
+            self.family_bf16_check(arch, layers, seq)
+            self.family_train(arch, layers, seq)
+
     def lm_kernel_launches(self):
         """Each LM kernel's launches in the kernels line: the sum over the
         main paths it ran on, kept apart in ``launches_by_path``. B4's two
         kernels are two entries: ``wkv`` counts the sequential kernel's
         launches (the wrapper's less the tensor-core kernel's), ``wkv_tc``
-        the tensor-core kernel's."""
+        the tensor-core kernel's; ``wkv_backward`` its backward kernel's
+        (the training paths')."""
         counted = {"rms_norm": lambda n: n["rms_norm"],
                    "flash_attention": lambda n: n["flash_attention"],
                    "wkv": lambda n: n["wkv"] - n["wkv_tc"],
-                   "wkv_tc": lambda n: n["wkv_tc"]}
+                   "wkv_tc": lambda n: n["wkv_tc"],
+                   "wkv_backward": lambda n: n.get("wkv_backward", 0)}
         for name, count in counted.items():
             by_path = {arch: count(n) for arch, n in self.path_launches.items()
                        if count(n)}
@@ -3301,28 +4089,33 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     for phase in (smoke.card_and_build, smoke.kernel_phase,
                   smoke.dense_kernel_phase, smoke.rms_host_path,
-                  smoke.wkv_kernel_phase, smoke.wkv_host_path,
-                  smoke.wkv_cycles,
+                  smoke.wkv_kernel_phase, smoke.wkv_backward_check,
+                  smoke.wkv_host_path, smoke.wkv_cycles,
                   smoke.dense_model_check,
                   smoke.dense_bf16_model_check, smoke.rwkv_model_check,
                   smoke.hybrid_model_check, smoke.hybrid_bf16_model_check,
                   smoke.moe_model_check, smoke.moe_bf16_model_check,
                   smoke.encdec_model_check, smoke.encdec_bf16_model_check,
                   smoke.vlm_model_check, smoke.vlm_bf16_model_check,
-                  smoke.train_grad_check, smoke.train_model_check,
+                  smoke.train_grad_check, smoke.family_grad_check,
+                  smoke.train_model_check,
                   smoke.dense_main_path, smoke.placement_phase,
                   smoke.fleet_main_path, smoke.rwkv_main_path,
                   smoke.hybrid_main_path, smoke.moe_main_path,
                   smoke.encdec_main_path, smoke.vlm_main_path,
                   smoke.train_main_path, smoke.train_bf16_check,
-                  smoke.train_resume,
+                  smoke.families_train, smoke.train_resume,
                   smoke.lm_kernel_launches, smoke.main_path):
+        t_phase = time.perf_counter()
         try:
             phase()
         except Exception:
             traceback.print_exc()
             smoke.failures.append(f"{phase.__name__} raised")
             break
+        finally:
+            emit({"phase": "phase_seconds", "name": phase.__name__,
+                  "seconds": time.perf_counter() - t_phase})
     seconds = time.perf_counter() - t_start
     smoke.check(seconds <= BUDGET_S, f"the run took {seconds} s, over its "
                                      f"budget of {BUDGET_S} s")

@@ -175,6 +175,32 @@ static_assert(sizeof(WkvArgs) == 128 && offsetof(WkvArgs, B) == 64 &&
                   offsetof(WkvArgs, out_sb) == 104,
               "WkvArgs must match the wrapper's struct format =8Q4i6q");
 
+// The backward's arguments, packed by the wrapper with "=12Q4i3q"
+// (kernels/wkv/kernel.py `_pack_backward`): r, k, v, lw as the forward
+// takes them, u (H, D), dout (B, H, S, D) contiguous; dr, dk, dlw (B, H, S,
+// D) contiguous; dv (D / R, B, H, S, D), a partial sum per block of R rows;
+// du (B, H, D), a partial sum per batch row; the scratch for the saved
+// states, B * H * ceil(S / T) * D * D floats.
+struct WkvBackArgs {
+  const float* r;
+  const float* k;
+  const float* v;
+  const float* lw;
+  const float* u;
+  const float* dout;
+  float* dr;
+  float* dk;
+  float* dv;
+  float* dlw;
+  float* du;
+  float* states;
+  int B, H, S, D;
+  int64_t in_sb, in_sh, in_ss;  // strides of r, k, v, lw (b, h, s)
+};
+static_assert(sizeof(WkvBackArgs) == 136 && offsetof(WkvBackArgs, B) == 96 &&
+                  offsetof(WkvBackArgs, in_sb) == 112,
+              "WkvBackArgs must match the wrapper's struct format =12Q4i3q");
+
 namespace {
 
 template <int D, int SPLIT, int COLS, int T>
@@ -896,6 +922,283 @@ wkv_chunk_kernel(const __grid_constant__ CUtensorMap rmap,
 
 }  // namespace chunk
 
+// 3. The backward (`back::wkv_backward_kernel`, D = 16 or 64, any S >= 1,
+// no initial state): dr, dk, dv, dlw and du of out for a cotangent dout,
+// with no gradient arriving on the final state. With w_t = exp(lw_t) and
+// G_t = dL/dS_t, carried backward from G_{S-1} = 0:
+//   G_{t-1}  = diag(w_t) G_t + r_t dout_t^T
+//   dr_t[i]  = sum_j S_{t-1}[i,j] dout_t[j] + u_i k_t[i] (v_t . dout_t)
+//   dk_t[i]  = sum_j G_t[i,j] v_t[j]        + u_i r_t[i] (v_t . dout_t)
+//   dv_t[j]  = sum_i k_t[i] G_t[i,j]        + (r_t . diag(u) k_t) dout_t[j]
+//   dlw_t[i] = w_t[i] sum_j S_{t-1}[i,j] G_t[i,j]
+//   du[i]    = sum_t r_t[i] k_t[i] (v_t . dout_t)      (per (b, h) here)
+// S_{t-1} and G_t run in opposite directions, and S_{t-1} is never
+// reconstructed from S_t (w_t reaches ~2e-9 under strong decay). Rows of S
+// are independent in the forward (row i decays by w_t[i] alone), so a block
+// owns R rows of a head and all D columns and recomputes its rows' states
+// itself: pass 1 runs the recurrence forward and writes the state entering
+// each segment of T tokens to a scratch buffer (B*H*ceil(S/T)*D*D floats,
+// each thread its own elements, read back by the same thread); pass 2 takes
+// the segments last to first, recomputes the segment's S_{t-1} from its
+// saved state into shared memory, then runs the reverse recurrence over it.
+// A thread owns NR rows x D/LPR columns (LPR = min(D, 32) lanes a row), so
+// the sums over j (dr, dk, dlw) close within the warp by xor shuffles in a
+// fixed order; dv's sum over i closes over the block's warps in shared
+// memory, and over the D/R blocks of a head in the wrapper (dv is written
+// as a partial sum per block of rows); du is written per (b, h) and summed
+// over b in the wrapper. No atomics: two runs give the same bits.
+namespace back {
+
+constexpr int T = 16;  // tokens a segment
+
+template <int D, int NR, int WARPS>
+struct Layout {
+  static constexpr int LPR = D < 32 ? D : 32;  // lanes a row
+  static constexpr int M = D / LPR;            // columns a thread
+  static constexpr int GPW = 32 / LPR;         // lane groups a warp
+  static constexpr int RPW = GPW * NR;         // rows a warp
+  static constexpr int R = WARPS * RPW;        // rows a block
+  static constexpr int RG = D / R;             // blocks a head
+  static constexpr int E = NR * M;             // elements a thread
+  static constexpr int THREADS = 32 * WARPS;
+  // shared memory, in floats: the history S_{t-1} [T][E][THREADS]; r, k, w
+  // [T][R]; v, dout [T][D]; v . dout and r . diag(u) k [T]; the row sums
+  // of dr, dk, dlw [T][R]; dv's partial sums by warp [T][WARPS][D]
+  static constexpr int HIST = T * E * THREADS;
+  static constexpr int FLOATS =
+      HIST + 3 * T * R + 2 * T * D + 2 * T + 3 * T * R + T * WARPS * D;
+  static constexpr size_t SMEM = sizeof(float) * FLOATS;
+  static_assert(D % LPR == 0 && 32 % LPR == 0 && D % R == 0, "shape");
+};
+
+template <int D, int NR, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+wkv_backward_kernel(const WkvBackArgs a) {
+  using L = Layout<D, NR, WARPS>;
+  constexpr int LPR = L::LPR, M = L::M, R = L::R, E = L::E;
+  constexpr int THREADS = L::THREADS;
+  extern __shared__ float smem[];
+  float* hist = smem;
+  float* r_s = hist + L::HIST;
+  float* k_s = r_s + T * R;
+  float* w_s = k_s + T * R;
+  float* v_s = w_s + T * R;
+  float* do_s = v_s + T * D;
+  float* vd_s = do_s + T * D;
+  float* c_s = vd_s + T;
+  float* dr_s = c_s + T;
+  float* dk_s = dr_s + T * R;
+  float* dw_s = dk_s + T * R;
+  float* dv_s = dw_s + T * R;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int lc = lane % LPR;  // column of the thread's first element
+  const int rg = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int i0 = rg * R;                                // the block's rows
+  const int row0 = warp * L::RPW + (lane / LPR) * NR;  // the thread's, local
+  const int S = a.S;
+  const int nseg = (S + T - 1) / T;
+  const int64_t in_base = (int64_t)b * a.in_sb + (int64_t)h * a.in_sh;
+  const float* rb = a.r + in_base;
+  const float* kb = a.k + in_base;
+  const float* vb = a.v + in_base;
+  const float* lb = a.lw + in_base;
+  const int64_t out_base = (int64_t)bh * S * D;  // (B, H, S, D) contiguous
+  const float* dob = a.dout + out_base;
+  float* saved = a.states + ((int64_t)bh * L::RG + rg) * nseg * (E * THREADS);
+
+  // a segment's operands into shared memory: k, w (and r) of the block's
+  // rows, v (and dout) of every column; with `all`, also v . dout and
+  // r . diag(u) k over all D rows, one warp a token, summed in a fixed order
+  auto stage = [&](int t0, int n, bool all) {
+    for (int idx = tid; idx < n * R; idx += THREADS) {
+      const int tt = idx / R, rr = idx % R;
+      const int64_t off = (int64_t)(t0 + tt) * a.in_ss + i0 + rr;
+      k_s[tt * R + rr] = kb[off];
+      w_s[tt * R + rr] = expf(lb[off]);
+      if (all) r_s[tt * R + rr] = rb[off];
+    }
+    for (int idx = tid; idx < n * D; idx += THREADS) {
+      const int tt = idx / D, j = idx % D;
+      v_s[tt * D + j] = vb[(int64_t)(t0 + tt) * a.in_ss + j];
+      if (all) do_s[tt * D + j] = dob[(int64_t)(t0 + tt) * D + j];
+    }
+    if (!all) return;
+    for (int tt = warp; tt < n; tt += WARPS) {
+      const int64_t off = (int64_t)(t0 + tt) * a.in_ss;
+      float vd = 0.f, c = 0.f;
+      for (int j = lane; j < D; j += 32) {
+        vd = fmaf(vb[off + j], dob[(int64_t)(t0 + tt) * D + j], vd);
+        c = fmaf(rb[off + j] * a.u[(int64_t)h * D + j], kb[off + j], c);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        vd += __shfl_xor_sync(0xffffffffu, vd, o);
+        c += __shfl_xor_sync(0xffffffffu, c, o);
+      }
+      if (lane == 0) {
+        vd_s[tt] = vd;
+        c_s[tt] = c;
+      }
+    }
+  };
+
+  // pass 1: the states entering each segment, the recurrence run forward
+  float st[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) st[e] = 0.f;
+  for (int seg = 0; seg < nseg; ++seg) {
+    const int t0 = seg * T, n = min(T, S - t0);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      saved[(int64_t)(seg * E + e) * THREADS + tid] = st[e];
+    if (seg == nseg - 1) break;  // the last segment's steps are not needed
+    stage(t0, n, false);
+    __syncthreads();
+    for (int tt = 0; tt < n; ++tt) {
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        const float w = w_s[tt * R + row0 + q], kk = k_s[tt * R + row0 + q];
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          float& s = st[q * M + m];
+          s = fmaf(w, s, kk * v_s[tt * D + lc + LPR * m]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // pass 2: the segments last to first
+  float g[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) g[e] = 0.f;
+  float du = 0.f;  // thread tid < R: row i0 + tid
+  for (int seg = nseg - 1; seg >= 0; --seg) {
+    const int t0 = seg * T, n = min(T, S - t0);
+    stage(t0, n, true);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      st[e] = saved[(int64_t)(seg * E + e) * THREADS + tid];
+    __syncthreads();
+    // S_{t-1} of the segment's tokens, each thread its own elements
+    for (int tt = 0; tt < n; ++tt) {
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        const float w = w_s[tt * R + row0 + q], kk = k_s[tt * R + row0 + q];
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          float& s = st[q * M + m];
+          hist[(tt * E + q * M + m) * THREADS + tid] = s;
+          s = fmaf(w, s, kk * v_s[tt * D + lc + LPR * m]);
+        }
+      }
+    }
+    // the reverse recurrence; g holds G_t on entry to step t
+    for (int tt = n - 1; tt >= 0; --tt) {
+      float vj[M], dj[M], dv[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        vj[m] = v_s[tt * D + lc + LPR * m];
+        dj[m] = do_s[tt * D + lc + LPR * m];
+        dv[m] = 0.f;
+      }
+      float pr[NR], pk[NR], pw[NR];
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        const int lr = row0 + q;
+        const float rr = r_s[tt * R + lr], kk = k_s[tt * R + lr],
+                    w = w_s[tt * R + lr];
+        pr[q] = pk[q] = pw[q] = 0.f;
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const int e = q * M + m;
+          const float sp = hist[(tt * E + e) * THREADS + tid];
+          pr[q] = fmaf(sp, dj[m], pr[q]);
+          pk[q] = fmaf(g[e], vj[m], pk[q]);
+          pw[q] = fmaf(sp, g[e], pw[q]);
+          dv[m] = fmaf(kk, g[e], dv[m]);
+          g[e] = fmaf(w, g[e], rr * dj[m]);
+        }
+      }
+      // the sums over j: the LPR lanes of a row, in a fixed order
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int q = 0; q < NR; ++q) {
+          pr[q] += __shfl_xor_sync(0xffffffffu, pr[q], o);
+          pk[q] += __shfl_xor_sync(0xffffffffu, pk[q], o);
+          pw[q] += __shfl_xor_sync(0xffffffffu, pw[q], o);
+        }
+      }
+      if (lc == 0) {
+#pragma unroll
+        for (int q = 0; q < NR; ++q) {
+          dr_s[tt * R + row0 + q] = pr[q];
+          dk_s[tt * R + row0 + q] = pk[q];
+          dw_s[tt * R + row0 + q] = pw[q];
+        }
+      }
+      // dv over the warp's rows: its lane groups, then by warp below
+#pragma unroll
+      for (int o = 16; o >= LPR; o >>= 1) {
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          dv[m] += __shfl_xor_sync(0xffffffffu, dv[m], o);
+      }
+      if (lane < LPR) {
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          dv_s[(tt * WARPS + warp) * D + lc + LPR * m] = dv[m];
+      }
+    }
+    __syncthreads();
+    // the segment's gradients, bonus terms added
+    for (int idx = tid; idx < n * R; idx += THREADS) {
+      const int tt = idx / R, rr = idx % R;
+      const int i = i0 + rr;
+      const float uu = a.u[(int64_t)h * D + i], vd = vd_s[tt];
+      const int64_t off = out_base + (int64_t)(t0 + tt) * D + i;
+      a.dr[off] = fmaf(uu * k_s[tt * R + rr], vd, dr_s[tt * R + rr]);
+      a.dk[off] = fmaf(uu * r_s[tt * R + rr], vd, dk_s[tt * R + rr]);
+      a.dlw[off] = w_s[tt * R + rr] * dw_s[tt * R + rr];
+    }
+    float* dvb = a.dv + (int64_t)rg * a.B * a.H * S * D + out_base;
+    for (int idx = tid; idx < n * D; idx += THREADS) {
+      const int tt = idx / D, j = idx % D;
+      float s = rg == 0 ? c_s[tt] * do_s[tt * D + j] : 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += dv_s[(tt * WARPS + w) * D + j];
+      dvb[(int64_t)(t0 + tt) * D + j] = s;
+    }
+    if (tid < R) {
+      for (int tt = n - 1; tt >= 0; --tt)
+        du = fmaf(r_s[tt * R + tid] * k_s[tt * R + tid], vd_s[tt], du);
+    }
+    __syncthreads();  // before the next segment's staging
+  }
+  if (tid < R) a.du[(int64_t)bh * D + i0 + tid] = du;
+}
+
+template <int D, int NR, int WARPS>
+cudaError_t launch(const WkvBackArgs& a, cudaStream_t stream) {
+  using L = Layout<D, NR, WARPS>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wkv_backward_kernel<D, NR, WARPS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(L::RG, a.B * a.H);
+  wkv_backward_kernel<D, NR, WARPS><<<grid, L::THREADS, L::SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace back
+
 template <int D, int SPLIT, int COLS, int T>
 cudaError_t launch(const WkvArgs& a, cudaStream_t stream) {
   const dim3 grid(D / COLS, a.B * a.H);
@@ -1005,6 +1308,41 @@ int wkv_forward_tc(const WkvArgs* a, void* stream) {
                             static_cast<cudaStream_t>(stream)>>>(rm, km, lm,
                                                                  vm, *a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward (no initial state, no gradient on the final state), D = 16
+// or 64, any S >= 1; see `back` above for what it writes.
+// D = 64: blocks of 32 rows, 2 a head, 8 elements a thread; D = 16: one
+// block a head, 2 elements a thread.
+int wkv_backward(const WkvBackArgs* a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!(a->B > 0 && a->H > 0 && a->S > 0 && (int64_t)a->B * a->H <= 65535))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (a->D) {
+    case 16:
+      return static_cast<int>(back::launch<16, 2, 4>(*a, s));
+    case 64:
+      return static_cast<int>(back::launch<64, 4, 8>(*a, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward's layout at head dim D: out[0] the blocks of rows a head
+// (dv's partial sums), out[1] the tokens a segment (the saved states).
+int wkv_backward_layout(int D, int* out) {
+  switch (D) {
+    case 16:
+      out[0] = back::Layout<16, 2, 4>::RG;
+      break;
+    case 64:
+      out[0] = back::Layout<64, 4, 8>::RG;
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[1] = back::T;
+  return 0;
 }
 
 #ifdef WKV_PHASE_CYCLES

@@ -1,4 +1,5 @@
-"""Kernel B4: the RWKV6 WKV recurrence as two hand-written CUDA kernels.
+"""Kernel B4: the RWKV6 WKV recurrence as two hand-written CUDA kernels,
+and its gradient as a third.
 
 Replaces the JAX package's Pallas TPU kernel (``src/repro/kernels/wkv/
 kernel.py`` ``_wkv_kernel`` via ``wkv_pallas``). The source is
@@ -30,6 +31,12 @@ tensor launches a kernel or raises; nothing falls back. The wrapper counts
 every launch in ``wkv_cuda.launches`` and the tensor-core kernel's in
 ``wkv_cuda.launches_tc``.
 
+``wkv_backward_cuda`` launches the backward kernel (``wkv_backward`` in
+the source; its plain version is ``wkv_backward_ref``): the gradient of out
+with no initial state and none arriving on the final state, which is what
+training asks of it (``ops.WkvFn``). It counts its launches in
+``wkv_backward_cuda.launches``.
+
 The launch path is short, since a decode step calls it 24 times
 (``chip_smoke.py``'s ``wkv_host_path`` phase times each step of it on the
 card): the checks read ``is_cuda`` and ``get_device()`` rather than
@@ -47,7 +54,7 @@ import torch
 
 from repro_torch.kernels._build import KernelLibrary, count_launch, \
     reset_counts
-from repro_torch.kernels.wkv.ref import CHUNK, wkv_ref
+from repro_torch.kernels.wkv.ref import CHUNK, wkv_backward_ref, wkv_ref
 
 HEAD_DIMS = (16, 64)
 TC_HEAD_DIM = 64  # head dim of the chunked tensor-core kernel
@@ -69,16 +76,23 @@ def kernel_for(s: int, head_dim: int) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("wkv_forward", "wkv_forward_tc"):
+    for name in ("wkv_forward", "wkv_forward_tc", "wkv_backward"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.wkv_backward_layout.argtypes = [ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)]
+    lib.wkv_backward_layout.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("wkv", "wkv.cu", declare=_declare)
 load_library = LIBRARY.load
 _LAUNCH = {"sequential": LIBRARY.launcher("wkv_forward"),
            "tensor_core": LIBRARY.launcher("wkv_forward_tc")}
+_LAUNCH_BACKWARD = LIBRARY.launcher("wkv_backward")
+# WkvBackArgs in wkv.cu: r, k, v, lw, u, dout, dr, dk, dv, dlw, du, the
+# saved states; B, H, S, D; the strides (b, h, s) of r, k, v, lw
+_pack_backward = struct.Struct("=12Q4i3q").pack
 
 
 def _on_card(r, k, v, lw, u, state) -> int:
@@ -191,5 +205,61 @@ wkv_cuda.launches = 0
 wkv_cuda.launches_tc = 0
 
 
+def backward_layout(d: int) -> tuple[int, int]:
+    """(blocks of rows a head, tokens a segment) of the backward kernel at
+    head dim ``d``, as the source defines them."""
+    out = (ctypes.c_int * 2)()
+    LIBRARY.check(LIBRARY.load().wkv_backward_layout(d, out),
+                  "wkv_backward_layout")
+    return out[0], out[1]
+
+
+def wkv_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor
+                      ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``wkv_cuda``'s out with no initial state, for the
+    cotangent ``dout`` (B, H, S, D) of out and none on the final state:
+    (dr, dk, dv, dlw (B, H, S, D), du (H, D)), f32. CUDA tensors launch the
+    backward kernel (head dims 16 and 64, any S >= 1); CPU tensors take
+    ``wkv_backward_ref``. Deterministic: dv's partial sums over the blocks
+    of rows of a head and du's over the batch are added here, in order."""
+    device = _on_card(r, k, v, lw, u, None)
+    if dout.shape != r.shape:
+        raise ValueError(f"dout must be {tuple(r.shape)}, got "
+                         f"{tuple(dout.shape)}")
+    if dout.dtype is not torch.float32:
+        raise TypeError(f"dout must be float32, got {dout.dtype}")
+    if device < 0:
+        if dout.device != r.device:
+            raise ValueError("the WKV operands must lie on one device")
+        return wkv_backward_ref(r, k, v, lw, u, dout)
+    if dout.get_device() != device:
+        raise ValueError("the WKV operands must lie on one device")
+    b, h, s, d = r.shape
+    strides = r.stride()
+    if k.stride() != strides or v.stride() != strides \
+            or lw.stride() != strides or strides[3] != 1:
+        r, k, v, lw = (t.contiguous() for t in (r, k, v, lw))
+        strides = r.stride()
+    dout = dout.contiguous()
+    groups, seg = backward_layout(d)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dlw = (torch.empty((b, h, s, d), **f32) for _ in range(3))
+    dv = torch.empty((groups, b, h, s, d), **f32)
+    du = torch.empty((b, h, d), **f32)
+    states = torch.empty((b * h * (-(-s // seg)) * d * d,), **f32)
+    _LAUNCH_BACKWARD(device, _pack_backward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+        u.data_ptr(), dout.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dlw.data_ptr(), du.data_ptr(), states.data_ptr(),
+        b, h, s, d, *strides[:3]))
+    count_launch(wkv_backward_cuda)
+    return dr, dk, dv[0] if groups == 1 else dv.sum(0), dlw, du.sum(0)
+
+
+wkv_backward_cuda.launches = 0
+
+
 def reset_launches() -> None:
     reset_counts(wkv_cuda, "launches", "launches_tc")
+    reset_counts(wkv_backward_cuda)

@@ -9,6 +9,10 @@ tensor-core kernel (``csrc/wkv.cu`` ``wkv_chunk_kernel``), step for step in
 plain PyTorch: the tests hold it against the JAX package's oracle on the
 CPU, so the algorithm's precision is known before the card runs it. The
 main path never calls it.
+
+``wkv_backward_ref`` is the plain version of B4's backward kernel
+(``csrc/wkv.cu`` ``back::wkv_backward_kernel``): the gradient of
+``wkv_ref``, written out as its reverse recurrence.
 """
 from __future__ import annotations
 
@@ -26,19 +30,72 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, lw: (B, H, S, D) float32; u: (H, D); state: (B, H, D, D) or
     None (zeros). Returns (out (B, H, S, D) in r's dtype, final state f32).
-    ``state`` itself is not changed."""
+    ``state`` itself is not changed. The state's recurrence runs token by
+    token and keeps every S_{t-1} (B*H*S*D*D floats); out is then one
+    product over every token, r_t . S_{t-1} plus the bonus
+    (r_t . diag(u) k_t) v_t."""
     b, h, s, d = r.shape
-    S = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
-         if state is None else state.float().clone())
-    out = torch.empty((b, h, s, d), dtype=torch.float32, device=r.device)
-    uu = u.float()[None, :, :, None]
+    f32 = torch.float32
+    rf, kf, vf = r.to(f32), k.to(f32), v.to(f32)
+    w = torch.exp(lw.to(f32))
+    S = (torch.zeros((b, h, d, d), dtype=f32, device=r.device)
+         if state is None else state.to(f32).clone())
+    states = []
     for t in range(s):
-        r_t, k_t, v_t = r[:, :, t].float(), k[:, :, t].float(), \
-            v[:, :, t].float()
-        kv = k_t[..., :, None] * v_t[..., None, :]  # (B,H,D,Dv)
-        out[:, :, t] = torch.einsum("bhd,bhdv->bhv", r_t, S + uu * kv)
-        S = torch.exp(lw[:, :, t].float())[..., None] * S + kv
+        states.append(S)
+        S = w[:, :, t, :, None] * S + kf[:, :, t, :, None] * vf[:, :, t, None]
+    S_prev = torch.stack(states, dim=2)  # (B, H, S, D, D)
+    bonus = (rf * u.to(f32)[None, :, None, :] * kf).sum(-1, keepdim=True)
+    out = (rf[..., None, :] @ S_prev)[..., 0, :] + bonus * vf
     return out.to(r.dtype), S
+
+
+def wkv_backward_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor
+                     ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``wkv_ref``'s out with no initial state, for the
+    cotangent ``dout`` of out and none on the final state: (dr, dk, dv,
+    dlw, du), f32. With w_t = exp(lw_t) and G_t = dL/dS_t, from
+    G_{S-1} = 0:
+
+        G_{t-1}  = diag(w_t) G_t + r_t dout_t^T
+        dr_t     = S_{t-1} dout_t + u * k_t (v_t . dout_t)
+        dk_t     = G_t v_t + u * r_t (v_t . dout_t)
+        dv_t     = G_t^T k_t + (r_t . diag(u) k_t) dout_t
+        dlw_t    = w_t * rowsum(S_{t-1} * G_t)
+        du       = sum over b, t of r_t * k_t (v_t . dout_t)
+
+    The two recurrences run token by token, forward for S and backward for
+    G, each state kept (2 * B*H*S*D*D floats); S_{t-1} is never
+    reconstructed from S_t. The rest is products over every token at
+    once."""
+    b, h, s, d = r.shape
+    f32 = torch.float32
+    r, k, v, lw, dout = (t.to(f32) for t in (r, k, v, lw, dout))
+    uu = u.to(f32)[None, :, None, :]
+    w = torch.exp(lw)
+    S = torch.zeros((b, h, d, d), dtype=f32, device=r.device)
+    G = torch.zeros_like(S)
+    states, grads = [], [None] * s
+    for t in range(s):
+        states.append(S)
+        S = w[:, :, t, :, None] * S + k[:, :, t, :, None] * v[:, :, t, None]
+    for t in range(s - 1, -1, -1):
+        grads[t] = G
+        G = w[:, :, t, :, None] * G + r[:, :, t, :, None] \
+            * dout[:, :, t, None]
+    S_prev = torch.stack(states, dim=2)  # (B, H, S, D, D): S_{t-1}
+    del states
+    G = torch.stack(grads, dim=2)        # G_t
+    del grads
+    vd = (v * dout).sum(-1, keepdim=True)
+    dr = (S_prev @ dout[..., None])[..., 0] + uu * k * vd
+    dk = (G @ v[..., None])[..., 0] + uu * r * vd
+    dv = (k[..., None, :] @ G)[..., 0, :] \
+        + (r * uu * k).sum(-1, keepdim=True) * dout
+    dlw = w * (S_prev * G).sum(-1)
+    du = (r * k * vd).sum((0, 2))
+    return dr, dk, dv, dlw, du
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:

@@ -6,16 +6,20 @@ prefetch, the reference's step (``forward_loss`` at ``cfg.remat``, the
 backward, AdamW at lr 1e-3), async checkpointing with restart-resume in
 the reference's format, straggler bookkeeping, and an optional GA offload
 search before the run (the paper's Steps 1–3 ahead of Step 6). The step
-runs through kernels B2 and B3 with their gradients
+runs through kernels B2, B3 and B4 with their gradients
 (``kernels/*/ops.py``), and updates the train state in place where the
 reference donates it.
 
     python -m repro_torch.launch.train --device cpu        # reduced, CPU
     python -m repro_torch.launch.train --full --seq-len 2048 --global-batch 2
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --full ...
 
-The dense family trains; the others are refused with what they lack.
-Training on a mesh of several cards is not ported yet (ROADMAP.md, slice
-7b), and ``mesh`` other than None is refused.
+Every family but the VLM trains here: dense, MoE, RWKV (B4's forward and
+its backward kernel), the hybrid and the enc-dec family. The VLM is refused
+as the reference's own ``train()`` fails on it (``NOT_TRAINABLE``); its
+step trains through ``train_step`` on ``models.synthetic_batch``, as the
+reference's tests train it. Training on a mesh of several cards is not
+ported yet (ROADMAP.md, slice 7c), and ``mesh`` other than None is refused.
 """
 from __future__ import annotations
 
@@ -38,15 +42,15 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.runtime import StragglerDetector
 
-# what each family lacks before it can train here
+# the families ``train()`` refuses, and why
 NOT_TRAINABLE = {
-    "ssm": "RWKV training needs a gradient of kernel B4 (the WKV6 "
-           "recurrence)",
-    "hybrid": "hybrid training needs the in-place SSD ops of "
-              "models/ssm.py made differentiable",
-    "moe": "MoE training is not held against the reference yet",
-    "audio": "enc-dec training is not held against the reference yet",
-    "vlm": "VLM training is not held against the reference yet",
+    "vlm": "the reference's train() fails on a vision config: its data "
+           "pipeline rolls the labels from the tokens, (B, S - P), while "
+           "the logits cover the P patches too, (B, S), and "
+           "cross_entropy_loss's einsum refuses the two lengths; train its "
+           "step through train_step on models.synthetic_batch (labels over "
+           "every position, the loss mask zero over the patches), as the "
+           "reference's tests do",
 }
 
 
@@ -54,14 +58,12 @@ def check_trainable(cfg: ArchConfig, mesh=None) -> None:
     """Raise NotImplementedError for what this driver does not train."""
     if mesh is not None:
         raise NotImplementedError(
-            "training on a mesh is not ported yet (ROADMAP.md, slice 7b: "
+            "training on a mesh is not ported yet (ROADMAP.md, slice 7c: "
             "build_train_step, rules_for and the sharded layouts); pass "
             "mesh=None for one card")
-    if cfg.family != "dense":
-        reason = NOT_TRAINABLE.get(cfg.family, f"family {cfg.family!r} is "
-                                               "not held yet")
-        raise NotImplementedError(f"{cfg.name} cannot train here: {reason} "
-                                  "(ROADMAP.md, slice 7b)")
+    if cfg.family in NOT_TRAINABLE:
+        raise NotImplementedError(f"{cfg.name} cannot train here: "
+                                  f"{NOT_TRAINABLE[cfg.family]}")
 
 
 def train_step(cfg: ArchConfig, model: T.TransformerLM, state: dict,

@@ -10,7 +10,9 @@ that takes exp(-cum) of a chunk's summed log-decays and overflows f32 under
 strong decay; the port runs every WKV, prefill and decode alike, through
 kernel B4 (``kernels/wkv``): a prefill at head dim 64 on its chunked
 tensor-core kernel, which forms no exponent, decode and head dim 16 on the
-sequential one, so ``ssm_chunk`` changes nothing here. Decode carries (S, last_x): O(1) a token. The
+sequential one, so ``ssm_chunk`` changes nothing here. Under a gradient
+(training) the WKV goes through ``WkvFn``: B4's forward, then B4's
+backward kernel. Decode carries (S, last_x): O(1) a token. The
 per-head RMS norm with its (H, hd) scale stays torch ops, as it is inline
 jnp in the reference (B2 takes one scale vector).
 """

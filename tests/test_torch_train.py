@@ -343,11 +343,11 @@ def test_train_matches_reference_from_the_same_checkpoint(tmp_path):
     assert int(into_ref["step"]) == int(into_ref["opt"]["count"]) == 5
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b", "mixtral-8x7b",
-                                  "seamless-m4t-medium",
-                                  "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b"])
 def test_train_refuses_the_families_not_yet_held(arch):
-    with pytest.raises(NotImplementedError, match="7b"):
+    """Only the VLM, whose train() fails in the reference too (its labels
+    cover the tokens, its logits the patches as well)."""
+    with pytest.raises(NotImplementedError, match="labels"):
         T.train(arch, steps=1, device="cpu")
 
 

@@ -1,13 +1,19 @@
-"""The training path on the card: B2's and B3's gradients against autograd
-through their plain versions, a train step whose forward, recompute and
-backward never reach the plain versions or a library attention, the
-kernels' launches a step, and ``train()``. These need a CUDA card and skip
-elsewhere; the file imports no JAX:
+"""The training path on the card: B2's, B3's and B4's gradients against
+autograd through their plain versions, a train step whose forward,
+recompute and backward never reach the plain versions or a library
+attention, the kernels' launches a step, ``train()``, the RWKV gradient
+through B4's backward kernel at rwkv6-1.6b's width, and one bf16 step of
+every family. These need a CUDA card and skip elsewhere; the file imports
+no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_card.py
 
 Tolerances (f32): B2's dx and dscale within 1e-5 of their max |·|, B3's dq,
-dk and dv within 1e-4 of theirs.
+dk and dv within 1e-4 of theirs, B4's dr, dk, dv, dlw and du within 1e-4
+of theirs (its backward kernel recomputes the states in f32 step by step,
+as the plain version does; only the order of the sums differs); the RWKV
+model's gradient leaves within 1e-3 of their max |g| (its forward is the
+chunked 3xTF32 kernel).
 """
 import dataclasses
 
@@ -28,8 +34,17 @@ from repro_torch.kernels.rmsnorm import ref as b2_ref
 from repro_torch.kernels.rmsnorm import rms_norm_ref
 from repro_torch.kernels.rmsnorm.kernel import rms_norm_cuda
 from repro_torch.kernels.rmsnorm.ops import rms_norm
+from repro_torch.kernels.wkv import kernel as b4
+from repro_torch.kernels.wkv.kernel import wkv_backward_cuda, wkv_cuda
+from repro_torch.kernels.wkv.ops import wkv
+from repro_torch.kernels.wkv.ref import wkv_ref
 from repro_torch.launch import train as T
 from repro_torch.launch.steps import init_train_state
+from repro_torch._tree import flatten
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as ML
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import synthetic_batch
 from repro_torch.models import transformer as MT
 from repro_torch.optim import AdamWConfig
 
@@ -43,9 +58,12 @@ def _card():
 
 
 def _grads(fn, inputs, g):
+    """Each input's gradient, zeros where the output does not reach it (lw
+    at S = 1 reaches only the final state)."""
     leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
     fn(*leaves).backward(g)
-    return [t.grad for t in leaves]
+    return [torch.zeros_like(t) if t.grad is None else t.grad
+            for t in leaves]
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 3072), (3, 5, 1024)])
@@ -136,3 +154,164 @@ def test_train_runs_on_the_card_by_default():
                   seq_len=64)
     assert out["steps"] == 3
     assert all(np.isfinite(out["losses"]))
+
+
+# ---------------------------------------------------------------------------
+# B4's backward, the RWKV gradient, and every family's bf16 step
+# ---------------------------------------------------------------------------
+
+
+def _wkv_inputs(b, h, s, d, lw=(-1.61, -0.64), seed=5):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32) * 0.5
+               for _ in range(3))
+    lws = rng.uniform(*lw, (b, h, s, d)).astype(np.float32)
+    u = (rng.standard_normal((h, d)) * 0.5).astype(np.float32)
+    do = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    return [torch.from_numpy(t).cuda() for t in (r, k, v, lws, u, do)]
+
+
+@pytest.mark.parametrize("b,h,s,d,lw", [
+    (2, 4, 1, 64, (-1.61, -0.64)), (2, 4, 333, 64, (-1.61, -0.64)),
+    (1, 3, 130, 16, (-1.61, -0.64)), (1, 2, 1, 16, (-1.61, -0.64)),
+    (1, 2, 200, 64, (-20.0, 0.0)), (1, 2, 257, 64, (-0.01, 0.0))])
+def test_wkv_backward_matches_plain(b, h, s, d, lw):
+    """The backward kernel against autograd through ``wkv_ref``, and
+    ``WkvFn`` (B4's forward, then the backward kernel) alike; twice for the
+    same bits."""
+    r, k, v, lws, u, do = _wkv_inputs(b, h, s, d, lw)
+    n = wkv_backward_cuda.launches
+    got = wkv_backward_cuda(r, k, v, lws, u, do)
+    again = wkv_backward_cuda(r, k, v, lws, u, do)
+    assert wkv_backward_cuda.launches == n + 2
+    want = _grads(lambda *t: wkv_ref(*t)[0], (r, k, v, lws, u), do)
+    for name, a, a2, w in zip(("r", "k", "v", "lw", "u"), got, again, want):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, a2), name
+        err = float((a - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+    through = _grads(lambda *t: wkv(*t)[0], (r, k, v, lws, u), do)
+    assert wkv_backward_cuda.launches == n + 3
+    for a, w in zip(through, want):
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_wkv_refuses_what_its_gradient_cannot_give():
+    r, k, v, lws, u, _ = _wkv_inputs(1, 2, 70, 64)
+    r.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="initial state"):
+        wkv(r, k, v, lws, u, state=torch.zeros(1, 2, 64, 64, device="cuda"))
+    _, final = wkv(r, k, v, lws, u)
+    with pytest.raises(NotImplementedError, match="final state"):
+        final.sum().backward()
+
+
+def _plain_versions(monkeypatch):
+    """B2, B3 and B4 patched to their plain versions for autograd."""
+    monkeypatch.setattr(ML, "_rms_norm_op",
+                        lambda x, scale, eps: rms_norm_ref(x, scale, eps))
+    monkeypatch.setattr(attn, "flash_attention",
+                        lambda q, k, v, causal, window: attention_ref(
+                            q, k, v, causal=causal, window=window))
+    monkeypatch.setattr(rwkv_mod, "wkv",
+                        lambda r, k, v, lw, u, state=None, chunk=64:
+                        wkv_ref(r, k, v, lw, u, state))
+
+
+def _family_step_inputs(arch, dtype, layers, seq, **changes):
+    """(config, model, train state, gradient tree, batch): ``arch`` at
+    ``layers`` layers with ``changes``, 2 x ``seq`` positions; a VLM takes
+    ``synthetic_batch`` (labels over every position, the loss mask zero
+    over the patches), the reference's own VLM step batch."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype=dtype, **changes)
+    state = init_train_state(cfg, device="cuda")
+    model = MT.TransformerLM.from_stacked(cfg, state["params"])
+    grads = MT.bind_stacked_grads(model, state["params"])
+    shape = ShapeSpec("t", "train", seq, 2)
+    if cfg.frontend == "vision":
+        batch = synthetic_batch(cfg, shape, seed=0, device="cuda")
+    else:
+        batch = device_put_batch(SyntheticLMStream(cfg, shape).batch_at(0),
+                                 "cuda")
+    return cfg, model, state, grads, batch
+
+
+def test_rwkv_gradient_reaches_every_leaf_through_b4(monkeypatch):
+    """rwkv6-1.6b at full width, 2 layers, f32: forward_loss's backward
+    through B4's forward and backward kernels against the same through the
+    plain versions, leaf by leaf; no time-mix leaf is left at zero."""
+    cfg, model, state, grads, batch = _family_step_inputs(
+        "rwkv6-1.6b", "float32", 2, 128)
+    # weights under which the token shift and the bonus count
+    rng = np.random.default_rng(7)
+    with torch.no_grad():
+        for name, draw in (("mu", lambda sh: rng.uniform(0, 1, sh)),
+                           ("mu_c", lambda sh: rng.uniform(0, 1, sh)),
+                           ("bonus_u", lambda sh: rng.standard_normal(sh))):
+            leaf = state["params"]["layers"]["tm"][name]
+            leaf.copy_(torch.from_numpy(draw(tuple(leaf.shape)).astype(
+                np.float32)))
+
+    def run():
+        for _, g in flatten(grads):
+            g.zero_()
+        loss, _ = MT.forward_loss(cfg, model, batch)
+        loss.backward()
+        return float(loss.detach()), [(p, g.clone())
+                                      for p, g in flatten(grads)]
+
+    n4, nb = wkv_cuda.launches_tc, wkv_backward_cuda.launches
+    loss, got = run()
+    # remat full: the forward and the recompute on the chunked kernel, one
+    # backward launch a layer
+    assert wkv_cuda.launches_tc - n4 == 2 * cfg.num_layers
+    assert wkv_backward_cuda.launches - nb == cfg.num_layers
+    with monkeypatch.context() as m:
+        _plain_versions(m)
+        plain_loss, want = run()
+    assert loss == pytest.approx(plain_loss, rel=1e-5)
+    for (path, a), (_, w) in zip(got, want):
+        assert float(w.abs().max()) > 0, path
+        err = float((a - w).abs().max())
+        assert err <= 1e-3 * float(w.abs().max()), (path, err)
+    tm = {p[-1]: g for p, g in got if "tm" in p}
+    for name in ("w_r", "w_k", "w_v", "w_g", "decay_A", "decay_B",
+                 "decay_base", "bonus_u", "mu"):
+        assert float(tm[name].abs().max()) > 0, name
+
+
+# (arch, config changes) for one bf16 step at 2 layers (zamba2: one group
+# and a tail layer) of a narrow width, every kernel on its tensor-core path
+FAMILIES = [
+    ("rwkv6-1.6b", dict(d_model=256, d_ff=512, vocab_size=1024,
+                        rwkv_decay_rank=16)),
+    ("zamba2-7b", dict(num_layers=7, d_model=256, num_heads=4,
+                       num_kv_heads=4, head_dim=64, d_ff=512,
+                       vocab_size=1024)),
+    ("mixtral-8x7b", dict(d_model=256, num_heads=4, num_kv_heads=2,
+                          head_dim=64, d_ff=512, vocab_size=1024,
+                          sliding_window=64)),
+    ("seamless-m4t-medium", dict(encoder_layers=2, d_model=256, num_heads=4,
+                                 num_kv_heads=4, head_dim=64, d_ff=512,
+                                 vocab_size=1024)),
+    ("llava-next-mistral-7b", dict(d_model=256, num_heads=4, num_kv_heads=2,
+                                   head_dim=64, d_ff=512, vocab_size=1024,
+                                   frontend_tokens=32)),
+]
+
+
+@pytest.mark.parametrize("arch,changes", FAMILIES, ids=[a for a, _ in
+                                                        FAMILIES])
+def test_bf16_train_step_of_every_family(arch, changes):
+    changes = dict(changes)
+    layers = changes.pop("num_layers", 2)
+    cfg, model, state, grads, batch = _family_step_inputs(
+        arch, "bfloat16", layers, 128, **changes)
+    losses = [float(T.train_step(cfg, model, state, grads, batch,
+                                 AdamWConfig(lr=1e-3))["loss"])
+              for _ in range(2)]
+    assert all(np.isfinite(losses)), losses
+    for path, g in flatten(grads):
+        assert bool(torch.isfinite(g.float()).all()), path
+        assert float(g.float().abs().max()) > 0, path
