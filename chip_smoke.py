@@ -5,9 +5,9 @@
 
 Builds the port's four kernels with nvcc for sm_90a, one nvcc each, all
 started together: B1, the Himeno Jacobi sweep (``csrc/himeno.cu``), B2,
-RMSNorm (``csrc/rmsnorm.cu``), B3, the flash-attention forward
+RMSNorm (``csrc/rmsnorm.cu``), B3, flash attention
 (``csrc/flash_attention.cu``: a tensor-core kernel for bf16, a scalar one
-for f32) and B4, the RWKV6 WKV recurrence (``csrc/wkv.cu``: a chunked
+for f32, and its backward, tensor-core and scalar alike) and B4, the RWKV6 WKV recurrence (``csrc/wkv.cu``: a chunked
 tensor-core kernel for prefill, a sequential one for decode, and its
 backward). Holds every
 kernel against its plain PyTorch version on the card at its main path's
@@ -74,15 +74,18 @@ tensor-core kernel. Then:
   ledger (no request has an eos, so it does not depend on tokens) must
   equal the same call's on the CPU at the reduced config, run here too;
 * slices 6a + 7a, single-device training through B2 and B3 with their
-  gradients (written out as PyTorch ops in ``kernels/*/ops.py``):
-  ``train_grad_check``, B2's and B3's gradients at the training shapes in
-  f32 and bf16 against autograd through their plain versions, timed beside
-  it; ``train_model_check``, llama3.2-3b at full width, 4 layers, f32:
+  gradients (B2's written out as PyTorch ops in ``kernels/rmsnorm/ops.py``,
+  B3's its backward kernel): ``train_grad_check``, B2's and B3's gradients
+  at the training shapes in f32 and bf16 against autograd through their
+  plain versions, timed beside it, beside the library's (``F.rms_norm``'s,
+  SDPA's) and, for B3, beside the PyTorch ops its backward kernel replaced;
+  B3's forward timed with and without the log-sum-exp training asks of it; ``train_model_check``, llama3.2-3b at full width, 4 layers, f32:
   ``forward_loss`` and every parameter's gradient through the kernels
   against the same through the plain versions; ``train``,
   ``launch.train.train`` on llama3.2-3b at full width and depth in bf16
   (8 steps of 2 x 2048 tokens, remat full), metered on the GPU's power
-  counter, its launches of B2 and B3 held to the count the code gives,
+  counter, its launches of B2, B3 and B3's backward held to the count the
+  code gives,
   then one step profiled; ``train_bf16_check``, that bf16 step at full
   depth through the kernels against the same step through the plain
   versions from one seeded state (step 1's gradient leaf by leaf against
@@ -419,7 +422,8 @@ WKV_CASES = (((2, 32, 2048, 64), MODEL_LW, False, True, "forward"),
 
 
 # Slices 6a + 7a: single-device training of llama3.2-3b through B2 and B3,
-# with their gradients written out as PyTorch ops (kernels/*/ops.py).
+# B2's gradient written out as PyTorch ops (kernels/rmsnorm/ops.py), B3's
+# its backward kernel (csrc/flash_attention.cu).
 # train_grad_check: B2 at the training shape in f32 and bf16, B3 at the
 # training shape, causal, bf16 on the tensor-core kernel and f32 on the
 # scalar one, against autograd through the plain versions. f32: dx and
@@ -563,13 +567,20 @@ def wkv_backward_launches() -> int:
     return wkv_backward_cuda.launches
 
 
+def flash_backward_launches() -> int:
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_backward_cuda
+    return flash_attention_backward_cuda.launches
+
+
 def train_launches(cfg) -> dict[str, int]:
     """Each LM kernel's launches in one training step of ``cfg`` (remat
     full), as the code gives them: the forward, then each remat block again
     in the backward (a layer; a hybrid group, the shared attention and its
-    Mamba layers, or a tail layer), B4's backward once a layer. Outside the
-    blocks: the final norm, an encoder's enc_norm, the VLM's patch norm.
-    B3 on the tensor cores in bf16."""
+    Mamba layers, or a tail layer), B4's backward once a layer, B3's
+    backward once an attention. Outside the blocks: the final norm, an
+    encoder's enc_norm, the VLM's patch norm. B3 on the tensor cores in
+    bf16."""
     from repro_torch.models.transformer import hybrid_groups
 
     n = cfg.num_layers
@@ -590,6 +601,7 @@ def train_launches(cfg) -> dict[str, int]:
         out["rms_norm"] += 1
     out["flash_attention_tc"] = (out["flash_attention"]
                                  if cfg.dtype == "bfloat16" else 0)
+    out["flash_attention_backward"] = out["flash_attention"] // 2
     return out
 
 
@@ -727,6 +739,20 @@ def rms_bound_ms(shape, dtype_bytes: int) -> tuple[float, str]:
                                        else "operations")
 
 
+def rms_grad_bound_ms(shape, dtype_bytes: int) -> tuple[float, str]:
+    """B2's gradient: x and the cotangent g read once, dx written once,
+    scale (f32) read and dscale (f32) written once; ~10 f32 operations an
+    element (the row's sum of squares and of g x scale, dx's products, and
+    dscale's sum)."""
+    n = 1
+    for side in shape:
+        n *= side
+    nbytes = 3 * n * dtype_bytes + 8 * shape[-1]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, 10 * n / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def attention_pairs(s: int, causal: bool, window: int) -> int:
     """(q, k) pairs the mask lets through in one head."""
     if not causal:
@@ -744,6 +770,22 @@ def flash_bound_ms(b, h, kh, s, d, dtype_bytes, causal, window
     flops = 4 * d * attention_pairs(s, causal, window) * b * h
     peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
     nbytes = dtype_bytes * b * s * d * (2 * h + 2 * kh)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_backward_bound_ms(b, h, kh, s, d, dtype_bytes, causal, window
+                            ) -> tuple[float, str]:
+    """The gradient's four products over the unmasked pairs, dV = P^T dO,
+    dP = dO V^T, dQ = dS K and dK = dS^T Q (8*D operations a pair, twice
+    the forward's); q, o, do, dq (H heads) and k, v, dk, dv (K heads) read
+    or written once, lse read once. The kernels' recompute of S = Q K^T
+    (once in each of their two kernels) and of dP in the dQ kernel is their
+    design's cost, not the function's."""
+    flops = 8 * d * attention_pairs(s, causal, window) * b * h
+    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
+    nbytes = dtype_bytes * b * s * d * (4 * h + 4 * kh) + 4 * b * h * s
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -831,22 +873,27 @@ def nudged_embedding(params):
 
 
 def timed_pair(kernel_fn, plain_fn, reps: int, library_fn=None,
-               plain_reps=None) -> dict:
-    """plain, library, kernel, kernel, library, plain: the better of two
-    means each (the library call only where one is given); the plain
-    version over ``plain_reps`` calls (default a quarter of ``reps``, at
-    least 2)."""
+               plain_reps=None, ops_fn=None) -> dict:
+    """plain, ops, library, kernel, kernel, library, ops, plain: the better
+    of two means each (the library call and ``ops_fn``, the PyTorch ops a
+    kernel took the place of, only where given); the plain version and the
+    ops over ``plain_reps`` calls (default a quarter of ``reps``, at least
+    2)."""
     plain_reps = plain_reps or max(2, reps // 4)
     pl1 = time_ms(plain_fn, plain_reps)
+    ops1 = time_ms(ops_fn, plain_reps) if ops_fn else None
     lib1 = time_ms(library_fn, reps) if library_fn else None
     k1 = time_ms(kernel_fn, reps)
     k2 = time_ms(kernel_fn, reps)
     lib2 = time_ms(library_fn, reps) if library_fn else None
+    ops2 = time_ms(ops_fn, plain_reps) if ops_fn else None
     pl2 = time_ms(plain_fn, plain_reps)
     out = {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": min(pl1, pl2),
            "plain_ms_runs": [pl1, pl2], "library_ms": None}
     if library_fn:
         out.update(library_ms=min(lib1, lib2), library_ms_runs=[lib1, lib2])
+    if ops_fn:
+        out.update(ops_ms=min(ops1, ops2), ops_ms_runs=[ops1, ops2])
     return out
 
 
@@ -1436,6 +1483,16 @@ class Smoke:
                 REPS, sdpa))
             row["bound_ms"], row["bound_by"] = flash_bound_ms(
                 b, h, kh, s, d, q.element_size(), causal, window)
+            if which == "tensor_core":
+                # without and with the log-sum-exp that training asks of
+                # the forward (FlashAttentionFn): without, with, with,
+                # without
+                runs = [time_ms(functools.partial(
+                    flash_attention_cuda, q, k, v, causal=causal,
+                    window=window, return_lse=lse), REPS)
+                    for lse in (False, True, True, False)]
+                row.update(ms_no_lse=min(runs[0], runs[3]),
+                           ms_lse=min(runs[1], runs[2]), lse_runs=runs)
             emit({"phase": "kernel", "kernel": "flash_attention", **row,
                   "card": self.card})
             rows[("flash_attention", (b, h, kh, s, d, dt, causal,
@@ -1495,8 +1552,8 @@ class Smoke:
         def b3(b, h, kh, s, d, window, scalar=True, causal=True):
             tc = rows[("flash_attention",
                        (b, h, kh, s, d, "bfloat16", causal, window))]
-            out = {**{k: tc[k] for k in keys}, "kv_heads": kh,
-                   "causal": causal, "window": window,
+            out = {**{k: tc[k] for k in keys + ("ms_no_lse", "ms_lse")},
+                   "kv_heads": kh, "causal": causal, "window": window,
                    "kernel": "tensor_core", "max_abs_err": tc["max_abs_err"],
                    "err_vs_f32_over_bound": tc["err_vs_f32_over_bound"]}
             if scalar:
@@ -1513,6 +1570,7 @@ class Smoke:
         dense = b3(2, 24, 8, 2048, 128, 0)
         self.kernels["flash_attention"].update(
             kernel="tensor_core", scalar_f32=dense["scalar_f32"],
+            ms_no_lse=dense["ms_no_lse"], ms_lse=dense["ms_lse"],
             d112=b3(2, 32, 32, 2048, 112, 0),
             mixtral=b3(2, 32, 8, 2048, 128, 4096),
             window_cuts=b3(1, 32, 8, 6144, 128, 4096, scalar=False),
@@ -3038,16 +3096,95 @@ class Smoke:
               "card": self.card})
 
     # -- slices 6a + 7a: training, B2 and B3 with their gradients ---------
+    def flash_backward_timed(self, q, k, v, do, causal, window, label,
+                             reps=REPS, plain_reps=2) -> dict:
+        """B3's backward kernel on (q, k, v) and the cotangent ``do``: twice
+        for the same bits (one launch counted a call), then timed beside
+        the PyTorch ops it took the place of on the training path
+        (``ops.flash_attention_backward`` without o and lse), the plain
+        version's autograd backward and SDPA's (``torch.autograd.grad``
+        through ``F.scaled_dot_product_attention``, which the port never
+        calls; a boolean mask where the window cuts the sequence), with the
+        bound of the gradient's own work."""
+        import torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.flash_attention import (
+            attention_ref, flash_attention_backward_cuda,
+            flash_attention_cuda)
+        from repro_torch.kernels.flash_attention.kernel import kernel_for
+        from repro_torch.kernels.flash_attention.ops import \
+            flash_attention_backward
+
+        b, h, s, d = q.shape
+        kh = k.shape[1]
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+        n = flash_attention_backward_cuda.launches
+        kern = functools.partial(flash_attention_backward_cuda, q, k, v, o,
+                                 lse, do, causal=causal, window=window)
+        first, again = kern(), kern()
+        torch.cuda.synchronize()
+        self.check(flash_attention_backward_cuda.launches == n + 2,
+                   f"{label}: backward launches "
+                   f"{flash_attention_backward_cuda.launches - n} for 2 calls")
+        self.check(all(torch.equal(a, b_) for a, b_ in zip(first, again)),
+                   f"{label}: the backward is not repeatable")
+        del first, again
+        plain_leaves = [t.detach().clone().requires_grad_(True)
+                        for t in (q, k, v)]
+        y_plain = attention_ref(*plain_leaves, causal=causal, window=window)
+        lib_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+        mask = None
+        if causal and window and window < s:
+            i = torch.arange(s, device="cuda")
+            mask = ((i[None, :] <= i[:, None])
+                    & (i[None, :] > i[:, None] - window))
+        y_lib = F.scaled_dot_product_attention(
+            *lib_leaves, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        out = {"kernel": kernel_for(q.dtype, d),
+               "library_call": "autograd through SDPA" + (
+                   ", boolean window mask" if mask is not None
+                   else ", causal" if causal else ", unmasked")}
+        out.update(timed_pair(
+            kern, lambda: torch.autograd.grad(y_plain, plain_leaves, do,
+                                              retain_graph=True), reps,
+            lambda: torch.autograd.grad(y_lib, lib_leaves, do,
+                                        retain_graph=True),
+            plain_reps=plain_reps,
+            ops_fn=functools.partial(flash_attention_backward, q, k, v, do,
+                                     causal=causal, window=window)))
+        out["bound_ms"], out["bound_by"] = flash_backward_bound_ms(
+            b, h, kh, s, d, q.element_size(), causal, window)
+        del y_plain, y_lib, plain_leaves, lib_leaves, o, lse, mask
+        torch.cuda.empty_cache()
+        return out
+
+    @staticmethod
+    def rms_norm_library_grad(x, scale, g):
+        """B2's library yardstick for its gradient: ``torch.autograd.grad``
+        through ``F.rms_norm`` (scale cast to x's dtype: the call takes
+        one), a graph kept for repeated calls."""
+        import torch
+        import torch.nn.functional as F
+
+        xl = x.detach().clone().requires_grad_(True)
+        wl = scale.to(x.dtype).requires_grad_(True)
+        y = F.rms_norm(xl, (x.shape[-1],), wl, 1e-5)
+        return lambda: torch.autograd.grad(y, (xl, wl), g, retain_graph=True)
+
     def train_grad_check(self):
         """B2's and B3's gradients on the card at the training shapes, each
-        through its ``autograd.Function`` (the kernel forward, the written
-        backward) against autograd through its plain version, with the
-        backward's time beside the plain version's autograd backward."""
+        through its ``autograd.Function`` (the kernel forward, then B3's
+        backward kernel or B2's written backward) against autograd through
+        its plain version, with the backward's time beside the plain
+        version's autograd backward and the library's (``F.rms_norm``'s,
+        SDPA's); B3's also beside the PyTorch ops it replaced."""
         import numpy as np
         import torch
         from repro_torch.kernels.flash_attention import attention_ref
-        from repro_torch.kernels.flash_attention.ops import (
-            flash_attention, flash_attention_backward)
+        from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.rmsnorm import rms_norm_ref
         from repro_torch.kernels.rmsnorm.ops import (
             rms_norm, rms_norm_backward)
@@ -3099,11 +3236,14 @@ class Smoke:
             xr = x.detach().clone().requires_grad_(True)
             sr = scale.detach().clone().requires_grad_(True)
             y = rms_norm_ref(xr, sr)
+            lib = self.rms_norm_library_grad(x, scale, g)
             row.update(timed_pair(
                 lambda: rms_norm_backward(x, scale, g, 1e-5),
                 lambda: torch.autograd.grad(y, (xr, sr), g,
-                                            retain_graph=True), REPS))
-            del got, plain, f32, y, xr, sr
+                                            retain_graph=True), REPS, lib))
+            row["bound_ms"], row["bound_by"] = rms_grad_bound_ms(
+                GRAD_RMS_SHAPE, x.element_size())
+            del got, plain, f32, y, xr, sr, lib
             emit({"phase": "train_grad_check", "kernel": "rms_norm", **row,
                   "card": self.card})
             rows[("rms_norm", dt)] = row
@@ -3120,27 +3260,42 @@ class Smoke:
                                  GRAD_FLASH_RTOL, ("q", "k", "v"))}
             del got, plain, f32
             torch.cuda.empty_cache()
-            qr, kr, vr = (t.detach().clone().requires_grad_(True)
-                          for t in (q, k, v))
-            o = attention_ref(qr, kr, vr)
-            row.update(timed_pair(
-                lambda: flash_attention_backward(q, k, v, do),
-                lambda: torch.autograd.grad(o, (qr, kr, vr), do,
-                                            retain_graph=True), REPS // 4))
-            del o, qr, kr, vr, q, k, v, do
+            row.update(self.flash_backward_timed(
+                q, k, v, do, True, 0, f"train_grad_check {dt}"))
+            del q, k, v, do
             torch.cuda.empty_cache()
             emit({"phase": "train_grad_check", "kernel": "flash_attention",
                   **row, "card": self.card})
             rows[("flash_attention", dt)] = row
 
-        for name in ("rms_norm", "flash_attention"):
-            self.kernels[name]["gradient"] = {
-                "route": "PyTorch ops, kernels/"
-                         f"{'rmsnorm' if name == 'rms_norm' else name}"
-                         "/ops.py",
-                **{dt: {k: rows[(name, dt)][k] for k in (
-                    "shape", "grads", "ms", "plain_ms")}
-                   for dt in ("float32", "bfloat16")}}
+        keys = ("shape", "grads", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")
+        self.kernels["rms_norm"]["gradient"] = {
+            "route": "PyTorch ops, kernels/rmsnorm/ops.py",
+            **{dt: {k: rows[("rms_norm", dt)][k] for k in keys}
+               for dt in ("float32", "bfloat16")}}
+        self.kernels["flash_attention"]["gradient"] = {
+            "route": "cuda, flash_attention_backward_cuda (the "
+                     "flash_attention_backward entry)",
+            **{dt: {k: rows[("flash_attention", dt)][k]
+                    for k in keys + ("ops_ms", "kernel")}
+               for dt in ("float32", "bfloat16")}}
+        main = rows[("flash_attention", "bfloat16")]
+        self.kernels["flash_attention_backward"] = {
+            "name": "flash_attention_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:23",
+            "launches": 0,
+            "max_abs_err": max(g["max_abs_err"] for dt in (
+                "float32", "bfloat16") for g in rows[(
+                    "flash_attention", dt)]["grads"].values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "ops_ms", "shape",
+                                    "kv_heads", "dtype", "kernel")},
+            "plain": "autograd through attention_ref",
+            "ops": "kernels/flash_attention/ops.py flash_attention_backward, "
+                   "the PyTorch ops the kernel replaced",
+            "library": main["library_call"], "card": self.card}
 
     def train_model_check(self):
         """llama3.2-3b at full width, CHECK_LAYERS deep, in f32:
@@ -3170,9 +3325,10 @@ class Smoke:
             loss.backward()
             return float(loss), [g.clone() for g in leaves(grads)]
 
-        before = lm_launches()
+        before, nb = lm_launches(), flash_backward_launches()
         loss, got = run()
         n = launches_since(before)
+        n["flash_attention_backward"] = flash_backward_launches() - nb
         with plain_training():
             plain_loss, want = run()
         worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(
@@ -3184,9 +3340,11 @@ class Smoke:
         self.check(worst <= TRAIN_GRAD_RTOL,
                    f"train_model_check: a gradient leaf {worst} of its max "
                    f"|g| from plain's")
-        # remat full: the forward and the recompute, both through the kernels
+        # remat full: the forward and the recompute, both through the
+        # kernels; B3's backward kernel (the scalar one, in f32) a layer
         self.check(n["rms_norm"] == 4 * layers_n + 1
-                   and n["flash_attention"] == 2 * layers_n,
+                   and n["flash_attention"] == 2 * layers_n
+                   and n["flash_attention_backward"] == layers_n,
                    f"train_model_check launches {n}")
         emit({"phase": "train_model_check", "arch": ARCH, "dtype": "float32",
               "layers": layers_n, "tokens": [2, CHECK_SEQ],
@@ -3230,6 +3388,7 @@ class Smoke:
                 ARCH, use_reduced=False, log_every=1, **TRAIN))
         counts = launches_since(before)
         counts["wkv_backward"] = wkv_backward_launches()
+        counts["flash_attention_backward"] = flash_backward_launches()
         peak = torch.cuda.max_memory_allocated()
         self.path_launches[f"{ARCH} train"] = counts
         step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
@@ -3583,12 +3742,12 @@ class Smoke:
         (FAMILY_GRAD_SHAPES), in bf16: each through its ``autograd.Function``
         against the plain version's autograd in bf16 and in f32 (held as
         ``train_grad_check`` holds bf16), with the backward's ms beside the
-        plain version's."""
+        plain version's and the library's (B3's as ``train_grad_check``
+        times it)."""
         import numpy as np
         import torch
         from repro_torch.kernels.flash_attention import attention_ref
-        from repro_torch.kernels.flash_attention.ops import (
-            flash_attention, flash_attention_backward)
+        from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.rmsnorm import rms_norm_ref
         from repro_torch.kernels.rmsnorm.ops import (
             rms_norm, rms_norm_backward)
@@ -3615,9 +3774,6 @@ class Smoke:
                                          .astype(np.float32)).cuda()
                 inputs, names = (x, scale), ("x", "scale")
                 kern, plain = rms_norm, rms_norm_ref
-                backward = functools.partial(rms_norm_backward, x, scale,
-                                             g, 1e-5)
-                reps = REPS
             else:
                 b, h, kh, s, d = shape
                 q, k, v = (draw((b, n, s, d)) for n in (h, kh, kh))
@@ -3627,10 +3783,6 @@ class Smoke:
                                          window=window)
                 plain = functools.partial(attention_ref, causal=causal,
                                           window=window)
-                backward = functools.partial(
-                    flash_attention_backward, q, k, v, g, causal=causal,
-                    window=window)
-                reps = 2
             got = grads(kern, inputs, g)
             want = grads(plain, inputs, g)
             f32 = grads(plain, [t.float() for t in inputs], g.float())
@@ -3648,20 +3800,36 @@ class Smoke:
                                          f"{limit}")
             del got, want, f32
             torch.cuda.empty_cache()
-            leaves = [t.detach().clone().requires_grad_(True)
-                      for t in inputs]
-            y = plain(*leaves)
-            row.update(timed_pair(
-                backward, lambda: torch.autograd.grad(
-                    y, leaves, g, retain_graph=True), reps))
+            if kind == "rms_norm":
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in inputs]
+                y = plain(*leaves)
+                lib = self.rms_norm_library_grad(x, scale, g)
+                row.update(timed_pair(
+                    functools.partial(rms_norm_backward, x, scale, g, 1e-5),
+                    lambda: torch.autograd.grad(
+                        y, leaves, g, retain_graph=True), REPS, lib))
+                row["bound_ms"], row["bound_by"] = rms_grad_bound_ms(
+                    shape, x.element_size())
+                del y, leaves, lib
+            else:
+                row.update(self.flash_backward_timed(
+                    q, k, v, g, causal, window,
+                    f"family_grad_check {arch} {shape}"))
             row["seconds"] = time.perf_counter() - t0
             emit({"phase": "family_grad_check", **row, "card": self.card})
-            rows[kind].append({k: row[k] for k in (
-                "arch", "shape", "grads", "ms", "plain_ms")})
-            del y, leaves, inputs, g
+            rows[kind].append({k: row.get(k) for k in (
+                "arch", "shape", "causal", "window", "grads", "ms",
+                "plain_ms", "ops_ms", "library_ms", "bound_ms", "bound_by")})
+            del inputs, g
             torch.cuda.empty_cache()
         for name, got in rows.items():
             self.kernels[name].setdefault("gradient", {})["families"] = got
+        b3 = self.kernels["flash_attention_backward"]
+        b3["families"] = rows["flash_attention"]
+        b3["max_abs_err"] = max([b3["max_abs_err"]] + [
+            e["max_abs_err"] for r in rows["flash_attention"]
+            for e in r["grads"].values()])
 
     @staticmethod
     def family_config(arch, layers, dtype=None):
@@ -3739,13 +3907,14 @@ class Smoke:
             shift_rwkv(cfg, MT.TransformerLM.from_stacked(cfg, params))
         batch = self.family_batch(cfg, CHECK_SEQ)
         before = lm_launches()
-        nb = wkv_backward_launches()
+        nb, nf = wkv_backward_launches(), flash_backward_launches()
         with held_routing(cfg) as routing:
             if routing is not None:
                 routing.record()
             loss, got = self.gradient_of(cfg, params, batch, plain=False)
             n = launches_since(before)
             n["wkv_backward"] = wkv_backward_launches() - nb
+            n["flash_attention_backward"] = flash_backward_launches() - nf
             got = [g.clone() for g in leaves(got)]
             if routing is not None:
                 routing.hold(routing.recorded.__getitem__)
@@ -3958,6 +4127,7 @@ class Smoke:
                     global_batch=2, seq_len=seq))
         counts = launches_since(before)
         counts["wkv_backward"] = wkv_backward_launches()
+        counts["flash_attention_backward"] = flash_backward_launches()
         peak = torch.cuda.max_memory_allocated()
         self.path_launches[f"{arch} train"] = counts
         step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
@@ -4024,12 +4194,19 @@ class Smoke:
 
         run = functools.partial(train_step, cfg, model, state, grads, batch,
                                 AdamWConfig(lr=1e-3), mark)
+        nb = flash_backward_launches()
         self.profiled("train_profile", "step", run, 1, arch=cfg.name,
                       layers=cfg.num_layers, global_batch=2,
                       seq_len=batch["tokens"].shape[1])
         torch.cuda.synchronize()
+        # two steps to warm up and the profiled one
+        nb = flash_backward_launches() - nb
+        want = 3 * train_launches(cfg)["flash_attention_backward"]
+        self.check(nb == want, f"train_profile {cfg.name}: B3's backward "
+                               f"launched {nb} times, the code gives {want}")
         parts = ("forward", "backward", "optimizer", "end")
         emit({"phase": "train_profile_split", "arch": cfg.name,
+              "flash_attention_backward_launches": nb,
               "device_timeline_ms": {
                   a: events[a].elapsed_time(events[b])
                   for a, b in zip(parts, parts[1:])},
@@ -4055,12 +4232,14 @@ class Smoke:
         kernels are two entries: ``wkv`` counts the sequential kernel's
         launches (the wrapper's less the tensor-core kernel's), ``wkv_tc``
         the tensor-core kernel's; ``wkv_backward`` its backward kernel's
-        (the training paths')."""
+        and ``flash_attention_backward`` B3's (the training paths')."""
         counted = {"rms_norm": lambda n: n["rms_norm"],
                    "flash_attention": lambda n: n["flash_attention"],
                    "wkv": lambda n: n["wkv"] - n["wkv_tc"],
                    "wkv_tc": lambda n: n["wkv_tc"],
-                   "wkv_backward": lambda n: n.get("wkv_backward", 0)}
+                   "wkv_backward": lambda n: n.get("wkv_backward", 0),
+                   "flash_attention_backward":
+                       lambda n: n.get("flash_attention_backward", 0)}
         for name, count in counted.items():
             by_path = {arch: count(n) for arch, n in self.path_launches.items()
                        if count(n)}

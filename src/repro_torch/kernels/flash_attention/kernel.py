@@ -1,4 +1,5 @@
-"""Kernel B3: the flash-attention forward as two hand-written CUDA kernels.
+"""Kernel B3: the flash-attention forward as two hand-written CUDA kernels,
+and its backward as two more.
 
 Replaces the JAX package's Pallas TPU kernel (``src/repro/kernels/
 flash_attention/kernel.py`` ``_flash_kernel`` via ``flash_attention_pallas``).
@@ -22,10 +23,24 @@ float32 or bfloat16. The scale is D^-1/2 of the true head dim; the
 tensor-core kernel lays D = 112 out in shared memory as 128 columns, of
 which the 16 past D are zeros.
 
-A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
-tensor launches a kernel or raises; nothing falls back. The wrapper counts
-every launch in ``flash_attention_cuda.launches`` and the tensor-core
-kernel's in ``flash_attention_cuda.launches_tc``.
+``flash_attention_cuda(..., return_lse=True)`` also returns each row's
+log-sum-exp (B, H, S) in f32, in the log2 domain (log2 of the softmax's
+denominator with the row's max folded in), which the backward recomputes
+the probabilities from; without it the kernels write nothing more.
+
+``flash_attention_backward_cuda`` is the gradient: from q, k, v, the
+forward's o and lse and the cotangent of o, (dq, dk, dv) in q's dtype. The
+same rule picks its kernel: bfloat16 at head dims 64, 112 and 128 takes the
+tensor-core backward (wgmma, TMA: a dK/dV kernel over key tiles and a dQ
+kernel over query tiles, deterministic, no atomics), the rest the scalar
+f32 backward. Its plain version is ``ops.flash_attention_backward`` given
+``o`` and ``lse``.
+
+A tensor on the CPU takes the plain PyTorch version. A CUDA tensor
+launches a kernel or raises; nothing falls back. The wrappers count every
+launch in ``flash_attention_cuda.launches`` and
+``flash_attention_backward_cuda.launches``, the tensor-core kernels' in
+``launches_tc`` of each.
 """
 from __future__ import annotations
 
@@ -36,12 +51,16 @@ import torch
 
 from repro_torch.kernels._build import KernelLibrary, count_launch, \
     reset_counts
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_ref)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 112, 128)
 TC_HEAD_DIMS = (64, 112, 128)  # of the tensor-core kernel (bf16 only)
 MAX_GRID_Y = 65535  # batch * heads: the scalar kernel's second grid axis
+# the backward's per-row stats scratch holds S rows a head padded to a
+# multiple of this, the tensor-core dQ kernel's tile
+STATS_ROWS = 128
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
@@ -54,19 +73,26 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_forward.argtypes = [ptr] * 4 + [i32] * 5 + [
-        ctypes.c_float, i32, i32, i32, ptr]
-    lib.flash_attention_forward.restype = i32
-    lib.flash_attention_forward_tc.argtypes = [ptr] * 4 + [i32] * 5 + [
-        ctypes.c_float, i32, i32, ptr]
-    lib.flash_attention_forward_tc.restype = i32
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_forward.argtypes = [ptr] * 5 + [i32] * 5 + [
+        f32, i32, i32, i32, ptr]
+    lib.flash_attention_forward_tc.argtypes = [ptr] * 5 + [i32] * 5 + [
+        f32, i32, i32, ptr]
+    lib.flash_attention_backward.argtypes = [ptr] * 10 + [i32] * 6 + [
+        f32, i32, i32, i32, ptr]
+    lib.flash_attention_backward_tc.argtypes = [ptr] * 10 + [i32] * 6 + [
+        f32, i32, i32, ptr]
+    for name in ("flash_attention_forward", "flash_attention_forward_tc",
+                 "flash_attention_backward", "flash_attention_backward_tc"):
+        getattr(lib, name).restype = i32
 
 
 LIBRARY = KernelLibrary("flash", "flash_attention.cu", declare=_declare)
 load_library = LIBRARY.load
 _scalar = LIBRARY.launcher("flash_attention_forward")
 _tensor_core = LIBRARY.launcher("flash_attention_forward_tc")
+_scalar_backward = LIBRARY.launcher("flash_attention_backward")
+_tensor_core_backward = LIBRARY.launcher("flash_attention_backward_tc")
 
 
 def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -96,42 +122,110 @@ def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     if b * h > MAX_GRID_Y:
         raise ValueError(f"the flash kernel takes B*H <= {MAX_GRID_Y}, got "
                          f"{b * h}")
-    ops = (q, k, v)
+    _laid_out(q, k, v)
+    return True
+
+
+def _laid_out(*ops: torch.Tensor) -> None:
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("the flash kernel takes contiguous operands")
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("the flash kernel takes 16-byte aligned operands")
-    return True
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """Attention forward over q (B,H,S,D) and k, v (B,K,S,D): causal with an
     optional sliding window (k > q - window), or full; scale D^-1/2 unless
-    given; output in q's dtype."""
+    given; output in q's dtype. With ``return_lse``, (output, lse): lse
+    (B,H,S) f32, each row's log-sum-exp of its masked, scaled logits in the
+    log2 domain."""
     if not _on_card(q, k, v):
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            scale=scale)
+        if not return_lse:
+            return out
+        return out, attention_lse_ref(q, k, causal=causal, window=window,
+                                      scale=scale)
     b, h, s, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            k.shape[1], s, d, scale, int(causal), int(window))
-    if kernel_for(q.dtype, d) == "tensor_core":
-        _tensor_core(q.get_device(), *args)
-        count_launch(flash_attention_cuda, "launches", "launches_tc")
-    else:
-        _scalar(q.get_device(), *args, DTYPES[q.dtype])
-        count_launch(flash_attention_cuda)
-    return out
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if q.numel() > 0:
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, h, k.shape[1],
+                s, d, scale, int(causal), int(window))
+        if kernel_for(q.dtype, d) == "tensor_core":
+            _tensor_core(q.get_device(), *args)
+            count_launch(flash_attention_cuda, "launches", "launches_tc")
+        else:
+            _scalar(q.get_device(), *args, DTYPES[q.dtype])
+            count_launch(flash_attention_cuda)
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_tc = 0
 
 
+def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor, *,
+                                  causal: bool = True, window: int = 0
+                                  ) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of o = attention(q, k, v) for the cotangent ``do``,
+    from the forward's output ``o`` and ``lse`` (``return_lse``): q, o, do
+    (B,H,S,D) and k, v (B,K,S,D) of one dtype, lse (B,H,S) f32; scale
+    D^-1/2. The gradients come in q's dtype."""
+    on_card = _on_card(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must be {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}")
+    if lse.shape != q.shape[:3]:
+        raise ValueError(f"lse must be {tuple(q.shape[:3])}, got "
+                         f"{tuple(lse.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"o and do must be {q.dtype} and lse float32, got "
+                        f"{o.dtype}, {do.dtype}, {lse.dtype}")
+    if any(t.device != q.device for t in (o, lse, do)):
+        raise ValueError("the flash backward's operands must lie on one "
+                         "device")
+    if not causal:
+        window = 0
+    if not on_card:
+        from repro_torch.kernels.flash_attention.ops import \
+            flash_attention_backward
+        return flash_attention_backward(q, k, v, do, o=o, lse=lse,
+                                        causal=causal, window=window)
+    _laid_out(o, lse, do)
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    sp = -(-s // STATS_ROWS) * STATS_ROWS
+    stats = torch.empty((b * h * sp * 2,), dtype=torch.float32,
+                        device=q.device)
+    args = tuple(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                        stats)) + (
+        b, h, kh, s, sp, d, d ** -0.5, int(causal), int(window))
+    if kernel_for(q.dtype, d) == "tensor_core":
+        _tensor_core_backward(q.get_device(), *args)
+        count_launch(flash_attention_backward_cuda, "launches", "launches_tc")
+    else:
+        _scalar_backward(q.get_device(), *args, DTYPES[q.dtype])
+        count_launch(flash_attention_backward_cuda)
+    return dq, dk, dv
+
+
+flash_attention_backward_cuda.launches = 0
+flash_attention_backward_cuda.launches_tc = 0
+
+
 def reset_launches() -> None:
     reset_counts(flash_attention_cuda, "launches", "launches_tc")
+    reset_counts(flash_attention_backward_cuda, "launches", "launches_tc")

@@ -3,46 +3,63 @@ the CUDA kernel for tensors on the card and takes its plain PyTorch version
 for tensors on the CPU; with a gradient, an ``autograd.Function`` around
 it.
 
-The JAX package has no backward kernel (its training differentiates the
-einsum attention), so the gradient here is written out as PyTorch ops, the
-same on both devices, and never calls the plain version or a library
-attention. ``flash_attention_backward`` takes the saved q, k, v and
-recomputes the probabilities P in f32 one block of ``BLOCK_Q`` query rows
-at a time, over the keys that block can see (causal: up to its last row,
-and from its first row's window on), so no (B, H, S, S) tensor is ever
-whole. It rounds what ``jax.grad`` of ``kernels/flash_attention/ref.py``
-rounds (P to v's dtype before dV, dP from do·vᵀ in v's dtype, the score
-gradient to q's dtype before dq and dk), but forms the scores themselves
-in f32, where the plain version rounds q·kᵀ to a bf16 input's dtype first.
-The dK and dV products take f32 operands (the rounded values above), so
-they are summed in f32 over the blocks and over the H/K query heads of
-each K/V head (GQA) and rounded once, as ``jax.grad`` rounds them. The softmax gradient is
-P·(dP − Σ P·dP), row by row, so the output o is not needed.
+``FlashAttentionFn`` runs B3's forward with ``return_lse`` and saves q, k,
+v, o and the rows' log-sum-exp; its backward is B3's backward kernel
+(``flash_attention_backward_cuda``; on the CPU its plain version, below),
+so the CPU tests drive the same Function the card runs. The JAX package
+has no backward kernel (its training differentiates the einsum attention);
+the kernel computes what ``jax.grad`` of ``kernels/flash_attention/ref.py``
+computes and rounds where it rounds.
+
+``flash_attention_backward`` is the plain version, written out as PyTorch
+ops. It recomputes the probabilities P in f32 one block of ``BLOCK_Q``
+query rows at a time, over the keys that block can see (causal: up to its
+last row, and from its first row's window on), so no (B, H, S, S) tensor is
+ever whole. Given the forward's ``o`` and ``lse`` it takes the kernel's
+formulation: P = exp2(scale log2(e) q·kᵀ − lse), dP = do·vᵀ in f32, and
+the softmax gradient P·(dP − D) with D = rowsum(do·o) in f32. Without them
+it normalises P itself, rounds dP to v's dtype as ``jax.grad`` does, and
+takes D = Σ P·dP, row by row, so o is not needed. Both round what
+``jax.grad`` rounds: P to v's dtype before dV, the scaled score gradient
+to q's dtype before dq and dk; they form the scores in f32, where the
+plain forward rounds q·kᵀ to a bf16 input's dtype first. The dK and dV
+products take f32 operands (the rounded values above), so they are summed
+in f32 over the blocks and over the H/K query heads of each K/V head (GQA)
+and rounded once, as ``jax.grad`` rounds them.
 
 When nothing needs a gradient (serving, or under ``no_grad``),
 ``flash_attention`` is the wrapper's call as it was: no Function, nothing
-saved.
+saved, no log-sum-exp written.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_cuda, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 
 BLOCK_Q = 256  # query rows a backward block recomputes P for
+LOG2E = math.log2(math.e)
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, do: torch.Tensor, *,
+                             o: Optional[torch.Tensor] = None,
+                             lse: Optional[torch.Tensor] = None,
                              causal: bool = True, window: int = 0,
                              scale: Optional[float] = None,
                              block: int = BLOCK_Q
                              ) -> tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of o = attention(q, k, v) for the cotangent ``do`` of
-    o: q, do (B, H, S, D); k, v (B, K, S, D), K dividing H."""
+    o: q, do (B, H, S, D); k, v (B, K, S, D), K dividing H. With the
+    forward's ``o`` (B, H, S, D) and ``lse`` (B, H, S, log2 domain), the
+    kernel's formulation; both or neither."""
+    if (o is None) != (lse is None):
+        raise ValueError("give both o and lse, or neither")
     b, h, s, d = q.shape
     kh = k.shape[1]
     g = h // kh
@@ -50,6 +67,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     window = window if causal else 0
     qg = q.reshape(b, kh, g, s, d)
     dog = do.reshape(b, kh, g, s, d)
+    if lse is not None:
+        lseg = lse.reshape(b, kh, g, s)
+        dsum = (do.float() * o.float()).sum(-1).reshape(b, kh, g, s)
     dq = torch.empty_like(qg)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
@@ -65,6 +85,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         kb, vb = k[:, :, lo:hi], v[:, :, lo:hi]
         scores = torch.einsum("bkgqd,bktd->bkgqt", qb.float(),
                               kf[:, :, lo:hi]) * scale
+        mask = None
         if causal:
             qi = torch.arange(i0, i1, device=q.device)[:, None]
             ki = torch.arange(lo, hi, device=q.device)[None, :]
@@ -72,11 +93,19 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             if window:
                 mask &= ki > qi - window
             scores = torch.where(mask, scores, NEG_INF)
-        p = torch.exp(scores - torch.amax(scores, -1, keepdim=True))
-        p = p / torch.sum(p, -1, keepdim=True)
+        if lse is None:
+            p = torch.exp(scores - torch.amax(scores, -1, keepdim=True))
+            p = p / torch.sum(p, -1, keepdim=True)
+            dp = torch.einsum("bkgqd,bktd->bkgqt", dob, vb).float()
+            rowsum = torch.sum(p * dp, -1, keepdim=True)
+        else:
+            p = torch.exp2(scores * LOG2E - lseg[:, :, :, i0:i1, None])
+            if mask is not None:
+                p = torch.where(mask, p, 0.0)
+            dp = torch.einsum("bkgqd,bktd->bkgqt", dob.float(), vb.float())
+            rowsum = dsum[:, :, :, i0:i1, None]
         del scores
-        dp = torch.einsum("bkgqd,bktd->bkgqt", dob, vb).float()
-        ds = p * (dp - torch.sum(p * dp, -1, keepdim=True))
+        ds = p * (dp - rowsum)
         del dp
         dsl = (ds * scale).to(q.dtype)
         del ds
@@ -89,19 +118,22 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """B3 in the forward, ``flash_attention_backward`` in the backward."""
+    """B3's forward, then B3's backward kernel (the plain version on the
+    CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, do.contiguous(), causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = flash_attention_backward_cuda(
+            *ctx.saved_tensors, do.contiguous(), causal=ctx.causal,
+            window=ctx.window)
         return dq, dk, dv, None, None
 
 

@@ -6,6 +6,7 @@ K/V head then serves H/K consecutive query heads, as ``_repeat_kv`` lays
 them out."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -35,6 +36,29 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.exp(logits - torch.amax(logits, -1, keepdim=True))
     probs = probs / torch.sum(probs, -1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Each row's log-sum-exp of its masked, scaled logits, formed in f32
+    from q and k as the kernels form them, in the log2 domain (natural
+    log-sum-exp times log2 e): (B, H, S) f32, what the forward kernels
+    write with ``return_lse``."""
+    s = q.shape[2]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qi = torch.arange(s, device=q.device)[:, None]
+        ki = torch.arange(s, device=q.device)[None, :]
+        mask = ki <= qi
+        if window:
+            mask &= ki > qi - window
+        logits = torch.where(mask, logits, NEG_INF)
+    return torch.logsumexp(logits, -1) * math.log2(math.e)
 
 
 # bf16's unit roundoff: 8 significant bits, rounded to nearest, so a value

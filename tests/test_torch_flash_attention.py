@@ -5,12 +5,14 @@ package's own (``tests/test_kernels.py``): 2e-5 for f32, 3e-2 for bf16.
 Ragged lengths and grouped K/V heads, which the Pallas wrapper does not
 take, are held against the oracle alone. The kernel itself is held against
 this plain version on the card in ``test_torch_dense_card.py``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ref import NEG_INF
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention, flash_attention_cuda,
@@ -118,6 +120,39 @@ def test_grouped_kv_heads_match_repeated_oracle(kv_heads):
     rep = [jnp.repeat(jnp.asarray(a), 4 // kv_heads, axis=1) for a in (k, v)]
     ref = jax_attention(jnp.asarray(q), *rep, causal=True, window=8)
     np.testing.assert_allclose(out, np.asarray(ref), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape,kv_heads,causal,window", [
+    ((2, 4, 24, 16), 2, True, 0),      # GQA
+    ((1, 4, 37, 16), 4, True, 0),      # ragged
+    ((1, 6, 50, 16), 2, True, 12),     # a window, GQA
+    ((2, 3, 33, 64), 1, False, 0),     # unmasked, MQA
+])
+def test_return_lse_matches_logsumexp_of_the_reference_logits(
+        shape, kv_heads, causal, window):
+    """The forward's log-sum-exp (log2 domain) against ``jax.nn.logsumexp``
+    of the reference's masked, scaled logits, K/V repeated as the
+    reference's _repeat_kv lays them out; the output is the plain one."""
+    q, k, v = _qkv(shape, 7, kv_heads=kv_heads)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_cuda(tq, tk, tv, causal=causal, window=window,
+                                    return_lse=True)
+    assert lse.shape == shape[:3] and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention_cuda(tq, tk, tv, causal=causal,
+                                                 window=window))
+    rep = jnp.repeat(jnp.asarray(k), shape[1] // kv_heads, axis=1)
+    s = shape[2]
+    logits = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), rep) \
+        * shape[3] ** -0.5
+    if causal:
+        qi, ki = jnp.arange(s)[:, None], jnp.arange(s)[None, :]
+        mask = ki <= qi
+        if window:
+            mask &= ki > qi - window
+        logits = jnp.where(mask, logits, NEG_INF)
+    want = np.asarray(jax.nn.logsumexp(logits, axis=-1))
+    np.testing.assert_allclose(lse.numpy() * np.log(2.0), want, atol=2e-5,
+                               rtol=0)
 
 
 def test_cpu_tensors_launch_nothing():

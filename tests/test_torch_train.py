@@ -38,9 +38,12 @@ from repro_torch._tree import leaves
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ShapeSpec, get_config, reduced
 from repro_torch.data import SyntheticLMStream, device_put_batch
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_backward_cuda, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ops import (
     FlashAttentionFn, flash_attention, flash_attention_backward)
 from repro_torch.kernels.rmsnorm.ops import RmsNormFn, rms_norm
+from repro_torch.kernels.flash_attention import ops as ops_mod
 from repro_torch.launch import train as T
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as MT
@@ -223,8 +226,12 @@ B3_CASES = [(2, 4, 4, 40, 16, True, 0, 256),
             (1, 2, 2, 64, 64, True, 0, 24)]
 
 
+@pytest.mark.parametrize("formulation", ["ops", "kernel"])
 @pytest.mark.parametrize("case", B3_CASES, ids=str)
-def test_flash_backward_matches_jax_grad(case):
+def test_flash_backward_matches_jax_grad(case, formulation):
+    """Both formulations of the plain backward: "ops" recomputes the
+    softmax itself; "kernel" takes o and lse from the forward's plain
+    version (``return_lse``), as B3's backward kernel does."""
     b, h, kh, s, d, causal, window, block = case
     rng = np.random.default_rng(2)
     q = rng.standard_normal((b, h, s, d)).astype(np.float32)
@@ -240,8 +247,12 @@ def test_flash_backward_matches_jax_grad(case):
     _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
     want = [np.asarray(t) for t in vjp(jnp.asarray(do))]
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    saved = {}
+    if formulation == "kernel":
+        saved["o"], saved["lse"] = flash_attention_cuda(
+            tq, tk, tv, causal=causal, window=window, return_lse=True)
     got = flash_attention_backward(tq, tk, tv, tdo, causal=causal,
-                                   window=window, block=block)
+                                   window=window, block=block, **saved)
     for name, a, r in zip("qkv", got, want):
         assert a.shape == r.shape
         err = np.abs(a.numpy() - r).max()
@@ -274,11 +285,84 @@ def test_flash_backward_bf16_rounds_dk_dv_once(causal):
         assert np.all(np.abs(a - r) <= ulp), (name, np.abs(a - r).max())
 
 
-def test_functions_save_nothing_without_a_gradient():
+def test_flash_backward_of_cpu_tensors_launches_nothing():
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (1, 2, 24, 16)).astype(np.float32)) for _ in range(4))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    before = (flash_attention_backward_cuda.launches,
+              flash_attention_backward_cuda.launches_tc)
+    got = flash_attention_backward_cuda(q, k, v, o, lse, do)
+    want = flash_attention_backward(q, k, v, do, o=o, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (flash_attention_backward_cuda.launches,
+            flash_attention_backward_cuda.launches_tc) == before
+
+
+def _meta(*shape):
+    return torch.zeros(shape, device="meta")
+
+
+# the forward wrapper's refusals (tests/test_torch_flash_attention.py)
+@pytest.mark.parametrize("args,exc", [
+    ((_meta(1, 2, 16, 16),) * 3, ValueError),
+    ((torch.zeros(1, 2, 16, 16), torch.zeros(1, 3, 16, 16),
+      torch.zeros(1, 3, 16, 16)), ValueError),
+    ((torch.zeros(1, 2, 16, 16), torch.zeros(1, 2, 8, 16),
+      torch.zeros(1, 2, 8, 16)), ValueError),
+    ((torch.zeros(1, 2, 16, 16), torch.zeros(1, 2, 16, 16,
+                                             dtype=torch.bfloat16),
+      torch.zeros(1, 2, 16, 16)), TypeError),
+    ((torch.zeros(2, 16, 16),) * 3, ValueError),
+    ((torch.zeros(1, 2, 16, 16, dtype=torch.float16),) * 3, TypeError),
+    ((torch.zeros(1, 2, 16, 16), torch.zeros(1, 2, 16, 8),
+      torch.zeros(1, 2, 16, 8)), ValueError),
+    ((torch.zeros(1, 2, 16, 16), torch.zeros(1, 2, 16, 16),
+      torch.zeros(1, 1, 16, 16)), ValueError),
+])
+def test_flash_backward_refuses_what_the_kernel_does_not_take(args, exc):
+    q = args[0]
+    lse = torch.zeros(q.shape[:-1], device=q.device)
+    with pytest.raises(exc):
+        flash_attention_backward_cuda(*args, torch.zeros_like(q), lse,
+                                      torch.zeros_like(q))
+
+
+@pytest.mark.parametrize("which", ["o", "lse", "do"])
+def test_flash_backward_refuses_saved_tensors_that_do_not_fit(which):
+    q = torch.zeros(1, 2, 16, 16)
+    ops = dict(o=torch.zeros_like(q), lse=torch.zeros(1, 2, 16),
+               do=torch.zeros_like(q))
+    ops[which] = ops[which][..., :8]
+    with pytest.raises(ValueError):
+        flash_attention_backward_cuda(q, q, q, ops["o"], ops["lse"],
+                                      ops["do"])
+    ops[which] = torch.zeros(ops[which].shape[:-1] + (16,),
+                             dtype=torch.float64)
+    with pytest.raises(TypeError):
+        flash_attention_backward_cuda(q, q, q, ops["o"], ops["lse"],
+                                      ops["do"])
+
+
+def test_functions_save_nothing_without_a_gradient(monkeypatch):
     x = torch.ones(2, 64)
     assert rms_norm(x, torch.ones(64)).grad_fn is None
     q = torch.ones(1, 2, 8, 16)
+    # no log-sum-exp is asked of the forward without a gradient
+    asked = []
+    real = flash_attention_cuda
+
+    def spy(*a, **kw):
+        asked.append(kw.get("return_lse", False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops_mod, "flash_attention_cuda", spy)
     assert flash_attention(q, q, q).grad_fn is None
+    assert asked == [False]
+    q.requires_grad_(True)
+    assert flash_attention(q, q, q).grad_fn is not None
+    assert asked == [False, True]
+    q.requires_grad_(False)
     with torch.no_grad():
         assert rms_norm(x.requires_grad_(True), torch.ones(64)).grad_fn \
             is None
