@@ -74,11 +74,12 @@ tensor-core kernel. Then:
   ledger (no request has an eos, so it does not depend on tokens) must
   equal the same call's on the CPU at the reduced config, run here too;
 * slices 6a + 7a, single-device training through B2 and B3 with their
-  gradients (B2's written out as PyTorch ops in ``kernels/rmsnorm/ops.py``,
-  B3's its backward kernel): ``train_grad_check``, B2's and B3's gradients
-  at the training shapes in f32 and bf16 against autograd through their
-  plain versions, timed beside it, beside the library's (``F.rms_norm``'s,
-  SDPA's) and, for B3, beside the PyTorch ops its backward kernel replaced;
+  gradients (each a hand-written kernel: B2's in ``csrc/rmsnorm.cu``, B3's
+  in ``csrc/flash_attention.cu``): ``train_grad_check``, B2's and B3's
+  gradients at the training shapes in f32 and bf16 against autograd
+  through their plain versions, timed beside it, beside the library's
+  (``F.rms_norm``'s, as device time under the profiler; SDPA's) and beside
+  the PyTorch ops each gradient kernel replaced;
   B3's forward timed with and without the log-sum-exp training asks of it; ``train_model_check``, llama3.2-3b at full width, 4 layers, f32:
   ``forward_loss`` and every parameter's gradient through the kernels
   against the same through the plain versions; ``train``,
@@ -95,9 +96,12 @@ tensor-core kernel. Then:
   step 2, restored and held bit for bit to the live state that was saved,
   and steps 3-4 resumed from it against an unbroken run's losses;
 * slice 7b, the other five families train on one card, RWKV through B4's
-  backward kernel (``csrc/wkv.cu``): ``wkv_backward_check``, the backward
-  against autograd through ``wkv_ref`` at the training shape, at S = 333,
-  under weak and strong decay and at head dim 16, timed beside its bound;
+  backward (``csrc/wkv.cu``: a chunked tensor-core kernel at head dim 64
+  from S = 64, the sequential one below and at head dim 16):
+  ``wkv_backward_check``, the backward against autograd through
+  ``wkv_ref`` at the training shape, at S = 333, under weak and strong
+  decay and at head dim 16, timed beside the sequential backward kernel
+  and its bound;
   ``family_grad_check``, B2's and B3's gradients at the families' training
   shapes; then for rwkv6-1.6b, zamba2-7b (27 layers), mixtral-8x7b (2
   layers, 8 experts), seamless-m4t-medium and llava-next-mistral-7b (16
@@ -422,8 +426,8 @@ WKV_CASES = (((2, 32, 2048, 64), MODEL_LW, False, True, "forward"),
 
 
 # Slices 6a + 7a: single-device training of llama3.2-3b through B2 and B3,
-# B2's gradient written out as PyTorch ops (kernels/rmsnorm/ops.py), B3's
-# its backward kernel (csrc/flash_attention.cu).
+# each gradient a hand-written kernel (csrc/rmsnorm.cu,
+# csrc/flash_attention.cu).
 # train_grad_check: B2 at the training shape in f32 and bf16, B3 at the
 # training shape, causal, bf16 on the tensor-core kernel and f32 on the
 # scalar one, against autograd through the plain versions. f32: dx and
@@ -562,9 +566,22 @@ def launches_since(before: dict[str, int]) -> dict[str, int]:
     return {k: n - before[k] for k, n in lm_launches().items()}
 
 
-def wkv_backward_launches() -> int:
+def backward_launches() -> dict[str, int]:
+    """The gradient kernels' launches (B2's, B3's, B4's both and B4's
+    chunked one apart), beside ``lm_launches()`` on the training paths."""
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_backward_cuda
+    from repro_torch.kernels.rmsnorm import rms_norm_backward_cuda
     from repro_torch.kernels.wkv.kernel import wkv_backward_cuda
-    return wkv_backward_cuda.launches
+    return {"rms_norm_backward": rms_norm_backward_cuda.launches,
+            "wkv_backward": wkv_backward_cuda.launches,
+            "wkv_backward_tc": wkv_backward_cuda.launches_tc,
+            "flash_attention_backward":
+                flash_attention_backward_cuda.launches}
+
+
+def backward_since(before: dict[str, int]) -> dict[str, int]:
+    return {k: n - before[k] for k, n in backward_launches().items()}
 
 
 def flash_backward_launches() -> int:
@@ -577,18 +594,20 @@ def train_launches(cfg) -> dict[str, int]:
     """Each LM kernel's launches in one training step of ``cfg`` (remat
     full), as the code gives them: the forward, then each remat block again
     in the backward (a layer; a hybrid group, the shared attention and its
-    Mamba layers, or a tail layer), B4's backward once a layer, B3's
-    backward once an attention. Outside the blocks: the final norm, an
-    encoder's enc_norm, the VLM's patch norm. B3 on the tensor cores in
-    bf16."""
+    Mamba layers, or a tail layer), B2's gradient once a norm of the
+    forward, B4's backward once a layer (on its chunked kernel: head dim 64
+    and at least 64 tokens), B3's backward once an attention. Outside the
+    blocks: the final norm, an encoder's enc_norm, the VLM's patch norm. B3
+    on the tensor cores in bf16."""
     from repro_torch.models.transformer import hybrid_groups
 
     n = cfg.num_layers
     out = dict(rms_norm=4 * n + 1, flash_attention=2 * n, wkv=0, wkv_tc=0,
-               wkv_backward=0)
+               wkv_backward=0, wkv_backward_tc=0)
+    outside = 1  # norms outside the remat blocks: the final norm
     if cfg.family == "ssm":
         out.update(flash_attention=0, wkv=2 * n, wkv_tc=2 * n,
-                   wkv_backward=n)
+                   wkv_backward=n, wkv_backward_tc=n)
     elif cfg.family == "hybrid":
         groups, tail = hybrid_groups(cfg)
         blocks = groups * (1 + cfg.attn_every) + tail
@@ -597,8 +616,11 @@ def train_launches(cfg) -> dict[str, int]:
         e = cfg.encoder_layers
         out.update(rms_norm=2 * (2 * e + 3 * n) + 2,
                    flash_attention=2 * (e + n))
+        outside = 2
     elif cfg.frontend == "vision":
         out["rms_norm"] += 1
+        outside = 2
+    out["rms_norm_backward"] = (out["rms_norm"] + outside) // 2
     out["flash_attention_tc"] = (out["flash_attention"]
                                  if cfg.dtype == "bfloat16" else 0)
     out["flash_attention_backward"] = out["flash_attention"] // 2
@@ -709,6 +731,30 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` a call: its kernels' own times summed under
+    torch.profiler over ``reps`` calls after one warm-up call, so host gaps
+    between its launches do not count (a library call driven through
+    autograd is host-paced, and CUDA events around it time the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0)
+                or getattr(e, "self_cuda_time_total", 0.0)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.key != "Command Buffer Full")
+    return total / 1e3 / reps
 
 
 def bound_ms(grid, entry: str) -> float:
@@ -1814,14 +1860,17 @@ class Smoke:
 
     # -- phase 5c: where the chunked B4 kernel's cycles go ----------------
     def wkv_cycles(self):
-        """B4's tensor-core kernel built with its phase counters
-        (``kernels/wkv/cycles.py``) at the forward's shape: cycles a chunk
-        of each phase by warp; ``mma.sync`` and barrier microbenchmarks."""
+        """B4's tensor-core kernels built with their phase counters
+        (``kernels/wkv/cycles.py``) at the forward's shape: the forward's
+        cycles a chunk of each phase by warp; ``mma.sync`` and barrier
+        microbenchmarks; the chunked backward's cycles a block of each
+        phase by warp."""
         from repro_torch.kernels.wkv import cycles
 
         phases = cycles.phase_cycles()
         emit({"phase": "wkv_cycles", **phases,
-              "microbenchmarks": cycles.microbenchmarks(), "card": self.card})
+              "microbenchmarks": cycles.microbenchmarks(),
+              "backward": cycles.backward_phase_cycles(), "card": self.card})
 
     # -- phase 6: the LMs at full width, f32 -----------------------------
     def model_check(self, arch, module, attr, plain, kernel, kernel_rtol,
@@ -3174,10 +3223,53 @@ class Smoke:
         y = F.rms_norm(xl, (x.shape[-1],), wl, 1e-5)
         return lambda: torch.autograd.grad(y, (xl, wl), g, retain_graph=True)
 
+    def rms_grad_timed(self, x, scale, g, label) -> dict:
+        """B2's gradient kernel on (x, scale) and the cotangent g: twice for
+        the same bits (one launch counted a call), then timed by CUDA
+        events beside the PyTorch ops it took the place of
+        (``rms_norm_backward_ref``), the plain version's autograd and
+        ``F.rms_norm``'s autograd backward, with the bound. The library's
+        time is its device time (``device_ms``: its kernels' times under
+        the profiler; by CUDA events it is host-paced, kept as
+        ``library_event_ms``), and the kernel's device time beside it."""
+        import torch
+        from repro_torch.kernels.rmsnorm import (rms_norm_backward_cuda,
+                                                 rms_norm_backward_ref,
+                                                 rms_norm_ref)
+
+        n = rms_norm_backward_cuda.launches
+        kern = functools.partial(rms_norm_backward_cuda, x, scale, g)
+        first, again = kern(), kern()
+        torch.cuda.synchronize()
+        self.check(rms_norm_backward_cuda.launches == n + 2,
+                   f"{label}: B2 gradient launches "
+                   f"{rms_norm_backward_cuda.launches - n} for 2 calls")
+        self.check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                   f"{label}: B2's gradient is not repeatable")
+        del first, again
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, scale)]
+        y = rms_norm_ref(*leaves)
+        lib = self.rms_norm_library_grad(x, scale, g)
+        out = timed_pair(
+            kern, lambda: torch.autograd.grad(y, leaves, g,
+                                              retain_graph=True), REPS, lib,
+            ops_fn=functools.partial(rms_norm_backward_ref, x, scale, g,
+                                     1e-5))
+        out["library_event_ms"] = out["library_ms"]
+        out["library_ms"] = device_ms(lib, REPS)
+        out["device_ms"] = device_ms(kern, REPS)
+        out["library_call"] = ("autograd through F.rms_norm, device time "
+                               "under the profiler")
+        out["bound_ms"], out["bound_by"] = rms_grad_bound_ms(
+            tuple(x.shape), x.element_size())
+        del y, leaves, lib
+        return out
+
     def train_grad_check(self):
         """B2's and B3's gradients on the card at the training shapes, each
         through its ``autograd.Function`` (the kernel forward, then B3's
-        backward kernel or B2's written backward) against autograd through
+        backward kernel or B2's gradient kernel) against autograd through
         its plain version, with the backward's time beside the plain
         version's autograd backward and the library's (``F.rms_norm``'s,
         SDPA's); B3's also beside the PyTorch ops it replaced."""
@@ -3186,8 +3278,7 @@ class Smoke:
         from repro_torch.kernels.flash_attention import attention_ref
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.rmsnorm import rms_norm_ref
-        from repro_torch.kernels.rmsnorm.ops import (
-            rms_norm, rms_norm_backward)
+        from repro_torch.kernels.rmsnorm.ops import rms_norm
 
         rng = np.random.default_rng(3)
         dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -3233,17 +3324,9 @@ class Smoke:
             row = {"shape": list(GRAD_RMS_SHAPE), "dtype": dt,
                    "grads": held("rms_norm", dt, got, plain, f32,
                                  GRAD_RMS_RTOL, ("x", "scale"))}
-            xr = x.detach().clone().requires_grad_(True)
-            sr = scale.detach().clone().requires_grad_(True)
-            y = rms_norm_ref(xr, sr)
-            lib = self.rms_norm_library_grad(x, scale, g)
-            row.update(timed_pair(
-                lambda: rms_norm_backward(x, scale, g, 1e-5),
-                lambda: torch.autograd.grad(y, (xr, sr), g,
-                                            retain_graph=True), REPS, lib))
-            row["bound_ms"], row["bound_by"] = rms_grad_bound_ms(
-                GRAD_RMS_SHAPE, x.element_size())
-            del got, plain, f32, y, xr, sr, lib
+            del got, plain, f32
+            row.update(self.rms_grad_timed(x, scale, g,
+                                           f"train_grad_check {dt}"))
             emit({"phase": "train_grad_check", "kernel": "rms_norm", **row,
                   "card": self.card})
             rows[("rms_norm", dt)] = row
@@ -3271,9 +3354,27 @@ class Smoke:
         keys = ("shape", "grads", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")
         self.kernels["rms_norm"]["gradient"] = {
-            "route": "PyTorch ops, kernels/rmsnorm/ops.py",
-            **{dt: {k: rows[("rms_norm", dt)][k] for k in keys}
+            "route": "cuda, rms_norm_backward_cuda (the rms_norm_backward "
+                     "entry)",
+            **{dt: {k: rows[("rms_norm", dt)][k]
+                    for k in keys + ("ops_ms", "device_ms")}
                for dt in ("float32", "bfloat16")}}
+        main = rows[("rms_norm", "bfloat16")]
+        self.kernels["rms_norm_backward"] = {
+            "name": "rms_norm_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm/kernel.py:17",
+            "launches": 0,
+            "max_abs_err": max(g["max_abs_err"] for dt in (
+                "float32", "bfloat16") for g in rows[(
+                    "rms_norm", dt)]["grads"].values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library_event_ms",
+                                    "device_ms", "ops_ms", "shape", "dtype")},
+            "plain": "autograd through rms_norm_ref",
+            "ops": "kernels/rmsnorm/ref.py rms_norm_backward_ref, the "
+                   "PyTorch ops the kernel replaced",
+            "library": main["library_call"], "card": self.card}
         self.kernels["flash_attention"]["gradient"] = {
             "route": "cuda, flash_attention_backward_cuda (the "
                      "flash_attention_backward entry)",
@@ -3325,10 +3426,9 @@ class Smoke:
             loss.backward()
             return float(loss), [g.clone() for g in leaves(grads)]
 
-        before, nb = lm_launches(), flash_backward_launches()
+        before, nb = lm_launches(), backward_launches()
         loss, got = run()
-        n = launches_since(before)
-        n["flash_attention_backward"] = flash_backward_launches() - nb
+        n = {**launches_since(before), **backward_since(nb)}
         with plain_training():
             plain_loss, want = run()
         worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(
@@ -3341,8 +3441,10 @@ class Smoke:
                    f"train_model_check: a gradient leaf {worst} of its max "
                    f"|g| from plain's")
         # remat full: the forward and the recompute, both through the
-        # kernels; B3's backward kernel (the scalar one, in f32) a layer
+        # kernels; B2's gradient kernel a norm, B3's backward kernel (the
+        # scalar one, in f32) a layer
         self.check(n["rms_norm"] == 4 * layers_n + 1
+                   and n["rms_norm_backward"] == 2 * layers_n + 1
                    and n["flash_attention"] == 2 * layers_n
                    and n["flash_attention_backward"] == layers_n,
                    f"train_model_check launches {n}")
@@ -3386,9 +3488,7 @@ class Smoke:
         with contextlib.redirect_stdout(log):
             out, seconds, ws, samples = metered(lambda: train(
                 ARCH, use_reduced=False, log_every=1, **TRAIN))
-        counts = launches_since(before)
-        counts["wkv_backward"] = wkv_backward_launches()
-        counts["flash_attention_backward"] = flash_backward_launches()
+        counts = {**launches_since(before), **backward_launches()}
         peak = torch.cuda.max_memory_allocated()
         self.path_launches[f"{ARCH} train"] = counts
         step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
@@ -3646,16 +3746,19 @@ class Smoke:
 
     # -- slice 7b: the other five families train, B4 with its backward ----
     def wkv_backward_check(self):
-        """B4's backward kernel at every WKV_GRAD_CASES entry against
-        autograd through ``wkv_ref``: dr, dk, dv, dlw and du each within
-        WKV_GRAD_RTOL of its max |.|, a repeat bit for bit; through
-        ``WkvFn`` (B4's forward, then the backward kernel) at the training
-        shape too. Timed at the training shape beside the plain version's
-        autograd backward and the bound."""
+        """B4's backward at every WKV_GRAD_CASES entry, on the kernel
+        ``kernel_for`` picks (the chunked one at head dim 64, the sequential
+        one at 16), against autograd through ``wkv_ref``: dr, dk, dv, dlw
+        and du each within WKV_GRAD_RTOL of its max |.|, a repeat bit for
+        bit; through ``WkvFn`` (B4's forward, then the backward) at the
+        training shape too. Timed at the training shape beside the
+        sequential backward kernel (forced through ``kernel=``), the plain
+        version's autograd backward and the bound."""
         import numpy as np
         import torch
         from repro_torch.kernels.wkv import wkv_ref
-        from repro_torch.kernels.wkv.kernel import wkv_backward_cuda
+        from repro_torch.kernels.wkv.kernel import kernel_for, \
+            wkv_backward_cuda
         from repro_torch.kernels.wkv.ops import wkv
         from repro_torch.kernels.wkv.ref import wkv_backward_ref
 
@@ -3682,10 +3785,15 @@ class Smoke:
                       for t in (r, k, v, lw, u)]
             out, _ = wkv_ref(*leaves)
             want = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            kernel = kernel_for(s, d)
+            n_tc = wkv_backward_cuda.launches_tc
             got = wkv_backward_cuda(r, k, v, lw, u, do)
             again = wkv_backward_cuda(r, k, v, lw, u, do)
             torch.cuda.synchronize()
-            row = {"shape": list(shape), "case": label,
+            self.check(wkv_backward_cuda.launches_tc - n_tc
+                       == 2 * (kernel == "tensor_core"),
+                       f"wkv_backward {label}: not on kernel_for's {kernel}")
+            row = {"shape": list(shape), "case": label, "kernel": kernel,
                    "model_layout": model_layout, "lw_range": list(lw_range),
                    "tolerance": WKV_GRAD_RTOL, "grads": {}}
             for name, a, a2, w in zip(names, got, again, want):
@@ -3716,18 +3824,28 @@ class Smoke:
                                row["through_wkv_fn"].values()),
                            f"WkvFn at {shape}: {row['through_wkv_fn']}")
                 del through, o
+                # plain, the sequential kernel, the chunked one twice, the
+                # sequential one, plain (timed_pair's "ops" slot)
                 row.update(timed_pair(
                     lambda: wkv_backward_cuda(r, k, v, lw, u, do),
                     lambda: torch.autograd.grad(out, leaves, do,
-                                                retain_graph=True), REPS // 4,
-                    plain_reps=1))
+                                                retain_graph=True), REPS,
+                    plain_reps=1, ops_fn=lambda: wkv_backward_cuda(
+                        r, k, v, lw, u, do, kernel="sequential")))
+                row["sequential_ms"] = row.pop("ops_ms")
+                row["sequential_ms_runs"] = row.pop("ops_ms_runs")
                 row["bound_ms"], row["bound_by"] = wkv_backward_bound_ms(
                     b, h, s, d)
+                self.check(row["ms"] < row["sequential_ms"],
+                           f"wkv_backward: the chunked kernel's {row['ms']} "
+                           f"ms is not below the sequential kernel's "
+                           f"{row['sequential_ms']}")
                 self.kernels["wkv_backward"] = {
                     "name": "wkv_backward", "route": "cuda",
                     "source": "src/repro_torch/csrc/wkv.cu",
                     "replaces": "src/repro/kernels/wkv/kernel.py:22",
-                    "launches": 0, "ms": row["ms"],
+                    "launches": 0, "kernel": kernel, "ms": row["ms"],
+                    "sequential_ms": row["sequential_ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"], "library_ms": None,
                     "shape": list(shape), "dtype": "float32",
@@ -3741,16 +3859,16 @@ class Smoke:
         """B2's and B3's gradients at the shapes the five families train at
         (FAMILY_GRAD_SHAPES), in bf16: each through its ``autograd.Function``
         against the plain version's autograd in bf16 and in f32 (held as
-        ``train_grad_check`` holds bf16), with the backward's ms beside the
-        plain version's and the library's (B3's as ``train_grad_check``
-        times it)."""
+        ``train_grad_check`` holds bf16: GRAD_BF16_FACTOR times plain bf16's
+        own distance from the f32 gradient, for B2 at least GRAD_RMS_RTOL of
+        its max), with the backward's ms beside the plain version's and the
+        library's, as ``train_grad_check`` times them."""
         import numpy as np
         import torch
         from repro_torch.kernels.flash_attention import attention_ref
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.rmsnorm import rms_norm_ref
-        from repro_torch.kernels.rmsnorm.ops import (
-            rms_norm, rms_norm_backward)
+        from repro_torch.kernels.rmsnorm.ops import rms_norm
 
         rng = np.random.default_rng(12)
         bf16 = torch.bfloat16
@@ -3793,6 +3911,11 @@ class Smoke:
                 err = float((a - r).abs().max())
                 own = float((p - r).abs().max())
                 limit = GRAD_BF16_FACTOR * own
+                if kind == "rms_norm":
+                    # as train_grad_check: at least the f32 limit, where
+                    # the plain bf16 gradient lands on the f32 one (dscale
+                    # is an f32 sum of bf16 products, exact in both)
+                    limit = max(limit, GRAD_RMS_RTOL * float(r.abs().max()))
                 row["grads"][n] = {"max_abs_err": err, "plain_bf16_err": own,
                                    "max_abs": float(r.abs().max()),
                                    "limit": limit}
@@ -3801,17 +3924,8 @@ class Smoke:
             del got, want, f32
             torch.cuda.empty_cache()
             if kind == "rms_norm":
-                leaves = [t.detach().clone().requires_grad_(True)
-                          for t in inputs]
-                y = plain(*leaves)
-                lib = self.rms_norm_library_grad(x, scale, g)
-                row.update(timed_pair(
-                    functools.partial(rms_norm_backward, x, scale, g, 1e-5),
-                    lambda: torch.autograd.grad(
-                        y, leaves, g, retain_graph=True), REPS, lib))
-                row["bound_ms"], row["bound_by"] = rms_grad_bound_ms(
-                    shape, x.element_size())
-                del y, leaves, lib
+                row.update(self.rms_grad_timed(
+                    x, scale, g, f"family_grad_check {arch} {shape}"))
             else:
                 row.update(self.flash_backward_timed(
                     q, k, v, g, causal, window,
@@ -3820,11 +3934,17 @@ class Smoke:
             emit({"phase": "family_grad_check", **row, "card": self.card})
             rows[kind].append({k: row.get(k) for k in (
                 "arch", "shape", "causal", "window", "grads", "ms",
-                "plain_ms", "ops_ms", "library_ms", "bound_ms", "bound_by")})
+                "plain_ms", "ops_ms", "library_ms", "library_event_ms",
+                "device_ms", "bound_ms", "bound_by")})
             del inputs, g
             torch.cuda.empty_cache()
         for name, got in rows.items():
             self.kernels[name].setdefault("gradient", {})["families"] = got
+        b2 = self.kernels["rms_norm_backward"]
+        b2["families"] = rows["rms_norm"]
+        b2["max_abs_err"] = max([b2["max_abs_err"]] + [
+            e["max_abs_err"] for r in rows["rms_norm"]
+            for e in r["grads"].values()])
         b3 = self.kernels["flash_attention_backward"]
         b3["families"] = rows["flash_attention"]
         b3["max_abs_err"] = max([b3["max_abs_err"]] + [
@@ -3906,15 +4026,12 @@ class Smoke:
         if cfg.family == "ssm":  # so that the shifts and the bonus count
             shift_rwkv(cfg, MT.TransformerLM.from_stacked(cfg, params))
         batch = self.family_batch(cfg, CHECK_SEQ)
-        before = lm_launches()
-        nb, nf = wkv_backward_launches(), flash_backward_launches()
+        before, nb = lm_launches(), backward_launches()
         with held_routing(cfg) as routing:
             if routing is not None:
                 routing.record()
             loss, got = self.gradient_of(cfg, params, batch, plain=False)
-            n = launches_since(before)
-            n["wkv_backward"] = wkv_backward_launches() - nb
-            n["flash_attention_backward"] = flash_backward_launches() - nf
+            n = {**launches_since(before), **backward_since(nb)}
             got = [g.clone() for g in leaves(got)]
             if routing is not None:
                 routing.hold(routing.recorded.__getitem__)
@@ -4125,9 +4242,7 @@ class Smoke:
                 by_step if cfg.frontend == "vision" else lambda: train(
                     cfg, use_reduced=False, log_every=1, steps=steps,
                     global_batch=2, seq_len=seq))
-        counts = launches_since(before)
-        counts["wkv_backward"] = wkv_backward_launches()
-        counts["flash_attention_backward"] = flash_backward_launches()
+        counts = {**launches_since(before), **backward_launches()}
         peak = torch.cuda.max_memory_allocated()
         self.path_launches[f"{arch} train"] = counts
         step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
@@ -4231,9 +4346,13 @@ class Smoke:
         main paths it ran on, kept apart in ``launches_by_path``. B4's two
         kernels are two entries: ``wkv`` counts the sequential kernel's
         launches (the wrapper's less the tensor-core kernel's), ``wkv_tc``
-        the tensor-core kernel's; ``wkv_backward`` its backward kernel's
-        and ``flash_attention_backward`` B3's (the training paths')."""
+        the tensor-core kernel's; ``wkv_backward`` its backward's (both
+        kernels; ``launches_tc`` the chunked one's),
+        ``flash_attention_backward`` B3's and ``rms_norm_backward`` B2's
+        gradient kernel's (the training paths')."""
         counted = {"rms_norm": lambda n: n["rms_norm"],
+                   "rms_norm_backward":
+                       lambda n: n.get("rms_norm_backward", 0),
                    "flash_attention": lambda n: n["flash_attention"],
                    "wkv": lambda n: n["wkv"] - n["wkv_tc"],
                    "wkv_tc": lambda n: n["wkv_tc"],
@@ -4246,6 +4365,14 @@ class Smoke:
             self.kernels[name]["launches"] = sum(by_path.values())
             self.kernels[name]["launches_by_path"] = by_path
             self.check(bool(by_path), f"{name} never launched on a main path")
+        # every B4 backward launch of the training paths went through the
+        # chunked kernel
+        b4 = self.kernels["wkv_backward"]
+        b4["launches_tc"] = sum(n.get("wkv_backward_tc", 0)
+                                for n in self.path_launches.values())
+        self.check(b4["launches_tc"] == b4["launches"],
+                   f"B4's backward: {b4['launches_tc']} of {b4['launches']} "
+                   "main-path launches on the chunked kernel")
         # every B3 launch of the main paths went through the tensor cores
         b3 = self.kernels["flash_attention"]
         b3["launches_tc"] = sum(n["flash_attention_tc"]

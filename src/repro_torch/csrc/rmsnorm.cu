@@ -24,10 +24,52 @@
 // then xor shuffles inside each warp, then the warps' sums from shared
 // memory, added by every thread in the same order; there are no atomics,
 // so y repeats bit for bit from run to run. Built without --fmad=false.
+//
+// The gradient (`rmsnorm_backward_kernel`, then `rmsnorm_dscale_kernel`)
+// replaces no TPU kernel: the JAX package differentiates its jnp RMSNorm,
+// and the port's gradient was PyTorch ops (the plain version
+// kernels/rmsnorm/ref.py `rms_norm_backward_ref`). With rstd =
+// rsqrt(mean(x^2) + eps) and the cotangent g of y, in f32:
+//   dx     = rstd * (g*scale - x * rstd^2 * mean(x * g*scale))  -> x's dtype
+//   dscale = sum over all rows of g * x * rstd                   -> f32 (D,)
+// Bound: x and g read once, dx written once, scale and dscale 8*D bytes,
+// ~10 operations an element: bytes, 22.5 us at (2*2048, 3072) bf16.
+// Design: one pass over each row, the row of x and of g kept in registers
+// as the forward keeps x (16-byte vectors, the forward's VPT/BLOCK tiers by
+// D, and one vector a thread on 128 or 256 threads up to 256 vectors); the
+// next row's x and g are loaded while this one is reduced; both sums (x^2
+// and x*g*scale) in one sweep, each reduced in a fixed order as the
+// forward's. dscale is a sum down the columns, so the grid is
+// persistent (as many blocks as fit on the card at once, each walking the
+// rows blockIdx.x, + gridDim.x, ...): a thread owns fixed columns and keeps
+// their partial dscale in f32 registers across its rows, and each block
+// writes one row of partials (blocks x D f32, a few percent of the bytes);
+// the second launch adds them over the blocks in a fixed order. No
+// atomics: two runs give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+// The arguments of the gradient's launches, packed by the wrapper with
+// "=6Qiifiii" (kernels/rmsnorm/kernel.py `_pack_backward`).
+struct RmsBackArgs {
+  const void* x;
+  const float* scale;
+  const void* g;
+  void* dx;
+  float* partial;  // blocks x d f32 scratch
+  float* dscale;
+  int rows;
+  int d;
+  float eps;
+  int dtype;   // 0 = f32, 1 = bf16
+  int blocks;  // the first launch's grid, at most rmsnorm_backward_blocks
+  int pad;
+};
+static_assert(sizeof(RmsBackArgs) == 72 && offsetof(RmsBackArgs, rows) == 48 &&
+                  offsetof(RmsBackArgs, eps) == 56,
+              "RmsBackArgs must match the wrapper's struct format =6Qiifiii");
 
 namespace {
 
@@ -132,6 +174,154 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// The gradient's first launch: dx, and each block's partial dscale.
+template <typename T, int VPT, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+rmsnorm_backward_kernel(const T* __restrict__ x,
+                        const float* __restrict__ scale,
+                        const T* __restrict__ g, T* __restrict__ dx,
+                        float* __restrict__ partial, int rows, int d,
+                        float eps) {
+  constexpr int N = Pack<T>::N;
+  constexpr int WARPS = THREADS / 32;
+  __shared__ float warp_sums[2][WARPS];
+  const int nvec = d / N;
+  const float4* sr = reinterpret_cast<const float4*>(scale);
+  const float inv_d = 1.0f / (float)d;
+
+  float s[VPT][N], ds[VPT][N];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      s[i][e] = 0.f;
+      ds[i][e] = 0.f;
+    }
+    if (idx < nvec) {
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 s4 = sr[idx * (N / 4) + q];
+        s[i][4 * q] = s4.x;
+        s[i][4 * q + 1] = s4.y;
+        s[i][4 * q + 2] = s4.z;
+        s[i][4 * q + 3] = s4.w;
+      }
+    }
+  }
+
+  // the next row's x and g are loaded while this one is reduced
+  uint4 xn[VPT], gn[VPT];
+  auto fetch = [&](int64_t row) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+    const uint4* gr = reinterpret_cast<const uint4*>(g + row * d);
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      if (idx < nvec) {
+        xn[i] = xr[idx];
+        gn[i] = gr[idx];
+      }
+    }
+  };
+  if (blockIdx.x < rows) fetch(blockIdx.x);
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    uint4* dr = reinterpret_cast<uint4*>(dx + row * d);
+    float xv[VPT][N], gv[VPT][N];
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      if (idx < nvec) {
+        Pack<T>::unpack(xn[i], xv[i]);
+        Pack<T>::unpack(gn[i], gv[i]);
+      }
+    }
+    if (row + gridDim.x < rows) fetch(row + gridDim.x);
+    float ss = 0.f, sg = 0.f;  // sum of x^2, sum of x * g * scale
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      if (idx < nvec) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          ss += xv[i][e] * xv[i][e];
+          sg += xv[i][e] * (gv[i][e] * s[i][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sg += __shfl_xor_sync(0xffffffffu, sg, off);
+    }
+    if (WARPS > 1) {
+      if ((threadIdx.x & 31) == 0) {
+        warp_sums[0][threadIdx.x >> 5] = ss;
+        warp_sums[1][threadIdx.x >> 5] = sg;
+      }
+      __syncthreads();
+      ss = 0.f;
+      sg = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        ss += warp_sums[0][w];
+        sg += warp_sums[1][w];
+      }
+      __syncthreads();  // warp_sums is written again for the next row
+    }
+    const float r = rsqrtf(ss * inv_d + eps);
+    const float m = r * r * sg * inv_d;  // rstd * mean(xhat * g * scale)
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      if (idx < nvec) {
+        float o[N];
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          o[e] = r * (gv[i][e] * s[i][e] - xv[i][e] * m);
+          ds[i][e] = fmaf(gv[i][e], xv[i][e] * r, ds[i][e]);
+        }
+        dr[idx] = Pack<T>::pack(o);
+      }
+    }
+  }
+  float4* pr = reinterpret_cast<float4*>(partial + (int64_t)blockIdx.x * d);
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    if (idx < nvec) {
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q)
+        pr[idx * (N / 4) + q] = make_float4(ds[i][4 * q], ds[i][4 * q + 1],
+                                            ds[i][4 * q + 2], ds[i][4 * q + 3]);
+    }
+  }
+}
+
+// The gradient's second launch: dscale[c] = sum over b of partial[b][c],
+// b in order. A block takes 32 columns; its 8 warps take every 8th row of
+// partials, and their sums are added in warp order.
+constexpr int DS_COLS = 32, DS_GROUPS = 8;
+__global__ void __launch_bounds__(DS_COLS* DS_GROUPS)
+rmsnorm_dscale_kernel(const float* __restrict__ partial,
+                      float* __restrict__ dscale, int blocks, int d) {
+  __shared__ float part[DS_GROUPS][DS_COLS];
+  const int col = blockIdx.x * DS_COLS + threadIdx.x % DS_COLS;
+  const int grp = threadIdx.x / DS_COLS;
+  float acc = 0.f;
+  if (col < d)
+    for (int b = grp; b < blocks; b += DS_GROUPS)
+      acc += partial[(int64_t)b * d + col];
+  part[grp][threadIdx.x % DS_COLS] = acc;
+  __syncthreads();
+  if (grp == 0 && col < d) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < DS_GROUPS; ++q) s += part[q][threadIdx.x];
+    dscale[col] = s;
+  }
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const float* scale, void* y, int rows,
                    int d, float eps, cudaStream_t stream) {
@@ -153,6 +343,53 @@ cudaError_t launch(const void* x, const float* scale, void* y, int rows,
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
+}
+
+// With `blocks` set: the most blocks of this tier that are resident on the
+// current device at once. Otherwise both launches of the gradient.
+template <typename T, int VPT, int THREADS>
+cudaError_t backward_tier(const RmsBackArgs& a, cudaStream_t stream,
+                          int* blocks) {
+  const auto kernel = rmsnorm_backward_kernel<T, VPT, THREADS>;
+  if (blocks != nullptr) {
+    int dev = 0, sms = 0, per = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
+                                                          THREADS, 0);
+    *blocks = sms * per;
+    return err;
+  }
+  kernel<<<a.blocks, THREADS, 0, stream>>>(
+      static_cast<const T*>(a.x), a.scale, static_cast<const T*>(a.g),
+      static_cast<T*>(a.dx), a.partial, a.rows, a.d, a.eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_kernel<<<(a.d + DS_COLS - 1) / DS_COLS, DS_COLS * DS_GROUPS,
+                          0, stream>>>(a.partial, a.dscale, a.blocks, a.d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t backward(const RmsBackArgs& a, cudaStream_t stream, int* blocks) {
+  const int nvec = a.d / Pack<T>::N;
+  if (nvec <= 32) return backward_tier<T, 1, 32>(a, stream, blocks);
+  if (nvec <= 128) return backward_tier<T, 1, 128>(a, stream, blocks);
+  if (nvec <= BLOCK) return backward_tier<T, 1, BLOCK>(a, stream, blocks);
+  if (nvec <= 2 * BLOCK) return backward_tier<T, 2, BLOCK>(a, stream, blocks);
+  if (nvec <= 4 * BLOCK) return backward_tier<T, 4, BLOCK>(a, stream, blocks);
+  if (nvec <= 8 * BLOCK) return backward_tier<T, 8, BLOCK>(a, stream, blocks);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t backward_any(const RmsBackArgs& a, cudaStream_t stream,
+                         int* blocks) {
+  if (a.d <= 0) return cudaErrorInvalidValue;
+  if (a.dtype == 0) return backward<float>(a, stream, blocks);
+  if (a.dtype == 1) return backward<__nv_bfloat16>(a, stream, blocks);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -194,6 +431,29 @@ int rmsnorm_forward(const RmsArgs* a, void* stream) {
     return static_cast<int>(launch<__nv_bfloat16>(a->x, a->scale, a->y,
                                                   a->rows, a->d, a->eps, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradient's grid limit for rows of `d` elements of `dtype` (0 = f32,
+// 1 = bf16): the blocks of the first launch that are resident on the
+// current device at once. The wrapper launches min(rows, this) blocks and
+// allocates that many rows of partials.
+int rmsnorm_backward_blocks(int d, int dtype, int* blocks) {
+  RmsBackArgs a{};
+  a.d = d;
+  a.dtype = dtype;
+  return static_cast<int>(backward_any(a, nullptr, blocks));
+}
+
+// dx (x's shape and dtype) and dscale (d f32) of y = rms_norm(x, scale) for
+// the cotangent g (x's shape and dtype): rows x d, contiguous, 16-byte
+// aligned, d a multiple of 16 bytes' worth of elements, 1 <= blocks <=
+// rows (the wrapper checks). Launches both kernels on `stream`, allocates
+// nothing, returns cudaGetLastError().
+int rmsnorm_backward(const RmsBackArgs* a, void* stream) {
+  if (a->rows <= 0 || a->blocks <= 0 || a->blocks > a->rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      backward_any(*a, static_cast<cudaStream_t>(stream), nullptr));
 }
 
 }  // extern "C"

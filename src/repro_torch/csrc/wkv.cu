@@ -1,6 +1,8 @@
 // The RWKV6 WKV recurrence for Hopper (sm_90a), bound with ctypes: two
 // kernels, a chunked one on the tensor cores for prefill and the
-// sequential one for decode and head dim 16.
+// sequential one for decode and head dim 16; and its gradient, likewise a
+// chunked tensor-core backward (4 below) for training at head dim 64 and a
+// sequential one (3) for the rest.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/wkv/kernel.py
 // `_wkv_kernel` (via `wkv_pallas`). For each batch row b and head h, over
@@ -178,9 +180,12 @@ static_assert(sizeof(WkvArgs) == 128 && offsetof(WkvArgs, B) == 64 &&
 // The backward's arguments, packed by the wrapper with "=12Q4i3q"
 // (kernels/wkv/kernel.py `_pack_backward`): r, k, v, lw as the forward
 // takes them, u (H, D), dout (B, H, S, D) contiguous; dr, dk, dlw (B, H, S,
-// D) contiguous; dv (D / R, B, H, S, D), a partial sum per block of R rows;
-// du (B, H, D), a partial sum per batch row; the scratch for the saved
-// states, B * H * ceil(S / T) * D * D floats.
+// D) contiguous. For the sequential backward (3): dv (D / R, B, H, S, D), a
+// partial sum per block of R rows; du (B, H, D), a partial sum per batch
+// row; the scratch for the saved states, B * H * ceil(S / T) * D * D
+// floats. For the chunked one (4): dv (B, H, S, D); du (B, H, ceil(S / 64),
+// D), a partial sum per chunk; the scratch 2 * B * H * ceil(S / 64) * D * D
+// floats.
 struct WkvBackArgs {
   const float* r;
   const float* k;
@@ -1199,6 +1204,739 @@ cudaError_t launch(const WkvBackArgs& a, cudaStream_t stream) {
 
 }  // namespace back
 
+// 4. The chunked backward (`cback::wkv_carry_kernel`, then
+// `cback::wkv_chunk_backward_kernel`; D = 64, S >= 64 by kernel_for's rule,
+// any S >= 1 works; no initial state, no gradient on the final state). The
+// same function as 3, in chunks of C = 64 tokens on the tensor cores, with
+// the forward chunked kernel's algebra and its exponent rule: every decay
+// is a product of w = exp(lw) <= 1 over a forward range of the chunk's
+// tokens, W[a, b) over a..b-1 and W(a, b) over a+1..b-1; no exp(-cum) is
+// formed, so strong decay underflows to 0 and never overflows.
+// Two D x D matrices cross chunks, and only they: the state S0 entering
+// chunk c and G = dL/dS at its last token. The carry kernel forms both, one
+// block per (b h, direction), each walking the chunks in order (S0' =
+// diag(W[0,64)) S0 + (k W(., 64))^T V forward from 0; G' = diag(W[0,64)) G
+// + (r W[0, .))^T dOut backward from 0) and writing the matrix entering
+// each chunk to scratch (2 x B*H*ceil(S/64)*D*D floats): the two
+// directions run side by side, 2 blocks a head, one an SM. Its time is the
+// loads': chunks c+1 and c+2's r or k, lw and v or dout arrive by cp.async
+// while chunk c's product runs.
+// Then one block per (chunk, b h), 2,048 at the training shape, forms the
+// chunk's gradients from S0, G and its r, k, v, lw, dout, all in shared
+// memory (row stride 68: conflict-free fragments either way round): with
+// B[t, i] = dout_t . v_i and the forward's A (bonus on its diagonal),
+//   dv   = A^T dOut + (k W(., 64)) G
+//   dr_t = W[0, t) (S0 dout_t) + sum_{i<t} B[t, i] k_i W(i, t) + u k_t vd_t
+//   dk_t = W(t, 64) (G v_t) + sum_{tau>t} B[tau, t] r_tau W(t, tau)
+//          + u r_t vd_t
+// Pairs of tokens in different 16-blocks factor through a reference token
+// as A's do in the forward: for dr through the start of t's 16-block (k
+// scaled by W(i, ref), the result by W[ref, t)), for dk through the end of
+// t's 16-block (r scaled by W[ref, tau), the result by W(t, ref)); pairs
+// inside a 16-block take running products of w, element by element. dlw
+// needs no product of its own: with a_t = r_t (dr_t less its bonus) and
+// b_t = k_t (dk_t less its bonus), dlw_t = w_t rowsum(S_{t-1} G_t) is
+//   dlw_t = rowsum(S_end G) + sum_{tau>t} a_tau - sum_{i>=t} b_i
+// over the chunk's tokens: what cancels stays within one chunk, where the
+// terms have their own reference, not over the whole sequence. du is a
+// partial sum per (b h, chunk), added over b and the chunks in the
+// wrapper. Products in 3xTF32 as the forward's (mma.sync m16n8k8, hi.hi
+// apart from hi.lo and lo.hi); the plain version of this arithmetic is
+// kernels/wkv/ref.py `wkv_chunked_backward_ref`. No atomics: every sum has
+// one owner and a fixed order, so two runs give the same bits.
+// Bound: the gradient's 14 D^2 + 13 D operations a token of a head at the
+// f32 rate, 0.114 ms at (2, 32, 2048, 64) (bytes 0.090). What the design
+// does about it: the sequential kernel's serial chain over 2,048 tokens
+// becomes 32 chunks of matrix products, 2,048 blocks in parallel, the
+// products on the tensor cores; only the carry is serial, a product a
+// chunk. Each parallel block needs 203 KB of shared memory, so one block
+// an SM, whose loads wait on nothing else.
+namespace cback {
+
+using chunk::Acc;
+using chunk::C;
+using chunk::D;
+using chunk::LDR;
+using chunk::NKF;
+using chunk::NQ;
+using chunk::smem_addr;
+using chunk::Split;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_one() {  // all but the last group
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// acc[n] += a (16 rows x [k0, k1)) b ([k0, k1) x 8 NT columns), 3xTF32:
+// fa(row, k) and fb(k, col) read the operands (the fragments' layouts as in
+// `chunk`); k1 - k0 a multiple of 8
+template <int NT, class FA, class FB>
+__device__ __forceinline__ void tile(Acc (&acc)[NT], int k0, int k1,
+                                     const FA& fa, const FB& fb) {
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+#pragma unroll 2
+  for (int kk = k0; kk < k1; kk += 8) {
+    const int c0 = kk + c, c1 = c0 + 4;
+    const float af[4] = {fa(g, c0), fa(g + 8, c0), fa(g, c1), fa(g + 8, c1)};
+    const Split<4> as(af);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float bf[2] = {fb(c0, 8 * n + g), fb(c1, 8 * n + g)};
+      acc[n].add(as, Split<2>(bf));
+    }
+  }
+}
+
+// --- the carry ---------------------------------------------------------
+constexpr int NBUF = 3;  // chunks in flight: this one and the next two
+struct CarrySmem {
+  float x[NBUF][C][LDR];   // k (S) or r (G), then scaled by its decays
+  float lw[NBUF][C][LDR];
+  float y[NBUF][C][LDR];   // v (S) or dout (G)
+  float segp[4][D];        // W over each 16 tokens
+  float ftot[D];           // W over the chunk
+};
+constexpr size_t CARRY_SMEM = sizeof(CarrySmem) + 128;
+static_assert(CARRY_SMEM <= 227 * 1024, "shared memory");
+
+__global__ void __launch_bounds__(THREADS, 1)
+wkv_carry_kernel(const WkvBackArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CarrySmem& sm = *reinterpret_cast<CarrySmem*>(
+      smem_raw + ((128u - (smem_addr(smem_raw) & 127u)) & 127u));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const bool grad = blockIdx.y == 1;  // G backward; else S0 forward
+  const int S = a.S, nc = (S + C - 1) / C;
+  const int64_t in_base = (int64_t)b * a.in_sb + (int64_t)h * a.in_sh;
+  const float* xb = (grad ? a.r : a.k) + in_base;
+  const float* lb = a.lw + in_base;
+  // v in the inputs' strides, dout contiguous (B, H, S, D)
+  const float* yb = grad ? a.dout + (int64_t)bh * S * D : a.v + in_base;
+  const int64_t y_ss = grad ? D : a.in_ss;
+  float* out = a.states + (grad ? (int64_t)a.B * a.H * nc * D * D : 0) +
+               (int64_t)bh * nc * D * D;
+
+  auto issue = [&](int ci) {
+    const int p = ci % NBUF, t0 = (grad ? nc - 1 - ci : ci) * C;
+    for (int idx = tid; idx < C * D / 4; idx += THREADS) {
+      const int row = idx / (D / 4), col = 4 * (idx % (D / 4));
+      const bool live = t0 + row < S;
+      const int64_t off = live ? (int64_t)(t0 + row) * a.in_ss + col : 0;
+      cp16(&sm.x[p][row][col], xb + off, live);
+      cp16(&sm.lw[p][row][col], lb + off, live);
+      cp16(&sm.y[p][row][col],
+           yb + (live ? (int64_t)(t0 + row) * y_ss + col : 0), live);
+    }
+    cp_commit();
+  };
+
+  // the carried matrix: rows 16 mS + (g, g+8), columns 32 nh + 8 n +
+  // (2c, 2c+1)
+  const int mS = warp % 4, nh = warp / 4;
+  float st[4][4] = {};
+  issue(0);
+  if (nc > 1) issue(1);
+  for (int ci = 0; ci < nc; ++ci) {
+    const int p = ci % NBUF, cidx = grad ? nc - 1 - ci : ci;
+    if (ci + 1 < nc)
+      cp_wait_one();  // chunk ci's group, not ci + 1's
+    else
+      cp_wait_all();
+    __syncthreads();
+    if (ci + 2 < nc) issue(ci + 2);  // into chunk ci - 1's buffer
+    // the matrix entering chunk cidx (S0), or at its last token (G)
+    float* o = out + (int64_t)cidx * D * D;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = 16 * mS + g + 8 * hr, col = 32 * nh + 8 * n + 2 * c;
+        *reinterpret_cast<float2*>(o + (int64_t)row * D + col) =
+            make_float2(st[n][2 * hr], st[n][2 * hr + 1]);
+      }
+    }
+    if (ci + 1 == nc) break;
+    // decays: thread (sg, d) takes 16 tokens of column d; W(t, 64) for S,
+    // W[0, t) for G, running products from the 16-blocks' products
+    {
+      const int sg = tid / D, d = tid % D;
+      float w[16], prod = 1.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        w[i] = expf(sm.lw[p][16 * sg + i][d]);
+        prod *= w[i];
+      }
+      sm.segp[sg][d] = prod;
+      __syncthreads();
+      float x = 1.f;
+      if (grad) {
+        for (int q = 0; q < sg; ++q) x *= sm.segp[q][d];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          sm.x[p][16 * sg + i][d] *= x;
+          x *= w[i];
+        }
+      } else {
+        for (int q = 3; q > sg; --q) x *= sm.segp[q][d];
+#pragma unroll
+        for (int i = 15; i >= 0; --i) {
+          sm.x[p][16 * sg + i][d] *= x;
+          x *= w[i];
+        }
+      }
+      if (sg == 0)
+        sm.ftot[d] = sm.segp[0][d] * sm.segp[1][d] * sm.segp[2][d] *
+                     sm.segp[3][d];
+    }
+    __syncthreads();
+    Acc acc[4];
+    tile<4>(
+        acc, 0, C, [&](int row, int k) { return sm.x[p][k][16 * mS + row]; },
+        [&](int k, int col) { return sm.y[p][k][32 * nh + col]; });
+    const float f0 = sm.ftot[16 * mS + g], f1 = sm.ftot[16 * mS + g + 8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        st[n][q] = fmaf(q < 2 ? f0 : f1, st[n][q], acc[n][q]);
+    }
+  }
+}
+
+// --- the chunk's gradients -----------------------------------------------
+struct BackSmem {
+  float r[C][LDR], k[C][LDR], v[C][LDR], dout[C][LDR];
+  float w[C][LDR];   // lw, then w = exp(lw)
+  float P[C][LDR];   // W[start of t's 8-block, t); then dk's products
+  float Q[C][LDR];   // W(t, end of t's 8-block]
+  float S0[D][LDR];  // the state entering the chunk [key row][value
+                     // column]; then dr's products
+  float G[D][LDR];   // dL/dS at the chunk's last token
+  float A[C][LDR];   // the forward's A, bonus on the diagonal, 0 above
+  float B[C][LDR];   // dout_t . v_i for i's 16-block <= t's
+  float F[NQ][D];    // W over 8-block q
+  float RS[NQ][D];   // W over the 8-blocks before q
+  float KS[NQ][D];   // W over the 8-blocks after q
+  float KF[NKF][D];  // [m (m-1) + q], q < 2m: W over 8-blocks q+1 .. 2m-1
+  float RF[NKF][D];  // rf(a, q), q >= 2a+2: W over 8-blocks 2a+2 .. q-1
+  float u[D], vd[C], edge[D];
+  float scan[4][2][D];  // each 16 tokens' sums of a and b
+  float dus[4][D];      // each 16 tokens' share of du
+};
+constexpr size_t BACK_SMEM = sizeof(BackSmem) + 128;
+static_assert(BACK_SMEM <= 227 * 1024, "shared memory");
+
+// Cycles a phase of the chunk backward, as `chunk`'s PHASE_ marks: built
+// with -DWKV_PHASE_CYCLES, each warp's clock64() cycles between marks go to
+// back_cycles[block][warp][mark] for the first BACK_BLOCKS blocks.
+#ifdef WKV_PHASE_CYCLES
+constexpr int BACK_PHASES = 10, BACK_BLOCKS = 512;
+__device__ long long back_cycles[BACK_BLOCKS * WARPS * BACK_PHASES];
+#define BACK_START                        \
+  long long back_sum[BACK_PHASES] = {};   \
+  long long back_last = clock64()
+#define BACK_MARK(k)                           \
+  do {                                         \
+    const long long now_ = clock64();          \
+    back_sum[k] += now_ - back_last;           \
+    back_last = now_;                          \
+  } while (0)
+#define BACK_END                                                          \
+  do {                                                                    \
+    const int blk = blockIdx.y * gridDim.x + blockIdx.x;                  \
+    if (lane == 0 && blk < BACK_BLOCKS)                                   \
+      for (int k = 0; k < BACK_PHASES; ++k)                               \
+        back_cycles[(blk * WARPS + warp) * BACK_PHASES + k] = back_sum[k]; \
+  } while (0)
+#else
+#define BACK_START
+#define BACK_MARK(k)
+#define BACK_END
+#endif
+
+__device__ __forceinline__ int rf(int a, int q) {
+  return (a == 0 ? 0 : a == 1 ? 6 : 10) + q - 2 * a - 2;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+wkv_chunk_backward_kernel(const WkvBackArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BackSmem& sm = *reinterpret_cast<BackSmem*>(
+      smem_raw + ((128u - (smem_addr(smem_raw) & 127u)) & 127u));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int ci = blockIdx.x, bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int S = a.S, nc = (S + C - 1) / C, t0 = ci * C;
+  const int64_t in_base = (int64_t)b * a.in_sb + (int64_t)h * a.in_sh;
+  const int64_t out_base = (int64_t)bh * S * D;  // (B, H, S, D) contiguous
+  const float* states = a.states + ((int64_t)bh * nc + ci) * D * D;
+  const float* grads = states + (int64_t)a.B * a.H * nc * D * D;
+
+  BACK_START;
+  // -- 0. the chunk's operands (rows past S read as zeros: r = k = v =
+  // dout = 0, lw = 0), S0 and G
+  // in two groups: r, k, lw, which step 1 (a) reads, then the rest, which
+  // lands while (a) runs
+  for (int idx = tid; idx < C * D / 4; idx += THREADS) {
+    const int row = idx / (D / 4), col = 4 * (idx % (D / 4));
+    const bool live = t0 + row < S;
+    const int64_t off = live ? (int64_t)(t0 + row) * a.in_ss + col : 0;
+    cp16(&sm.r[row][col], a.r + in_base + off, live);
+    cp16(&sm.k[row][col], a.k + in_base + off, live);
+    cp16(&sm.w[row][col], a.lw + in_base + off, live);
+  }
+  cp_commit();
+  for (int idx = tid; idx < C * D / 4; idx += THREADS) {
+    const int row = idx / (D / 4), col = 4 * (idx % (D / 4));
+    const bool live = t0 + row < S;
+    const int64_t off = live ? (int64_t)(t0 + row) * a.in_ss + col : 0;
+    cp16(&sm.v[row][col], a.v + in_base + off, live);
+    cp16(&sm.dout[row][col],
+         a.dout + out_base + (live ? (int64_t)(t0 + row) * D + col : 0),
+         live);
+    cp16(&sm.S0[row][col], states + row * D + col, true);
+    cp16(&sm.G[row][col], grads + row * D + col, true);
+  }
+  cp_commit();
+  for (int idx = tid; idx < C * LDR; idx += THREADS) (&sm.A[0][0])[idx] = 0.f;
+  if (tid < D) sm.u[tid] = a.u[(int64_t)h * D + tid];
+  cp_wait_one();
+  __syncthreads();
+  BACK_MARK(0);
+  // S_end's rows for (c) below, read now so that they land during (a), (b)
+  float se[2 * (D / WARPS)];
+  if (ci + 1 < nc) {
+#pragma unroll
+    for (int i = 0; i < D / WARPS; ++i) {
+      const float* row = states + D * D + (int64_t)(warp * (D / WARPS) + i) * D;
+      se[2 * i] = row[lane];
+      se[2 * i + 1] = row[lane + 32];
+    }
+  }
+
+  // -- 1. (a) the 8-blocks, one a warp, columns lane and lane + 32: w, P,
+  // Q, F and A inside the 8-block (as the forward's chunk kernel, step 1)
+  {
+    const int q0 = 8 * warp;
+    float x[40];
+#pragma unroll
+    for (int i = 0; i < 40; ++i) x[i] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d = lane + 32 * half;
+      const float ud = sm.u[d];
+      float rr[8], kk[8], w[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        rr[t] = sm.r[q0 + t][d];
+        kk[t] = sm.k[q0 + t][d];
+        w[t] = expf(sm.w[q0 + t][d]);
+        sm.w[q0 + t][d] = w[t];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        x[i * (i + 1) / 2 + i] += rr[i] * ud * kk[i];  // the bonus
+        float xk = kk[i];
+#pragma unroll
+        for (int t = i + 1; t < 8; ++t) {
+          x[t * (t + 1) / 2 + i] += rr[t] * xk;
+          xk *= w[t];
+        }
+      }
+      float pre = 1.f, suf = 1.f;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        sm.P[q0 + t][d] = pre;
+        pre *= w[t];
+      }
+#pragma unroll
+      for (int t = 7; t >= 0; --t) {
+        sm.Q[q0 + t][d] = suf;
+        suf *= w[t];
+      }
+      sm.F[warp][d] = pre;
+    }
+#pragma unroll
+    for (int i = 0; i < 20; ++i) {
+      const bool up = lane & 16;
+      const float keep = up ? x[i + 20] : x[i];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, up ? x[i] : x[i + 20], 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      const bool up = lane & 8;
+      const float keep = up ? x[i + 10] : x[i];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, up ? x[i] : x[i + 10], 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const bool up = lane & 4;
+      const float keep = up ? x[i + 5] : x[i];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, up ? x[i] : x[i + 5], 4);
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      x[i] += __shfl_xor_sync(0xffffffffu, x[i], 2);
+      x[i] += __shfl_xor_sync(0xffffffffu, x[i], 1);
+    }
+    const int base = (lane & 16 ? 20 : 0) + (lane & 8 ? 10 : 0) +
+                     (lane & 4 ? 5 : 0);
+#pragma unroll
+    for (int e = 0; e < 5; ++e) {
+      const int slot = base + e;
+      if ((lane & 3) == e % 4 && slot < 36) {
+        const int t = (slot >= 1) + (slot >= 3) + (slot >= 6) +
+                      (slot >= 10) + (slot >= 15) + (slot >= 21) +
+                      (slot >= 28);
+        sm.A[q0 + t][q0 + slot - t * (t + 1) / 2] = x[e];
+      }
+    }
+  }
+  cp_wait_all();
+  __syncthreads();
+  BACK_MARK(1);
+  // (b) B = dOut V^T over the 16-block pairs (m, n) with n <= m
+  for (int job = warp; job < 10; job += WARPS) {
+    const int m = job < 1 ? 0 : job < 3 ? 1 : job < 6 ? 2 : 3;
+    const int n = job - m * (m + 1) / 2;
+    Acc acc[2];
+    tile<2>(
+        acc, 0, D, [&](int row, int k) { return sm.dout[16 * m + row][k]; },
+        [&](int k, int col) { return sm.v[16 * n + col][k]; });
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 16 * n + 8 * e + 2 * c;
+      sm.B[16 * m + g][col] = acc[e][0];
+      sm.B[16 * m + g][col + 1] = acc[e][1];
+      sm.B[16 * m + 8 + g][col] = acc[e][2];
+      sm.B[16 * m + 8 + g][col + 1] = acc[e][3];
+    }
+  }
+  BACK_MARK(2);
+  // (c) rowsum(S_end * G), S_end the state leaving the chunk (the next
+  // chunk's S0); G is 0 at the last chunk
+#pragma unroll
+  for (int i = 0; i < D / WARPS; ++i) {
+    const int d = warp * (D / WARPS) + i;
+    float e = 0.f;
+    if (ci + 1 < nc) {
+      e = se[2 * i] * sm.G[d][lane] + se[2 * i + 1] * sm.G[d][lane + 32];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) e += __shfl_xor_sync(0xffffffffu, e, o);
+    }
+    if (lane == 0) sm.edge[d] = e;
+  }
+  __syncthreads();
+  BACK_MARK(3);
+
+  // -- 2. the tables of whole 8-blocks' W, a column and a role a thread;
+  // v_t . dout_t from B's diagonal
+  {
+    const int d = tid % D, role = tid / D;
+    float f[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) f[q] = sm.F[q][d];
+    if (role == 0) {
+      float pre = 1.f;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        sm.RS[q][d] = pre;
+        pre *= f[q];
+      }
+      sm.vd[d] = sm.B[d][d];
+    } else if (role == 1) {
+      float suf = 1.f;
+#pragma unroll
+      for (int q = NQ - 1; q >= 0; --q) {
+        sm.KS[q][d] = suf;
+        suf *= f[q];
+      }
+    } else if (role == 2) {
+#pragma unroll
+      for (int m = 1; m < C / 16; ++m) {
+#pragma unroll
+        for (int q = 0; q < 2 * m; ++q) {
+          float fac = 1.f;
+#pragma unroll
+          for (int q2 = q + 1; q2 < 2 * m; ++q2) fac *= f[q2];
+          sm.KF[m * (m - 1) + q][d] = fac;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < C / 16 - 1; ++m) {
+#pragma unroll
+        for (int q = 2 * m + 2; q < NQ; ++q) {
+          float fac = 1.f;
+#pragma unroll
+          for (int q2 = 2 * m + 2; q2 < q; ++q2) fac *= f[q2];
+          sm.RF[rf(m, q)][d] = fac;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  BACK_MARK(4);
+
+  // -- 3. A between blocks (the forward's step 3a, rows rL = r P and
+  // columns kL = k Q formed as they are read)
+  if (warp < 6) {
+    const int m = warp < 1 ? 1 : warp < 3 ? 2 : 3;
+    const int q0 = 2 * warp - m * (m - 1);
+    Acc acc[2];
+    tile<2>(
+        acc, 0, D,
+        [&](int row, int k) {
+          const int t = 16 * m + row;
+          const float x = sm.r[t][k] * sm.P[t][k];
+          return row < 8 ? x : x * sm.F[2 * m][k];
+        },
+        [&](int k, int col) {
+          const int i = 8 * q0 + col;
+          return sm.k[i][k] * sm.Q[i][k] * sm.KF[m * (m - 1) + q0 + col / 8][k];
+        });
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * (q0 + e) + 2 * c;
+      sm.A[16 * m + g][col] = acc[e][0];
+      sm.A[16 * m + g][col + 1] = acc[e][1];
+      sm.A[16 * m + 8 + g][col] = acc[e][2];
+      sm.A[16 * m + 8 + g][col + 1] = acc[e][3];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 2 * (warp - 6) + e;
+      Acc acc[1];
+      tile<1>(
+          acc, 0, D,
+          [&](int row, int k) {
+            const int t = 16 * m + 8 + row;
+            return row < 8 ? sm.r[t][k] * sm.P[t][k] : 0.f;
+          },
+          [&](int k, int col) {
+            const int i = 16 * m + col;
+            return sm.k[i][k] * sm.Q[i][k];
+          });
+      sm.A[16 * m + 8 + g][16 * m + 2 * c] = acc[0][0];
+      sm.A[16 * m + 8 + g][16 * m + 2 * c + 1] = acc[0][1];
+    }
+  }
+  __syncthreads();
+  BACK_MARK(5);
+
+  // -- 4. dr and dk of 16-block m, columns d0 .. d0 + 31, a warp: across
+  // chunks, across 16-blocks, inside the 16-block, the bonus; a and b kept
+  const int m = warp % 4, d0 = 32 * (warp / 4);
+  {
+    float xr[4][4], xk[4][4];
+    {
+      Acc acc[4];
+      tile<4>(
+          acc, 0, D, [&](int row, int k) { return sm.dout[16 * m + row][k]; },
+          [&](int k, int col) { return sm.S0[d0 + col][k]; });
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = 16 * m + g + 8 * (q / 2);
+          const int d = d0 + 8 * n + 2 * c + q % 2;
+          xr[n][q] = acc[n][q] * (sm.P[t][d] * sm.RS[t / 8][d]);
+        }
+      }
+    }
+    if (m > 0) {
+      Acc acc[4];
+      tile<4>(
+          acc, 0, 16 * m, [&](int row, int k) { return sm.B[16 * m + row][k]; },
+          [&](int k, int col) {
+            const int d = d0 + col;
+            return sm.k[k][d] * sm.Q[k][d] * sm.KF[m * (m - 1) + k / 8][d];
+          });
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = 16 * m + g + 8 * (q / 2);
+          const int d = d0 + 8 * n + 2 * c + q % 2;
+          const float f = q < 2 ? sm.P[t][d] : sm.P[t][d] * sm.F[2 * m][d];
+          xr[n][q] += acc[n][q] * f;
+        }
+      }
+    }
+    {
+      Acc acc[4];
+      tile<4>(
+          acc, 0, D, [&](int row, int k) { return sm.v[16 * m + row][k]; },
+          [&](int k, int col) { return sm.G[d0 + col][k]; });
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = 16 * m + g + 8 * (q / 2);
+          const int d = d0 + 8 * n + 2 * c + q % 2;
+          xk[n][q] = acc[n][q] * (sm.Q[t][d] * sm.KS[t / 8][d]);
+        }
+      }
+    }
+    if (m < 3) {
+      Acc acc[4];
+      tile<4>(
+          acc, 16 * (m + 1), C,
+          [&](int row, int k) { return sm.B[k][16 * m + row]; },
+          [&](int k, int col) {
+            const int d = d0 + col;
+            return sm.r[k][d] * sm.P[k][d] * sm.RF[rf(m, k / 8)][d];
+          });
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = 16 * m + g + 8 * (q / 2);
+          const int d = d0 + 8 * n + 2 * c + q % 2;
+          const float f = q < 2 ? sm.Q[t][d] * sm.F[2 * m + 1][d] : sm.Q[t][d];
+          xk[n][q] += acc[n][q] * f;
+        }
+      }
+    }
+    BACK_MARK(6);
+    // the products' parts of dr and dk, less the pairs inside 16-blocks
+    // and the bonus, into S0 and P (neither is read after this phase)
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int t = 16 * m + g + 8 * (q / 2);
+        const int d = d0 + 8 * n + 2 * c + q % 2;
+        sm.S0[t][d] = xr[n][q];
+        sm.P[t][d] = xk[n][q];
+      }
+    }
+  }
+  __syncthreads();
+  BACK_MARK(7);
+
+  // -- 5. thread (m, d), column d of 16-block m: the pairs inside the
+  // 16-block on running products of w, the bonus, dr and dk out; a_t =
+  // r_t (dr_t less its bonus) and b_t = k_t (dk_t less it); then
+  // dlw_t = rowsum(S_end G) + sum_{tau>t} a_tau - sum_{i>=t} b_i, the later
+  // 16-blocks' sums added in order; du's share of the chunk
+  {
+    const int sm16 = tid / D, d = tid % D, base = 16 * sm16;
+    float rr[16], kk[16], ww[16], av[16], bv[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      rr[i] = sm.r[base + i][d];
+      kk[i] = sm.k[base + i][d];
+      ww[i] = sm.w[base + i][d];
+    }
+    const float ud = sm.u[d];
+    float* dr = a.dr + out_base;
+    float* dk = a.dk + out_base;
+    float sa = 0.f, sb = 0.f, su = 0.f;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      float zr = 0.f, zk = 0.f, x = 1.f;
+#pragma unroll
+      for (int i = t - 1; i >= 0; --i) {
+        zr = fmaf(sm.B[base + t][base + i] * kk[i], x, zr);
+        x *= ww[i];
+      }
+      x = 1.f;
+#pragma unroll
+      for (int i = t + 1; i < 16; ++i) {
+        zk = fmaf(sm.B[base + i][base + t] * rr[i], x, zk);
+        x *= ww[i];
+      }
+      const float drp = sm.S0[base + t][d] + zr;
+      const float dkp = sm.P[base + t][d] + zk;
+      const float vd = sm.vd[base + t], uv = ud * vd;
+      av[t] = rr[t] * drp;
+      bv[t] = kk[t] * dkp;
+      sa += av[t];
+      sb += bv[t];
+      su = fmaf(rr[t] * kk[t], vd, su);
+      if (t0 + base + t < S) {
+        dr[(int64_t)(t0 + base + t) * D + d] = fmaf(uv, kk[t], drp);
+        dk[(int64_t)(t0 + base + t) * D + d] = fmaf(uv, rr[t], dkp);
+      }
+    }
+    sm.scan[sm16][0][d] = sa;
+    sm.scan[sm16][1][d] = sb;
+    sm.dus[sm16][d] = su;
+    __syncthreads();
+    sa = 0.f;
+    sb = 0.f;
+    for (int q = 3; q > sm16; --q) {
+      sa += sm.scan[q][0][d];
+      sb += sm.scan[q][1][d];
+    }
+    const float e = sm.edge[d];
+    float* dlw = a.dlw + out_base;
+#pragma unroll
+    for (int i = 15; i >= 0; --i) {
+      sb += bv[i];
+      if (t0 + base + i < S)
+        dlw[(int64_t)(t0 + base + i) * D + d] = e + sa - sb;
+      sa += av[i];
+    }
+    if (sm16 == 0)
+      a.du[((int64_t)bh * nc + ci) * D + d] =
+          sm.dus[0][d] + sm.dus[1][d] + sm.dus[2][d] + sm.dus[3][d];
+  }
+  BACK_MARK(8);
+
+  // -- 6. dv of 16-block m, columns j0 .. j0 + 31, a warp (A, dout, k, Q,
+  // KS and G are as phase 3 left them)
+  {
+    const int j0 = d0;
+    Acc acc[4];
+    tile<4>(
+        acc, 16 * m, C, [&](int row, int k) { return sm.A[k][16 * m + row]; },
+        [&](int k, int col) { return sm.dout[k][j0 + col]; });
+    tile<4>(
+        acc, 0, D,
+        [&](int row, int k) {
+          const int t = 16 * m + row;
+          return sm.k[t][k] * sm.Q[t][k] * sm.KS[t / 8][k];
+        },
+        [&](int k, int col) { return sm.G[k][j0 + col]; });
+    float* dv = a.dv + out_base;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = 16 * m + g + 8 * hr;
+        if (t0 + t < S)
+          *reinterpret_cast<float2*>(dv + (int64_t)(t0 + t) * D + j0 + 8 * n +
+                                     2 * c) =
+              make_float2(acc[n][2 * hr], acc[n][2 * hr + 1]);
+      }
+    }
+  }
+  BACK_MARK(9);
+  BACK_END;
+}
+
+}  // namespace cback
+
 template <int D, int SPLIT, int COLS, int T>
 cudaError_t launch(const WkvArgs& a, cudaStream_t stream) {
   const dim3 grid(D / COLS, a.B * a.H);
@@ -1328,6 +2066,37 @@ int wkv_backward(const WkvBackArgs* a, void* stream) {
   }
 }
 
+// The chunked backward, D = 64, any S >= 1 (kernel_for gives it S >= 64):
+// the carry, then the chunks' gradients. `states` holds 2 x B*H*ceil(S/64)
+// D x D floats of scratch (the S0s, then the Gs); du is B*H*ceil(S/64) x D,
+// a partial sum per (b h, chunk); dout is contiguous.
+int wkv_backward_tc(const WkvBackArgs* a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!(a->B > 0 && a->H > 0 && a->S > 0 && (int64_t)a->B * a->H <= 65535) ||
+      a->D != chunk::D)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cback::wkv_carry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)cback::CARRY_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(cback::wkv_chunk_backward_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)cback::BACK_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int nc = (a->S + chunk::C - 1) / chunk::C;
+  cback::wkv_carry_kernel<<<dim3(a->B * a->H, 2), cback::THREADS,
+                            cback::CARRY_SMEM, s>>>(*a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cback::wkv_chunk_backward_kernel<<<dim3(nc, a->B * a->H), cback::THREADS,
+                                     cback::BACK_SMEM, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The backward's layout at head dim D: out[0] the blocks of rows a head
 // (dv's partial sums), out[1] the tokens a segment (the saved states).
 int wkv_backward_layout(int D, int* out) {
@@ -1350,6 +2119,11 @@ int wkv_backward_layout(int D, int* out) {
 int wkv_phase_cycles(long long* host, int n) {
   return static_cast<int>(cudaMemcpyFromSymbol(
       host, chunk::phase_cycles, sizeof(long long) * n));
+}
+// the chunk backward's, alike
+int wkv_back_phase_cycles(long long* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, cback::back_cycles, sizeof(long long) * n));
 }
 #endif
 

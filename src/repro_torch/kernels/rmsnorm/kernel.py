@@ -1,4 +1,5 @@
-"""Kernel B2: RMSNorm as a hand-written CUDA kernel.
+"""Kernel B2: RMSNorm as a hand-written CUDA kernel, and its gradient as a
+second.
 
 Replaces the JAX package's Pallas TPU kernel (``src/repro/kernels/rmsnorm/
 kernel.py`` ``_rmsnorm_kernel`` via ``rms_norm_pallas``). The source is
@@ -11,6 +12,13 @@ held to (2e-5 in f32, one bf16 ulp in bf16).
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
 tensor launches the kernel or raises; nothing falls back. The wrapper
 counts its launches in ``rms_norm_cuda.launches``.
+
+``rms_norm_backward_cuda`` launches the gradient (``rmsnorm_backward`` in
+the source, two kernels: dx with each block's partial dscale, then the
+partials summed over the blocks in a fixed order); its plain version is
+``rms_norm_backward_ref``. It takes x and g of one dtype (bf16 or f32) and
+the forward's D limits, and counts its launches in
+``rms_norm_backward_cuda.launches``.
 
 The launch path is short, since a decode step calls it 49 or 57 times and
 its time there is the host's (``chip_smoke.py``'s ``rms_host_path`` phase
@@ -25,28 +33,39 @@ the error check is one comparison when the launch succeeds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 
 import torch
 
 from repro_torch.kernels._build import KernelLibrary, count_launch, \
     reset_counts
-from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+from repro_torch.kernels.rmsnorm.ref import (rms_norm_backward_ref,
+                                             rms_norm_ref)
 
 MAX_VECTORS = 8 * 256  # 16-byte vectors a row may hold (8 a thread, 256)
 # RmsArgs in rmsnorm.cu: x, scale, y, rows, d, eps (f32), dtype (0 = f32,
 # 1 = bf16), in native byte order without padding
 _pack = struct.Struct("=QQQiifi").pack
+# RmsBackArgs: x, scale, g, dx, partial, dscale; rows, d, eps, dtype, blocks
+# and a pad
+_pack_backward = struct.Struct("=6Qiifiii").pack
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.rmsnorm_forward.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
-    lib.rmsnorm_forward.restype = ctypes.c_int
+    for name in ("rmsnorm_forward", "rmsnorm_backward"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.rmsnorm_backward_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.rmsnorm_backward_blocks.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("rmsnorm", "rmsnorm.cu", declare=_declare)
 load_library = LIBRARY.load
 _forward = LIBRARY.launcher("rmsnorm_forward")
+_backward = LIBRARY.launcher("rmsnorm_backward")
 
 
 def _on_card(x: torch.Tensor, scale: torch.Tensor) -> int:
@@ -108,5 +127,59 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
 rms_norm_cuda.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def backward_blocks(device: int, d: int, bf16: bool) -> int:
+    """The gradient's most blocks at once on CUDA device ``device`` for rows
+    of ``d`` elements: its persistent grid, and the rows of partial dscale
+    it writes."""
+    out = ctypes.c_int()
+    with torch.cuda.device(device):
+        LIBRARY.check(LIBRARY.load().rmsnorm_backward_blocks(
+            d, int(bf16), ctypes.byref(out)), "rmsnorm_backward_blocks")
+    return out.value
+
+
+def rms_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
+                           g: torch.Tensor, *, eps: float = 1e-5
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale) of y = rms_norm_cuda(x, scale) for the cotangent g of y
+    (x's shape and dtype): dx in x's dtype, dscale f32 (D,). CUDA tensors
+    launch the gradient kernel, CPU tensors take ``rms_norm_backward_ref``.
+    Deterministic: dscale's partial sums are added in a fixed order."""
+    device = _on_card(x, scale)
+    if g.shape != x.shape or g.dtype is not x.dtype:
+        raise ValueError(f"g must have x's shape {tuple(x.shape)} and dtype "
+                         f"{x.dtype}, got {tuple(g.shape)} {g.dtype}")
+    if device < 0:
+        if g.device != x.device:
+            raise ValueError("x and g must lie on one device")
+        return rms_norm_backward_ref(x, scale, g, eps)
+    if g.get_device() != device:
+        raise ValueError("x and g must lie on one device")
+    if not g.is_contiguous():
+        raise ValueError("the RMSNorm gradient kernel takes a contiguous g")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    if not rows:
+        return dx, dscale.zero_()
+    bf16 = x.dtype is torch.bfloat16
+    blocks = min(rows, backward_blocks(device, d, bf16))
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), dscale.data_ptr())
+    if any(p % 16 for p in ptrs):
+        raise ValueError("the RMSNorm gradient kernel takes 16-byte aligned "
+                         "operands")
+    _backward(device, _pack_backward(*ptrs, rows, d, eps, bf16, blocks, 0))
+    count_launch(rms_norm_backward_cuda)
+    return dx, dscale
+
+
+rms_norm_backward_cuda.launches = 0
+
+
 def reset_launches() -> None:
     reset_counts(rms_norm_cuda)
+    reset_counts(rms_norm_backward_cuda)

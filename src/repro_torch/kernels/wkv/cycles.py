@@ -1,4 +1,4 @@
-"""Where B4's chunked tensor-core kernel spends its cycles, on the card.
+"""Where B4's chunked tensor-core kernels spend their cycles, on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.wkv.cycles [--json PATH]
 
@@ -13,8 +13,12 @@ that ends the phase. It also times ``mma.sync`` in TF32 (m16n8k8) and BF16
 (m16n8k16) alone: eight independent products a warp, 1, 2 and 4 warps a
 sub-partition, which bounds what the kernel's 3xTF32 products can reach;
 and a barrier over a cluster of two blocks against ``__syncthreads``, the
-price of sharing a head's work between its two blocks. Needs a CUDA card
-and nvcc.
+price of sharing a head's work between its two blocks. Then the chunked
+backward at the same shape (``wkv_backward_tc``): the mean cycles a block
+of each phase of ``wkv_chunk_backward_kernel``, by warp, over the first
+``BACK_BLOCKS`` blocks, beside the call's time and each of its kernels'
+device time under torch.profiler (the carry, the chunks' kernel, du's sum).
+Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -35,6 +39,11 @@ PHASES = ("wait for the chunk", "8-block pass", "tables, v split, loads",
           "A between blocks", "out from S0 | state", "barrier",
           "out from A | state split")
 WARPS, CHUNK = 8, 64
+BACK_PHASES = ("wait for r, k, lw", "8-block pass", "the rest landed, B",
+               "rowsum(S_end G)", "tables", "A between blocks",
+               "dr, dk products", "products to shared memory",
+               "pairs inside 16-blocks, dlw, du", "dv")
+BACK_BLOCKS = 512  # blocks whose cycles the kernel keeps (wkv.cu)
 BENCH_SOURCE = r"""
 #include <cuda_runtime.h>
 #include <stdio.h>
@@ -134,8 +143,10 @@ int main() {
 
 def _declare(lib: ctypes.CDLL) -> None:
     b4._declare(lib)
-    lib.wkv_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.wkv_phase_cycles.restype = ctypes.c_int
+    for name in ("wkv_phase_cycles", "wkv_back_phase_cycles"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("wkv", "wkv.cu", flags=("-DWKV_PHASE_CYCLES",),
@@ -184,6 +195,62 @@ def phase_cycles(seed: int = 0, reps: int = 20) -> dict:
             "total_by_warp": per_chunk.sum(axis=1).round(1).tolist()}
 
 
+def backward_phase_cycles(seed: int = 0, reps: int = 20) -> dict:
+    """Mean cycles a block of each phase of the chunk backward, by warp,
+    and the backward's ms (the carry kernel and the chunks' kernel), built
+    with the counters."""
+    b, h, s, d = SHAPE
+    rng = np.random.default_rng(seed)
+
+    def draw(lw=False):
+        x = (rng.uniform(-1.61, -0.64, (b, s, h, d)) if lw
+             else rng.standard_normal((b, s, h, d)) * 0.5)
+        return torch.from_numpy(x.astype(np.float32)).cuda().transpose(1, 2)
+
+    r, k, v, lw = draw(), draw(), draw(), draw(lw=True)
+    u = torch.from_numpy((rng.standard_normal((h, d)) * 0.5).astype(
+        np.float32)).cuda()
+    dout = torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).cuda()
+    launchers = b4._LAUNCH_BACKWARD
+    saved = launchers["tensor_core"]
+    launchers["tensor_core"] = LIBRARY.launcher("wkv_backward_tc")
+    try:
+        def run():
+            b4.wkv_backward_cuda(r, k, v, lw, u, dout, kernel="tensor_core")
+
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+    finally:
+        launchers["tensor_core"] = saved
+    cycles = np.zeros(BACK_BLOCKS * WARPS * len(BACK_PHASES), dtype=np.int64)
+    LIBRARY.check(LIBRARY.load().wkv_back_phase_cycles(cycles.ctypes.data,
+                                                       cycles.size),
+                  "wkv_back_phase_cycles")
+    per_block = cycles.reshape(BACK_BLOCKS, WARPS, len(BACK_PHASES)).mean(
+        axis=0)
+    kernel_us = {e.key[:60]: (getattr(e, "self_device_time_total", 0.0)
+                              or getattr(e, "self_cuda_time_total", 0.0))
+                 / reps for e in prof.key_averages()}
+    return {"shape": list(SHAPE), "ms": start.elapsed_time(end) / reps,
+            "device_us_by_kernel": {k: v for k, v in kernel_us.items() if v},
+            "cycles_per_block": {name: per_block[:, i].round(1).tolist()
+                                 for i, name in enumerate(BACK_PHASES)},
+            "total_by_warp": per_block.sum(axis=1).round(1).tolist()}
+
+
 def microbenchmarks() -> list[dict]:
     """``mma.sync`` alone, TF32 and BF16, at 1, 2, 4 warps a
     sub-partition; then a cluster barrier and a block barrier."""
@@ -206,7 +273,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]
     result = {"card": card, "phases": phase_cycles(),
-              "microbenchmarks": microbenchmarks()}
+              "microbenchmarks": microbenchmarks(),
+              "backward_phases": backward_phase_cycles()}
     print(json.dumps(result, indent=1))
     if args.json:
         with open(args.json, "w") as f:

@@ -31,11 +31,17 @@ tensor launches a kernel or raises; nothing falls back. The wrapper counts
 every launch in ``wkv_cuda.launches`` and the tensor-core kernel's in
 ``wkv_cuda.launches_tc``.
 
-``wkv_backward_cuda`` launches the backward kernel (``wkv_backward`` in
-the source; its plain version is ``wkv_backward_ref``): the gradient of out
-with no initial state and none arriving on the final state, which is what
-training asks of it (``ops.WkvFn``). It counts its launches in
-``wkv_backward_cuda.launches``.
+``wkv_backward_cuda`` launches the backward (its plain version is
+``wkv_backward_ref``): the gradient of out with no initial state and none
+arriving on the final state, which is what training asks of it
+(``ops.WkvFn``). ``kernel_for``'s rule picks its kernel too: head dim 64
+with S >= 64 (training) takes the chunked tensor-core backward
+(``wkv_backward_tc`` in the source: a carry kernel for the state entering
+each chunk and the gradient leaving it, then one block a chunk; the plain
+version of its arithmetic is ``wkv_chunked_backward_ref``), the rest the
+sequential one (``wkv_backward``); ``kernel=`` forces one. It counts every
+launch in ``wkv_backward_cuda.launches`` and the chunked backward's in
+``wkv_backward_cuda.launches_tc``.
 
 The launch path is short, since a decode step calls it 24 times
 (``chip_smoke.py``'s ``wkv_host_path`` phase times each step of it on the
@@ -67,16 +73,18 @@ _pack = struct.Struct("=8Q4i6q").pack
 
 
 def kernel_for(s: int, head_dim: int) -> str:
-    """The kernel that takes a CUDA call: ``"tensor_core"`` for head dim 64
-    and at least one chunk of tokens, ``"sequential"`` for the rest (decode
-    steps and the reduced configs' head dim 16)."""
+    """The kernel that takes a CUDA call, forward or backward:
+    ``"tensor_core"`` for head dim 64 and at least one chunk of tokens,
+    ``"sequential"`` for the rest (decode steps and the reduced configs'
+    head dim 16)."""
     if head_dim == TC_HEAD_DIM and s >= CHUNK:
         return "tensor_core"
     return "sequential"
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for name in ("wkv_forward", "wkv_forward_tc", "wkv_backward"):
+    for name in ("wkv_forward", "wkv_forward_tc", "wkv_backward",
+                 "wkv_backward_tc"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -89,9 +97,10 @@ LIBRARY = KernelLibrary("wkv", "wkv.cu", declare=_declare)
 load_library = LIBRARY.load
 _LAUNCH = {"sequential": LIBRARY.launcher("wkv_forward"),
            "tensor_core": LIBRARY.launcher("wkv_forward_tc")}
-_LAUNCH_BACKWARD = LIBRARY.launcher("wkv_backward")
+_LAUNCH_BACKWARD = {"sequential": LIBRARY.launcher("wkv_backward"),
+                    "tensor_core": LIBRARY.launcher("wkv_backward_tc")}
 # WkvBackArgs in wkv.cu: r, k, v, lw, u, dout, dr, dk, dv, dlw, du, the
-# saved states; B, H, S, D; the strides (b, h, s) of r, k, v, lw
+# scratch (saved states); B, H, S, D; the strides (b, h, s) of r, k, v, lw
 _pack_backward = struct.Struct("=12Q4i3q").pack
 
 
@@ -215,14 +224,19 @@ def backward_layout(d: int) -> tuple[int, int]:
 
 
 def wkv_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      lw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor
+                      lw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                      *, kernel: Optional[str] = None
                       ) -> tuple[torch.Tensor, ...]:
     """The gradient of ``wkv_cuda``'s out with no initial state, for the
     cotangent ``dout`` (B, H, S, D) of out and none on the final state:
     (dr, dk, dv, dlw (B, H, S, D), du (H, D)), f32. CUDA tensors launch the
-    backward kernel (head dims 16 and 64, any S >= 1); CPU tensors take
-    ``wkv_backward_ref``. Deterministic: dv's partial sums over the blocks
-    of rows of a head and du's over the batch are added here, in order."""
+    kernel ``kernel_for`` picks (or ``kernel``: "sequential", head dims 16
+    and 64, or "tensor_core", head dim 64; any S >= 1); CPU tensors take
+    ``wkv_backward_ref``. Deterministic: the partial sums of dv (sequential:
+    over the blocks of rows of a head) and of du (over the batch, and the
+    chunks) are added here, in order."""
+    if kernel is not None and kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     device = _on_card(r, k, v, lw, u, None)
     if dout.shape != r.shape:
         raise ValueError(f"dout must be {tuple(r.shape)}, got "
@@ -236,30 +250,47 @@ def wkv_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dout.get_device() != device:
         raise ValueError("the WKV operands must lie on one device")
     b, h, s, d = r.shape
+    if kernel is None:
+        kernel = kernel_for(s, d)
+    elif kernel == "tensor_core" and d != TC_HEAD_DIM:
+        raise ValueError(f"the tensor-core WKV backward takes head dim "
+                         f"{TC_HEAD_DIM}, got {d}")
     strides = r.stride()
     if k.stride() != strides or v.stride() != strides \
-            or lw.stride() != strides or strides[3] != 1:
+            or lw.stride() != strides or not _readable(strides):
         r, k, v, lw = (t.contiguous() for t in (r, k, v, lw))
         strides = r.stride()
     dout = dout.contiguous()
-    groups, seg = backward_layout(d)
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dlw = (torch.empty((b, h, s, d), **f32) for _ in range(3))
-    dv = torch.empty((groups, b, h, s, d), **f32)
-    du = torch.empty((b, h, d), **f32)
-    states = torch.empty((b * h * (-(-s // seg)) * d * d,), **f32)
-    _LAUNCH_BACKWARD(device, _pack_backward(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-        u.data_ptr(), dout.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dlw.data_ptr(), du.data_ptr(), states.data_ptr(),
-        b, h, s, d, *strides[:3]))
+    if kernel == "tensor_core":
+        chunks = -(-s // CHUNK)
+        dv = torch.empty((b, h, s, d), **f32)
+        du = torch.empty((b, h, chunks, d), **f32)
+        scratch = torch.empty((2 * b * h * chunks * d * d,), **f32)
+    else:
+        groups, seg = backward_layout(d)
+        dv = torch.empty((groups, b, h, s, d), **f32)
+        du = torch.empty((b, h, d), **f32)
+        scratch = torch.empty((b * h * (-(-s // seg)) * d * d,), **f32)
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), dout.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dlw.data_ptr(), du.data_ptr(), scratch.data_ptr())
+    if any(p % 16 for p in ptrs):
+        raise ValueError("the WKV kernel takes 16-byte aligned operands")
+    _LAUNCH_BACKWARD[kernel](device, _pack_backward(*ptrs, b, h, s, d,
+                                                    *strides[:3]))
+    if kernel == "tensor_core":
+        count_launch(wkv_backward_cuda, "launches", "launches_tc")
+        return dr, dk, dv, dlw, du.sum((0, 2))
     count_launch(wkv_backward_cuda)
-    return dr, dk, dv[0] if groups == 1 else dv.sum(0), dlw, du.sum(0)
+    return dr, dk, dv[0] if dv.shape[0] == 1 else dv.sum(0), dlw, du.sum(0)
 
 
 wkv_backward_cuda.launches = 0
+wkv_backward_cuda.launches_tc = 0
 
 
 def reset_launches() -> None:
     reset_counts(wkv_cuda, "launches", "launches_tc")
-    reset_counts(wkv_backward_cuda)
+    reset_counts(wkv_backward_cuda, "launches", "launches_tc")

@@ -12,7 +12,8 @@ import torch
 
 from repro.kernels.rmsnorm.kernel import rms_norm_pallas
 from repro.kernels.rmsnorm.ref import rms_norm_ref as jax_rms_norm_ref
-from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_cuda, rms_norm_ref
+from repro_torch.kernels.rmsnorm import (rms_norm, rms_norm_backward_cuda,
+                                         rms_norm_cuda, rms_norm_ref)
 
 SHAPES = [(4, 64), (2, 3, 128), (37, 5632), (2, 8, 3072)]
 
@@ -86,3 +87,19 @@ def test_cpu_tensors_launch_nothing():
 def test_wrapper_refuses_what_the_kernel_does_not_take(x, scale, exc):
     with pytest.raises(exc):
         rms_norm_cuda(x, scale)
+
+
+@pytest.mark.parametrize("g,exc", [
+    (torch.zeros(2, 64, dtype=torch.bfloat16), ValueError),
+    (torch.zeros(2, 32), ValueError),
+    (torch.zeros(2, 64, device="meta"), ValueError),
+])
+def test_gradient_wrapper_refuses_what_the_kernel_does_not_take(g, exc):
+    """g must match x's shape, dtype and device; the operands are checked as
+    the forward's are."""
+    with pytest.raises(exc):
+        rms_norm_backward_cuda(torch.zeros(2, 64), torch.ones(64), g)
+    with pytest.raises(TypeError):
+        rms_norm_backward_cuda(torch.zeros(2, 64, dtype=torch.float16),
+                               torch.ones(64),
+                               torch.zeros(2, 64, dtype=torch.float16))

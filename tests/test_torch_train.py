@@ -1,5 +1,5 @@
 """The port's training path against the JAX package on the CPU: the loss,
-every parameter's gradient, B2's and B3's written-out backward, remat, the
+every parameter's gradient, B2's and B3's plain backwards, remat, the
 train state carried both ways, and ``train()`` end to end from the same
 reference checkpoint.
 
@@ -42,6 +42,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_backward_cuda, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ops import (
     FlashAttentionFn, flash_attention, flash_attention_backward)
+from repro_torch.kernels.rmsnorm.kernel import rms_norm_backward_cuda
 from repro_torch.kernels.rmsnorm.ops import RmsNormFn, rms_norm
 from repro_torch.kernels.flash_attention import ops as ops_mod
 from repro_torch.launch import train as T
@@ -189,12 +190,22 @@ def test_serving_forward_saves_nothing_for_a_backward():
 # ---------------------------------------------------------------------------
 
 
+# (3, 5, 64) as the reduced configs; ragged row counts and D = 1000, which
+# the kernel's vectors a thread do not divide (125 bf16 vectors of 8, 250
+# f32 vectors of 4, over 256 threads)
+B2_GRAD_SHAPES = [(3, 5, 64), (7, 1000), (3, 11, 200)]
+
+
+@pytest.mark.parametrize("shape", B2_GRAD_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rmsnorm_backward_matches_jax_grad(dtype):
+def test_rmsnorm_backward_matches_jax_grad(dtype, shape):
+    """B2's gradient through ``RmsNormFn`` (on the CPU its plain version
+    ``rms_norm_backward_ref``, which the gradient kernel's wrapper takes for
+    CPU tensors, launching nothing) against ``jax.vjp`` of the oracle."""
     rng = np.random.default_rng(1)
-    x = (rng.standard_normal((3, 5, 64)) * 2).astype(np.float32)
-    scale = rng.uniform(0.5, 1.5, 64).astype(np.float32)
-    g = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    x = (rng.standard_normal(shape) * 2).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     jx, jg = jnp.asarray(x).astype(jdt), jnp.asarray(g).astype(jdt)
@@ -206,7 +217,9 @@ def test_rmsnorm_backward_matches_jax_grad(dtype):
     y = rms_norm(tx, ts, eps=1e-5)
     assert y.grad_fn is not None and type(y.grad_fn).__name__ == \
         "RmsNormFnBackward"
+    before = rms_norm_backward_cuda.launches
     y.backward(torch.from_numpy(g).to(tdt))
+    assert rms_norm_backward_cuda.launches == before  # the CPU's plain one
     rdx = np.asarray(rdx.astype(jnp.float32))
     dx = tx.grad.float().numpy()
     if dtype == "float32":

@@ -8,12 +8,15 @@ no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_card.py
 
-Tolerances (f32): B2's dx and dscale within 1e-5 of their max |·|, B3's dq,
+Tolerances (f32): B2's dx and dscale within 1e-5 of their max |·| (bf16:
+dx within 1.5 times plain bf16's own distance from the f32 gradient), B3's dq,
 dk and dv within 1e-4 of theirs (in bf16, each within 1.5 times the plain
 version's own bf16 distance from its f32 gradient, the smoke's
-GRAD_BF16_FACTOR; B3's backward kernels repeat bit for bit), B4's dr, dk, dv, dlw and du within 1e-4
-of theirs (its backward kernel recomputes the states in f32 step by step,
-as the plain version does; only the order of the sums differs); the RWKV
+GRAD_BF16_FACTOR; B2's and B3's backward kernels repeat bit for bit), B4's
+dr, dk, dv, dlw and du within 1e-4 of theirs (its sequential backward
+recomputes the states in f32 step by step, as the plain version does; the
+chunked one forms them in 3xTF32 products, as the forward's chunked kernel
+does); the RWKV
 model's gradient leaves within 1e-3 of their max |g| (its forward is the
 chunked 3xTF32 kernel).
 """
@@ -37,7 +40,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm import kernel as b2
 from repro_torch.kernels.rmsnorm import ref as b2_ref
 from repro_torch.kernels.rmsnorm import rms_norm_ref
-from repro_torch.kernels.rmsnorm.kernel import rms_norm_cuda
+from repro_torch.kernels.rmsnorm.kernel import (rms_norm_backward_cuda,
+                                                rms_norm_cuda)
 from repro_torch.kernels.rmsnorm.ops import rms_norm
 from repro_torch.kernels.wkv import kernel as b4
 from repro_torch.kernels.wkv.kernel import wkv_backward_cuda, wkv_cuda
@@ -71,20 +75,49 @@ def _grads(fn, inputs, g):
             for t in leaves]
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 3072), (3, 5, 1024)])
-def test_rmsnorm_gradient_matches_plain(shape):
+# the seven shapes the families train B2 at (llama's, rwkv's, zamba2's,
+# mixtral's, seamless's, llava's two), and two small ones
+B2_GRAD_SHAPES = [(2, 2048, 3072), (2, 2048, 2048), (2, 2048, 3584),
+                  (2, 2048, 4096), (2, 2048, 1024), (2, 5760, 4096),
+                  (2, 2880, 4096), (2, 64, 3072), (3, 5, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", B2_GRAD_SHAPES, ids=str)
+def test_rmsnorm_gradient_matches_plain(shape, dtype):
+    """Through ``RmsNormFn`` (B2's forward, then its gradient kernel, each
+    launched once) against autograd through the plain version: f32 within
+    1e-5 of each gradient's max; bf16 dx within GRAD_BF16_FACTOR times
+    plain bf16's own distance from the f32 gradient, dscale within 1e-5 of
+    its max. The gradient kernel twice on the same inputs: the same
+    bits."""
     rng = np.random.default_rng(0)
+    dt = getattr(torch, dtype)
     x = torch.from_numpy((rng.standard_normal(shape) * 2).astype(
-        np.float32)).cuda()
+        np.float32)).cuda().to(dt)
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, shape[-1]).astype(
         np.float32)).cuda()
-    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
-    n = rms_norm_cuda.launches
+    g = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(dt)
+    n, nb = rms_norm_cuda.launches, rms_norm_backward_cuda.launches
     got = _grads(lambda a, s: rms_norm(a, s), (x, scale), g)
     assert rms_norm_cuda.launches == n + 1
+    assert rms_norm_backward_cuda.launches == nb + 1
+    f32 = _grads(lambda a, s: rms_norm_ref(a, s), (x.float(), scale),
+                 g.float())
     want = _grads(lambda a, s: rms_norm_ref(a, s), (x, scale), g)
-    for a, r in zip(got, want):
-        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    for name, a, p, r in zip(("x", "scale"), got, want, f32):
+        assert a.dtype == p.dtype, name
+        err = float((a.float() - r).abs().max())
+        limit = 1e-5 * float(r.abs().max())
+        if dtype == "bfloat16" and name == "x":
+            limit = max(limit, GRAD_BF16_FACTOR * float(
+                (p.float() - r).abs().max()))
+        assert err <= limit, (name, err, limit)
+    first = rms_norm_backward_cuda(x, scale, g)
+    again = rms_norm_backward_cuda(x, scale, g)
+    assert rms_norm_backward_cuda.launches == nb + 3
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 # (B, H, K, S, D, causal, window, dtype): head dims 16, 64, 112 and 128,
@@ -202,12 +235,15 @@ def _raise(*args, **kwargs):
 def test_train_step_never_reaches_the_plain_versions(monkeypatch):
     cfg, model, state, grads, batch = _step_inputs()
     for mod, name in ((b2, "rms_norm_ref"), (b2_ref, "rms_norm_ref"),
+                      (b2, "rms_norm_backward_ref"),
+                      (b2_ref, "rms_norm_backward_ref"),
                       (b3, "attention_ref"), (b3_ref, "attention_ref"),
                       (b3_ops, "flash_attention_backward"),
                       (F, "scaled_dot_product_attention")):
         monkeypatch.setattr(mod, name, _raise)
     n2, n3 = rms_norm_cuda.launches, flash_attention_cuda.launches_tc
     nb = flash_attention_backward_cuda.launches_tc
+    n2b = rms_norm_backward_cuda.launches
     metrics = T.train_step(cfg, model, state, grads, batch, AdamWConfig())
     torch.cuda.synchronize()
     n = cfg.num_layers
@@ -217,6 +253,8 @@ def test_train_step_never_reaches_the_plain_versions(monkeypatch):
     assert cfg.remat == "full"
     assert rms_norm_cuda.launches - n2 == (2 * n + 1) + 2 * n
     assert flash_attention_cuda.launches_tc - n3 == 2 * n
+    # B2's gradient kernel once a norm of the forward
+    assert rms_norm_backward_cuda.launches - n2b == 2 * n + 1
     # B3's backward kernel once a layer, on the tensor cores
     assert flash_attention_backward_cuda.launches_tc - nb == n
     assert bool(torch.isfinite(metrics["loss"]))
@@ -231,6 +269,19 @@ def test_a_kernel_that_cannot_run_raises_on_the_card():
     x = torch.ones(2, 6, device="cuda", requires_grad=True)
     with pytest.raises(ValueError):  # d 6 is not a multiple of 4 f32s
         rms_norm(x, torch.ones(6, device="cuda"))
+    # B2's gradient: g in x's dtype, contiguous; D as the forward's
+    x, s = torch.ones(4, 64, device="cuda"), torch.ones(64, device="cuda")
+    with pytest.raises(ValueError):
+        rms_norm_backward_cuda(x, s, x.bfloat16())
+    with pytest.raises(ValueError):
+        rms_norm_backward_cuda(x, s, torch.ones(64, 4, device="cuda").t())
+    with pytest.raises(ValueError):
+        rms_norm_backward_cuda(x[:, :6], s[:6], x[:, :6])
+    # B4's chunked backward takes head dim 64 only
+    r = torch.zeros(1, 2, 70, 16, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        wkv_backward_cuda(r, r, r, r, torch.zeros(2, 16, device="cuda"), r,
+                          kernel="tensor_core")
 
 
 def test_train_runs_on_the_card_by_default():
@@ -258,16 +309,21 @@ def _wkv_inputs(b, h, s, d, lw=(-1.61, -0.64), seed=5):
 @pytest.mark.parametrize("b,h,s,d,lw", [
     (2, 4, 1, 64, (-1.61, -0.64)), (2, 4, 333, 64, (-1.61, -0.64)),
     (1, 3, 130, 16, (-1.61, -0.64)), (1, 2, 1, 16, (-1.61, -0.64)),
-    (1, 2, 200, 64, (-20.0, 0.0)), (1, 2, 257, 64, (-0.01, 0.0))])
+    (1, 2, 200, 64, (-20.0, 0.0)), (1, 2, 257, 64, (-0.01, 0.0)),
+    (1, 2, 40, 64, (-1.61, -0.64)), (1, 2, 64, 64, (-1.61, -0.64)),
+    (2, 32, 512, 64, (-20.0, 0.0)), (1, 4, 2048, 64, (-0.01, 0.0))])
 def test_wkv_backward_matches_plain(b, h, s, d, lw):
-    """The backward kernel against autograd through ``wkv_ref``, and
-    ``WkvFn`` (B4's forward, then the backward kernel) alike; twice for the
-    same bits."""
+    """The backward kernel ``kernel_for`` picks (the chunked one at head dim
+    64 from S = 64, the sequential one below and at head dim 16) against
+    autograd through ``wkv_ref``, and ``WkvFn`` (B4's forward, then the
+    backward kernel) alike; twice for the same bits."""
     r, k, v, lws, u, do = _wkv_inputs(b, h, s, d, lw)
-    n = wkv_backward_cuda.launches
+    tc = b4.kernel_for(s, d) == "tensor_core"
+    n, n_tc = wkv_backward_cuda.launches, wkv_backward_cuda.launches_tc
     got = wkv_backward_cuda(r, k, v, lws, u, do)
     again = wkv_backward_cuda(r, k, v, lws, u, do)
     assert wkv_backward_cuda.launches == n + 2
+    assert wkv_backward_cuda.launches_tc == n_tc + 2 * tc
     want = _grads(lambda *t: wkv_ref(*t)[0], (r, k, v, lws, u), do)
     for name, a, a2, w in zip(("r", "k", "v", "lw", "u"), got, again, want):
         assert a.shape == w.shape, name
@@ -276,6 +332,7 @@ def test_wkv_backward_matches_plain(b, h, s, d, lw):
         assert err <= 1e-4 * float(w.abs().max()), (name, err)
     through = _grads(lambda *t: wkv(*t)[0], (r, k, v, lws, u), do)
     assert wkv_backward_cuda.launches == n + 3
+    assert wkv_backward_cuda.launches_tc == n_tc + 3 * tc
     for a, w in zip(through, want):
         assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
@@ -346,11 +403,13 @@ def test_rwkv_gradient_reaches_every_leaf_through_b4(monkeypatch):
                                       for p, g in flatten(grads)]
 
     n4, nb = wkv_cuda.launches_tc, wkv_backward_cuda.launches
+    nb_tc = wkv_backward_cuda.launches_tc
     loss, got = run()
     # remat full: the forward and the recompute on the chunked kernel, one
-    # backward launch a layer
+    # backward launch a layer, on the chunked backward (S = 128)
     assert wkv_cuda.launches_tc - n4 == 2 * cfg.num_layers
     assert wkv_backward_cuda.launches - nb == cfg.num_layers
+    assert wkv_backward_cuda.launches_tc - nb_tc == cfg.num_layers
     with monkeypatch.context() as m:
         _plain_versions(m)
         plain_loss, want = run()

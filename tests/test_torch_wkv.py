@@ -14,8 +14,12 @@ kernel's 3xTF32 split rounds them: the card holds the kernel to the same
 1e-5;
 against ``wkv_pallas`` in interpret mode within 5e-5 absolute, the
 reference's own bound between its chunked kernel and its oracle
-(``tests/test_kernels.py``).
+(``tests/test_kernels.py``). The chunked backward's arithmetic
+(``wkv_chunked_backward_ref``, with and without the 3xTF32 operand
+rounding) against ``jax.vjp`` of the oracle: each of dr, dk, dv, dlw and du
+within 1e-4 of its max |.|, the card's tolerance for the backward kernels.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,8 +29,10 @@ from repro.kernels.wkv.kernel import wkv_pallas
 from repro.kernels.wkv.ref import wkv_ref as ref_wkv_ref
 from repro_torch.kernels import wkv
 from repro_torch.kernels.wkv import wkv_cuda, wkv_ref
-from repro_torch.kernels.wkv.kernel import kernel_for
+from repro_torch.kernels.wkv.kernel import kernel_for, wkv_backward_cuda
 from repro_torch.kernels.wkv.ref import (round_tf32, truncate_tf32,
+                                         wkv_backward_ref,
+                                         wkv_chunked_backward_ref,
                                          wkv_chunked_ref)
 
 RTOL = 1e-5
@@ -264,3 +270,71 @@ def test_kernel_for_picks_by_length_and_head_dim():
     arrs = [torch.from_numpy(a) for a in _inputs(1, 2, 4, 8, seed=0)]
     with pytest.raises(ValueError, match="kernel must be"):
         wkv_cuda(*arrs, kernel="chunked")
+
+
+# -- the chunked backward's arithmetic (wkv_chunked_backward_ref) ----------
+GRAD_RTOL = 1e-4
+# (B, H, S, lw range): the model's decays at S = 333 (not a multiple of
+# 64) and 40 (below one chunk), weak at 1024 (the state grows over 16
+# chunks), strong (lw down to -20) at 200
+CHUNKED_GRAD_CASES = [(1, 2, 333, MODEL_LW), (1, 2, 40, MODEL_LW),
+                      (1, 1, 1024, WEAK_LW), (1, 2, 200, STRONG_LW)]
+
+
+def _grad_inputs(b, h, s, lw, seed):
+    arrs = _smoke_inputs(b, h, s, lw, seed=seed, state=False)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (b, h, s, 64)).astype(np.float32)
+    return arrs, do
+
+
+def _jax_grads(arrs, do):
+    _, vjp = jax.vjp(lambda *a: ref_wkv_ref(*a)[0], *map(jnp.asarray, arrs))
+    return [np.asarray(t) for t in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("tf32_split", [False, True])
+@pytest.mark.parametrize("b,h,s,lw", CHUNKED_GRAD_CASES, ids=str)
+def test_chunked_backward_matches_jax_grad(b, h, s, lw, tf32_split):
+    arrs, do = _grad_inputs(b, h, s, lw, seed=s)
+    want = _jax_grads(arrs, do)
+    got = wkv_chunked_backward_ref(*map(torch.from_numpy, arrs),
+                                   torch.from_numpy(do),
+                                   tf32_split=tf32_split)
+    for name, a, w in zip(("r", "k", "v", "lw", "u"), got, want):
+        assert a.shape == w.shape, name
+        assert np.isfinite(a.numpy()).all(), name
+        assert _close(a, w, GRAD_RTOL), (name, float(
+            np.abs(a.numpy() - w).max() / np.abs(w).max()))
+
+
+def test_chunked_backward_finite_where_pallas_is_not():
+    """Under strong decay the chunked Pallas form overflows in the forward;
+    the chunked backward's factors all lie in [0, 1] and its gradient
+    stays finite and on the oracle's."""
+    arrs, do = _grad_inputs(1, 2, 128, STRONG_LW, seed=12)
+    p_out, _ = wkv_pallas(*map(jnp.asarray, arrs), chunk=64, interpret=True)
+    assert not np.isfinite(np.asarray(p_out)).all()
+    got = wkv_chunked_backward_ref(*map(torch.from_numpy, arrs),
+                                   torch.from_numpy(do), tf32_split=True)
+    for a, w in zip(got, _jax_grads(arrs, do)):
+        assert np.isfinite(a.numpy()).all() and _close(a, w, GRAD_RTOL)
+
+
+def test_backward_kernel_rule():
+    """The backward takes ``kernel_for``'s kernel, as the forward does: the
+    chunked one at head dim 64 from one chunk of tokens on (training), the
+    sequential one below and at head dim 16; a CPU call takes the plain
+    version and launches nothing, whichever is named."""
+    assert kernel_for(2048, 64) == kernel_for(333, 64) == "tensor_core"
+    assert kernel_for(40, 64) == kernel_for(2048, 16) == "sequential"
+    arrs, do = _grad_inputs(1, 2, 70, MODEL_LW, seed=3)
+    ins = [torch.from_numpy(a) for a in arrs] + [torch.from_numpy(do)]
+    with pytest.raises(ValueError, match="kernel must be"):
+        wkv_backward_cuda(*ins, kernel="chunked")
+    before = (wkv_backward_cuda.launches, wkv_backward_cuda.launches_tc)
+    got = wkv_backward_cuda(*ins, kernel="tensor_core")
+    assert (wkv_backward_cuda.launches, wkv_backward_cuda.launches_tc) \
+        == before
+    for a, w in zip(got, wkv_backward_ref(*ins)):
+        assert torch.equal(a, w)
