@@ -116,6 +116,20 @@ tensor-core kernel. Then:
   ``synthetic_batch``), metered, each kernel's launches held to the count
   the code gives and the first loss to what random init gives
   (``expected_first_loss``); rwkv and zamba2 also profiled a step;
+* slice 7c, the mesh step builders on a 1x1 ("data", "model") mesh
+  (``launch/mesh.py`` ``make_mesh_compat``, a process group of one rank):
+  ``mesh_train_check``, llama3.2-3b at full width, 4 layers, f32,
+  ``launch.steps.build_train_step`` at accum 4 over 8 x 2048 tokens
+  through the kernels against the same through the plain versions, with
+  AdamW, with int8 gradient compression and with Adafactor (the gradient,
+  as AdamW's first moment, the error feedback, Adafactor's factored
+  moments and every updated parameter, leaf by leaf), launches the code's
+  count a microbatch x 4; ``mesh_train``,
+  ``launch.train.train(..., mesh=...)`` at full width and depth in bf16
+  at the config's own accum of 4 (3 steps of 8 x 2048 tokens), metered,
+  its launches of B2, B3 and their gradient kernels held to the code's
+  count x 4 a step, then 2 steps each of ``build_train_step`` with int8
+  gradient compression and of the Adafactor config;
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
@@ -464,6 +478,38 @@ BF16_LOSS_RTOL = 1e-2
 # equal the unbroken run's within RESUME_RTOL
 RESUME = dict(layers=1, steps=4, saved=2)
 RESUME_RTOL = 1e-3
+# Slice 7c: the mesh step builders on a 1x1 ("data", "model") mesh.
+# mesh_train_check: llama3.2-3b at full width, CHECK_LAYERS deep, f32,
+# build_train_step at MESH_ACCUM microbatches over MESH["global_batch"] rows
+# of MESH["seq_len"], one step through the kernels and one through the
+# plain versions from one seeded state, for each of MESH_CHECK_VARIANTS:
+# the gradient (read as AdamW's first moment after the step, m = (1 - b1)
+# clip g) and Adafactor's vr and vc within TRAIN_GRAD_RTOL of each leaf's
+# max; each updated parameter, the error feedback ef (on its int8 grid's
+# span) and the compressed and Adafactor runs' first moments too, but for a
+# share of at most MESH_OUTLIERS of a leaf's elements, held within
+# MESH_OUTLIER_RTOL: AdamW's and Adafactor's normalized first steps send a
+# gradient element near zero, whose sign the two runs' rounding may set
+# apart, to +-lr, and an int8 rounding flip moves a compressed gradient
+# element and its ef by one grid step (MESH_FLIP_RTOL for the compressed
+# run). mesh_train: launch.train.train
+# at full width and depth in bf16 at the config's own accum (4) on the
+# mesh, metered; then MESH_EXTRA_STEPS steps of build_train_step with
+# compress_grads=True and of the same config with optimizer="adafactor"
+# (state from init_factored_state); each first loss within FIRST_LOSS_NATS
+# of expected_first_loss
+MESH = dict(steps=3, global_batch=8, seq_len=2048)
+MESH_ACCUM = 4
+MESH_CHECK_VARIANTS = ("adamw", "compress_grads", "adafactor")
+MESH_EXTRA_STEPS = 2
+MESH_OUTLIERS = 1e-3
+MESH_OUTLIER_RTOL = 1e-2
+# the compressed run's outliers: an int8 flip moves a decompressed gradient
+# element one grid step (1/127 of its leaf's max; ef and m by as much), v
+# by up to 2/127 of its max, and a parameter's first AdamW step between 0
+# and +-lr (1.82e-2 of the leaf's max at lr 3e-4 on an NVIDIA H100 80GB HBM3)
+MESH_FLIP_RTOL = 2.5e-2
+FIRST_LOSS_NATS = 0.1
 
 
 # Slice 7b: single-device training of the other five families, B4's
@@ -4341,6 +4387,277 @@ class Smoke:
             self.family_bf16_check(arch, layers, seq)
             self.family_train(arch, layers, seq)
 
+    def mesh(self):
+        """The 1x1 ("data", "model") mesh of slice 7c's phases, over a
+        process group of one rank (NCCL), made once."""
+        if getattr(self, "_mesh", None) is None:
+            from repro_torch.launch.mesh import make_mesh_compat
+            self._mesh = make_mesh_compat((1, 1), ("data", "model"))
+        return self._mesh
+
+    def mesh_train_check(self):
+        """llama3.2-3b at full width, CHECK_LAYERS deep, f32, on the 1x1
+        mesh: ``build_train_step`` at MESH_ACCUM microbatches over MESH's
+        rows, one step from ``init_train_state``'s seeded state through the
+        kernels and one through the plain versions, for each of
+        MESH_CHECK_VARIANTS: AdamW, AdamW after int8 gradient compression,
+        Adafactor (state from ``init_factored_state``). Held leaf by leaf:
+        AdamW's gradient (its first moment after the step over 1 - b1) and
+        Adafactor's row and column means ``vr``, ``vc`` within
+        TRAIN_GRAD_RTOL of each leaf's max; each updated parameter, the
+        compressed runs' first moment and error feedback ``ef`` (on 254
+        times its max, its int8 grid's span) and Adafactor's bf16 first
+        moment (beyond one bf16 ulp of each element) by the outlier rule
+        (MESH_OUTLIERS within MESH_OUTLIER_RTOL, MESH_FLIP_RTOL for the
+        compressed run); the loss and AdamW's grad
+        norm; and the kernels' launches, the code's count for a step of
+        one microbatch times MESH_ACCUM."""
+        import dataclasses
+        import gc
+
+        import torch
+        from repro_torch._tree import flatten
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.data import SyntheticLMStream, device_put_batch
+        from repro_torch.launch.steps import (build_train_step,
+                                              init_train_state, place)
+        from repro_torch.optim.adafactor import init_factored_state
+        from repro_torch.parallel.layouts import rules_for
+        from repro_torch.parallel.sharding import full, use_mesh
+
+        mesh = self.mesh()
+        base = dataclasses.replace(get_config(ARCH), num_layers=CHECK_LAYERS,
+                                   dtype="float32", accum=MESH_ACCUM)
+        shape = ShapeSpec("mesh", "train", MESH["seq_len"],
+                          MESH["global_batch"])
+        batch = device_put_batch(SyntheticLMStream(base, shape).batch_at(0),
+                                 "cuda")
+        layers_n = base.num_layers
+        want_n = {"rms_norm": 4 * layers_n + 1,
+                  "rms_norm_backward": 2 * layers_n + 1,
+                  "flash_attention": 2 * layers_n,
+                  "flash_attention_backward": layers_n}
+
+        def run(cfg, compress):
+            rules = rules_for(cfg, shape, mesh)
+            prog = build_train_step(cfg, shape, mesh, rules,
+                                    compress_grads=compress)
+            state = init_train_state(cfg, device="cuda",
+                                     compress_grads=compress)
+            if cfg.optimizer == "adafactor":
+                state["opt"] = init_factored_state(state["params"])
+            state = place(state, prog.in_shardings[0])
+            with use_mesh(mesh, rules):
+                state, m = prog.jitted()(state, batch)
+            torch.cuda.synchronize()
+            leaves_of = {"params": state["params"], "ef": state.get("ef"),
+                         **state["opt"]}
+            out = {k: [full(v) for _, v in flatten(t)]
+                   for k, t in leaves_of.items()
+                   if t is not None and k != "count"}
+            return out, {k: float(v) for k, v in m.items()}
+
+        def errs(got, want, mul=1.0):
+            """(worst error over a leaf's scale, the largest share of a
+            leaf beyond TRAIN_GRAD_RTOL); the scale is ``mul`` times the
+            leaf's max |plain value|, and a bf16 leaf's element within one
+            bf16 ulp of its own counts no error."""
+            worst, share = 0.0, 0.0
+            for a, b in zip(got, want):
+                if b.numel() == 0:  # a vector's vc placeholder
+                    continue
+                err = (a.float() - b.float()).abs()
+                if b.dtype == torch.bfloat16:
+                    err = torch.where(err <= b.float().abs() * 2.0 ** -7,
+                                      torch.zeros_like(err), err)
+                err = err / (mul * b.float().abs().max().clamp_min(1e-30))
+                worst = max(worst, float(err.max()))
+                share = max(share, float((err > TRAIN_GRAD_RTOL).float()
+                                         .mean()))
+            return worst, share
+
+        for variant in MESH_CHECK_VARIANTS:
+            compress = variant == "compress_grads"
+            cfg = (dataclasses.replace(base, optimizer="adafactor")
+                   if variant == "adafactor" else base)
+            before, nb = lm_launches(), backward_launches()
+            got, gm = run(cfg, compress)
+            n = {**launches_since(before), **backward_since(nb)}
+            with plain_training():
+                want, wm = run(cfg, compress)
+            # held within TRAIN_GRAD_RTOL of each leaf's max, or by the
+            # outlier rule
+            strict = {"adamw": ("m",), "compress_grads": (),
+                      "adafactor": ("vr", "vc")}[variant]
+            outlier_err = (MESH_FLIP_RTOL if compress
+                           else MESH_OUTLIER_RTOL)
+            read = {k: errs(got[k], want[k], 254.0 if k == "ef" else 1.0)
+                    for k in sorted(got)}
+            for k, (worst, share) in read.items():
+                if k in strict:
+                    self.check(worst <= TRAIN_GRAD_RTOL,
+                               f"mesh_train_check {variant}: a {k} leaf "
+                               f"{worst} of its max from plain's")
+                else:
+                    self.check(share <= MESH_OUTLIERS
+                               and worst <= outlier_err,
+                               f"mesh_train_check {variant}: {k}: {share} "
+                               f"of a leaf beyond {TRAIN_GRAD_RTOL} of its "
+                               f"max, the worst {worst}")
+            rel = abs(gm["loss"] - wm["loss"]) / abs(wm["loss"])
+            norm_rel = (abs(gm["grad_norm"] - wm["grad_norm"])
+                        / wm["grad_norm"] if "grad_norm" in wm else 0.0)
+            self.check(sorted(gm) == sorted(wm) and rel <= TRAIN_LOSS_RTOL
+                       and norm_rel <= TRAIN_GRAD_RTOL,
+                       f"mesh_train_check {variant}: metrics {gm} vs plain "
+                       f"{wm}")
+            self.check(all(n[k] == v * MESH_ACCUM
+                           for k, v in want_n.items()),
+                       f"mesh_train_check {variant} launches {n}, the code "
+                       f"gives {want_n} a microbatch x {MESH_ACCUM}")
+            emit({"phase": "mesh_train_check", "arch": ARCH,
+                  "variant": variant, "optimizer": cfg.optimizer,
+                  "compress_grads": compress, "dtype": "float32",
+                  "layers": layers_n, "mesh": {"data": 1, "model": 1},
+                  "accum": MESH_ACCUM, "tokens": [MESH["global_batch"],
+                                                  MESH["seq_len"]],
+                  "remat": cfg.remat, "entry": "launch.steps.build_train_step",
+                  "loss": gm["loss"], "plain_loss": wm["loss"],
+                  "loss_rel_err": rel, "grad_norm": gm.get("grad_norm"),
+                  "plain_grad_norm": wm.get("grad_norm"),
+                  "worst_err_over_leaf_max": {k: v[0]
+                                              for k, v in read.items()},
+                  "share_beyond_grad_limit": {k: v[1]
+                                              for k, v in read.items()},
+                  "held_strictly": list(strict),
+                  "limits": {"loss": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_RTOL,
+                             "outliers": MESH_OUTLIERS,
+                             "outlier_err": outlier_err},
+                  "launches": n, "launches_per_microbatch": want_n,
+                  "card": self.card})
+            del got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def mesh_train(self):
+        """``launch.train.train`` on llama3.2-3b at full width and depth in
+        bf16 on the 1x1 mesh (MESH's steps, batch and length; the config's
+        own accum, 4), metered on the GPU's power counter, its launches of
+        B2, B3 and their gradient kernels held to the code's count a
+        microbatch times 4 a step; then MESH_EXTRA_STEPS steps of
+        ``build_train_step`` with int8 gradient compression, and of the
+        Adafactor config (state from ``init_factored_state``), each timed
+        by step, its peak memory read."""
+        import contextlib
+        import dataclasses
+        import gc
+        import io
+        import math
+        import re
+
+        import torch
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.data import SyntheticLMStream, device_put_batch
+        from repro_torch.launch.steps import (build_train_step,
+                                              init_train_state, place)
+        from repro_torch.launch.train import train
+        from repro_torch.optim.adafactor import init_factored_state
+        from repro_torch.parallel.layouts import rules_for
+        from repro_torch.parallel.sharding import use_mesh
+
+        mesh = self.mesh()
+        cfg = get_config(ARCH)
+        accum, steps = cfg.accum, MESH["steps"]
+        self.check(accum == MESH_ACCUM, f"mesh_train: {ARCH}'s accum {accum}")
+        per_step = {k: v * accum for k, v in train_launches(cfg).items()}
+        tokens = MESH["global_batch"] * MESH["seq_len"]
+        first = expected_first_loss(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        reset_all_launches()
+        before = lm_launches()
+        with contextlib.redirect_stdout(log):
+            out, seconds, ws, samples = metered(lambda: train(
+                ARCH, use_reduced=False, mesh=mesh, log_every=1, **MESH))
+        counts = {**launches_since(before), **backward_launches()}
+        peak = torch.cuda.max_memory_allocated()
+        self.path_launches[f"{ARCH} mesh train"] = counts
+        step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
+                                              log.getvalue())]
+        losses = out["losses"]
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2] \
+            if len(step_ms) > 1 else None
+        self.check(counts == {k: v * steps for k, v in per_step.items()},
+                   f"mesh_train: launches {counts}, the code gives "
+                   f"{per_step} a step x {steps}")
+        self.check(out["steps"] == steps and all(
+            math.isfinite(x) for x in losses)
+            and abs(losses[0] - first) <= FIRST_LOSS_NATS,
+            f"mesh_train: losses {losses}, the first expected near {first}")
+        emit({"phase": "mesh_train", "arch": ARCH, "layers": cfg.num_layers,
+              "dtype": cfg.dtype, "remat": cfg.remat, "accum": accum,
+              "mesh": {"data": 1, "model": 1}, **MESH,
+              "entry": "launch.train.train(mesh=...)", "losses": losses,
+              "expected_first_loss": first, "step_ms": step_ms,
+              "median_step_ms_after_first": steady,
+              "tokens_per_s": (1e3 * tokens / steady if steady else None),
+              "wall_s": out["wall_s"], "seconds_metered": seconds,
+              "metered_gpu_ws": ws,
+              "metered_gpu_ws_per_step": ws / steps if ws else ws,
+              "trace_samples": samples,
+              "max_memory_allocated_gb": peak / 1e9,
+              "launches": counts, "launches_per_step": per_step,
+              "card": self.card})
+        del out
+        shape = ShapeSpec("train_cli", "train", MESH["seq_len"],
+                          MESH["global_batch"])
+        stream = SyntheticLMStream(cfg, shape)
+        for variant in ("compress_grads", "adafactor"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            compress = variant == "compress_grads"
+            vcfg = cfg if compress else dataclasses.replace(
+                cfg, optimizer="adafactor")
+            rules = rules_for(vcfg, shape, mesh)
+            prog = build_train_step(vcfg, shape, mesh, rules,
+                                    compress_grads=compress)
+            state = init_train_state(vcfg, device="cuda",
+                                     compress_grads=compress)
+            if not compress:
+                state["opt"] = init_factored_state(state["params"])
+            state = place(state, prog.in_shardings[0])
+            step = prog.jitted()
+            vlosses, vms = [], []
+            for i in range(MESH_EXTRA_STEPS):
+                batch = device_put_batch(stream.batch_at(i), "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with use_mesh(mesh, rules):
+                    state, m = step(state, batch)
+                vlosses.append(float(m["loss"]))
+                vms.append(1e3 * (time.perf_counter() - t0))
+            vpeak = torch.cuda.max_memory_allocated()
+            self.check(all(math.isfinite(x) for x in vlosses)
+                       and abs(vlosses[0] - first) <= FIRST_LOSS_NATS,
+                       f"mesh_train {variant}: losses {vlosses}, the first "
+                       f"expected near {first}")
+            emit({"phase": "mesh_train", "arch": ARCH, "variant": variant,
+                  "dtype": vcfg.dtype, "accum": vcfg.accum,
+                  "optimizer": vcfg.optimizer, "compress_grads": compress,
+                  "entry": "launch.steps.build_train_step", **MESH,
+                  "steps": MESH_EXTRA_STEPS, "losses": vlosses,
+                  "step_ms": vms, "max_memory_allocated_gb": vpeak / 1e9,
+                  "card": self.card})
+            del prog, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        from repro_torch.launch.mesh import release_process_group
+        release_process_group()
+        self._mesh = None
+
     def lm_kernel_launches(self):
         """Each LM kernel's launches in the kernels line: the sum over the
         main paths it ran on, kept apart in ``launches_by_path``. B4's two
@@ -4411,6 +4728,7 @@ def main() -> int:
                   smoke.encdec_main_path, smoke.vlm_main_path,
                   smoke.train_main_path, smoke.train_bf16_check,
                   smoke.families_train, smoke.train_resume,
+                  smoke.mesh_train_check, smoke.mesh_train,
                   smoke.lm_kernel_launches, smoke.main_path):
         t_phase = time.perf_counter()
         try:

@@ -14,8 +14,9 @@ so that either package restores what the other saved:
 ``save`` copies every leaf to host memory before it returns (so a train
 step may update the state in place right after) and writes on a background
 thread; ``wait()`` joins before the next save, a restore, or program exit.
-``restore`` writes into the template's tensors in place, on their devices:
-there is no mesh to re-shard onto on one card.
+``restore`` writes into the template's tensors in place, on their devices.
+On a mesh (DTensor leaves) every rank gathers each leaf whole for a save,
+rank 0 writes it, and a restore writes each rank's shard of it.
 
 ``tree_paths`` (flat escaped leaf paths in the order JAX flattens a tree:
 dict keys sorted, list and tuple items by index), ``_digest`` (the
@@ -35,8 +36,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import flatten, unflatten_like
+from repro_torch.parallel.sharding import full, is_dtensor, local, local_chunk
 
 
 def tree_paths(tree: Any) -> list[tuple[str, Any]]:
@@ -53,9 +56,11 @@ def dtype_name(leaf: Any) -> str:
 
 
 def _host_array(leaf: Any) -> np.ndarray:
-    """A host copy of the leaf as numpy, bfloat16 as a uint16 view."""
+    """A host copy of the leaf as numpy, bfloat16 as a uint16 view; a
+    DTensor's whole value, gathered on every rank."""
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
+    leaf = full(leaf)
     host = torch.empty(leaf.shape, dtype=leaf.dtype).copy_(leaf.detach())
     if host.dtype == torch.bfloat16:
         return host.view(torch.int16).numpy().view(np.uint16)
@@ -81,6 +86,8 @@ class Checkpointer:
         paths = tree_paths(tree)
         leaves = [(k, _host_array(v)) for k, v in paths]
         true_dtypes = {k: dtype_name(v) for k, v in paths}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return  # every rank gathered the leaves; rank 0 writes them
 
         def _write():
             try:
@@ -171,8 +178,10 @@ def _restore_leaf(key: str, arr: np.ndarray, dtype: str, tmpl: Any) -> Any:
                          f"{tuple(np.shape(tmpl))}")
     if not isinstance(tmpl, torch.Tensor):
         return host
+    if is_dtensor(tmpl):  # this rank's shard of the whole
+        host = local_chunk(host, tmpl.placements, tmpl.device_mesh)
     with torch.no_grad():
-        tmpl.copy_(host)
+        local(tmpl).copy_(host)
     return tmpl
 
 

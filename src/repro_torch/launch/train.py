@@ -1,6 +1,6 @@
-"""End-to-end training driver of the port, on one card.
+"""End-to-end training driver of the port, on one card or on a mesh.
 
-Counterpart of the JAX package's ``launch/train.py`` on its single-device
+Counterpart of the JAX package's ``launch/train.py``. On its single-device
 path (``mesh=None``): config-driven, the deterministic data pipeline with
 prefetch, the reference's step (``forward_loss`` at ``cfg.remat``, the
 backward, AdamW at lr 1e-3), async checkpointing with restart-resume in
@@ -18,8 +18,19 @@ Every family but the VLM trains here: dense, MoE, RWKV (B4's forward and
 its backward kernel), the hybrid and the enc-dec family. The VLM is refused
 as the reference's own ``train()`` fails on it (``NOT_TRAINABLE``); its
 step trains through ``train_step`` on ``models.synthetic_batch``, as the
-reference's tests train it. Training on a mesh of several cards is not
-ported yet (ROADMAP.md, slice 7c), and ``mesh`` other than None is refused.
+reference's tests train it.
+
+``train(..., mesh=...)`` is the reference's mesh path: ``rules_for`` the
+cell, ``build_train_step`` (with ``search_first``'s decisions, the
+config's own ``accum``, AdamW at the reference's default lr 3e-4), the
+state laid out by the rules on the mesh (``launch/mesh.py``
+``make_mesh_compat``; one card is a 1×1 mesh) and the loop under
+``use_mesh``. Checkpoints keep their format: each leaf is saved whole (rank
+0 writes) and restored into each rank's shard. An Adafactor config is
+refused there (``check_trainable``): the reference's ``train(mesh=...)``
+hands ``init_train_state``'s AdamW state to an Adafactor step, which
+fails; train Adafactor through ``build_train_step`` with
+``init_factored_state``'s state.
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ import time
 from typing import Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.profiler import record_function
 
 from repro_torch._device import resolve_device
@@ -37,9 +50,14 @@ from repro_torch.configs import SHAPES, get_config, reduced as reduce_cfg
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core import GAConfig, search_lm_cell
 from repro_torch.data import DataConfig, SyntheticLMStream, device_put_batch
-from repro_torch.launch.steps import init_train_state
+from repro_torch.launch.mesh import chips, mesh_device, mesh_shape_dict
+from repro_torch.launch.steps import (
+    build_train_step, init_train_state, place,
+)
 from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.parallel.layouts import rules_for
+from repro_torch.parallel.sharding import use_mesh
 from repro_torch.runtime import StragglerDetector
 
 # the families ``train()`` refuses, and why
@@ -55,15 +73,27 @@ NOT_TRAINABLE = {
 
 
 def check_trainable(cfg: ArchConfig, mesh=None) -> None:
-    """Raise NotImplementedError for what this driver does not train."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh is not ported yet (ROADMAP.md, slice 7c: "
-            "build_train_step, rules_for and the sharded layouts); pass "
-            "mesh=None for one card")
+    """Raise NotImplementedError for what this driver does not train, and
+    ValueError for a mesh that is not one over this process group."""
     if cfg.family in NOT_TRAINABLE:
         raise NotImplementedError(f"{cfg.name} cannot train here: "
                                   f"{NOT_TRAINABLE[cfg.family]}")
+    if mesh is None:
+        return
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not isinstance(mesh, DeviceMesh) or chips(mesh) != world:
+        got = (mesh_shape_dict(mesh) if hasattr(mesh, "mesh_dim_names")
+               or hasattr(mesh, "axis_names") else type(mesh).__name__)
+        raise ValueError(
+            f"train() takes a DeviceMesh over the whole process group "
+            f"(world size {world}), got {got}: build it with "
+            f"launch/mesh.py make_mesh_compat")
+    if cfg.optimizer == "adafactor":
+        raise NotImplementedError(
+            f"{cfg.name} uses Adafactor, and the reference's "
+            f"train(mesh=...) fails on it: it builds AdamW's state "
+            f"(init_train_state) and hands it to an Adafactor step; train "
+            f"it through build_train_step with init_factored_state's state")
 
 
 def train_step(cfg: ArchConfig, model: T.TransformerLM, state: dict,
@@ -111,23 +141,33 @@ def train(
 ) -> dict:
     """Train ``arch`` (a name of ``configs/archs.py``, or a config, which
     is then used as given) for ``steps`` steps on ``device`` (None: the
-    card); returns ``final_loss``, ``initial_loss``, ``losses``, ``steps``
-    (run here, after a resume) and ``wall_s``."""
+    card), or on ``mesh`` (a ``DeviceMesh``, on its device); returns
+    ``final_loss``, ``initial_loss``, ``losses``, ``steps`` (run here,
+    after a resume) and ``wall_s``."""
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if use_reduced:
         cfg = reduce_cfg(cfg)
     check_trainable(cfg, mesh)
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else mesh_device(mesh)
     shape = ShapeSpec("train_cli", "train", seq_len, global_batch)
 
+    dec = None
     if search_first:
         mesh_shape = {"data": 16, "model": 16}
         res = search_lm_cell(cfg, SHAPES["train_4k"], mesh_shape,
                              GAConfig(population=8, generations=8))
-        print(f"[search] best decisions: {res.best_decisions}")
+        dec = res.best_decisions
+        print(f"[search] best decisions: {dec}")
 
-    opt_cfg = AdamWConfig(lr=1e-3)
+    rules = None
     state = init_train_state(cfg, device=device)
+    if mesh is None:
+        opt_cfg = AdamWConfig(lr=1e-3)
+    else:
+        rules = rules_for(cfg, shape, mesh)
+        prog = build_train_step(cfg, shape, mesh, rules, dec)
+        mesh_step = prog.jitted()
+        state = place(state, prog.in_shardings[0])
 
     ck = Checkpointer(checkpoint_dir) if checkpoint_dir else None
     start_step = 0
@@ -135,8 +175,9 @@ def train(
         start_step = ck.latest_step()
         state = ck.restore(start_step, state)
         print(f"[resume] restored step {start_step}")
-    model = T.TransformerLM.from_stacked(cfg, state["params"])
-    grads = T.bind_stacked_grads(model, state["params"])
+    if mesh is None:
+        model = T.TransformerLM.from_stacked(cfg, state["params"])
+        grads = T.bind_stacked_grads(model, state["params"])
 
     stream = SyntheticLMStream(cfg, shape, DataConfig(seed=0))
     it = stream.prefetching(start_step=start_step)
@@ -148,7 +189,11 @@ def train(
             step_id, batch = next(it)
             batch = device_put_batch(batch, device)
             t0 = time.time()
-            metrics = train_step(cfg, model, state, grads, batch, opt_cfg)
+            if mesh is None:
+                metrics = train_step(cfg, model, state, grads, batch, opt_cfg)
+            else:
+                with use_mesh(mesh, rules):
+                    state, metrics = mesh_step(state, batch)
             loss = float(metrics["loss"])
             det.record(0, time.time() - t0)
             losses.append(loss)

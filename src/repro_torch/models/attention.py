@@ -150,6 +150,13 @@ def attention(
 # Decode (single new token against a KV cache)
 # ---------------------------------------------------------------------------
 
+def cache_logical_axes() -> dict:
+    return {
+        "k": ("kv_batch", "kv_seq", "act_kv_heads", None),
+        "v": ("kv_batch", "kv_seq", "act_kv_heads", None),
+    }
+
+
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, window: int = 0,
                   *, device=None) -> dict:
     """Cache for ONE layer (callers stack over layers). Always bf16, whatever

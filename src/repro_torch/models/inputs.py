@@ -1,7 +1,7 @@
-"""Model-input batches per cell: their structure, and concrete synthetic
-batches drawn from a numpy seed (counterpart of the JAX package's
-``models/inputs.py``; the ShapeDtypeStruct stand-ins wait for the training
-slice)."""
+"""Model-input batches per cell: their structure, logical axes, stand-ins
+and concrete synthetic batches drawn from a numpy seed (counterpart of the
+JAX package's ``models/inputs.py``; ``input_specs`` gives meta tensors in
+the place of its ``jax.ShapeDtypeStruct``s)."""
 from __future__ import annotations
 
 from typing import Any
@@ -33,6 +33,24 @@ def batch_structure(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, Any]:
         out["labels"] = ((b, s), torch.int32)
         out["loss_mask"] = ((b, s), torch.float32)
     return out
+
+
+def batch_logical_axes(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, tuple]:
+    axes: dict[str, tuple] = {}
+    for name, (shp, _) in batch_structure(cfg, shape).items():
+        if len(shp) == 1:
+            axes[name] = ("batch",)
+        elif len(shp) == 2:
+            axes[name] = ("batch", "seq")
+        else:
+            axes[name] = ("batch", "seq", "embed")
+    return axes
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, torch.Tensor]:
+    """The batch's leaves as meta tensors: shape and dtype, no storage."""
+    return {name: torch.empty(shp, dtype=dt, device="meta")
+            for name, (shp, dt) in batch_structure(cfg, shape).items()}
 
 
 def synthetic_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0, *,

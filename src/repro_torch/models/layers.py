@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm.ops import rms_norm as _rms_norm_op
-from repro_torch.parallel.sharding import PDef
+from repro_torch.parallel.sharding import PDef, batch_shards, batch_sum
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +112,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     positions of lse − logit[label] + z_loss·lse². The row max that steadies
     the log-sum-exp carries no gradient, as in the reference; the label's
     logit is a gather where the reference contracts with a one-hot, which
-    computes the same value."""
+    computes the same value. Inside a ``data_parallel`` split the mean is
+    taken over the whole batch's positions, so that the shares' losses sum
+    to the batch's."""
     logits = logits.float()
     m = torch.amax(logits, -1, keepdim=True).detach()
     z = torch.sum(torch.exp(logits - m), -1)
@@ -121,6 +123,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     nll = lse - picked
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
+    n = batch_shards()
+    if n > 1:  # a share of a data-parallel batch: over the batch's count
+        if mask is None:
+            return torch.sum(nll) / (nll.numel() * n)
+        return torch.sum(nll * mask) / torch.clamp(
+            batch_sum(torch.sum(mask)), min=1.0)
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.parallel.sharding import PDef
+from repro_torch.parallel.sharding import PDef, batch_shards, batch_sum
 
 
 def moe_defs(cfg: ArchConfig) -> dict:
@@ -56,8 +56,18 @@ def route(cfg: ArchConfig, p, x: torch.Tensor):
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance aux loss
     e = cfg.num_experts
-    density = F.one_hot(ids[..., 0], e).float().mean(dim=(0, 1))
-    density_proxy = probs.mean(dim=(0, 1))
+    n = batch_shards()
+    if n == 1:
+        density = F.one_hot(ids[..., 0], e).float().mean(dim=(0, 1))
+        density_proxy = probs.mean(dim=(0, 1))
+    else:
+        # a share of a data-parallel batch: the density over the whole
+        # batch, and this share's part of the proxy's batch mean, so that
+        # the shares' aux losses (and their gradients) sum to the batch's
+        tokens = ids.shape[0] * ids.shape[1] * n
+        density = batch_sum(
+            F.one_hot(ids[..., 0], e).float().sum(dim=(0, 1))) / tokens
+        density_proxy = probs.sum(dim=(0, 1)) / tokens
     aux = e * (density * density_proxy).sum()
     return weights.to(x.dtype), ids, aux
 

@@ -19,12 +19,14 @@ public signatures, with the module in the place of ``params``.
 
 Public surface:
     model_defs(cfg)                   -> PDef tree (single source of truth)
+    param_specs(cfg, rules, mesh)     -> spec tree (parallel/sharding.py)
     init_param_tree(cfg, generator)   -> the stacked parameter tree
     init_params(cfg, generator)       -> TransformerLM
     forward(cfg, model, batch)        -> (logits, aux)        [prefill]
     forward_loss(cfg, model, batch)   -> (loss, metrics)      [train]
     bind_stacked_grads(model, params) -> stacked gradient tree
     init_decode_state(cfg, batch, cache_len) -> state
+    decode_state_logical_axes(cfg, state)    -> logical-axes tree
     decode_step(cfg, model, state, tokens)   -> (logits, state) [serve]
 
 ``forward`` and ``forward_loss`` run the same blocks (``_forward``):
@@ -66,7 +68,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.parallel.sharding import PDef, init_from_defs, stack_defs
+from repro_torch.parallel.sharding import (
+    PDef, init_from_defs, specs_from_defs, stack_defs,
+)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -154,6 +158,10 @@ def model_defs(cfg: ArchConfig) -> dict:
         if cfg.frontend == "vision":
             defs["frontend"]["ln"] = L.rms_norm_defs(d)
     return defs
+
+
+def param_specs(cfg: ArchConfig, rules, mesh=None) -> dict:
+    return specs_from_defs(model_defs(cfg), rules, mesh)
 
 
 def _module(tree: dict) -> nn.Module:
@@ -553,6 +561,32 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int, *,
                                              device=device),
                           cfg.num_layers)
     return state
+
+
+def decode_state_logical_axes(cfg: ArchConfig, state: dict) -> dict:
+    """Logical sharding axes mirroring init_decode_state's structure."""
+    kv_axes = ("layers",) + attn.cache_logical_axes()["k"]
+    out: dict = {"pos": (None,)}  # (batch,) vector, replicated
+    if cfg.family == "ssm":
+        out["rwkv"] = {
+            "wkv": ("layers", "batch", "rwkv_heads", None, None),
+            "tm_x": ("layers", "batch", "embed"),
+            "cm_x": ("layers", "batch", "embed"),
+        }
+    elif cfg.family == "hybrid":
+        m_axes = {"ssm": ("layers", "batch", "ssm_heads", None, None),
+                  "conv": ("layers", "batch", None, "ssm_inner")}
+        out["mamba"] = m_axes
+        if "mamba_tail" in state:
+            out["mamba_tail"] = m_axes
+        out["attn"] = {"k": kv_axes, "v": kv_axes}
+    elif cfg.is_encdec:
+        out["self"] = {"k": kv_axes, "v": kv_axes}
+        out["cross_k"] = kv_axes
+        out["cross_v"] = kv_axes
+    else:
+        out["kv"] = {"k": kv_axes, "v": kv_axes}
+    return out
 
 
 def reset_decode_slots(cfg: ArchConfig, state: dict, reset_mask) -> dict:

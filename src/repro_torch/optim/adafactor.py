@@ -10,7 +10,11 @@ Like ``adamw_update``, ``adafactor_update`` writes the parameters and the
 state in place, one leaf after another (``_sequenced_updates``, a plain
 loop here: leaves are updated in order, so one leaf's f32 temporaries are
 alive at a time, which is what the reference's optimization barriers
-enforce).
+enforce). On a mesh the leaves are DTensors: each rank updates its shards,
+and the row and column means and the RMS clip are taken over the whole
+leaf (``parallel/sharding.py`` ``mean_over``), as GSPMD takes them in the
+reference; ``vr`` and ``vc`` then hold the layout of the parameter's spec
+without its last, or its second-to-last, dim.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch._tree import leaves, tree_map
+from repro_torch.parallel.sharding import assign, local, mean_over
 
 
 @dataclass(frozen=True)
@@ -64,16 +69,17 @@ def adafactor_update(params: Any, grads: Any, state: dict,
                      cfg: AdafactorConfig, lr_scale=1.0):
     """Returns (params, state, metrics): the trees passed in, updated in
     place; metrics ``lr``."""
-    count = state["count"] + 1
+    count = local(state["count"]) + 1
     lr = cfg.lr * lr_scale
 
-    def upd(p, g, m, vr, vc):
-        g = g.float()
+    def upd(p_, g_, m_, vr_, vc_):
+        p, m, vr, vc = local(p_), local(m_), local(vr_), local(vc_)
+        g = local(g_).float()
         g2 = torch.square(g) + cfg.eps
         if p.dim() >= 2:
-            vr.mul_(cfg.decay).add_((1 - cfg.decay) * torch.mean(g2, -1))
-            vc.mul_(cfg.decay).add_((1 - cfg.decay) * torch.mean(g2, -2))
-            denom = torch.clamp(torch.mean(vr, -1, keepdim=True),
+            vr.mul_(cfg.decay).add_((1 - cfg.decay) * mean_over(g2, p_, -1))
+            vc.mul_(cfg.decay).add_((1 - cfg.decay) * mean_over(g2, p_, -2))
+            denom = torch.clamp(mean_over(vr, vr_, -1, keepdim=True),
                                 min=cfg.eps)
             vhat = (vr[..., None] * vc[..., None, :]) / denom[..., None]
         else:
@@ -81,7 +87,7 @@ def adafactor_update(params: Any, grads: Any, state: dict,
             vhat = vr
         u = g * torch.rsqrt(vhat + cfg.eps)
         # RMS clip
-        rms = torch.sqrt(torch.mean(torch.square(u)) + cfg.eps)
+        rms = torch.sqrt(mean_over(torch.square(u), p_) + cfg.eps)
         u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
         m2 = cfg.b1 * m.float() + (1 - cfg.b1) * u
         step = m2
@@ -93,5 +99,5 @@ def adafactor_update(params: Any, grads: Any, state: dict,
     _sequenced_updates(upd, list(zip(
         leaves(params), leaves(grads), leaves(state["m"]),
         leaves(state["vr"]), leaves(state["vc"]))))
-    state["count"] = count
+    assign(state, "count", count)
     return params, state, {"lr": lr}

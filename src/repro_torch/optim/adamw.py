@@ -13,7 +13,10 @@ decided by the whole leaf's rank). The reference's barrier-sequenced
 updates bound its temporaries in the same way.
 
 ``params`` and ``grads`` are trees of tensors of one structure
-(``repro_torch/_tree.py``), ``grads`` in the params' dtype or f32.
+(``repro_torch/_tree.py``), ``grads`` in the params' dtype or f32. On a
+mesh the leaves are DTensors of one layout a leaf: the update runs on each
+rank's shards, and the global norm sums over every shard
+(``parallel/sharding.py`` ``reduce_over``), as GSPMD sums in the reference.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Any
 import torch
 
 from repro_torch._tree import leaves, tree_map
+from repro_torch.parallel.sharding import assign, local, reduce_over
 
 # elements of one slice of a leaf that one update step takes: 64M, so that
 # a step's f32 temporaries stay within a few hundred MB
@@ -48,7 +52,10 @@ def init_opt_state(params: Any) -> dict:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    sums = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    """The norm of every leaf together; a DTensor leaf's sum of squares is
+    taken over its shards on every rank that holds one."""
+    sums = [reduce_over(torch.sum(torch.square(local(x).float())), x)
+            for x in leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -73,7 +80,7 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
-    count = state["count"] + 1
+    count = local(state["count"]) + 1
     c1 = 1.0 - torch.pow(cfg.b1, count.float())
     c2 = 1.0 - torch.pow(cfg.b2, count.float())
     lr = cfg.lr * lr_scale
@@ -90,7 +97,7 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
         decay = p.dim() >= 2
-        for part in _slices(p, g, m, v):
+        for part in _slices(*map(local, (p, g, m, v))):
             upd(*part, decay)
-    state["count"] = count
+    assign(state, "count", count)
     return params, state, {"grad_norm": gnorm, "lr": lr}

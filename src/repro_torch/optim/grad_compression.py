@@ -3,10 +3,12 @@
 Counterpart of the JAX package's ``optim/grad_compression.py``: per-tensor
 symmetric int8 quantization, and the error-feedback construction that
 re-injects each step's residual the next step, so that the optimizer stays
-unbiased in the long run. The reference applies it around the cross-pod
-gradient reduction of its mesh train step; the port's mesh path comes with
-the multi-card training slice, and these functions are held here to the
-reference's on the CPU. Functional: new trees are returned.
+unbiased in the long run. The reference applies it to the gradients of
+its mesh train step, and so does the port's (``launch/steps.py``
+``build_train_step(..., compress_grads=True)``), to the gradients after
+they take the parameters' layout. ``compress_with_feedback`` returns the
+decompressed gradients as a new tree and writes the new residuals into the
+given ones in place.
 """
 from __future__ import annotations
 
@@ -15,12 +17,18 @@ from typing import Any
 import torch
 
 from repro_torch._tree import leaves, tree_map, unflatten_like
+from repro_torch.parallel.sharding import like, local, reduce_over
 
 
-def compress(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8 quantization. Returns (q, scale)."""
+def compress(g: torch.Tensor, like=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization. Returns (q, scale). ``g``
+    may be the local part of DTensor ``like``: the scale is then the max
+    over every shard of it."""
     gf = g.float()
-    scale = torch.clamp(torch.max(torch.abs(gf)), min=1e-12) / 127.0
+    amax = torch.max(torch.abs(gf))
+    if like is not None:
+        reduce_over(amax, like, op="max")
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -35,17 +43,20 @@ def init_error_feedback(params: Any) -> Any:
 
 
 def compress_with_feedback(grads: Any, residuals: Any):
-    """Returns (decompressed_grads, new_residuals).
+    """Returns (decompressed_grads, residuals), the residuals updated in
+    place, as the reference's train step donates them.
 
-    g' = Q(g + r);  r' = (g + r) - g'  — the standard EF-SGD construction."""
+    g' = Q(g + r);  r' = (g + r) - g'  — the standard EF-SGD construction.
+    DTensor leaves (a mesh step's) are compressed shard by shard with the
+    scale of the whole leaf; g' keeps g's layout."""
     def one(g, r):
-        corrected = g.float() + r
-        approx = decompress(*compress(corrected))
-        return approx, corrected - approx
+        corrected = local(g).float() + local(r)
+        approx = decompress(*compress(corrected, like=r))
+        local(r).copy_(corrected - approx)
+        return like(approx, g)
 
     outs = [one(g, r) for g, r in zip(leaves(grads), leaves(residuals))]
-    return (unflatten_like(grads, [o[0] for o in outs]),
-            unflatten_like(grads, [o[1] for o in outs]))
+    return unflatten_like(grads, outs), residuals
 
 
 def compression_ratio() -> float:

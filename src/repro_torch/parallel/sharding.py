@@ -1,16 +1,239 @@
-"""Declarative parameter definitions: the part of the JAX package's
-``parallel/sharding.py`` that the models need on one card.
+"""Logical-axis sharding engine of the port, on a ``DeviceMesh``.
 
-A ``PDef`` keeps its logical axes so that layouts stay those of the
-reference, but nothing here shards: there is one card and no mesh, so the
-reference's ``shard_act`` calls are dropped from the models.
+Counterpart of the JAX package's ``parallel/sharding.py``. Model code
+annotates parameters with *logical* axis names ("batch", "heads", "ffn",
+...); a ``ShardingRules`` table maps logical names to mesh axes, and the
+offload genome mutates that table. A spec is a tuple with one entry a
+tensor dim (None, a mesh-axis name, or a tuple of names), equal entry for
+entry to the reference's ``PartitionSpec``; ``_prune_spec_for`` keeps the
+reference's rules (an axis that does not divide the dim is dropped, and an
+axis already claimed by an earlier dim is dropped: first use wins).
+
+A "sharding" (``NamedSharding``) is a mesh and a pruned spec; its
+``placements`` are the DTensor placements the spec gives, one a mesh dim:
+``Shard(d)`` where the spec puts that mesh axis on dim d, ``Replicate()``
+elsewhere. A dim sharded over several mesh axes is split in the mesh's dim
+order (the first axis major), as JAX splits ``("pod", "data")``; a spec
+that names them in another order raises, since plain ``Shard`` placements
+cannot express it.
+
+The mesh step builders (``launch/steps.py``) keep the train state laid out
+by these shardings, each rank holding its shard as a ``DTensor``, and
+compute on plain local tensors: the kernels read ``data_ptr()``, so no
+``DTensor`` reaches them. ``local``, ``to_placements`` and
+``from_placements`` move a tensor between its layout and the layout a step
+computes in; ``reduce_over`` makes a reduction taken on a shard global over
+the mesh dims that shard it (the global norm, the compression scale,
+Adafactor's means); ``data_parallel`` tells the loss and the MoE router
+which mesh dims split the batch, so that their batch means are global.
+
+When no mesh is active every annotation is a no-op, as in the reference.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional
+import contextlib
+import math
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Optional, Union
 
 import torch
+
+Axis = Union[None, str, tuple[str, ...]]
+
+# ---------------------------------------------------------------------------
+# Rules
+# ---------------------------------------------------------------------------
+
+# Default logical->mesh mapping for the production mesh ("data", "model") or
+# ("pod", "data", "model"), the reference's table.
+DEFAULT_RULES: dict[str, Axis] = {
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,              # residual-stream seq; "model" = Megatron-SP
+    "seq_inner": None,        # seq INSIDE blocks (TP on heads/ffn wins there)
+    "embed": None,
+    "act_heads": "model",
+    "act_kv_heads": None,
+    "act_ffn": "model",
+    "act_vocab": "model",
+    "kv_seq": "model",        # decode: KV cache sequence-sharded (flash-decode)
+    "kv_batch": ("pod", "data"),  # cache batch dim (decoupled from act batch)
+    "act_experts": None,
+    "expert_cap": None,
+    # parameters (fsdp = ZeRO-3 axis, tensor = TP axis)
+    "fsdp": ("pod", "data"),
+    "heads": "model",
+    "kv_heads": None,
+    "ffn": "model",
+    "vocab": "model",
+    "experts": None,
+    "expert_ffn": "model",
+    "ssm_heads": "model",
+    "ssm_inner": "model",
+    "rwkv_heads": "model",
+    "layers": None,
+    "stage": None,            # pipeline axis when PP enabled ("pod")
+    "unsharded": None,
+}
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    mapping: dict[str, Axis] = field(default_factory=lambda: dict(DEFAULT_RULES))
+    # light=True keeps only *essential* activation constraints
+    light: bool = False
+
+    def with_overrides(self, **overrides: Axis) -> "ShardingRules":
+        m = dict(self.mapping)
+        light = bool(overrides.pop("light", self.light))
+        m.update(overrides)
+        return ShardingRules(m, light)
+
+    def axis(self, logical: Optional[str]) -> Axis:
+        if logical is None:
+            return None
+        if logical not in self.mapping:
+            raise KeyError(f"unknown logical axis {logical!r}")
+        return self.mapping[logical]
+
+    def spec(self, logical_axes: tuple[Optional[str], ...]) -> tuple:
+        return tuple(self.axis(a) for a in logical_axes)
+
+
+# ---------------------------------------------------------------------------
+# Active context (mesh, rules, the data-parallel split), per thread
+# ---------------------------------------------------------------------------
+
+
+class _Ctx(threading.local):
+    def __init__(self) -> None:
+        self.mesh = None
+        self.rules: Optional[ShardingRules] = None
+        self.batch_mesh = None
+        self.batch_dims: tuple[int, ...] = ()
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Optional[ShardingRules] = None):
+    """Activate (mesh, rules) for sharding annotations."""
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, rules
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def current_rules() -> Optional[ShardingRules]:
+    return _CTX.rules
+
+
+def _mesh_axis_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size, of a ``DeviceMesh`` or of the reference tests'
+    stand-in (``axis_names`` and ``devices.shape``)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _prune_spec_for(shape: tuple[int, ...], spec: tuple, mesh) -> tuple:
+    """Drop mesh axes whose size does not divide the dim (replicate instead)
+    and axes already claimed by an earlier dim (first use wins)."""
+    sizes = _mesh_axis_sizes(mesh)
+    used: set[str] = set()
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if ax is None:
+            out.append(None)
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        axes = tuple(a for a in axes if a in sizes and a not in used)
+        total = 1
+        kept: list[str] = []
+        for a in axes:
+            if dim % (total * sizes[a]) == 0:
+                kept.append(a)
+                total *= sizes[a]
+        used.update(kept)
+        out.append(tuple(kept) if len(kept) > 1 else (kept[0] if kept else None))
+    return tuple(out)
+
+
+def placements_for(spec: tuple, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh``, one a mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        missing = [a for a in axes if a not in names]
+        if missing:
+            raise ValueError(f"spec {spec}: mesh {names} has no axis "
+                             f"{missing[0]!r}")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(
+                f"spec {spec}: dim {d} is split over {axes}, but a DTensor "
+                f"splits a dim over mesh axes in the mesh's order {names}")
+        for k in idx:
+            if not isinstance(out[k], Replicate):
+                raise ValueError(f"spec {spec}: mesh axis {names[k]!r} "
+                                 f"shards two dims")
+            out[k] = Shard(d)
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec on it (pruned where a shape was known)."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements_for(self.spec, self.mesh)
+
+
+def named_sharding(mesh, rules: ShardingRules,
+                   logical_axes: tuple[Optional[str], ...],
+                   shape: Optional[tuple[int, ...]] = None) -> NamedSharding:
+    spec = rules.spec(logical_axes)
+    if shape is not None:
+        spec = _prune_spec_for(shape, spec, mesh)
+    return NamedSharding(mesh, spec)
+
+
+def shard_act(x, logical_axes: tuple[Optional[str], ...],
+              essential: bool = False):
+    """Lay an activation out by its logical axes: a DTensor is
+    redistributed to the pruned spec's placements; a plain tensor (the
+    local shard a mesh step computes on) and anything without a mesh are
+    returned as they are. ``rules.light`` skips all but essential ones."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None or rules is None or not isinstance(x, DTensor):
+        return x
+    if rules.light and not essential:
+        return x
+    spec = _prune_spec_for(tuple(x.shape), rules.spec(logical_axes), mesh)
+    return x.redistribute(mesh, placements_for(spec, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions -> init / sharding specs  (single source of truth)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -27,16 +250,17 @@ class PDef:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
-def _map_defs(fn, defs: Any) -> Any:
+def map_defs(fn, defs: Any) -> Any:
+    """``fn`` over every PDef of a tree of dicts."""
     if isinstance(defs, PDef):
         return fn(defs)
-    return {k: _map_defs(fn, v) for k, v in defs.items()}
+    return {k: map_defs(fn, v) for k, v in defs.items()}
 
 
 def stack_defs(defs: Any, num: int) -> Any:
     """Add a leading stacked-layers axis to every PDef in a tree."""
-    return _map_defs(lambda d: PDef((num,) + d.shape, ("layers",) + d.axes,
-                                    d.init, d.scale, d.dtype), defs)
+    return map_defs(lambda d: PDef((num,) + d.shape, ("layers",) + d.axes,
+                                   d.init, d.scale, d.dtype), defs)
 
 
 # f32 elements of one random draw, at most: a larger leaf is drawn and cast
@@ -76,4 +300,210 @@ def init_from_defs(generator: torch.Generator, defs: Any,
             block.copy_(draw.mul_(std))
         return out
 
-    return _map_defs(one, defs)
+    return map_defs(one, defs)
+
+
+def specs_from_defs(defs: Any, rules: ShardingRules, mesh=None) -> Any:
+    def one(d: PDef):
+        spec = rules.spec(d.axes)
+        if mesh is not None:
+            spec = _prune_spec_for(d.shape, spec, mesh)
+        return spec
+
+    return map_defs(one, defs)
+
+
+def shardings_from_defs(defs: Any, rules: ShardingRules, mesh) -> Any:
+    return map_defs(lambda d: NamedSharding(
+        mesh, _prune_spec_for(d.shape, rules.spec(d.axes), mesh)), defs)
+
+
+# ---------------------------------------------------------------------------
+# Shards: a tensor's local part, layouts, and global reductions
+# ---------------------------------------------------------------------------
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def local(t):
+    """The rank's local part of a DTensor (its storage: writing it writes
+    the DTensor), or the tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _effective(placements: tuple, mesh) -> tuple:
+    """Placements with those on mesh dims of size 1 read as Replicate: a
+    shard over one rank is the whole."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if mesh.size(k) == 1 else p
+                 for k, p in enumerate(placements))
+
+
+def local_chunk(full: torch.Tensor, placements: tuple, mesh) -> torch.Tensor:
+    """This rank's part of ``full`` under ``placements`` (a view)."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    out = full
+    for k, p in enumerate(placements):
+        n = mesh.size(k)
+        if isinstance(p, Shard) and n > 1:
+            if out.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(full.shape)} does "
+                                 f"not split over {n} ranks")
+            size = out.shape[p.dim] // n
+            out = out.narrow(p.dim, coord[k] * size, size)
+    return out
+
+
+def from_local(part: torch.Tensor, mesh, placements: tuple, shape):
+    """The DTensor of global ``shape`` (contiguous) laid out by
+    ``placements`` whose local part on this rank is ``part``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(
+        part, mesh, placements, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def distribute(full: torch.Tensor, sharding: NamedSharding):
+    """``full`` (the same on every rank) as a DTensor laid out by
+    ``sharding``: each rank keeps its chunk, with no communication. On a
+    mesh of one rank the DTensor's storage is ``full``'s."""
+    mesh, placements = sharding.mesh, sharding.placements
+    return from_local(local_chunk(full, placements, mesh).contiguous(), mesh,
+                      placements, full.shape)
+
+
+def to_placements(t, placements: tuple) -> torch.Tensor:
+    """The local part of DTensor ``t`` laid out by ``placements``: ``t``'s
+    own storage when the two differ only on mesh dims of size 1, else a
+    redistributed copy (all-gathers where a dim is gathered)."""
+    mesh = t.device_mesh
+    if _effective(t.placements, mesh) == _effective(placements, mesh):
+        return t.to_local()
+    return t.redistribute(mesh, placements).to_local()
+
+
+def from_placements(part: torch.Tensor, mesh, src: tuple, dst: tuple,
+                    shape) -> torch.Tensor:
+    """``part``, a local part under ``src`` of a tensor of global
+    ``shape``, as the local part under ``dst``: ``part`` itself when the
+    two differ only on mesh dims of size 1."""
+    if _effective(src, mesh) == _effective(dst, mesh):
+        return part
+    return from_local(part, mesh, src, shape).redistribute(mesh,
+                                                           dst).to_local()
+
+
+def full(t) -> torch.Tensor:
+    """The whole of a DTensor on every rank (``t``'s storage on a mesh of
+    one rank), or the tensor itself."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return to_placements(t, (Replicate(),) * t.device_mesh.ndim)
+
+
+def shard_mesh_dims(t, dims: Optional[tuple[int, ...]] = None) -> list[int]:
+    """The mesh dims of more than one rank that shard DTensor ``t`` along
+    its tensor dims ``dims`` (negative counts from the end; None: any);
+    ``[]`` for a plain tensor."""
+    if not is_dtensor(t):
+        return []
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    want = None if dims is None else {d % t.dim() for d in dims}
+    return [k for k, p in enumerate(t.placements)
+            if isinstance(p, Shard) and mesh.size(k) > 1
+            and (want is None or p.dim in want)]
+
+
+def reduce_over(value: torch.Tensor, t, dims: Optional[tuple[int, ...]] = None,
+                op: str = "sum") -> torch.Tensor:
+    """All-reduce ``value``, computed from DTensor ``t``'s local part, in
+    place over the mesh dims that shard ``t`` along ``dims`` (None: any
+    dim), so that a sum or max over those dims is global. A plain tensor,
+    or one sharded only over mesh dims of one rank, is left as it is."""
+    import torch.distributed as dist
+
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    for k in shard_mesh_dims(t, dims):
+        dist.all_reduce(value, op=red, group=t.device_mesh.get_group(k))
+    return value
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel split of a step's batch
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def data_parallel(mesh, dims: tuple[int, ...]):
+    """Within: the batch a step computes on is this rank's share of the
+    batch split over mesh dims ``dims``. ``batch_sum`` then sums over
+    them, so that the loss's and the router's batch means are global."""
+    prev = (_CTX.batch_mesh, _CTX.batch_dims)
+    _CTX.batch_mesh = mesh
+    _CTX.batch_dims = tuple(k for k in dims if mesh.size(k) > 1)
+    try:
+        yield
+    finally:
+        _CTX.batch_mesh, _CTX.batch_dims = prev
+
+
+def batch_shards() -> int:
+    """How many shares the active data-parallel split makes (1 without)."""
+    mesh = _CTX.batch_mesh
+    return math.prod(mesh.size(k) for k in _CTX.batch_dims) if mesh else 1
+
+
+def batch_sum(value: torch.Tensor) -> torch.Tensor:
+    """``value`` summed over the active data-parallel split (in place; no
+    gradient flows through the sum), or ``value`` itself without one."""
+    import torch.distributed as dist
+
+    for k in _CTX.batch_dims:
+        dist.all_reduce(value, group=_CTX.batch_mesh.get_group(k))
+    return value
+
+
+def like(part: torch.Tensor, t):
+    """``part``, a local part in DTensor ``t``'s layout, as a DTensor of
+    ``t``'s layout; ``part`` itself when ``t`` is a plain tensor."""
+    if not is_dtensor(t):
+        return part
+    return from_local(part, t.device_mesh, t.placements, t.shape)
+
+
+def assign(tree: dict, key, value: torch.Tensor) -> None:
+    """``tree[key] = value``; into the local part of a DTensor leaf in
+    place, so that the leaf keeps its layout."""
+    if is_dtensor(tree[key]):
+        tree[key].to_local().copy_(value)
+    else:
+        tree[key] = value
+
+
+def mean_over(x: torch.Tensor, t, dim: Optional[int] = None,
+              keepdim: bool = False) -> torch.Tensor:
+    """The mean of ``x``, computed on DTensor ``t``'s local part (or of a
+    tensor of ``t``'s local shape), along tensor dim ``dim`` (None: every
+    dim), global over the mesh dims that shard ``t`` there. Without such
+    a mesh dim, ``torch.mean`` itself."""
+    dims = None if dim is None else (dim,)
+    if not shard_mesh_dims(t, dims):
+        return (torch.mean(x) if dim is None
+                else torch.mean(x, dim, keepdim=keepdim))
+    if dim is None:
+        return reduce_over(torch.sum(x), t) / t.numel()
+    return reduce_over(torch.sum(x, dim, keepdim=keepdim), t,
+                       dims) / t.shape[dim]

@@ -1,0 +1,396 @@
+"""The port's mesh step builders against the JAX package's on the CPU.
+
+One process, a 1×1 ("data", "model") mesh in both packages (the port's
+over a gloo group of one rank): ``build_train_step`` at ``accum`` 2 on the
+reduced llama3.2-3b in f32, global batch 8 of 32 tokens, with AdamW, with
+Adafactor (state from ``init_factored_state``) and with int8 gradient
+compression; two steps from one carried state, the loss, the grad norm
+(AdamW's) and every leaf of the state after each step. Then ``train(mesh=
+...)`` from the same reference checkpoint, and ``build_prefill_step``'s and
+``build_serve_step``'s outputs. Tolerance (``assert_tree_close``): every
+element within 1e-5 of its leaf's max |value| (losses and the grad norm
+1e-5 relative), bf16 leaves (Adafactor's first moment, the KV caches)
+also within one bf16 ulp of each element, since an f32 difference far
+below 1e-5 may round them apart; in the train states alone a share of
+1e-3 of a leaf's elements (one at least) may lie within only 1e-2, where
+the optimizers amplify f32 rounding (``mismatches`` says where).
+
+Then the sharded world: ``tests/_torch_mesh_world.py`` in a subprocess
+with its own timeout starts 4 gloo ranks on a (2, 2) mesh and runs the
+five cells of the reference's ``tests/test_dryrun_small.py`` as programs,
+and mixtral-8x7b, Adafactor and int8-compression llama3.2-3b train cells
+(reduced configs in f32, ``accum`` 2 where a cell trains) against the
+reference's 1×1 results computed here, and ``pipeline_apply`` on a 4-rank
+"stage" mesh against the reference's sequential forward and ``jax.grad``.
+A rank's failure fails the test.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import Checkpointer as RefCheckpointer
+from repro.configs import get_config as ref_get_config
+from repro.configs import reduced as ref_reduced
+from repro.configs.base import ShapeSpec as RShapeSpec
+from repro.launch import mesh as RMESH
+from repro.launch import steps as RS
+from repro.launch import train as RT
+from repro.models import inputs as RI
+from repro.models import transformer as RTF
+from repro.optim.adafactor import init_factored_state as ref_factored
+from repro.parallel.layouts import rules_for as ref_rules_for
+from repro.parallel.sharding import use_mesh as ref_use_mesh
+from repro_torch.configs import ShapeSpec, get_config, reduced
+from repro_torch.launch import mesh as MESH
+from repro_torch.launch import steps as S
+from repro_torch.launch import train as T
+from repro_torch.models.weights import state_to_numpy, \
+    train_state_from_reference
+from repro_torch.parallel.layouts import rules_for
+from repro_torch.parallel.sharding import full, use_mesh
+
+from _torch_mesh_world import CELLS, TRAIN_OUTLIERS, VARIANTS, cell_key, \
+    flat, mismatches
+
+ROOT = Path(__file__).resolve().parent.parent
+ARCH = "llama3.2-3b"
+TRAIN = ("t", "train", 32, 8)
+WORLD_TIMEOUT_S = 300
+
+
+@pytest.fixture
+def mesh():
+    m = MESH.make_mesh_compat((1, 1), ("data", "model"), device="cpu")
+    yield m
+    MESH.release_process_group()
+
+
+def _ref_mesh():
+    return RMESH.make_mesh_compat((1, 1), ("data", "model"))
+
+
+def _cfgs(arch=ARCH, **kw):
+    kw = dict(dtype="float32", **kw)
+    return (dataclasses.replace(ref_reduced(ref_get_config(arch)), **kw),
+            dataclasses.replace(reduced(get_config(arch)), **kw))
+
+
+def _np(tree):
+    return jax.tree.map(np.array, tree)
+
+
+def _port(tree):
+    """Numpy leaves (bf16 as ml_dtypes) as CPU tensors."""
+    return jax.tree.map(lambda a: torch.from_numpy(
+        np.asarray(a).view(np.int16)).view(torch.bfloat16)
+        if np.asarray(a).dtype == ml_dtypes.bfloat16
+        else torch.from_numpy(np.array(a)), tree)
+
+
+def assert_tree_close(port, ref, what, outliers=0.0):
+    """``_torch_mesh_world.mismatches``' tolerance, leaf by leaf; a train
+    state's with ``outliers=TRAIN_OUTLIERS``."""
+    bad = mismatches(flat(port), flat(ref), what, outliers)
+    assert not bad, bad
+
+
+def _ref_train_state(rcfg, compress):
+    st = RS.init_train_state(rcfg, jax.random.PRNGKey(0),
+                             compress_grads=compress)
+    if rcfg.optimizer == "adafactor":
+        st["opt"] = ref_factored(st["params"])
+    return st
+
+
+def _batches(rcfg, shape, n):
+    return [_np(RI.synthetic_batch(rcfg, shape, seed=i)) for i in range(n)]
+
+
+@pytest.mark.parametrize("variant", ["adafactor", "adamw", "compress"])
+def test_train_step_matches_reference_on_a_1x1_mesh(variant, mesh):
+    kw, compress = VARIANTS["" if variant == "adamw" else variant]
+    rcfg, cfg = _cfgs(accum=2, **kw)
+    rshape, shape = RShapeSpec(*TRAIN), ShapeSpec(*TRAIN)
+    batches = _batches(rcfg, rshape, 2)
+
+    rmesh = _ref_mesh()
+    rrules = ref_rules_for(rcfg, rshape, rmesh)
+    rstate = _ref_train_state(rcfg, compress)
+    init = _np(rstate)
+    rstep = RS.build_train_step(rcfg, rshape, rmesh, rrules,
+                                compress_grads=compress).jitted()
+    rules = rules_for(cfg, shape, mesh)
+    prog = S.build_train_step(cfg, shape, mesh, rules,
+                              compress_grads=compress)
+    state = train_state_from_reference(cfg, init, "cpu",
+                                       shardings=prog.in_shardings[0])
+    step = prog.jitted()
+    for i, b in enumerate(batches):
+        with ref_use_mesh(rmesh, rrules):
+            rstate, rm = rstep(rstate, {k: jnp.asarray(v)
+                                        for k, v in b.items()})
+        with use_mesh(mesh, rules):
+            state, m = step(state, _port(b))
+        assert set(m) == set(rm), (set(m), set(rm))
+        for k in ("loss", "ce_loss", "grad_norm"):
+            if k in rm:
+                assert float(m[k]) == pytest.approx(float(rm[k]), rel=1e-5)
+        assert float(m["moe_aux"]) == float(rm["moe_aux"]) == 0.0
+        assert_tree_close(state_to_numpy(state), _np(rstate),
+                          f"{variant} step {i}", TRAIN_OUTLIERS)
+
+
+def test_train_state_layouts_follow_the_reference(mesh):
+    """Adafactor's vr/vc drop the last and second-to-last dim of each
+    parameter's spec; ef takes the parameters' layouts; counts replicate."""
+    rcfg, cfg = _cfgs(optimizer="adafactor")
+    rshape, shape = RShapeSpec(*TRAIN), ShapeSpec(*TRAIN)
+    rmesh = _ref_mesh()
+    rprog = RS.build_train_step(rcfg, rshape, rmesh,
+                                ref_rules_for(rcfg, rshape, rmesh),
+                                compress_grads=True)
+    prog = S.build_train_step(cfg, shape, mesh, rules_for(cfg, shape, mesh),
+                              compress_grads=True)
+    ref_specs = jax.tree.map(lambda s: tuple(s.spec), rprog.in_shardings[0])
+    specs = jax.tree.map(lambda s: s.spec, prog.in_shardings[0],
+                         is_leaf=lambda s: isinstance(s, S.NamedSharding))
+    assert specs == ref_specs
+    meta = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)),
+                        prog.args[0])
+    ref_meta = jax.tree.map(lambda t: (tuple(t.shape), f"torch.{t.dtype}"),
+                            rprog.args[0])
+    assert meta == ref_meta
+    with pytest.raises(NotImplementedError, match="slice 7d"):
+        prog.lower()
+
+
+def test_train_on_a_mesh_matches_reference(tmp_path, monkeypatch, mesh):
+    """Both trainers resume from the reference's init_train_state (f32),
+    saved by the reference's Checkpointer at step 0, on a 1×1 mesh."""
+    def f32(cfg, _red=ref_reduced):
+        return dataclasses.replace(_red(cfg), dtype="float32")
+
+    monkeypatch.setattr(RT, "reduce_cfg", f32)
+    monkeypatch.setattr(T, "reduce_cfg", lambda c: dataclasses.replace(
+        reduced(c), dtype="float32"))
+    rcfg, _ = _cfgs()
+    state = RS.init_train_state(rcfg, jax.random.PRNGKey(0))
+    for name in ("ref", "port"):
+        RefCheckpointer(str(tmp_path / name)).save(0, state, blocking=True)
+    kw = dict(steps=3, log_every=0, global_batch=8, seq_len=32)
+    ref = RT.train(ARCH, checkpoint_dir=str(tmp_path / "ref"),
+                   mesh=_ref_mesh(), **kw)
+    port = T.train(ARCH, checkpoint_dir=str(tmp_path / "port"), mesh=mesh,
+                   **kw)
+    assert port["steps"] == ref["steps"] == 3
+    np.testing.assert_allclose(port["losses"], ref["losses"], rtol=1e-5)
+    # the final checkpoints hold the same state, in the same format
+    restored = {n: RefCheckpointer(str(tmp_path / n)).restore(3, state)
+                for n in ("ref", "port")}
+    assert_tree_close(_np(restored["port"]), _np(restored["ref"]), "ckpt",
+                      TRAIN_OUTLIERS)
+
+
+def test_prefill_and_serve_steps_match_reference(mesh):
+    rcfg, cfg = _cfgs()
+    params = _np(RTF.init_params(rcfg, jax.random.PRNGKey(0)))
+    rmesh = _ref_mesh()
+
+    pre = ("p", "prefill", 32, 4)
+    rshape, shape = RShapeSpec(*pre), ShapeSpec(*pre)
+    batch = _np(RI.synthetic_batch(rcfg, rshape, seed=3))
+    rrules = ref_rules_for(rcfg, rshape, rmesh)
+    with ref_use_mesh(rmesh, rrules):
+        rlogits = RS.build_prefill_step(rcfg, rshape, rmesh, rrules).jitted()(
+            params, batch)
+    rules = rules_for(cfg, shape, mesh)
+    with use_mesh(mesh, rules):
+        logits = S.build_prefill_step(cfg, shape, mesh, rules).jitted()(
+            params, _port(batch))
+    assert_tree_close([full(logits).numpy()], [np.asarray(rlogits)],
+                      "prefill logits")
+
+    dec = ("d", "decode", 32, 4)
+    rshape, shape = RShapeSpec(*dec), ShapeSpec(*dec)
+    rrules = ref_rules_for(rcfg, rshape, rmesh)
+    rules = rules_for(cfg, shape, mesh)
+    rstate = RTF.init_decode_state(rcfg, 4, 32)
+    rprog = RS.build_serve_step(rcfg, rshape, rmesh, rrules)
+    prog = S.build_serve_step(cfg, shape, mesh, rules)
+    assert prog.donate_argnums == rprog.donate_argnums == (1,)
+    rstep, step = rprog.jitted(), prog.jitted()
+    state = _port(_np(rstate))
+    for t in range(3):
+        tokens = np.arange(4, dtype=np.int32) * 37 + 11 * t
+        with ref_use_mesh(rmesh, rrules):
+            rlogits, rstate = rstep(params, rstate, jnp.asarray(tokens))
+        with use_mesh(mesh, rules):
+            logits, state = step(params, state, torch.from_numpy(tokens))
+        assert_tree_close([full(logits).numpy()], [np.asarray(rlogits)],
+                          f"decode logits {t}")
+    assert_tree_close(state_to_numpy(state), _np(rstate), "decode state")
+
+
+def test_no_dtensor_reaches_a_kernel_entry_point(mesh, monkeypatch):
+    """The mesh steps hand B2 and B3 (whose CUDA wrappers read
+    ``data_ptr()``) plain local tensors, never a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as ML
+
+    calls = []
+
+    def spy(fn):
+        def wrapped(*args, **kwargs):
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            assert tensors and not any(isinstance(a, DTensor)
+                                       for a in tensors)
+            calls.append(fn)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(ML, "_rms_norm_op", spy(ML._rms_norm_op))
+    monkeypatch.setattr(attn, "flash_attention", spy(attn.flash_attention))
+    rcfg, cfg = _cfgs(accum=2)
+    shape = ShapeSpec(*TRAIN)
+    rules = rules_for(cfg, shape, mesh)
+    prog = S.build_train_step(cfg, shape, mesh, rules)
+    state = train_state_from_reference(cfg, _np(_ref_train_state(rcfg,
+                                                                 False)),
+                                       "cpu", shardings=prog.in_shardings[0])
+    batch = _port(_batches(rcfg, RShapeSpec(*TRAIN), 1)[0])
+    with use_mesh(mesh, rules):
+        prog.jitted()(state, batch)
+        S.build_prefill_step(cfg, shape, mesh, rules).jitted()(
+            state["params"], {"tokens": batch["tokens"]})
+    n = cfg.num_layers
+    # two microbatches of 2n+1 norms and n attentions, recomputed but for
+    # the final norm; then the prefill's
+    assert len(calls) == 2 * (4 * n + 1 + 2 * n) + (2 * n + 1 + n)
+
+
+def test_shard_act_lays_out_a_dtensor(mesh, monkeypatch):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.parallel.sharding import (
+        NamedSharding, ShardingRules, distribute, shard_act)
+
+    x = distribute(torch.ones(4, 8, 16), NamedSharding(mesh, ()))
+    calls = []
+    real = DTensor.redistribute
+    monkeypatch.setattr(DTensor, "redistribute", lambda self, *a, **k: (
+        calls.append(a), real(self, *a, **k))[1])
+    with use_mesh(mesh, ShardingRules(light=True)):
+        assert shard_act(x, ("batch", "seq", "embed")) is x and not calls
+        y = shard_act(x, ("batch", "seq", "embed"), essential=True)
+    assert len(calls) == 1  # the essential constraint is still applied
+    assert tuple(y.placements) == (Shard(0), Replicate())
+
+
+# ---------------------------------------------------------------------------
+# The sharded world: 4 gloo ranks on a (2, 2) mesh
+# ---------------------------------------------------------------------------
+
+def _ref_cell(arch, cell, variant, out: dict) -> None:
+    """The reference's 1×1 result of one cell, into ``out`` (npz keys)."""
+    rshape = RShapeSpec(*cell)
+    kw, compress = VARIANTS[variant]
+    rcfg, _ = _cfgs(arch, accum=2 if rshape.kind == "train" else 1, **kw)
+    rmesh = _ref_mesh()
+    rules = ref_rules_for(rcfg, rshape, rmesh)
+    prog = (RS.build_train_step(rcfg, rshape, rmesh, rules,
+                                compress_grads=compress)
+            if rshape.kind == "train"
+            else RS.build_cell_program(rcfg, rshape, rmesh, rules))
+    key = cell_key(arch, cell, variant)
+
+    def put(name, tree):
+        for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+            a = np.array(leaf)
+            if a.dtype == ml_dtypes.bfloat16:
+                a = a.view(np.uint16)
+            out[f"{key}/{name}{jax.tree_util.keystr(path)}"] = a
+
+    if rshape.kind == "train":
+        state = _ref_train_state(rcfg, compress)
+        batch = _np(RI.synthetic_batch(rcfg, rshape, seed=0))
+        put("in_state", _np(state))
+        put("batch", batch)
+        with ref_use_mesh(rmesh, rules):
+            state, m = prog.jitted()(state, batch)
+        put("out_state", _np(state))
+        put("metrics", dict(m))
+        return
+    params = _np(RTF.init_params(rcfg, jax.random.PRNGKey(0)))
+    put("params", params)
+    if rshape.kind == "prefill":
+        batch = _np(RI.synthetic_batch(rcfg, rshape, seed=0))
+        put("batch", batch)
+        with ref_use_mesh(rmesh, rules):
+            put("logits", prog.jitted()(params, batch))
+        return
+    state = RTF.init_decode_state(rcfg, rshape.global_batch, rshape.seq_len)
+    put("in_state", _np(state))
+    step = prog.jitted()
+    for t in range(3):
+        tokens = (np.arange(rshape.global_batch, dtype=np.int32) * 37
+                  + 11 * t)
+        with ref_use_mesh(rmesh, rules):
+            logits, state = step(params, state, jnp.asarray(tokens))
+        put(f"logits{t}", logits)
+    put("out_state", _np(state))
+
+
+def _ref_pipeline(out: dict) -> None:
+    """tests/test_pipeline.py's case: S 4, M 8, mb 2, d 16, tanh(x @ w);
+    the sequential forward and its jax.grad."""
+    S_, M, mb, d = 4, 8, 2, 16
+    w = jax.random.normal(jax.random.PRNGKey(0), (S_, d, d)) * 0.3
+    xs = jax.random.normal(jax.random.PRNGKey(1), (M, mb, d))
+
+    def sequential(w, xs):
+        def layer(x, wi):
+            return jnp.tanh(x @ wi), None
+        y, _ = jax.lax.scan(layer, xs.reshape(M * mb, d), w)
+        return y.reshape(M, mb, d)
+
+    out["pipeline/w"] = np.array(w)
+    out["pipeline/xs"] = np.array(xs)
+    out["pipeline/out"] = np.array(sequential(w, xs))
+    out["pipeline/grad"] = np.array(jax.grad(
+        lambda w: jnp.sum(jnp.square(sequential(w, xs))))(w))
+
+
+def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
+    ref: dict = {}
+    for arch, cell, variant in CELLS:
+        _ref_cell(arch, cell, variant, ref)
+    _ref_pipeline(ref)
+    np.savez(tmp_path / "ref.npz", **ref)
+    # the ranks talk over the loopback interface, whatever the host's
+    # name resolves to
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_mesh_world.py"),
+         str(tmp_path / "ref.npz"), str(tmp_path / "out.json")],
+        capture_output=True, text=True, env=env, timeout=WORLD_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads((tmp_path / "out.json").read_text())
+    assert res["cells"] == [cell_key(*c) for c in CELLS]
+    assert res["pipeline"]["fwd_err"] < 1e-5
+    assert res["pipeline"]["bwd_err"] < 1e-4
+    assert res["world"] == {"ranks": 4, "mesh": {"data": 2, "model": 2}}
+    # the state really was sharded over both axes
+    assert res["wq_spec"] == [None, "data", "model", None]

@@ -1,0 +1,206 @@
+"""The port's logical-axis layer against the JAX package's, bit for bit.
+
+``rules_for`` and ``specs_from_defs(model_defs(cfg), rules, mesh)`` for
+every config of ``configs/archs.py`` × every entry of ``SHAPES`` × the
+16×16 ("data", "model") and 2×16×16 ("pod", "data", "model") meshes,
+held by the stand-in the reference's own tests use (``axis_names`` and
+``devices.shape``, ``tests/test_layout_knobs.py``), so that no 256 or 512
+ranks are needed; each spec equals the reference's ``PartitionSpec`` read
+as a tuple. The same for ``batch_logical_axes``, ``cache_logical_axes``,
+``decode_state_logical_axes``, ``ShardingRules.with_overrides`` (``light``
+sticky), ``shard_act``'s light mode, ``bubble_fraction`` and the mesh
+helpers. Then the DTensor placements of every pruned spec on a 2×2 mesh
+(a fake process group of 4 ranks in this one process): the local shard
+shape DTensor computes equals the global shape divided as the spec says.
+"""
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import SHAPES as REF_SHAPES
+from repro.configs import get_config as ref_get_config
+from repro.models import attention as RA
+from repro.models import inputs as RI
+from repro.models import transformer as RTF
+from repro.parallel import layouts as RL
+from repro.parallel import sharding as RSH
+from repro.parallel.pipeline import bubble_fraction as ref_bubble
+from repro_torch.configs import SHAPES, get_config, list_configs
+from repro_torch.launch import mesh as MESH
+from repro_torch.models import attention as A
+from repro_torch.models import inputs as I
+from repro_torch.models import transformer as TF
+from repro_torch.parallel import layouts as L
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.pipeline import bubble_fraction
+
+ARCHS = list_configs()
+MESHES = {"16x16": (("data", "model"), (16, 16)),
+          "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
+
+
+def _stand_in(name):
+    axes, shape = MESHES[name]
+    return types.SimpleNamespace(axis_names=axes, devices=np.empty(shape))
+
+
+def _tuples(tree):
+    """A reference tree of PartitionSpecs as a tree of plain tuples."""
+    return jax.tree.map(tuple, tree, is_leaf=lambda x: isinstance(
+        x, jax.sharding.PartitionSpec))
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_rules_and_param_specs_equal_the_reference(arch, mesh_name):
+    mesh = _stand_in(mesh_name)
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    assert sorted(SHAPES) == sorted(REF_SHAPES)
+    for name in SHAPES:
+        rules = L.rules_for(cfg, SHAPES[name], mesh)
+        rrules = RL.rules_for(rcfg, REF_SHAPES[name], mesh)
+        assert rules.mapping == rrules.mapping and rules.light == rrules.light
+        specs = SH.specs_from_defs(TF.model_defs(cfg), rules, mesh)
+        rspecs = _tuples(RSH.specs_from_defs(RTF.model_defs(rcfg), rrules,
+                                             mesh))
+        assert specs == rspecs, name
+        assert TF.param_specs(cfg, rules) == _tuples(
+            RTF.param_specs(rcfg, rrules)), name
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_and_state_logical_axes_equal_the_reference(arch):
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    for name, shape in SHAPES.items():
+        rshape = REF_SHAPES[name]
+        assert I.batch_logical_axes(cfg, shape) == \
+            RI.batch_logical_axes(rcfg, rshape), name
+        specs, rspecs = I.input_specs(cfg, shape), RI.input_specs(rcfg,
+                                                                  rshape)
+        assert {k: (tuple(v.shape), str(v.dtype)) for k, v in specs.items()} \
+            == {k: (tuple(v.shape), f"torch.{v.dtype}")
+                for k, v in rspecs.items()}, name
+        assert all(v.device.type == "meta" for v in specs.values())
+    state = TF.init_decode_state(cfg, 2, 16, device="meta")
+    rstate = jax.eval_shape(lambda: RTF.init_decode_state(rcfg, 2, 16))
+    assert TF.decode_state_logical_axes(cfg, state) == \
+        RTF.decode_state_logical_axes(rcfg, rstate)
+    assert A.cache_logical_axes() == RA.cache_logical_axes()
+
+
+def test_rules_overrides_and_light_stickiness():
+    r = SH.ShardingRules().with_overrides(light=True, seq=None)
+    rr = RSH.ShardingRules().with_overrides(light=True, seq=None)
+    assert r.light and r.mapping == rr.mapping
+    r2, rr2 = r.with_overrides(act_ffn=None), rr.with_overrides(act_ffn=None)
+    assert r2.light and rr2.light and r2.mapping == rr2.mapping
+    assert SH.DEFAULT_RULES == RSH.DEFAULT_RULES
+    assert SH.ShardingRules().mapping["kv_batch"] == ("pod", "data")
+    logical = ("batch", None, "heads", "kv_seq")
+    assert r.spec(logical) == tuple(rr.spec(logical))
+    with pytest.raises(KeyError):
+        r.axis("no_such_axis")
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+def test_pruning_and_named_shardings_equal_the_reference(mesh_name):
+    mesh = _stand_in(mesh_name)
+    rules = SH.ShardingRules()
+    cases = [((256, 24, 128), ("batch", "heads", None)),
+             ((64, 4096), ("fsdp", "vocab")),
+             ((8, 3), ("batch", "seq")),
+             ((512, 512), ("fsdp", "fsdp")),
+             ((48, 16, 2), ("kv_batch", "kv_seq", "experts"))]
+    for shape, logical in cases:
+        spec = rules.spec(logical)
+        ref = RSH._prune_spec_for(shape, RSH.ShardingRules().spec(logical),
+                                  mesh)
+        assert SH._prune_spec_for(shape, spec, mesh) == tuple(ref)
+        assert SH.named_sharding(mesh, rules, logical, shape).spec == \
+            tuple(ref)
+    assert MESH.mesh_shape_dict(mesh) == dict(zip(*MESHES[mesh_name]))
+    assert MESH.chips(mesh) == int(np.prod(MESHES[mesh_name][1]))
+
+
+def test_shard_act_is_a_no_op_without_a_mesh_and_in_light_mode():
+    x = torch.ones(4, 8, 16)
+    assert SH.shard_act(x, ("batch", "seq", "embed")) is x
+    with SH.use_mesh(_stand_in("16x16"), SH.ShardingRules(light=True)):
+        # a plain tensor is a step's local shard: nothing to lay out
+        assert SH.shard_act(x, ("batch", "seq", "embed"),
+                            essential=True) is x
+        assert SH.current_rules().light
+    assert SH.current_mesh() is None and SH.current_rules() is None
+
+
+def test_bubble_fraction():
+    for s, m in [(4, 8), (1, 8), (2, 30), (8, 1)]:
+        assert bubble_fraction(s, m) == ref_bubble(s, m)
+
+
+def test_a_spec_that_dtensor_cannot_express_raises():
+    mesh = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"))
+    with pytest.raises(ValueError, match="mesh's order"):
+        SH.placements_for((("data", "pod"), None), mesh)
+    with pytest.raises(ValueError, match="no axis 'pod'"):
+        SH.placements_for((("pod", "data"),),
+                          types.SimpleNamespace(mesh_dim_names=("data",)))
+
+
+def test_meshes_refuse_another_world_size():
+    with pytest.raises(ValueError, match="4 ranks"):
+        MESH.make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+    with pytest.raises(RuntimeError, match="256 ranks.*slice 7d"):
+        MESH.make_production_mesh(device="cpu")
+    assert not dist.is_initialized()
+
+
+@pytest.fixture
+def fake_2x2():
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        yield init_device_mesh("cpu", (2, 2), mesh_dim_names=("data",
+                                                                "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_placements_give_the_pruned_local_shapes(arch, fake_2x2):
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh = fake_2x2
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    cfg = get_config(arch)
+    for shape in SHAPES.values():
+        rules = L.rules_for(cfg, shape, mesh)
+        shardings = SH.shardings_from_defs(TF.model_defs(cfg), rules, mesh)
+        defs = TF.model_defs(cfg)
+
+        def check(d, s):
+            want = tuple(
+                n // int(np.prod([sizes[a] for a in (
+                    e if isinstance(e, tuple) else (e,))]))
+                if e is not None else n
+                for n, e in zip(d.shape, s.spec + (None,) * len(d.shape)))
+            got, _ = compute_local_shape_and_global_offset(
+                d.shape, mesh, s.placements)
+            assert tuple(got) == want, (arch, shape.name, d.shape, s.spec)
+
+        _walk(defs, shardings, check)
+
+
+def _walk(defs, shardings, fn):
+    if isinstance(defs, SH.PDef):
+        fn(defs, shardings)
+        return
+    for k in defs:
+        _walk(defs[k], shardings[k], fn)

@@ -449,5 +449,22 @@ def test_train_refuses_the_families_not_yet_held(arch):
 
 
 def test_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """What train(mesh=...) still refuses: a mesh whose size differs from
+    the world (one that is no DeviceMesh, and a 2×2 mesh asked for in a
+    world of one), and an Adafactor config, naming the reference caveat
+    (its train(mesh=...) hands AdamW's state to an Adafactor step)."""
+    from repro_torch.launch import mesh as MESH
+
+    with pytest.raises(ValueError, match="world size 1"):
         T.train(ARCH, steps=1, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="4 ranks"):
+        MESH.make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+    mesh = MESH.make_mesh_compat((1, 1), ("data", "model"), device="cpu")
+    try:
+        ada = dataclasses.replace(reduced(get_config(ARCH)),
+                                  optimizer="adafactor")
+        with pytest.raises(NotImplementedError,
+                           match="Adafactor.*init_factored_state"):
+            T.train(ada, use_reduced=False, steps=1, mesh=mesh)
+    finally:
+        MESH.release_process_group()

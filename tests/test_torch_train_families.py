@@ -201,5 +201,24 @@ def test_train_refuses_the_vlm_naming_the_reference_caveat():
 
 @pytest.mark.parametrize("arch", TRAINABLE + [VLM])
 def test_train_refuses_a_mesh_for_every_family(arch):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.train(arch, steps=1, device="cpu", mesh=object())
+    """What train(mesh=...) still refuses: a mesh that is not a DeviceMesh
+    over this process group's world (a 16×16 stand-in in a world of one),
+    and the VLM on a mesh too, naming the reference caveat."""
+    import types
+
+    from repro_torch.launch import mesh as MESH
+
+    fake = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty((16, 16)))
+    exc, match = ((NotImplementedError, "labels") if arch == VLM
+                  else (ValueError, "world size 1"))
+    with pytest.raises(exc, match=match):
+        T.train(arch, steps=1, device="cpu", mesh=fake)
+    if arch == VLM:
+        mesh = MESH.make_mesh_compat((1, 1), ("data", "model"), device="cpu")
+        try:
+            with pytest.raises(NotImplementedError,
+                               match="cross_entropy_loss.*synthetic_batch"):
+                T.train(arch, steps=1, mesh=mesh)
+        finally:
+            MESH.release_process_group()
