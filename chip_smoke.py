@@ -129,7 +129,9 @@ tensor-core kernel. Then:
   at the config's own accum of 4 (3 steps of 8 x 2048 tokens), metered,
   its launches of B2, B3 and their gradient kernels held to the code's
   count x 4 a step, then 2 steps each of ``build_train_step`` with int8
-  gradient compression and of the Adafactor config;
+  gradient compression and of the Adafactor config; in both, the layer
+  gathers' calls a step held to the code's count (``mesh_gather_calls``)
+  with no byte copied and no collective, every shard being the whole;
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
@@ -705,6 +707,31 @@ def wkv_backward_bound_ms(b, h, s, d) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def mesh_gather_calls(cfg) -> int:
+    """The layer gathers (``parallel/sharding.py`` ``LayerShards.gather``)
+    of one mesh train step of ``cfg``, as the code gives them: each of
+    ``accum`` microbatches gathers the leaves outside the layer loops once,
+    and each unit of the loops (a layer, an encoder layer, a hybrid group
+    or tail layer) once in its forward and once more in remat's
+    recompute. On a 1x1 mesh each is the state's own storage: no byte is
+    copied and no collective runs."""
+    from repro_torch.models.transformer import hybrid_groups
+
+    units = (sum(hybrid_groups(cfg)) if cfg.family == "hybrid"
+             else cfg.num_layers + (cfg.encoder_layers if cfg.is_encdec
+                                    else 0))
+    again = 1 if cfg.remat == "none" else 2
+    return max(cfg.accum, 1) * (1 + again * units)
+
+
+def gather_held(counts: dict, cfg, steps: int) -> bool:
+    """A 1x1 mesh's gathers over ``steps`` train steps: the code's calls,
+    no byte copied, no collective."""
+    return counts == {"calls": steps * mesh_gather_calls(cfg),
+                      "bytes_copied": 0, "all_gathers": 0, "reductions": 0,
+                      "reduce_scatters": 0, "all_reduces": 0}
 
 
 def reset_all_launches() -> None:
@@ -4423,7 +4450,7 @@ class Smoke:
                                               init_train_state, place)
         from repro_torch.optim.adafactor import init_factored_state
         from repro_torch.parallel.layouts import rules_for
-        from repro_torch.parallel.sharding import full, use_mesh
+        from repro_torch.parallel.sharding import GATHER, full, use_mesh
 
         mesh = self.mesh()
         base = dataclasses.replace(get_config(ARCH), num_layers=CHECK_LAYERS,
@@ -4481,8 +4508,10 @@ class Smoke:
             cfg = (dataclasses.replace(base, optimizer="adafactor")
                    if variant == "adafactor" else base)
             before, nb = lm_launches(), backward_launches()
+            GATHER.reset()
             got, gm = run(cfg, compress)
             n = {**launches_since(before), **backward_since(nb)}
+            gathers = GATHER.counts()
             with plain_training():
                 want, wm = run(cfg, compress)
             # held within TRAIN_GRAD_RTOL of each leaf's max, or by the
@@ -4515,6 +4544,10 @@ class Smoke:
                            for k, v in want_n.items()),
                        f"mesh_train_check {variant} launches {n}, the code "
                        f"gives {want_n} a microbatch x {MESH_ACCUM}")
+            self.check(gather_held(gathers, cfg, 1),
+                       f"mesh_train_check {variant}: gathers {gathers}, the "
+                       f"code gives {mesh_gather_calls(cfg)} calls a step "
+                       f"and no copy on a 1x1 mesh")
             emit({"phase": "mesh_train_check", "arch": ARCH,
                   "variant": variant, "optimizer": cfg.optimizer,
                   "compress_grads": compress, "dtype": "float32",
@@ -4534,6 +4567,8 @@ class Smoke:
                              "outliers": MESH_OUTLIERS,
                              "outlier_err": outlier_err},
                   "launches": n, "launches_per_microbatch": want_n,
+                  "gathers_per_step": gathers,
+                  "gather_calls_code": mesh_gather_calls(cfg),
                   "card": self.card})
             del got, want
             gc.collect()
@@ -4563,7 +4598,7 @@ class Smoke:
         from repro_torch.launch.train import train
         from repro_torch.optim.adafactor import init_factored_state
         from repro_torch.parallel.layouts import rules_for
-        from repro_torch.parallel.sharding import use_mesh
+        from repro_torch.parallel.sharding import GATHER, use_mesh
 
         mesh = self.mesh()
         cfg = get_config(ARCH)
@@ -4577,11 +4612,13 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         log = io.StringIO()
         reset_all_launches()
+        GATHER.reset()
         before = lm_launches()
         with contextlib.redirect_stdout(log):
             out, seconds, ws, samples = metered(lambda: train(
                 ARCH, use_reduced=False, mesh=mesh, log_every=1, **MESH))
         counts = {**launches_since(before), **backward_launches()}
+        gathers = GATHER.counts()
         peak = torch.cuda.max_memory_allocated()
         self.path_launches[f"{ARCH} mesh train"] = counts
         step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
@@ -4596,6 +4633,10 @@ class Smoke:
             math.isfinite(x) for x in losses)
             and abs(losses[0] - first) <= FIRST_LOSS_NATS,
             f"mesh_train: losses {losses}, the first expected near {first}")
+        self.check(gather_held(gathers, cfg, steps),
+                   f"mesh_train: gathers {gathers}, the code gives "
+                   f"{mesh_gather_calls(cfg)} calls a step x {steps} and no "
+                   f"copy on a 1x1 mesh")
         emit({"phase": "mesh_train", "arch": ARCH, "layers": cfg.num_layers,
               "dtype": cfg.dtype, "remat": cfg.remat, "accum": accum,
               "mesh": {"data": 1, "model": 1}, **MESH,
@@ -4609,6 +4650,9 @@ class Smoke:
               "trace_samples": samples,
               "max_memory_allocated_gb": peak / 1e9,
               "launches": counts, "launches_per_step": per_step,
+              "gather_calls_per_step": gathers["calls"] / steps,
+              "gather_bytes_copied_per_step": gathers["bytes_copied"] / steps,
+              "gathers": gathers, "gather_calls_code": mesh_gather_calls(cfg),
               "card": self.card})
         del out
         shape = ShapeSpec("train_cli", "train", MESH["seq_len"],
@@ -4631,6 +4675,7 @@ class Smoke:
             state = place(state, prog.in_shardings[0])
             step = prog.jitted()
             vlosses, vms = [], []
+            GATHER.reset()
             for i in range(MESH_EXTRA_STEPS):
                 batch = device_put_batch(stream.batch_at(i), "cuda")
                 torch.cuda.synchronize()
@@ -4640,16 +4685,25 @@ class Smoke:
                 vlosses.append(float(m["loss"]))
                 vms.append(1e3 * (time.perf_counter() - t0))
             vpeak = torch.cuda.max_memory_allocated()
+            vgathers = GATHER.counts()
             self.check(all(math.isfinite(x) for x in vlosses)
                        and abs(vlosses[0] - first) <= FIRST_LOSS_NATS,
                        f"mesh_train {variant}: losses {vlosses}, the first "
                        f"expected near {first}")
+            self.check(gather_held(vgathers, vcfg, MESH_EXTRA_STEPS),
+                       f"mesh_train {variant}: gathers {vgathers}, the code "
+                       f"gives {mesh_gather_calls(vcfg)} calls a step and no "
+                       f"copy on a 1x1 mesh")
             emit({"phase": "mesh_train", "arch": ARCH, "variant": variant,
                   "dtype": vcfg.dtype, "accum": vcfg.accum,
                   "optimizer": vcfg.optimizer, "compress_grads": compress,
                   "entry": "launch.steps.build_train_step", **MESH,
                   "steps": MESH_EXTRA_STEPS, "losses": vlosses,
                   "step_ms": vms, "max_memory_allocated_gb": vpeak / 1e9,
+                  "gather_calls_per_step":
+                      vgathers["calls"] / MESH_EXTRA_STEPS,
+                  "gather_bytes_copied_per_step":
+                      vgathers["bytes_copied"] / MESH_EXTRA_STEPS,
                   "card": self.card})
             del prog, state, step
         gc.collect()

@@ -42,14 +42,16 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 def unflatten_like(tree: Any, values) -> Any:
     """A tree of ``tree``'s structure whose leaves are ``values``, taken in
     ``flatten``'s order."""
-    it = iter(values)
+    return _build(tree, iter(values))
 
-    def build(node):
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
 
-    return build(tree)
+def _build(node: Any, it) -> Any:
+    # a module function, not a closure over itself: such a closure is a
+    # reference cycle, which would keep ``values`` alive until the cyclic
+    # collector runs
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)

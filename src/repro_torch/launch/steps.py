@@ -11,22 +11,33 @@ taken as it is, and updated in place where the reference donates it) and
 runs ``fn``; ``lower()`` waits for the dry run (ROADMAP.md, slice 7d).
 
 How a step computes on a mesh. The state stays laid out by the rules,
-each rank holding its shards as DTensors. A step gathers each parameter
-whole on every rank (``sharding.full``; on a mesh of one rank the
-DTensor's own storage, no copy) and runs the model on plain local tensors,
-so that kernels B2, B3 and B4 launch on contiguous local tensors and never
-see a DTensor. The batch is split over the mesh dims on which the rules
-shard its batch dim (data parallel, ``sharding.data_parallel``): the
-train step takes it whole on every rank (replicated; the host's batch as
-it is, with no communication) and each rank slices its rows of each
-microbatch, prefill and decode take each rank's shard. The loss's and the
-MoE router's batch means are taken over the whole batch, so each rank's
-loss is its share of the global one, and the gradients are summed over
-those dims. Ranks along the other mesh dims ("model") compute the same rows; the
-model axis shards the state, not the blocks' arithmetic. Each gradient
-then takes its parameter's layout (``_constrain_grads``: this rank's
-chunk), and the optimizers update the shards, with their global norms,
-scales and means reduced over the mesh (``optim/``).
+each rank holding its shards as DTensors, and no rank holds the whole
+model. A step runs the model over this rank's shards
+(``models/transformer.py`` ``ShardedLM``): the leaves outside the layer
+loops (embedding, final and encoder norms, frontends, the hybrid's shared
+attention) are gathered whole once a microbatch (a prefill, a decode
+step) and held for it, and each unit of the layer loops (a layer; a
+hybrid group) is gathered whole by its block as it runs
+(``sharding.LayerShards``, the counterpart of the reference's
+``_constrain_layer_params``), again in remat's recompute, and let go when
+the block returns. So kernels B2, B3 and B4 launch on contiguous local
+tensors and never see a DTensor. The gather's backward reduces each
+layer's whole gradient into this rank's shard, per unit and per
+microbatch: summed over the mesh dims that split the batch (a
+reduce-scatter where the dim shards the leaf, an all-reduce where not),
+this rank's chunk along the others; on a mesh of one rank the gather is
+the state's own storage, with no copy and no collective, and the
+backward accumulates straight into the shard's gradient. The batch is
+split over the mesh dims on which the rules shard its batch dim (data
+parallel, ``sharding.data_parallel``): the train step takes it whole on
+every rank (replicated; the host's batch as it is, with no
+communication) and each rank slices its rows of each microbatch, prefill
+and decode take each rank's shard. The loss's and the MoE router's batch
+means are taken over the whole batch, so each rank's loss is its share
+of the global one. Ranks along the other mesh dims ("model") compute the
+same rows: the model axis shards the state, not the blocks' arithmetic.
+The optimizers update the shards, with their global norms, scales and
+means reduced over the mesh (``optim/``).
 
 ``build_train_step`` keeps the reference's arithmetic: ``accum``
 microbatches of ``global_batch / accum`` rows (row block j is microbatch
@@ -34,8 +45,9 @@ j), the loss the sum of the microbatch losses over ``accum``, each
 microbatch's backward run before the next forward, which bounds memory to
 one microbatch's activations as the reference's remat of each microbatch
 does, gradients accumulated in the parameters' dtype as the reference's
-scan transpose accumulates them; then the gradients' layout, int8
-compression with error feedback if asked, Adafactor or AdamW, and
+scan transpose accumulates them, into buffers of the local shards'
+shapes; then int8 compression with error feedback if asked, Adafactor or
+AdamW, and
 ``step + 1``. With ``accum > 1`` the metrics are ``{"ce_loss": loss,
 "moe_aux": 0}`` and the optimizer's, as in the reference.
 """
@@ -170,31 +182,22 @@ def _split(mesh, dims: tuple[int, ...], bdim: int) -> tuple:
 
 
 class _Model:
-    """The model over the whole parameters, gathered on every rank and
-    rebuilt only when the state's storage changes. On a mesh of one rank
-    its leaves are the state's own storage, which the optimizer updates in
-    place; otherwise buffers that each call refills from the shards."""
+    """The ``ShardedLM`` over a step's parameters, rebuilt only when the
+    state's storage changes; with ``grads``, also the gradient buffers
+    its backward accumulates into: one of each parameter's local shard
+    shape and dtype, zeroed by the caller before each step."""
 
-    def __init__(self, cfg: ArchConfig):
-        self.cfg = cfg
+    def __init__(self, cfg: ArchConfig, grads: bool = False):
+        self.cfg, self.with_grads = cfg, grads
         self.key = None
 
-    def __call__(self, params: dict, grads: bool = False):
+    def __call__(self, params: dict) -> T.ShardedLM:
         key = tuple(SH.local(p).data_ptr() for p in leaves(params))
         if key != self.key:
-            self.whole = tree_map(SH.full, params)
-            self.model = T.TransformerLM.from_stacked(self.cfg, self.whole)
-            self.grads = None
+            self.grads = (tree_map(lambda p: torch.zeros_like(SH.local(p)),
+                                   params) if self.with_grads else None)
+            self.model = T.ShardedLM(self.cfg, params, self.grads)
             self.key = key
-            self.aliased = all(
-                w.data_ptr() == SH.local(p).data_ptr()
-                for w, p in zip(leaves(self.whole), leaves(params)))
-        elif not self.aliased:
-            with torch.no_grad():
-                for w, p in zip(leaves(self.whole), leaves(params)):
-                    w.copy_(SH.full(p))
-        if grads and self.grads is None:
-            self.grads = T.bind_stacked_grads(self.model, self.whole)
         return self.model
 
 
@@ -260,13 +263,7 @@ def build_train_step(
     accum = max(cfg.accum, 1)
     assert shape.global_batch % accum == 0, (shape.global_batch, accum)
     rows = shape.global_batch // accum
-    model_of = _Model(cfg)
-
-    def _constrain_grads(grads, params):
-        """Each whole gradient as this rank's chunk of its parameter's
-        layout."""
-        return tree_map(lambda g, p: SH.like(
-            SH.local_chunk(g, p.placements, mesh), p), grads, params)
+    model_of = _Model(cfg, grads=True)
 
     batch_specs = I.input_specs(cfg, shape)
     # each microbatch's rows split over the mesh dims that the rules give
@@ -278,11 +275,17 @@ def build_train_step(
         dims, shares = (), 1  # computes it whole
     per = rows // shares
 
+    def microbatch(model, mb):
+        """One microbatch's forward and backward; the rest of the
+        parameters, gathered whole for it, is let go on return."""
+        loss, metrics = T.forward_loss(cfg, model.bind(), mb, mode=mode)
+        (loss if accum == 1 else loss / accum).backward()
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
     def train_step(state, batch):
         params = state["params"]
-        model = model_of(params, grads=True)
-        grads = model_of.grads
-        for g in leaves(grads):
+        model = model_of(params)
+        for g in leaves(model_of.grads):
             g.zero_()
         whole = {k: SH.local(v) for k, v in batch.items()}
         coord = mesh.get_coordinate()
@@ -295,21 +298,18 @@ def build_train_step(
             for j in range(accum):
                 lo = j * rows + share * per
                 mb = {k: v[lo:lo + per] for k, v in whole.items()}
-                loss, metrics = T.forward_loss(cfg, model, mb, mode=mode)
-                (loss if accum == 1 else loss / accum).backward()
-                total += loss.detach()
-            for g in leaves(grads):
-                SH.batch_sum(g)
+                loss, metrics = microbatch(model, mb)
+                total += loss
             if accum == 1:
                 loss = SH.batch_sum(total)
-                metrics = {k: SH.batch_sum(v.detach().clone())
+                metrics = {k: SH.batch_sum(v.clone())
                            for k, v in metrics.items()}
             else:
                 loss = SH.batch_sum(total) / accum
                 metrics = {"ce_loss": loss,
                            "moe_aux": torch.zeros((), dtype=torch.float32,
                                                   device=loss.device)}
-        grads = _constrain_grads(grads, params)
+        grads = tree_map(SH.like, model_of.grads, params)
         if compress_grads:
             grads, _ = compress_with_feedback(grads, state["ef"])
         if cfg.optimizer == "adafactor":
@@ -375,7 +375,7 @@ def build_prefill_step(
     model_of = _Model(cfg)
 
     def prefill_step(params, batch):
-        model = model_of(params)
+        model = model_of(params).bind()
         dims = _batch_dims(batch["tokens"])
         split = _split(mesh, dims, 0)
         mine = {k: SH.to_placements(v, split) for k, v in batch.items()}
@@ -437,7 +437,7 @@ def build_serve_step(
         (shape.global_batch, cfg.padded_vocab()))
 
     def serve_step(params, state, tokens):
-        model = model_of(params)
+        model = model_of(params).bind()
         dims = _batch_dims(tokens)
 
         def split(t):  # the batch is axis 1 of every stacked leaf

@@ -25,6 +25,7 @@ Public surface:
     forward(cfg, model, batch)        -> (logits, aux)        [prefill]
     forward_loss(cfg, model, batch)   -> (loss, metrics)      [train]
     bind_stacked_grads(model, params) -> stacked gradient tree
+    ShardedLM(cfg, params, grads).bind() -> a mesh step's model [shards]
     init_decode_state(cfg, batch, cache_len) -> state
     decode_state_logical_axes(cfg, state)    -> logical-axes tree
     decode_step(cfg, model, state, tokens)   -> (logits, state) [serve]
@@ -37,7 +38,9 @@ wrapped by ``_maybe_remat`` (``"full"``: ``torch.utils.checkpoint``
 around the block; ``"dots"``: the same, saving the matmuls' outputs;
 ``"none"``). A model built ``from_stacked`` holds per-layer views of the
 stacked leaves, so the training state keeps the reference's stacked tree
-and the model trains in place through it.
+and the model trains in place through it. A mesh step runs the same
+functions over a ``ShardedLM``: each block, and each layer of decode,
+gathers its unit's shards whole as it runs and lets them go on return.
 
 The decode state is updated in place: ``decode_step`` writes each layer's
 new K/V rows into the stacked cache (dense, MoE, VLM, the enc-dec
@@ -55,13 +58,14 @@ copies one slot's share of the state to the host and
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_map
+from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -69,7 +73,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.parallel.sharding import (
-    PDef, init_from_defs, specs_from_defs, stack_defs,
+    LayerShards, PDef, init_from_defs, local, shifted, specs_from_defs,
+    stack_defs,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -315,6 +320,68 @@ def bind_stacked_grads(model: TransformerLM, params: dict) -> dict:
     return grads
 
 
+# the stacked trees of the layer loops, and a unit's leading layer axes
+_UNIT_AXES = {"layers": 1, "encoder": 1, "groups": 2, "tail": 1}
+
+
+def _whole(p):
+    """A unit's parameters as its block reads them: ``p`` itself, or, in a
+    mesh step, its ``LayerShards`` gathered whole. Blocks call it inside
+    the function that remat wraps, so that the recompute gathers again."""
+    return p.gather() if isinstance(p, LayerShards) else p
+
+
+class ShardedLM:
+    """A mesh step's model over this rank's shards of the stacked tree
+    ``params`` (DTensors laid out by the rules): ``units[key]`` one
+    ``LayerShards`` a unit of the layer loops (``layers[i]``,
+    ``encoder[j]``, ``tail[j]``, and ``groups[g]``, a hybrid group's
+    layers as a list, the reference's scan body), ``rest`` one of the
+    leaves outside them (``embedding``, ``final_norm``, ``enc_norm``,
+    ``frontend``, ``shared_attn``). With ``grads`` (a tree of the local
+    shards' shapes and dtypes) the backward accumulates each shard's
+    gradient there. ``bind()`` gathers ``rest`` whole and returns what
+    ``forward``, ``forward_loss`` and ``decode_step`` take in a
+    ``TransformerLM``'s place; each block gathers its own unit as it
+    runs (``_whole``)."""
+
+    def __init__(self, cfg: ArchConfig, params: dict,
+                 grads: Optional[dict] = None):
+        self.cfg = cfg
+        mesh = leaves(params)[0].device_mesh
+
+        def unit(key, index: tuple):
+            tree = params[key] if key else {
+                k: v for k, v in params.items() if k not in _UNIT_AXES}
+            g_tree = None if grads is None else (
+                grads[key] if key else {k: grads[k] for k in tree})
+
+            def at(ix):
+                return (tree_map(lambda t: local(t)[ix], tree),
+                        None if grads is None
+                        else tree_map(lambda g: g[ix], g_tree))
+
+            pl = [shifted(t.placements, _UNIT_AXES.get(key, 0))
+                  for t in leaves(tree)]
+            if key != "groups":
+                parts, g_parts = at(index)
+                return LayerShards(parts, pl, mesh, g_parts)
+            made = [at(index + (i,)) for i in range(cfg.attn_every)]
+            return LayerShards([m[0] for m in made], pl * cfg.attn_every,
+                               mesh, None if grads is None
+                               else [m[1] for m in made])
+
+        self.rest = unit(None, ())
+        self.units = {key: [unit(key, (i,)) for i in
+                            range(leaves(params[key])[0].shape[0])]
+                      for key in _UNIT_AXES if key in params}
+        if cfg.family == "hybrid":  # a TransformerLM's tail may be empty
+            self.units.setdefault("tail", [])
+
+    def bind(self) -> SimpleNamespace:
+        return SimpleNamespace(**self.rest.gather(), **self.units)
+
+
 # ---------------------------------------------------------------------------
 # Blocks and forward (prefill)
 # ---------------------------------------------------------------------------
@@ -330,6 +397,7 @@ def _ffn(cfg: ArchConfig, p, xn: torch.Tensor):
 
 def _dense_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
     """Returns (x, the MoE aux loss or None)."""
+    p = _whole(p)
     h = attn.attention(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
                        causal=True, window=cfg.sliding_window, mode=mode)
     x = x + h
@@ -338,6 +406,7 @@ def _dense_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
 
 
 def _rwkv_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
+    p = _whole(p)
     x = x + rwkv_mod.rwkv_time_mix(
         cfg, p["tm"], L.rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode)
     return x + rwkv_mod.rwkv_channel_mix(
@@ -347,6 +416,7 @@ def _rwkv_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
 def _hybrid_group_block(cfg: ArchConfig, p_group, shared, x: torch.Tensor,
                         *, mode: str):
     """The shared attention block (B3), then the group's Mamba layers."""
+    p_group = _whole(p_group)
     x = x + attn.attention(cfg, shared["attn"],
                            L.rms_norm(x, shared["ln"], cfg.norm_eps),
                            causal=True, mode=mode)
@@ -356,12 +426,14 @@ def _hybrid_group_block(cfg: ArchConfig, p_group, shared, x: torch.Tensor,
 
 
 def _mamba_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
+    p = _whole(p)
     return x + ssm_mod.mamba_apply(
         cfg, p["mamba"], L.rms_norm(x, p["ln"], cfg.norm_eps), mode=mode)
 
 
 def _encoder_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
     """Unmasked self-attention (B3), then the MLP."""
+    p = _whole(p)
     x = x + attn.attention(cfg, p["attn"],
                            L.rms_norm(x, p["ln1"], cfg.norm_eps),
                            causal=False, mode=mode)
@@ -373,6 +445,7 @@ def _decoder_xattn_block(cfg: ArchConfig, p, x: torch.Tensor,
                          memory: torch.Tensor, *, mode: str):
     """Causal self-attention (B3), cross-attention over the encoder's
     memory (PyTorch ops), then the MLP."""
+    p = _whole(p)
     x = x + attn.attention(cfg, p["attn"],
                            L.rms_norm(x, p["ln1"], cfg.norm_eps),
                            causal=True, mode=mode)
@@ -700,18 +773,24 @@ def _rwkv_decode_layers(cfg: ArchConfig, model: TransformerLM, rw: dict,
     place by B4, its ``tm_x``/``cm_x`` rows overwritten (rounded to bf16,
     as the reference stores them)."""
     for i, p_l in enumerate(model.layers):
-        xn = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        y, _, tm_x = rwkv_mod.rwkv_time_mix(
-            cfg, p_l["tm"], xn, mode="probe", state=rw["wkv"][i],
-            last_x=rw["tm_x"][i].to(xn.dtype))
-        x = x + y
-        xn = L.rms_norm(x, p_l["ln2"], cfg.norm_eps)
-        y, cm_x = rwkv_mod.rwkv_channel_mix(
-            cfg, p_l["tm"], xn, last_x=rw["cm_x"][i].to(xn.dtype))
-        x = x + y
-        rw["tm_x"][i].copy_(tm_x)
-        rw["cm_x"][i].copy_(cm_x)
+        x = _rwkv_decode_layer(cfg, p_l, rw, i, x)
     return x
+
+
+def _rwkv_decode_layer(cfg: ArchConfig, p, rw: dict, i: int,
+                       x: torch.Tensor) -> torch.Tensor:
+    p = _whole(p)
+    xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, _, tm_x = rwkv_mod.rwkv_time_mix(
+        cfg, p["tm"], xn, mode="probe", state=rw["wkv"][i],
+        last_x=rw["tm_x"][i].to(xn.dtype))
+    x = x + y
+    xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, cm_x = rwkv_mod.rwkv_channel_mix(
+        cfg, p["tm"], xn, last_x=rw["cm_x"][i].to(xn.dtype))
+    rw["tm_x"][i].copy_(tm_x)
+    rw["cm_x"][i].copy_(cm_x)
+    return x + y
 
 
 def _dense_decode_layers(cfg: ArchConfig, model: TransformerLM, kv: dict,
@@ -720,13 +799,19 @@ def _dense_decode_layers(cfg: ArchConfig, model: TransformerLM, kv: dict,
     rows are written into its cache. The MoE aux loss is dropped, as the
     reference drops it in decode."""
     for i, p_l in enumerate(model.layers):
-        cache = {"k": kv["k"][i], "v": kv["v"][i]}
-        xn = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        y, _ = attn.decode_attention(cfg, p_l["attn"], xn, cache, pos,
-                                     window=cfg.sliding_window)
-        x = x + y
-        x = x + _ffn(cfg, p_l, L.rms_norm(x, p_l["ln2"], cfg.norm_eps))[0]
+        x = _dense_decode_layer(cfg, p_l, {"k": kv["k"][i], "v": kv["v"][i]},
+                                pos, x)
     return x
+
+
+def _dense_decode_layer(cfg: ArchConfig, p, cache: dict, pos: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    p = _whole(p)
+    xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, _ = attn.decode_attention(cfg, p["attn"], xn, cache, pos,
+                                 window=cfg.sliding_window)
+    x = x + y
+    return x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))[0]
 
 
 def _encdec_decode_layers(cfg: ArchConfig, model: TransformerLM, state: dict,
@@ -735,18 +820,23 @@ def _encdec_decode_layers(cfg: ArchConfig, model: TransformerLM, state: dict,
     layer's ``self`` cache (its new K/V rows written in place), then
     cross-attention to the layer's ``cross_k``/``cross_v``, which it leaves
     as they are."""
-    kv = state["self"]
     for i, p_l in enumerate(model.layers):
-        cache = {"k": kv["k"][i], "v": kv["v"][i]}
-        xn = L.rms_norm(x, p_l["ln1"], cfg.norm_eps)
-        x = x + attn.decode_attention(cfg, p_l["attn"], xn, cache, pos)[0]
-        xn = L.rms_norm(x, p_l["ln_x"], cfg.norm_eps)
-        x = x + attn.decode_attention(
-            cfg, p_l["xattn"], xn, {}, pos, rope=False,
-            kv_memory=(state["cross_k"][i], state["cross_v"][i]))[0]
-        x = x + L.mlp_apply(cfg, p_l["mlp"],
-                            L.rms_norm(x, p_l["ln2"], cfg.norm_eps))
+        x = _encdec_decode_layer(cfg, p_l, state, i, pos, x)
     return x
+
+
+def _encdec_decode_layer(cfg: ArchConfig, p, state: dict, i: int,
+                         pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    p = _whole(p)
+    kv = state["self"]
+    cache = {"k": kv["k"][i], "v": kv["v"][i]}
+    xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn.decode_attention(cfg, p["attn"], xn, cache, pos)[0]
+    xn = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
+    x = x + attn.decode_attention(
+        cfg, p["xattn"], xn, {}, pos, rope=False,
+        kv_memory=(state["cross_k"][i], state["cross_v"][i]))[0]
+    return x + L.mlp_apply(cfg, p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
 def _hybrid_decode_layers(cfg: ArchConfig, model: TransformerLM, state: dict,
@@ -754,22 +844,31 @@ def _hybrid_decode_layers(cfg: ArchConfig, model: TransformerLM, state: dict,
     """One token through every hybrid group (the shared attention against
     the group's own KV cache, then its Mamba layers) and the tail; each
     Mamba layer's ``ssm`` and ``conv`` leaves are updated in place."""
-    shared, kv = model.shared_attn, state["attn"]
     for g, p_g in enumerate(model.groups):
-        cache = {"k": kv["k"][g], "v": kv["v"][g]}
-        xn = L.rms_norm(x, shared["ln"], cfg.norm_eps)
-        y, _ = attn.decode_attention(cfg, shared["attn"], xn, cache, pos)
-        x = x + y
-        for i, p_i in enumerate(p_g):
-            x = _mamba_decode(cfg, p_i, state["mamba"],
-                              g * cfg.attn_every + i, x)
+        x = _hybrid_decode_group(cfg, p_g, model.shared_attn, state, g, pos,
+                                 x)
     for j, p_l in enumerate(model.tail):
         x = _mamba_decode(cfg, p_l, state["mamba_tail"], j, x)
     return x
 
 
+def _hybrid_decode_group(cfg: ArchConfig, p_group, shared, state: dict,
+                         g: int, pos: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    p_group = _whole(p_group)
+    kv = state["attn"]
+    cache = {"k": kv["k"][g], "v": kv["v"][g]}
+    xn = L.rms_norm(x, shared["ln"], cfg.norm_eps)
+    y, _ = attn.decode_attention(cfg, shared["attn"], xn, cache, pos)
+    x = x + y
+    for i, p_i in enumerate(p_group):
+        x = _mamba_decode(cfg, p_i, state["mamba"], g * cfg.attn_every + i, x)
+    return x
+
+
 def _mamba_decode(cfg: ArchConfig, p, leaves: dict, i: int,
                   x: torch.Tensor) -> torch.Tensor:
+    p = _whole(p)
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
     y, _ = ssm_mod.mamba_decode_step(
         cfg, p["mamba"], xn, {"ssm": leaves["ssm"][i],

@@ -20,12 +20,17 @@ cannot express it.
 The mesh step builders (``launch/steps.py``) keep the train state laid out
 by these shardings, each rank holding its shard as a ``DTensor``, and
 compute on plain local tensors: the kernels read ``data_ptr()``, so no
-``DTensor`` reaches them. ``local``, ``to_placements`` and
-``from_placements`` move a tensor between its layout and the layout a step
-computes in; ``reduce_over`` makes a reduction taken on a shard global over
-the mesh dims that shard it (the global norm, the compression scale,
-Adafactor's means); ``data_parallel`` tells the loss and the MoE router
-which mesh dims split the batch, so that their batch means are global.
+``DTensor`` reaches them. ``LayerShards`` is one unit of the model's layer
+loops over this rank's shards: its ``gather`` all-gathers the unit's
+leaves whole, and its backward reduces their whole gradients into the
+shards (``reduce_leaf``), the counterpart of the reference's
+``_constrain_layer_params``; ``GATHER`` counts what it did. ``local``,
+``to_placements`` and ``from_placements`` move a tensor between its layout
+and the layout a step computes in; ``reduce_over`` makes a reduction taken
+on a shard global over the mesh dims that shard it (the global norm, the
+compression scale, Adafactor's means); ``data_parallel`` tells the loss,
+the MoE router and the gather's backward which mesh dims split the batch,
+so that their batch means and gradient sums are global.
 
 When no mesh is active every annotation is a no-op, as in the reference.
 """
@@ -38,6 +43,8 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Union
 
 import torch
+
+from repro_torch._tree import leaves, unflatten_like
 
 Axis = Union[None, str, tuple[str, ...]]
 
@@ -507,3 +514,200 @@ def mean_over(x: torch.Tensor, t, dim: Optional[int] = None,
         return reduce_over(torch.sum(x), t) / t.numel()
     return reduce_over(torch.sum(x, dim, keepdim=keepdim), t,
                        dims) / t.shape[dim]
+
+
+# ---------------------------------------------------------------------------
+# A unit of the layer loops gathered whole, its gradient reduced into shards
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class GatherStats:
+    """What ``LayerShards.gather`` did since ``reset``: ``calls`` units
+    gathered, ``bytes_copied`` the bytes of the whole leaves it made (0
+    where every shard is the whole), ``all_gathers`` its collectives;
+    ``reductions`` units whose gradient its backward reduced into the
+    shards, by ``reduce_scatters`` and ``all_reduces``. ``watch``, if set,
+    is called with every whole leaf a gather returns through the
+    collectives' path (a test's spy)."""
+    calls: int = 0
+    bytes_copied: int = 0
+    all_gathers: int = 0
+    reductions: int = 0
+    reduce_scatters: int = 0
+    all_reduces: int = 0
+    watch: Any = None
+    lock: Any = field(default_factory=threading.Lock, repr=False)
+
+    COUNTS = ("calls", "bytes_copied", "all_gathers", "reductions",
+              "reduce_scatters", "all_reduces")
+
+    def add(self, name: str, n: int = 1) -> None:
+        with self.lock:
+            setattr(self, name, getattr(self, name) + n)
+
+    def counts(self) -> dict:
+        with self.lock:
+            return {k: getattr(self, k) for k in self.COUNTS}
+
+    def reset(self) -> None:
+        with self.lock:
+            for k in self.COUNTS:
+                setattr(self, k, 0)
+
+
+GATHER = GatherStats()
+
+
+def shifted(placements: tuple, by: int) -> tuple:
+    """``placements`` of a stacked leaf as those of its slice along its
+    ``by`` leading (layer) axes, which no mesh dim may shard."""
+    from torch.distributed.tensor import Shard
+
+    out = []
+    for p in placements:
+        if isinstance(p, Shard):
+            if p.dim < by:
+                raise ValueError(f"{placements}: a layer axis is sharded")
+            p = Shard(p.dim - by)
+        out.append(p)
+    return tuple(out)
+
+
+def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of ``group`` joined along ``dim``, in rank
+    order."""
+    import torch.distributed as dist
+
+    part = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * part.shape[0],) + part.shape[1:],
+                      dtype=part.dtype, device=part.device)
+    dist.all_gather_into_tensor(out, part, group=group)
+    GATHER.add("all_gathers")
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group,
+                    n: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of ``group``'s ``t``."""
+    import torch.distributed as dist
+
+    whole = t.movedim(dim, 0).contiguous()
+    out = torch.empty((whole.shape[0] // n,) + whole.shape[1:],
+                      dtype=whole.dtype, device=whole.device)
+    dist.reduce_scatter_tensor(out, whole, group=group)
+    GATHER.add("reduce_scatters")
+    return out.movedim(0, dim).contiguous()
+
+
+def _gathers(placements: tuple, mesh) -> list:
+    """``(mesh dim, tensor dim)`` of every mesh dim of more than one rank
+    that shards a leaf laid out by ``placements``."""
+    from torch.distributed.tensor import Shard
+
+    return [(k, p.dim) for k, p in enumerate(placements)
+            if isinstance(p, Shard) and mesh.size(k) > 1]
+
+
+def gather_leaf(part: torch.Tensor, placements: tuple, mesh) -> torch.Tensor:
+    """The whole of the leaf whose local shard is ``part``: all-gathered
+    over each mesh dim that shards it, the minor dim first (``local_chunk``
+    splits the major first); ``part`` itself where none does."""
+    for k, d in reversed(_gathers(placements, mesh)):
+        part = _all_gather(part, d, mesh.get_group(k), mesh.size(k))
+    return part
+
+
+def reduce_leaf(grad: torch.Tensor, placements: tuple, mesh,
+                batch_dims: tuple) -> torch.Tensor:
+    """A whole leaf's gradient as this rank's shard of the gradient of the
+    step, mesh dim by mesh dim (major first, as ``local_chunk`` splits): a
+    dim that splits the batch (``batch_dims``) sums, by reduce-scatter
+    where it shards the leaf and all-reduce where not; a dim that does not
+    (its ranks computed the same rows) takes this rank's chunk."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    for k, p in enumerate(placements):
+        n = mesh.size(k)
+        if n == 1:
+            continue
+        if isinstance(p, Shard):
+            if k in batch_dims:
+                grad = _reduce_scatter(grad, p.dim, mesh.get_group(k), n)
+            else:
+                size = grad.shape[p.dim] // n
+                grad = grad.narrow(p.dim, coord[k] * size, size)
+        elif k in batch_dims:
+            grad = grad.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(grad, group=mesh.get_group(k))
+            GATHER.add("all_reduces")
+    return grad
+
+
+class _Gather(torch.autograd.Function):
+    """A unit's leaves whole from its shards; the backward reduces each
+    whole gradient into its shard (``reduce_leaf``)."""
+
+    @staticmethod
+    def forward(ctx, unit: "LayerShards", batch_dims: tuple, *parts):
+        ctx.unit, ctx.batch_dims = unit, batch_dims
+        return tuple(gather_leaf(s, pl, unit.mesh)
+                     for s, pl in zip(parts, unit.placements))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        unit = ctx.unit
+        GATHER.add("reductions")
+        return (None, None) + tuple(
+            reduce_leaf(g, pl, unit.mesh, ctx.batch_dims)
+            for g, pl in zip(grads, unit.placements))
+
+
+class LayerShards:
+    """One unit of a mesh step's layer loops (a layer, or a list of layers
+    gathered together, as a hybrid group), or a model's leaves outside
+    them: ``tree`` holds this rank's shard of each leaf, ``placements``
+    each leaf's layout on ``mesh`` (in ``_tree.leaves`` order). With
+    ``grads`` (a tree of ``tree``'s structure, shapes and dtypes), each
+    shard is a leaf tensor whose ``.grad`` is its part of ``grads``: a
+    backward accumulates the shard's gradient there, in its dtype.
+
+    ``gather()`` returns the leaves whole, in ``tree``'s structure. Where
+    no leaf needs a collective (every mesh dim that shards it or splits
+    the batch has one rank, as on a 1x1 mesh) that is ``tree`` itself, the
+    state's own storage, no copy; otherwise ``_Gather``'s outputs, which
+    the block that calls it holds only while it runs."""
+
+    def __init__(self, tree: Any, placements: list, mesh,
+                 grads: Any = None):
+        # each shard a leaf tensor of its own over the same storage
+        self.parts = [s.detach() for s in leaves(tree)]
+        if grads is not None:
+            for s, g in zip(self.parts, leaves(grads)):
+                s.requires_grad_(True)
+                s.grad = g
+        self.tree = unflatten_like(tree, self.parts)
+        self.placements = list(placements)
+        self.mesh = mesh
+        if len(self.parts) != len(self.placements):
+            raise ValueError(f"{len(self.parts)} leaves, "
+                             f"{len(self.placements)} placements")
+        self.sharded = any(_gathers(pl, mesh) for pl in self.placements)
+
+    def gather(self) -> Any:
+        GATHER.add("calls")
+        dims = _CTX.batch_dims
+        grad = torch.is_grad_enabled() and self.parts[0].requires_grad
+        if not self.sharded and not (grad and dims):
+            return self.tree
+        whole = _Gather.apply(self, tuple(dims), *self.parts)
+        GATHER.add("bytes_copied", sum(
+            w.nbytes for w, s in zip(whole, self.parts)
+            if w.data_ptr() != s.data_ptr()))
+        if GATHER.watch is not None:
+            for w in whole:
+                GATHER.watch(w)
+        return unflatten_like(self.tree, whole)
+

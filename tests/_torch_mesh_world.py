@@ -7,20 +7,27 @@ a timeout of its own) after computing the JAX package's 1×1 results into
 REF.npz. Each of 4 processes (``torch.multiprocessing``, a gloo group over
 a file store) builds a (2, 2) ("data", "model") mesh and runs the five
 cells of the reference's ``tests/test_dryrun_small.py`` as programs, and
-three more train cells: mixtral-8x7b (the MoE's load-balance loss over a
+five more train cells: mixtral-8x7b (the MoE's load-balance loss over a
 split batch), llama3.2-3b with Adafactor (its row, column and RMS means
-over sharded leaves) and llama3.2-3b with int8 gradient compression (its
-scale, a max over every shard); on the reduced configs in f32 with
-``accum`` 2 where a cell trains: the loss, AdamW's grad norm (a sum over
-every shard) and the whole updated train state, the prefill logits, the
-logits of three decode steps and the decode state, each held to the
-reference's (``mismatches``). Then ``pipeline_apply`` over a 4-rank "stage" mesh:
-forward within 1e-5 and gradient within 1e-4 of the sequential ones. Any
-rank's failure raises, and the script exits non-zero; rank 0 writes a
-summary to OUT.json. JAX-free: it imports only the port.
+over sharded leaves), llama3.2-3b with int8 gradient compression (its
+scale, a max over every shard), and llama3.2-3b at remat "none" and
+"dots"; on the reduced configs in f32 with ``accum`` 2 where a cell
+trains: the loss, AdamW's grad norm (a sum over every shard) and the
+whole updated train state, the prefill logits, the logits of three
+decode steps and the decode state, each held to the reference's
+(``mismatches``). Each cell runs under a ``Spy`` on the layer gather, and
+``_held_gathers`` holds on every rank what the gathers did: the whole
+bytes alive at once, the gradient buffers and the collectives. Then
+``_gather_cases``: one unit's gather and backward against the whole
+path, and three planted faults that must break it. Then
+``pipeline_apply`` over a 4-rank "stage" mesh: forward within 1e-5 and
+gradient within 1e-4 of the sequential ones. Any rank's failure raises,
+and the script exits non-zero; rank 0 writes a summary, with every
+rank's gather reports, to OUT.json. JAX-free: it imports only the port.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import json
@@ -28,6 +35,7 @@ import os
 import re
 import sys
 import tempfile
+import weakref
 
 import numpy as np
 import torch
@@ -46,10 +54,15 @@ CELLS = [
     ("mixtral-8x7b", ("t", "train", 32, 8), ""),
     ("llama3.2-3b", ("t", "train", 32, 8), "adafactor"),
     ("llama3.2-3b", ("t", "train", 32, 8), "compress"),
+    # the other remat settings: "none" keeps every gathered layer alive for
+    # the backward, "dots" recomputes all but the matmuls' outputs
+    ("llama3.2-3b", ("t", "train", 32, 8), "remat_none"),
+    ("llama3.2-3b", ("t", "train", 32, 8), "remat_dots"),
 ]
 # a variant's config overrides and compress_grads
 VARIANTS = {"": ({}, False), "adafactor": ({"optimizer": "adafactor"}, False),
-            "compress": ({}, True)}
+            "compress": ({}, True), "remat_none": ({"remat": "none"}, False),
+            "remat_dots": ({"remat": "dots"}, False)}
 # the share of a train state leaf's elements allowed beyond 1e-5 of its
 # scale (``mismatches``)
 TRAIN_OUTLIERS = 1e-3
@@ -138,6 +151,111 @@ def mismatches(port: dict, ref: dict, what: str,
 
 
 # ---------------------------------------------------------------------------
+# Spies on the layer gather (parallel/sharding.py LayerShards)
+# ---------------------------------------------------------------------------
+
+# the mesh dim that splits every cell's batch ("data"; the rules put
+# "batch" there, and each cell's rows divide over its 2 ranks)
+BATCH_DIMS = (0,)
+# the stacked trees of the layer loops, and a unit's leading layer axes
+UNIT_AXES = {"layers": 1, "encoder": 1, "groups": 2, "tail": 1}
+
+
+class Spy:
+    """What the gathers did on this rank while installed: the most bytes
+    of whole leaves alive at once (weak references to every leaf a gather
+    returns), the gradient buffers the train step hands its model, that
+    model, and the all-gathers and reduce-scatters issued."""
+
+    def __init__(self):
+        self.alive = self.peak = 0
+        self.grads = None
+        self.model = None
+        self.issued = collections.Counter()
+
+    def watch(self, t) -> None:
+        self.alive += t.nbytes
+        self.peak = max(self.peak, self.alive)
+        weakref.finalize(t, self._gone, t.nbytes)
+
+    def _gone(self, n: int) -> None:
+        self.alive -= n
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        from repro_torch.parallel.sharding import GATHER
+
+        GATHER.reset()
+        GATHER.watch = self.watch
+        self._undo = [(T, "ShardedLM", T.ShardedLM)]
+        spy = self
+
+        class Recorded(T.ShardedLM):
+            def __init__(self, cfg, params, grads=None):
+                super().__init__(cfg, params, grads)
+                spy.grads, spy.model = grads, self
+
+        T.ShardedLM = Recorded
+        for name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+            real = getattr(dist, name)
+            self._undo.append((dist, name, real))
+
+            def counted(*a, _real=real, _name=name, **k):
+                self.issued[_name] += 1
+                return _real(*a, **k)
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel.sharding import GATHER
+
+        GATHER.watch = None
+        for mod, name, real in self._undo:
+            setattr(mod, name, real)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def expected_gathers(params_meta: dict, shardings: dict, mesh) -> dict:
+    """From the global leaves' shapes and layouts alone: ``units`` (the
+    layer loops' units), ``rest_bytes`` (the leaves outside them, whole),
+    ``unit_bytes`` (the largest unit, whole), and per pass over the model
+    the all-gathers of the ``rest`` and of the ``stacks``, and the
+    backward's reduce-scatters and all-reduces (``BATCH_DIMS`` sum)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch._tree import flatten
+
+    out = collections.Counter()
+    per_unit = {}
+    flat_sh = dict(flatten(shardings))
+    for path, t in flatten(params_meta):
+        pl = flat_sh[path].placements
+        key = path[0]
+        slices = (t.shape[0] * t.shape[1] if key == "groups"
+                  else t.shape[0] if key in UNIT_AXES else 1)
+        split = [k for k, p in enumerate(pl)
+                 if isinstance(p, Shard) and mesh.size(k) > 1]
+        out["stacks" if key in UNIT_AXES else "rest"] += len(split) * slices
+        out["reduce_scatters"] += slices * sum(k in BATCH_DIMS
+                                               for k in split)
+        out["all_reduces"] += slices * sum(
+            k in BATCH_DIMS for k in range(mesh.ndim)
+            if k not in split and mesh.size(k) > 1)
+        if key in UNIT_AXES:
+            n = t.shape[0]
+            per_unit[key] = per_unit.get(key, 0) + _nbytes(t) // n
+            out[f"units/{key}"] = n
+        else:
+            out["rest_bytes"] += _nbytes(t)
+    out["units"] = sum(v for k, v in out.items() if k.startswith("units/"))
+    out["unit_bytes"] = max(per_unit.values())
+    return dict(out)
+
+
+# ---------------------------------------------------------------------------
 # One rank
 # ---------------------------------------------------------------------------
 
@@ -171,7 +289,10 @@ def _check(bad: list[str]) -> None:
         raise AssertionError(f"rank {dist.get_rank()}: " + "; ".join(bad[:8]))
 
 
-def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> None:
+def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
+    """Runs one cell under a ``Spy`` and holds its values to the
+    reference's and its gathers to ``_held_gathers``; returns the latter's
+    report."""
     from repro_torch.configs import ShapeSpec, get_config, reduced
     from repro_torch.launch.steps import build_cell_program, build_train_step
     from repro_torch.models.transformer import init_decode_state
@@ -192,31 +313,36 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> None:
     step = prog.jitted()
     key = cell_key(arch, cell, variant) + "/"
     what = key[:-1] + " "
-    if shape.kind == "train":
+    train = shape.kind == "train"
+    want = expected_gathers(
+        prog.args[0]["params"] if train else prog.args[0],
+        prog.in_shardings[0]["params"] if train else prog.in_shardings[0],
+        mesh)
+    if train:
         state = train_state_from_reference(
             cfg, _torch(_tree(ref, key + "in_state")), "cpu",
             shardings=prog.in_shardings[0])
-        with use_mesh(mesh, rules):
+        with Spy() as spy, use_mesh(mesh, rules):
             state, m = step(state, _torch(_tree(ref, key + "batch")))
         rmetrics = _tree(ref, key + "metrics")
         if sorted(m) != sorted(rmetrics):
             _check([f"{what}metrics {sorted(m)} != {sorted(rmetrics)}"])
         for k in ("loss", "grad_norm"):
             if k in rmetrics:
-                got, want = float(m[k]), float(rmetrics[k])
-                if abs(got - want) > 1e-5 * abs(want):
-                    _check([f"{what}{k} {got} != {want}"])
+                got, want_k = float(m[k]), float(rmetrics[k])
+                if abs(got - want_k) > 1e-5 * abs(want_k):
+                    _check([f"{what}{k} {got} != {want_k}"])
         _check(mismatches(flat(state_to_numpy(state)),
                           flat(_tree(ref, key + "out_state")), what,
                           outliers=TRAIN_OUTLIERS))
-        return
+        return _held_gathers(spy, want, cfg, 1, what, state["params"])
     params = _tree(ref, key + "params")
     if shape.kind == "prefill":
-        with use_mesh(mesh, rules):
+        with Spy() as spy, use_mesh(mesh, rules):
             logits = step(params, _torch(_tree(ref, key + "batch")))
         _check(mismatches({"": full(logits).numpy()},
                           {"": ref[key + "logits"]}, what + "logits"))
-        return
+        return _held_gathers(spy, want, cfg, 1, what)
     # the port's own fresh state: the reference's values (zeros), with the
     # hybrid's conv in the model's dtype where the reference starts it in
     # bf16 (ROADMAP.md, a named divergence)
@@ -224,15 +350,163 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> None:
                               device="cpu")
     _check(mismatches(flat(state_to_numpy(state)),
                       flat(_tree(ref, key + "in_state")), what + "init"))
-    for t in range(3):
-        tokens = (np.arange(shape.global_batch, dtype=np.int32) * 37
-                  + 11 * t)
-        with use_mesh(mesh, rules):
-            logits, state = step(params, state, torch.from_numpy(tokens))
-        _check(mismatches({"": full(logits).numpy()},
-                          {"": ref[f"{key}logits{t}"]}, f"{what}logits{t}"))
+    with Spy() as spy:
+        for t in range(3):
+            tokens = (np.arange(shape.global_batch, dtype=np.int32) * 37
+                      + 11 * t)
+            with use_mesh(mesh, rules):
+                logits, state = step(params, state, torch.from_numpy(tokens))
+            _check(mismatches({"": full(logits).numpy()},
+                              {"": ref[f"{key}logits{t}"]},
+                              f"{what}logits{t}"))
     _check(mismatches(flat(state_to_numpy(state)),
                       flat(_tree(ref, key + "out_state")), what + "state"))
+    return _held_gathers(spy, want, cfg, 3, what)
+
+
+def _held_gathers(spy: Spy, want: dict, cfg, steps: int, what: str,
+                  params=None) -> dict:
+    """One cell's gathers on this rank, held: (a) the most bytes of whole
+    leaves alive at once at most the leaves outside the layer loops whole
+    and the largest unit (under remat full; remat none keeps every
+    gathered layer for the backward, and is only reported); (b) with
+    ``params`` (a train step's), gradient buffers of exactly the local
+    shards' shapes and bytes, into which every shard's gradient went;
+    (c) the gathers' calls and collectives the code's count: a forward
+    gathers the rest and each unit once, remat full's recompute each unit
+    again, a backward reduces the rest and each unit once; a train step
+    runs ``cfg.accum`` microbatches, a decode cell ``steps`` steps."""
+    from repro_torch._tree import leaves
+    from repro_torch.parallel.sharding import GATHER, local
+
+    got = GATHER.counts()
+    units = want["units"]
+    if params is not None:
+        again = 2 if cfg.remat != "none" else 1
+        code = {"calls": cfg.accum * (1 + again * units),
+                "all_gathers": cfg.accum * (want["rest"]
+                                            + again * want["stacks"]),
+                "reductions": cfg.accum * (1 + units),
+                "reduce_scatters": cfg.accum * want["reduce_scatters"],
+                "all_reduces": cfg.accum * want["all_reduces"]}
+    else:
+        code = {"calls": steps * (1 + units),
+                "all_gathers": steps * (want["rest"] + want["stacks"]),
+                "reductions": 0, "reduce_scatters": 0, "all_reduces": 0}
+    bad = [f"{what}gather {k} {got[k]}, the code gives {v}"
+           for k, v in code.items() if got[k] != v]
+    issued = {"all_gathers": spy.issued["all_gather_into_tensor"],
+              "reduce_scatters": spy.issued["reduce_scatter_tensor"]}
+    bad += [f"{what}{v} {k} issued, {got[k]} counted"
+            for k, v in issued.items() if v != got[k]]
+    bound = want["rest_bytes"] + want["unit_bytes"]
+    if cfg.remat != "none" and spy.peak > bound:
+        bad.append(f"{what}{spy.peak} bytes of whole leaves alive at once, "
+                   f"beyond the rest and one unit's {bound}")
+    out = {"peak_gathered_bytes": spy.peak, "bound_bytes": bound,
+           "rest_bytes": want["rest_bytes"], "unit_bytes": want["unit_bytes"],
+           "remat": cfg.remat, "counts": got}
+    if params is not None:
+        grads = leaves(spy.grads)
+        shards = [local(p) for p in leaves(params)]
+        out["grad_bytes"] = sum(g.nbytes for g in grads)
+        out["local_param_bytes"] = sum(p.nbytes for p in shards)
+        if [g.shape for g in grads] != [p.shape for p in shards] \
+                or out["grad_bytes"] != out["local_param_bytes"]:
+            bad.append(f"{what}gradient buffers {out['grad_bytes']} bytes, "
+                       f"the local shards {out['local_param_bytes']}")
+        storage = {g.untyped_storage().data_ptr() for g in grads}
+        model = spy.model
+        for unit in [model.rest] + [u for us in model.units.values()
+                                    for u in us]:
+            if any(s.grad is None
+                   or s.grad.untyped_storage().data_ptr() not in storage
+                   for s in unit.parts):
+                bad.append(f"{what}a shard's gradient outside the buffers")
+                break
+    _check(bad)
+    return out
+
+
+def _gather_cases(mesh) -> dict:
+    """One unit of four leaves laid out over "data" only, "model" only,
+    both and neither, each used by a block (remat full) on this rank's
+    rows of a batch split over "data". Each shard's gradient through the
+    gather and its backward against the whole-gather path's (the leaf
+    whole on every rank, its gradient summed over "data", then this rank's
+    chunk), within 1e-6 of the gradient's max. Three planted faults must
+    each break that: summing over "model" too, not summing over "data",
+    and a gather whose output a block keeps (whole bytes alive after it)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.parallel.sharding import (
+        LayerShards, data_parallel, local_chunk)
+
+    layouts = {"both": (Shard(0), Shard(1)),
+               "data": (Shard(0), Replicate()),
+               "model": (Replicate(), Shard(1)),
+               "neither": (Replicate(), Replicate())}
+    gen = torch.Generator().manual_seed(0)
+    whole = {k: torch.randn(8, 8, generator=gen) for k in layouts}
+    x = torch.randn(8, 8, generator=gen)
+    share = mesh.get_coordinate()[0]
+    rows = x[4 * share:4 * share + 4]
+
+    def loss(p):
+        return sum(torch.tanh(rows @ p[k]).square().sum() for k in layouts)
+
+    def whole_path() -> dict:
+        p = {k: w.clone().requires_grad_(True) for k, w in whole.items()}
+        loss(p).backward()
+        out = {}
+        for k, w in p.items():
+            dist.all_reduce(w.grad, group=mesh.get_group(0))
+            out[k] = local_chunk(w.grad, layouts[k], mesh)
+        return out
+
+    def gathered(dims, keep=None) -> tuple[dict, int]:
+        spy = Spy()
+        grads = {k: torch.zeros_like(local_chunk(w, layouts[k], mesh))
+                 for k, w in whole.items()}
+        unit = LayerShards({k: local_chunk(w, layouts[k], mesh).contiguous()
+                            for k, w in whole.items()},
+                           [layouts[k] for k in sorted(layouts)], mesh, grads)
+
+        def block(_):
+            p = unit.gather()
+            if keep is not None:
+                keep.append(p)
+            return loss(p)
+
+        with spy, data_parallel(mesh, dims):
+            out = checkpoint(block, rows, use_reentrant=False)
+            alive = spy.alive
+            out.backward()
+        return grads, alive
+
+    want = whole_path()
+
+    def err(got: dict) -> float:
+        return max(float((got[k] - want[k]).abs().max())
+                   / float(want[k].abs().max()) for k in want)
+
+    good, alive = gathered(BATCH_DIMS)
+    kept: list = []
+    report = {"err": err(good), "alive_after_block": alive,
+              "plants": {"sum_over_model": err(gathered((0, 1))[0]),
+                         "no_sum_over_data": err(gathered(())[0]),
+                         "kept_alive_bytes": gathered(BATCH_DIMS, kept)[1]}}
+    plants = report["plants"]
+    bad = []
+    if report["err"] > 1e-6 or alive:
+        bad.append(f"gather cases: error {report['err']}, {alive} bytes "
+                   f"alive after the block")
+    if min(plants["sum_over_model"], plants["no_sum_over_data"]) <= 1e-6 \
+            or not plants["kept_alive_bytes"]:
+        bad.append(f"gather cases: a planted fault passed: {plants}")
+    _check(bad)
+    return report
 
 
 def _pipeline(ref) -> dict:
@@ -267,9 +541,11 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
 
         mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
         ref = np.load(ref_path)
-        for arch, cell, variant in CELLS:
-            _cell(arch, cell, variant, ref, mesh)
+        gathers = {cell_key(*c): _cell(*c, ref, mesh) for c in CELLS}
+        cases = _gather_cases(mesh)
         pipe = _pipeline(ref)
+        every = [None] * RANKS
+        dist.all_gather_object(every, gathers)
         # a parameter's shard on this rank: the state really is sharded
         cfg = reduced(get_config("llama3.2-3b"))
         shape = ShapeSpec(*CELLS[0][1])
@@ -278,6 +554,7 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump({"cells": [cell_key(*c) for c in CELLS],
+                           "gathers": every, "gather_cases": cases,
                            "pipeline": pipe,
                            "world": {"ranks": dist.get_world_size(),
                                      "mesh": dict(zip(mesh.mesh_dim_names,

@@ -18,9 +18,12 @@ the optimizers amplify f32 rounding (``mismatches`` says where).
 Then the sharded world: ``tests/_torch_mesh_world.py`` in a subprocess
 with its own timeout starts 4 gloo ranks on a (2, 2) mesh and runs the
 five cells of the reference's ``tests/test_dryrun_small.py`` as programs,
-and mixtral-8x7b, Adafactor and int8-compression llama3.2-3b train cells
-(reduced configs in f32, ``accum`` 2 where a cell trains) against the
-reference's 1×1 results computed here, and ``pipeline_apply`` on a 4-rank
+and mixtral-8x7b, Adafactor, int8-compression, remat "none" and remat
+"dots" llama3.2-3b train cells (reduced configs in f32, ``accum`` 2 where
+a cell trains) against the reference's 1×1 results computed here, with
+the layer gather's memory, gradient buffers and collectives held on
+every rank, a unit's gather held against the whole path with three
+planted faults that must fail, and ``pipeline_apply`` on a 4-rank
 "stage" mesh against the reference's sequential forward and ``jax.grad``.
 A rank's failure fails the test.
 """
@@ -59,8 +62,8 @@ from repro_torch.models.weights import state_to_numpy, \
 from repro_torch.parallel.layouts import rules_for
 from repro_torch.parallel.sharding import full, use_mesh
 
-from _torch_mesh_world import CELLS, TRAIN_OUTLIERS, VARIANTS, cell_key, \
-    flat, mismatches
+from _torch_mesh_world import CELLS, TRAIN_OUTLIERS, VARIANTS, Spy, \
+    cell_key, flat, mismatches
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "llama3.2-3b"
@@ -280,6 +283,69 @@ def test_no_dtensor_reaches_a_kernel_entry_point(mesh, monkeypatch):
     assert len(calls) == 2 * (4 * n + 1 + 2 * n) + (2 * n + 1 + n)
 
 
+def test_the_1x1_gather_copies_nothing(mesh):
+    """On a mesh of one rank every shard is the whole: a train step's
+    gathers return the state's own storage (no byte copied, no
+    collective), once a unit in the forward and once in remat full's
+    recompute, and once the rest, a microbatch; the gradients accumulate
+    into buffers of the parameters' own shapes."""
+    from repro_torch._tree import leaves
+    from repro_torch.parallel.sharding import GATHER, local
+
+    rcfg, cfg = _cfgs(accum=2)
+    shape = ShapeSpec(*TRAIN)
+    rules = rules_for(cfg, shape, mesh)
+    prog = S.build_train_step(cfg, shape, mesh, rules)
+    state = train_state_from_reference(cfg, _np(_ref_train_state(rcfg,
+                                                                 False)),
+                                       "cpu", shardings=prog.in_shardings[0])
+    batch = _port(_batches(rcfg, RShapeSpec(*TRAIN), 1)[0])
+    with Spy() as spy, use_mesh(mesh, rules):
+        prog.jitted()(state, batch)
+    n = cfg.num_layers
+    assert GATHER.counts() == {"calls": 2 * (1 + 2 * n), "bytes_copied": 0,
+                               "all_gathers": 0, "reductions": 0,
+                               "reduce_scatters": 0, "all_reduces": 0}
+    with use_mesh(mesh, rules):
+        S.build_prefill_step(cfg, shape, mesh, rules).jitted()(
+            state["params"], {"tokens": batch["tokens"]})
+    assert GATHER.calls == 2 * (1 + 2 * n) + 1 + n
+    assert GATHER.bytes_copied == 0 and spy.peak == 0
+    grads = leaves(spy.grads)
+    assert [g.shape for g in grads] == [local(p).shape
+                                        for p in leaves(state["params"])]
+    storage = {g.untyped_storage().data_ptr() for g in grads}
+    model = spy.model
+    for unit in [model.rest] + [u for us in model.units.values() for u in us]:
+        assert unit.gather() is unit.tree  # the state's own storage
+        assert all(s.grad.untyped_storage().data_ptr() in storage
+                   and s.untyped_storage().data_ptr()
+                   in {local(p).untyped_storage().data_ptr()
+                       for p in leaves(state["params"])}
+                   for s in unit.parts)
+
+
+def test_a_rebuilt_tree_holds_its_leaves_no_longer_than_the_caller():
+    """``unflatten_like`` (which the layer gather builds its output with)
+    leaves no reference cycle behind: a gathered leaf dies when its last
+    holder lets it go, not when the cyclic collector runs."""
+    import gc
+    import weakref
+
+    from repro_torch._tree import unflatten_like
+
+    gc.disable()
+    try:
+        values = (torch.ones(2), torch.ones(3))
+        refs = [weakref.ref(v) for v in values]
+        tree = unflatten_like({"a": [0], "b": 0}, values)
+        assert tree["a"][0] is values[0] and tree["b"] is values[1]
+        del values, tree
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 def test_shard_act_lays_out_a_dtensor(mesh, monkeypatch):
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -394,3 +460,19 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
     assert res["world"] == {"ranks": 4, "mesh": {"data": 2, "model": 2}}
     # the state really was sharded over both axes
     assert res["wq_spec"] == [None, "data", "model", None]
+    # every rank's gathers, held there (_held_gathers), as reported: at
+    # most the rest and one unit alive at once (remat none keeps every
+    # layer), gradient buffers of the local shards' bytes
+    assert len(res["gathers"]) == 4
+    for rank in res["gathers"]:
+        assert sorted(rank) == sorted(res["cells"])
+        for name, g in rank.items():
+            held = g["peak_gathered_bytes"] <= g["bound_bytes"]
+            assert held == (g["remat"] != "none"), (name, g)
+            assert g["counts"]["calls"] > 0 and g["counts"]["all_gathers"] > 0
+            assert g.get("grad_bytes") == g.get("local_param_bytes"), name
+    cases = res["gather_cases"]
+    assert cases["err"] <= 1e-6 and cases["alive_after_block"] == 0
+    assert cases["plants"]["sum_over_model"] > 1e-6
+    assert cases["plants"]["no_sum_over_data"] > 1e-6
+    assert cases["plants"]["kept_alive_bytes"] > 0
