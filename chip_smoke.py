@@ -131,7 +131,9 @@ tensor-core kernel. Then:
   count x 4 a step, then 2 steps each of ``build_train_step`` with int8
   gradient compression and of the Adafactor config; in both, the layer
   gathers' calls a step held to the code's count (``mesh_gather_calls``)
-  with no byte copied and no collective, every shard being the whole;
+  with no byte copied and no collective, every shard being the whole,
+  and no collective of the model-parallel region (``MODEL``: a model axis
+  of one rank splits nothing);
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
@@ -724,6 +726,12 @@ def mesh_gather_calls(cfg) -> int:
                                     else 0))
     again = 1 if cfg.remat == "none" else 2
     return max(cfg.accum, 1) * (1 + again * units)
+
+
+# the model-parallel region's collectives on a 1x1 mesh: none
+# (``parallel/sharding.py`` ``MODEL``; a model axis of one rank opens no
+# region)
+NO_REGION = {"all_reduces": 0, "bytes": 0}
 
 
 def gather_held(counts: dict, cfg, steps: int) -> bool:
@@ -4450,7 +4458,7 @@ class Smoke:
                                               init_train_state, place)
         from repro_torch.optim.adafactor import init_factored_state
         from repro_torch.parallel.layouts import rules_for
-        from repro_torch.parallel.sharding import GATHER, full, use_mesh
+        from repro_torch.parallel.sharding import GATHER, MODEL, full, use_mesh
 
         mesh = self.mesh()
         base = dataclasses.replace(get_config(ARCH), num_layers=CHECK_LAYERS,
@@ -4509,9 +4517,11 @@ class Smoke:
                    if variant == "adafactor" else base)
             before, nb = lm_launches(), backward_launches()
             GATHER.reset()
+            MODEL.reset()
             got, gm = run(cfg, compress)
             n = {**launches_since(before), **backward_since(nb)}
             gathers = GATHER.counts()
+            region = MODEL.counts()
             with plain_training():
                 want, wm = run(cfg, compress)
             # held within TRAIN_GRAD_RTOL of each leaf's max, or by the
@@ -4548,6 +4558,9 @@ class Smoke:
                        f"mesh_train_check {variant}: gathers {gathers}, the "
                        f"code gives {mesh_gather_calls(cfg)} calls a step "
                        f"and no copy on a 1x1 mesh")
+            self.check(region == NO_REGION,
+                       f"mesh_train_check {variant}: model collectives "
+                       f"{region} on a 1x1 mesh")
             emit({"phase": "mesh_train_check", "arch": ARCH,
                   "variant": variant, "optimizer": cfg.optimizer,
                   "compress_grads": compress, "dtype": "float32",
@@ -4567,7 +4580,7 @@ class Smoke:
                              "outliers": MESH_OUTLIERS,
                              "outlier_err": outlier_err},
                   "launches": n, "launches_per_microbatch": want_n,
-                  "gathers_per_step": gathers,
+                  "gathers_per_step": gathers, "model_collectives": region,
                   "gather_calls_code": mesh_gather_calls(cfg),
                   "card": self.card})
             del got, want
@@ -4598,7 +4611,7 @@ class Smoke:
         from repro_torch.launch.train import train
         from repro_torch.optim.adafactor import init_factored_state
         from repro_torch.parallel.layouts import rules_for
-        from repro_torch.parallel.sharding import GATHER, use_mesh
+        from repro_torch.parallel.sharding import GATHER, MODEL, use_mesh
 
         mesh = self.mesh()
         cfg = get_config(ARCH)
@@ -4613,12 +4626,14 @@ class Smoke:
         log = io.StringIO()
         reset_all_launches()
         GATHER.reset()
+        MODEL.reset()
         before = lm_launches()
         with contextlib.redirect_stdout(log):
             out, seconds, ws, samples = metered(lambda: train(
                 ARCH, use_reduced=False, mesh=mesh, log_every=1, **MESH))
         counts = {**launches_since(before), **backward_launches()}
         gathers = GATHER.counts()
+        region = MODEL.counts()
         peak = torch.cuda.max_memory_allocated()
         self.path_launches[f"{ARCH} mesh train"] = counts
         step_ms = [int(m) for m in re.findall(r"\((\d+) ms\)",
@@ -4637,6 +4652,8 @@ class Smoke:
                    f"mesh_train: gathers {gathers}, the code gives "
                    f"{mesh_gather_calls(cfg)} calls a step x {steps} and no "
                    f"copy on a 1x1 mesh")
+        self.check(region == NO_REGION,
+                   f"mesh_train: model collectives {region} on a 1x1 mesh")
         emit({"phase": "mesh_train", "arch": ARCH, "layers": cfg.num_layers,
               "dtype": cfg.dtype, "remat": cfg.remat, "accum": accum,
               "mesh": {"data": 1, "model": 1}, **MESH,
@@ -4653,7 +4670,7 @@ class Smoke:
               "gather_calls_per_step": gathers["calls"] / steps,
               "gather_bytes_copied_per_step": gathers["bytes_copied"] / steps,
               "gathers": gathers, "gather_calls_code": mesh_gather_calls(cfg),
-              "card": self.card})
+              "model_collectives": region, "card": self.card})
         del out
         shape = ShapeSpec("train_cli", "train", MESH["seq_len"],
                           MESH["global_batch"])
@@ -4676,6 +4693,7 @@ class Smoke:
             step = prog.jitted()
             vlosses, vms = [], []
             GATHER.reset()
+            MODEL.reset()
             for i in range(MESH_EXTRA_STEPS):
                 batch = device_put_batch(stream.batch_at(i), "cuda")
                 torch.cuda.synchronize()
@@ -4686,6 +4704,7 @@ class Smoke:
                 vms.append(1e3 * (time.perf_counter() - t0))
             vpeak = torch.cuda.max_memory_allocated()
             vgathers = GATHER.counts()
+            vregion = MODEL.counts()
             self.check(all(math.isfinite(x) for x in vlosses)
                        and abs(vlosses[0] - first) <= FIRST_LOSS_NATS,
                        f"mesh_train {variant}: losses {vlosses}, the first "
@@ -4694,6 +4713,9 @@ class Smoke:
                        f"mesh_train {variant}: gathers {vgathers}, the code "
                        f"gives {mesh_gather_calls(vcfg)} calls a step and no "
                        f"copy on a 1x1 mesh")
+            self.check(vregion == NO_REGION,
+                       f"mesh_train {variant}: model collectives {vregion} "
+                       f"on a 1x1 mesh")
             emit({"phase": "mesh_train", "arch": ARCH, "variant": variant,
                   "dtype": vcfg.dtype, "accum": vcfg.accum,
                   "optimizer": vcfg.optimizer, "compress_grads": compress,
@@ -4704,7 +4726,7 @@ class Smoke:
                       vgathers["calls"] / MESH_EXTRA_STEPS,
                   "gather_bytes_copied_per_step":
                       vgathers["bytes_copied"] / MESH_EXTRA_STEPS,
-                  "card": self.card})
+                  "model_collectives": vregion, "card": self.card})
             del prog, state, step
         gc.collect()
         torch.cuda.empty_cache()

@@ -34,10 +34,29 @@ every rank (replicated; the host's batch as it is, with no
 communication) and each rank slices its rows of each microbatch, prefill
 and decode take each rank's shard. The loss's and the MoE router's batch
 means are taken over the whole batch, so each rank's loss is its share
-of the global one. Ranks along the other mesh dims ("model") compute the
-same rows: the model axis shards the state, not the blocks' arithmetic.
-The optimizers update the shards, with their global norms, scales and
-means reduced over the mesh (``optim/``).
+of the global one.
+
+The ranks along "model" split the blocks' arithmetic in the train and
+prefill steps (``sharding.model_parallel``, Megatron's tensor
+parallelism at the reference's ``shard_act`` points): each unit keeps
+this rank's chunk of the leaves the rules split over "model" where the
+matching activation axis is on "model" too (``transformer.model_roles``:
+attention's query heads and, where they divide, its KV heads; the MLP's
+and the experts' ffn columns; the vocab; the SSM and RWKV heads), and is
+gathered only over the other mesh dims. A block computes its chunk
+between ``enter`` and ``leave`` (an all-reduce over "model" in the
+backward and in the forward), so each model rank does 1/model of a split
+block's matmuls; the rest (the routers, a K/V projection of unsplit KV
+heads, the SSM's B and C, RWKV's receptance and decay LoRA) each rank
+computes whole, and where its ranks use such a leaf in part its gradient
+is summed over "model". The embedding is a lookup over the vocab shards,
+the logits this rank's vocab chunk and the loss a cross-entropy over the
+shards. The sequences are not split over "model" (the reference's
+Megatron-SP ``seq``, prefill's ``seq_inner`` and the flash-decode
+``kv_seq``): that is ROADMAP.md's slice 7d part three. The serve step
+keeps every leaf whole over "model" until then, its model ranks
+computing the same rows. The optimizers update the shards, with their
+global norms, scales and means reduced over the mesh (``optim/``).
 
 ``build_train_step`` keeps the reference's arithmetic: ``accum``
 microbatches of ``global_batch / accum`` rows (row block j is microbatch
@@ -185,10 +204,12 @@ class _Model:
     """The ``ShardedLM`` over a step's parameters, rebuilt only when the
     state's storage changes; with ``grads``, also the gradient buffers
     its backward accumulates into: one of each parameter's local shard
-    shape and dtype, zeroed by the caller before each step."""
+    shape and dtype, zeroed by the caller before each step. ``roles``:
+    ``T.model_roles``, or None for every leaf whole over "model"."""
 
-    def __init__(self, cfg: ArchConfig, grads: bool = False):
-        self.cfg, self.with_grads = cfg, grads
+    def __init__(self, cfg: ArchConfig, grads: bool = False,
+                 roles: Optional[dict] = None):
+        self.cfg, self.with_grads, self.roles = cfg, grads, roles
         self.key = None
 
     def __call__(self, params: dict) -> T.ShardedLM:
@@ -196,7 +217,8 @@ class _Model:
         if key != self.key:
             self.grads = (tree_map(lambda p: torch.zeros_like(SH.local(p)),
                                    params) if self.with_grads else None)
-            self.model = T.ShardedLM(self.cfg, params, self.grads)
+            self.model = T.ShardedLM(self.cfg, params, self.grads,
+                                     roles=self.roles)
             self.key = key
         return self.model
 
@@ -263,7 +285,7 @@ def build_train_step(
     accum = max(cfg.accum, 1)
     assert shape.global_batch % accum == 0, (shape.global_batch, accum)
     rows = shape.global_batch // accum
-    model_of = _Model(cfg, grads=True)
+    model_of = _Model(cfg, grads=True, roles=T.model_roles(cfg, rules, mesh))
 
     batch_specs = I.input_specs(cfg, shape)
     # each microbatch's rows split over the mesh dims that the rules give
@@ -294,7 +316,8 @@ def build_train_step(
             share = share * mesh.size(k) + coord[k]
         total = torch.zeros((), dtype=torch.float32,
                             device=whole["tokens"].device)
-        with SH.data_parallel(mesh, dims):
+        with SH.data_parallel(mesh, dims), \
+                SH.model_parallel(mesh, SH.model_dim_of(mesh)):
             for j in range(accum):
                 lo = j * rows + share * per
                 mb = {k: v[lo:lo + per] for k, v in whole.items()}
@@ -369,20 +392,31 @@ def build_prefill_step(
     dec: Optional[Decisions] = None,
     mode: str = "exec",
 ) -> CellProgram:
-    """``fn(params, batch) -> logits``, a DTensor split over the batch's
-    mesh dims like the batch."""
+    """``fn(params, batch) -> logits``, a DTensor laid out as the
+    reference's last ``shard_act`` leaves them, ``("batch", "seq_inner",
+    "act_vocab")``: split over the batch's mesh dims like the batch, and
+    over "model" along the vocab where the model ranks computed their
+    vocab chunks."""
+    from torch.distributed.tensor import Shard
+
     cfg = apply_decisions(cfg, dec)
-    model_of = _Model(cfg)
+    model_of = _Model(cfg, roles=T.model_roles(cfg, rules, mesh))
+    mdim = SH.model_dim_of(mesh)
 
     def prefill_step(params, batch):
         model = model_of(params).bind()
         dims = _batch_dims(batch["tokens"])
         split = _split(mesh, dims, 0)
         mine = {k: SH.to_placements(v, split) for k, v in batch.items()}
-        with SH.data_parallel(mesh, dims):
+        with SH.data_parallel(mesh, dims), SH.model_parallel(mesh, mdim):
             logits, _ = T.forward(cfg, model, mine, mode=mode, remat="none")
+        vocab = cfg.padded_vocab()
+        if logits.shape[-1] != vocab:  # this rank's vocab chunk
+            split = tuple(Shard(2) if k == mdim else pl
+                          for k, pl in enumerate(split))
         return SH.from_local(logits, mesh, split,
-                             (shape.global_batch,) + logits.shape[1:])
+                             (shape.global_batch,) + logits.shape[1:-1]
+                             + (vocab,))
 
     batch_specs = I.input_specs(cfg, shape)
     return CellProgram(
@@ -424,7 +458,9 @@ def build_serve_step(
 ) -> CellProgram:
     """``fn(params, state, tokens) -> (logits, state)``: the state updated
     in place in its layout (the reference donates it), the logits laid
-    out ``("batch", "act_vocab")``."""
+    out ``("batch", "act_vocab")``. Every leaf is gathered whole over
+    "model" and the model ranks compute the same rows: the flash-decode
+    split (the cache over ``kv_seq``) is slice 7d part three's."""
     model_of = _Model(cfg)
     state_shapes = T.init_decode_state(cfg, shape.global_batch,
                                        shape.seq_len, device="meta")

@@ -14,6 +14,15 @@ kernel (B3 takes q and k/v of one length); both group the query heads over
 the K/V heads rather than repeat K/V. ``decode_attention`` writes the new
 K/V rows into the cache in place, or reads a fixed memory (``kv_memory``)
 and writes nothing.
+
+In a mesh step's model-parallel region ``attention`` may hold this rank's
+query heads of ``wq``/``bq``/``wo`` (``wq`` narrower than the config's
+heads): its inputs ``enter``, it projects and attends over those heads
+only, and the output projection's partial sums ``leave``. Its K/V heads
+are then this rank's too where ``wk``/``wv`` came split; where they came
+whole (K not divisible by the model size, as MQA), the rank projects
+every KV head and hands B3 the block its query heads read
+(``kv_block``), so B3 and ``_grouped_sdpa`` see local heads only.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models.layers import apply_rope
-from repro_torch.parallel.sharding import PDef
+from repro_torch.parallel.sharding import PDef, enter, leave, model_index
 
 def attention_defs(cfg: ArchConfig, cross: bool = False) -> dict:
     d, h, k, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -57,6 +66,36 @@ def _project_kv(cfg: ArchConfig, p, x: torch.Tensor
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     return k, v
+
+
+def kv_block(h: int, k: int, m: int, r: int) -> tuple[int, int]:
+    """(first, count): the KV heads that model rank ``r``'s query heads
+    ``[r·h/m, (r+1)·h/m)`` read, query head i reading KV head ``i //
+    (h/k)``, where the ``k`` KV heads are not split over the ``m`` ranks.
+    The block must serve the rank's heads evenly, as B3 reads it (local
+    head j reads local KV head ``j // (heads / kv heads)``): else it
+    raises."""
+    hl, g = h // m, h // k
+    if hl % g == 0:
+        return r * hl // g, hl // g
+    if g % hl == 0:
+        return r * hl // g, 1
+    raise ValueError(
+        f"{h} query heads over {k} KV heads do not split over {m} model "
+        f"ranks: a rank's {hl} query heads do not read a whole block of "
+        f"KV heads")
+
+
+def _local_kv(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """k and v (B, T, K, hd) for this rank's query heads ``q`` (B, S, Hl,
+    hd): as they are where they are this rank's KV heads already, else the
+    block of ``kv_block``."""
+    if q.shape[2] == cfg.num_heads or k.shape[2] != cfg.num_kv_heads:
+        return k, v
+    m = cfg.num_heads // q.shape[2]
+    first, n = kv_block(cfg.num_heads, cfg.num_kv_heads, m, model_index())
+    return k[:, :, first:first + n], v[:, :, first:first + n]
 
 
 def _repeat_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -123,16 +162,22 @@ def attention(
     kernel (causal with an optional window, or full), or cross-attention
     over ``kv_x`` (B, T, D) as PyTorch ops, with no rope and no mask.
     ``mode`` is accepted for the reference's signature; both of its modes
-    compute the same function."""
+    compute the same function. With this rank's query heads (a model
+    split) the output is summed over the model ranks."""
     s = x.shape[1]
+    split = p["wq"].shape[1] != cfg.num_heads
+    if split:
+        x = enter(x)
+        kv_x = None if kv_x is None else enter(kv_x)
     q = _project_q(cfg, p, x)
     if kv_x is not None:
         if causal:
             raise ValueError("cross-attention takes no causal mask")
-        k, v = _project_kv(cfg, p, kv_x)
+        k, v = _local_kv(cfg, q, *_project_kv(cfg, p, kv_x))
         out = _grouped_sdpa(q, k, v, mask=None)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    k, v = _project_kv(cfg, p, x)
+        out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        return leave(out) if split else out
+    k, v = _local_kv(cfg, q, *_project_kv(cfg, p, x))
     if rope:
         pos = (positions if positions is not None
                else torch.arange(s, device=x.device))
@@ -143,7 +188,8 @@ def attention(
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),
                           causal=causal, window=window if causal else 0)
-    return torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+    out = torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+    return leave(out) if split else out
 
 
 # ---------------------------------------------------------------------------

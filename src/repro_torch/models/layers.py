@@ -4,6 +4,14 @@ Counterpart of the JAX package's ``models/layers.py``. ``p`` is the layer's
 parameter dict (an ``nn.ParameterDict`` of the port's ``TransformerLM``)
 under the reference's names and layouts. ``rms_norm`` goes through kernel
 B2 (with its gradient, ``kernels/rmsnorm/ops.py``, when one is needed).
+
+In a mesh step's model-parallel region (``parallel/sharding.py``
+``model_parallel``) a block may hold only this rank's chunk of its ffn
+columns or vocab rows; it reads that off the leaf's shape (narrower than
+the config's) and computes its chunk, between ``enter`` and ``leave``:
+the MLP on its ffn columns, the embedding lookup on its vocab rows, the
+logits on its vocab chunk, and the cross-entropy over the vocab shards.
+With whole leaves each function is the single-device one.
 """
 from __future__ import annotations
 
@@ -14,7 +22,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm.ops import rms_norm as _rms_norm_op
-from repro_torch.parallel.sharding import PDef, batch_shards, batch_sum
+from repro_torch.parallel.sharding import (
+    PDef, batch_shards, batch_sum, enter, leave, model_index, model_max,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -74,12 +84,18 @@ def mlp_defs(cfg: ArchConfig) -> dict:
 
 
 def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """With this rank's ffn columns of ``w_gate``/``w_up`` and rows of
+    ``w_down`` (a model split), the partial outputs summed by ``leave``."""
+    split = p["w_up"].shape[1] != cfg.d_ff
+    if split:
+        x = enter(x)
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         # jax.nn.gelu defaults to the tanh approximation; torch's to exact
         h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return leave(out) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -96,30 +112,59 @@ def embedding_defs(cfg: ArchConfig) -> dict:
 
 
 def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens]
+    """The tokens' rows; from this rank's vocab rows only (a model split),
+    the other ranks' tokens read zeros, and ``leave`` sums the ranks'
+    lookups into every row."""
+    table = p["embed"]
+    rows = table.shape[0]
+    if rows == cfg.padded_vocab():
+        return table[tokens]
+    idx = tokens.long() - model_index() * rows
+    inside = (idx >= 0) & (idx < rows)
+    x = table[idx.clamp(0, rows - 1)]
+    return leave(torch.where(inside[..., None], x, x.new_zeros(())))
 
 
 def lm_logits(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ p["embed"].T
-    return x @ p["unembed"]
+    """Logits; over this rank's vocab chunk where the table is split."""
+    w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
+    if w.shape[1] != cfg.padded_vocab():
+        x = enter(x)
+    return x @ w
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
-                       z_loss: float = 1e-4) -> torch.Tensor:
+                       z_loss: float = 1e-4,
+                       vocab: Optional[int] = None) -> torch.Tensor:
     """Masked cross-entropy with z-loss, in f32: the mean over the (masked)
     positions of lse − logit[label] + z_loss·lse². The row max that steadies
     the log-sum-exp carries no gradient, as in the reference; the label's
     logit is a gather where the reference contracts with a one-hot, which
     computes the same value. Inside a ``data_parallel`` split the mean is
     taken over the whole batch's positions, so that the shares' losses sum
-    to the batch's."""
+    to the batch's.
+
+    Logits narrower than ``vocab`` are this model rank's vocab chunk: the
+    max is an all-reduce MAX with no gradient, and the sum of exponentials
+    and the label's logit (zero on the ranks that do not hold it) one
+    all-reduce SUM whose backward is the identity (``leave``), so that
+    every rank holds the whole loss and its chunk's gradient."""
     logits = logits.float()
+    chunk = logits.shape[-1]
     m = torch.amax(logits, -1, keepdim=True).detach()
-    z = torch.sum(torch.exp(logits - m), -1)
+    if vocab is None or chunk == vocab:
+        z = torch.sum(torch.exp(logits - m), -1)
+        picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        m = model_max(m)
+        idx = labels.long() - model_index() * chunk
+        inside = (idx >= 0) & (idx < chunk)
+        mine = torch.gather(logits, -1, idx.clamp(0, chunk - 1)[..., None])
+        z, picked = leave(torch.stack([
+            torch.sum(torch.exp(logits - m), -1),
+            torch.where(inside, mine[..., 0], 0.0)]))
     lse = torch.log(z) + m[..., 0]
-    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = lse - picked
     if z_loss:
         nll = nll + z_loss * torch.square(lse)

@@ -18,6 +18,15 @@ Top-k ties: ``jax.lax.top_k`` breaks them toward the lower expert index,
 and ``torch.topk`` promises no order, so ``route`` takes the first k of a
 stable descending sort. The router's logits, softmax and aux loss are f32;
 the routing weights, the slots and the SwiGLU are in x's dtype.
+
+In a mesh step's model-parallel region the experts' leaves may hold only
+this rank's ``expert_ffn`` columns (``w_up`` narrower than ``d_ff``): the
+router, its aux loss and the dispatch are computed whole on every model
+rank, the tokens ``enter`` the region before the dispatch, each rank runs
+its columns of every expert's SwiGLU, and the combine weights its partial outputs by the
+routing weights, which ``enter`` too, before ``leave`` sums them. So the
+routing weights' gradient arrives whole on every rank, and the router's
+gradient (its aux loss's part included) is the same on each: no sum.
 """
 from __future__ import annotations
 
@@ -25,7 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.parallel.sharding import PDef, batch_shards, batch_sum
+from repro_torch.parallel.sharding import (
+    PDef, batch_shards, batch_sum, enter, leave,
+)
 
 
 def moe_defs(cfg: ArchConfig) -> dict:
@@ -95,8 +106,11 @@ def moe_apply(cfg: ArchConfig, p, x: torch.Tensor
     b, s, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     cap = capacity(cfg, s)
+    split = p["w_up"].shape[2] != cfg.d_ff
 
     weights, ids, aux = route(cfg, p, x)
+    if split:
+        x, weights = enter(x), enter(weights)
 
     # ---- row-local dispatch: the source token of each (E*C) slot ----------
     dest, keep = dispatch_slots(ids, e, cap)
@@ -122,4 +136,5 @@ def moe_apply(cfg: ArchConfig, p, x: torch.Tensor
     per_choice = slot_out.gather(1, dest[..., None].expand(-1, -1, d))
     per_choice = per_choice * weights.reshape(b, s * k, 1).to(
         per_choice.dtype)
-    return per_choice.reshape(b, s, k, d).sum(dim=2), aux
+    out = per_choice.reshape(b, s, k, d).sum(dim=2)
+    return (leave(out) if split else out), aux

@@ -15,6 +15,18 @@ sequential one, so ``ssm_chunk`` changes nothing here. Under a gradient
 backward kernel. Decode carries (S, last_x): O(1) a token. The
 per-head RMS norm with its (H, hd) scale stays torch ops, as it is inline
 jnp in the reference (B2 takes one scale vector).
+
+In a mesh step's model-parallel region the time mix may hold this rank's
+heads of ``w_r``, ``w_k``, ``w_v``, ``w_g`` (columns), ``w_o`` (rows),
+``bonus_u`` and ``ln_wkv`` (``w_r`` narrower than ``d_model``): its input
+``enter``s, the token shift, the mixes and the decay LoRA's first product
+are computed whole, the LoRA's second product and ``decay_base`` only on
+this rank's channels, B4 and the per-head norm run on its heads, and the
+output projection's partial sums ``leave``. So ``mu``, ``decay_base``,
+``decay_A`` and ``decay_B`` get a partial gradient on each rank. The
+channel mix may hold this rank's ffn columns of ``c_k`` and rows of
+``c_v``: the k mix ``enter``s, ``c_k``/``c_v``'s partial output
+``leave``s, and the receptance (``c_r``, whole) gates the sum.
 """
 from __future__ import annotations
 
@@ -25,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.wkv.ops import wkv
-from repro_torch.parallel.sharding import PDef
+from repro_torch.parallel.sharding import PDef, enter, leave, model_index
 
 
 def rwkv_defs(cfg: ArchConfig) -> dict:
@@ -67,11 +79,12 @@ def _mix(x, xx, mu):
     return x + (xx - x) * mu.to(x.dtype)
 
 
-def _decays(cfg: ArchConfig, p, xw: torch.Tensor) -> torch.Tensor:
-    """Log decays (negative), per channel: (B,S,D) -> (B,S,D) float32."""
+def _decays(cfg: ArchConfig, p, xw: torch.Tensor,
+            channels: slice = slice(None)) -> torch.Tensor:
+    """Log decays (negative) of ``channels``: (B,S,D) -> (B,S,C) float32."""
     lora = torch.tanh(xw.float() @ p["decay_A"].float())
-    lora = lora @ p["decay_B"].float()
-    return -torch.exp(p["decay_base"] + lora)  # log w
+    lora = lora @ p["decay_B"][:, channels].float()
+    return -torch.exp(p["decay_base"][channels] + lora)  # log w
 
 
 def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str = "exec",
@@ -82,7 +95,12 @@ def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str = "exec",
     is updated in place and returned. ``mode`` is the reference's, which
     picks its chunk loop; the port has one path."""
     b, s, d = x.shape
-    h, hd = cfg.rwkv_heads, cfg.rwkv_head_size
+    hd = cfg.rwkv_head_size
+    width = p["w_r"].shape[1]  # this rank's heads' channels
+    h = width // hd
+    split = width != d
+    if split:
+        x = enter(x)
     xx = _token_shift(x, last_x)
     xr = _mix(x, xx, p["mu"][0])
     xk = _mix(x, xx, p["mu"][1])
@@ -97,16 +115,19 @@ def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str = "exec",
     k = heads(xk @ p["w_k"])
     v = heads(xv @ p["w_v"])
     g = xg @ p["w_g"]
-    lw = heads(_decays(cfg, p, xw))
+    mine = slice(model_index() * width, (model_index() + 1) * width)
+    lw = heads(_decays(cfg, p, xw, mine if split else slice(None)))
     out, st = wkv(r, k, v, lw, p["bonus_u"], state=state,
                   chunk=cfg.ssm_chunk)
 
     # per-head rms norm (GroupNorm stand-in), then gate
     var = torch.mean(torch.square(out), dim=-1, keepdim=True)
     out = out * torch.rsqrt(var + cfg.norm_eps) * p["ln_wkv"][None, :, None, :]
-    out = out.transpose(1, 2).reshape(b, s, d)
+    out = out.transpose(1, 2).reshape(b, s, width)
     out = out.to(x.dtype) * F.silu(g)
     y = out @ p["w_o"]
+    if split:
+        y = leave(y)
     if state is not None or last_x is not None:
         return y, st, x[:, -1]
     return y
@@ -114,11 +135,17 @@ def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str = "exec",
 
 def rwkv_channel_mix(cfg: ArchConfig, p, x: torch.Tensor,
                      last_x: Optional[torch.Tensor] = None):
+    split = p["c_k"].shape[1] != cfg.d_ff
     xx = _token_shift(x, last_x)
     xk = _mix(x, xx, p["mu_c"][0])
     xr = _mix(x, xx, p["mu_c"][1])
+    if split:
+        xk = enter(xk)
     k = torch.square(F.relu(xk @ p["c_k"]))
-    out = torch.sigmoid(xr @ p["c_r"]) * (k @ p["c_v"])
+    kv = k @ p["c_v"]
+    if split:
+        kv = leave(kv)
+    out = torch.sigmoid(xr @ p["c_r"]) * kv
     if last_x is not None:
         return out, x[:, -1]
     return out

@@ -25,14 +25,29 @@ model it carries f32 after one step. The port holds ``conv`` in the model's
 dtype from the start, which is the reference's dtype from its first step
 on: the initial zeros are exact in either, and an in-place write into a
 bf16 buffer would round values that the reference keeps in f32.
+
+In a mesh step's model-parallel region a block may hold this rank's heads
+of ``A_log``, ``D``, ``dt_bias``, ``norm_scale`` and ``out_proj``'s rows
+(``A_log`` shorter than the config's heads). ``in_proj``'s output is z |
+x | B | C | dt and the conv's channels x | B | C, so a plain chunk of
+either is not a rank's heads: they come whole, and the rank takes its
+heads' z, x and dt columns and all of B and C (``_head_columns``). Its
+input ``enter``s, the scan runs over its heads, the gated norm's mean of
+squares over all of ``d_inner`` is a sum all-reduced both ways
+(``model_sum``), and ``out_proj``'s partial sums ``leave``. ``in_proj``,
+``conv_w`` and ``conv_b`` then get a partial gradient on each rank.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.parallel.sharding import PDef
+from repro_torch.parallel.sharding import (
+    PDef, enter, leave, model_index, model_sum,
+)
 
 
 def mamba_defs(cfg: ArchConfig) -> dict:
@@ -51,8 +66,7 @@ def mamba_defs(cfg: ArchConfig) -> dict:
     }
 
 
-def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
-    di, ns = cfg.d_inner, cfg.ssm_state
+def _split_proj(zxbcdt: torch.Tensor, di: int, ns: int):
     z = zxbcdt[..., :di]
     xs = zxbcdt[..., di:2 * di]
     Bm = zxbcdt[..., 2 * di:2 * di + ns]
@@ -61,15 +75,33 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return z, xs, Bm, Cm, dt
 
 
-def _xbc(cfg: ArchConfig, zxbcdt: torch.Tensor) -> torch.Tensor:
+def _xbc(zxbcdt: torch.Tensor, di: int, ns: int) -> torch.Tensor:
     """The conv's input, the reference's concatenation of x, B and C: they
     lie side by side in the projection, so a view of it."""
-    return zxbcdt[..., cfg.d_inner:2 * cfg.d_inner + 2 * cfg.ssm_state]
+    return zxbcdt[..., di:2 * di + 2 * ns]
 
 
-def _split_xbc(cfg: ArchConfig, xbc: torch.Tensor):
-    di, ns = cfg.d_inner, cfg.ssm_state
+def _split_xbc(xbc: torch.Tensor, di: int, ns: int):
     return xbc[..., :di], xbc[..., di:di + ns], xbc[..., di + ns:]
+
+
+def _head_columns(cfg: ArchConfig, p, nh: int):
+    """This model rank's ``nh`` heads' share of the whole ``in_proj``,
+    ``conv_w`` and ``conv_b``: its z, x and dt columns and all of B and C,
+    in the z | x | B | C | dt (x | B | C) order the block reads."""
+    di, ns = cfg.d_inner, cfg.ssm_state
+    w = nh * cfg.ssm_head_dim
+    r = model_index()
+    z, xs = slice(r * w, (r + 1) * w), slice(di + r * w, di + (r + 1) * w)
+    bc = slice(2 * di, 2 * di + 2 * ns)
+    dt = slice(2 * di + 2 * ns + r * nh, 2 * di + 2 * ns + (r + 1) * nh)
+    proj = p["in_proj"]
+    in_proj = torch.cat([proj[:, z], proj[:, xs], proj[:, bc], proj[:, dt]],
+                        dim=1)
+    cx, cbc = z, slice(di, di + 2 * ns)  # x's channels lead the conv's
+    conv_w = torch.cat([p["conv_w"][:, cx], p["conv_w"][:, cbc]], dim=1)
+    conv_b = torch.cat([p["conv_b"][cx], p["conv_b"][cbc]])
+    return in_proj, conv_w, conv_b
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -94,12 +126,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _gated_norm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                eps: float) -> torch.Tensor:
+                eps: float, width: Optional[int] = None) -> torch.Tensor:
     """x * silu(z), RMS-normalised in f32 with a (d_inner,) scale, cast back
-    to x's dtype. Inline jnp in the reference, so PyTorch ops here, not B2."""
+    to x's dtype. Inline jnp in the reference, so PyTorch ops here, not B2.
+    With x narrower than ``width`` (this model rank's heads of d_inner) the
+    mean of squares is over all of ``width``: the ranks' sums all-reduced."""
     x = x * F.silu(z.float()).to(x.dtype)
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if width is None or x.shape[-1] == width:
+        var = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = model_sum(xf.square().sum(dim=-1, keepdim=True)) / width
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
@@ -108,16 +145,24 @@ def mamba_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
     """x: (B, S, D) -> (B, S, D). Chunked SSD scan in f32; ``mode`` is
     accepted for the reference's signature."""
     b, s, _ = x.shape
-    nh, hd, ns = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    hd, ns = cfg.ssm_head_dim, cfg.ssm_state
+    nh = p["A_log"].shape[0]  # this rank's heads
+    di = nh * hd
     cs = min(cfg.ssm_chunk, s)
     if s % cs:  # a chunk that does not divide S: one chunk of S
         cs = s
     nc = s // cs
 
-    zxbcdt = x @ p["in_proj"]
-    z, _, _, _, dt = _split_proj(cfg, zxbcdt)
-    xbc, _ = _causal_conv(_xbc(cfg, zxbcdt), p["conv_w"], p["conv_b"])
-    xs, Bm, Cm = _split_xbc(cfg, xbc)
+    split = nh != cfg.ssm_heads
+    if split:
+        x = enter(x)
+        in_proj, conv_w, conv_b = _head_columns(cfg, p, nh)
+    else:
+        in_proj, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+    zxbcdt = x @ in_proj
+    z, _, _, _, dt = _split_proj(zxbcdt, di, ns)
+    xbc, _ = _causal_conv(_xbc(zxbcdt, di, ns), conv_w, conv_b)
+    xs, Bm, Cm = _split_xbc(xbc, di, ns)
 
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B,S,H)
     A = -torch.exp(p["A_log"].float())  # (H,)
@@ -159,9 +204,10 @@ def mamba_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
 
     y = y.transpose(2, 3).reshape(b, s, nh, hd)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(b, s, cfg.d_inner).to(x.dtype)
-    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps, cfg.d_inner)
+    y = y @ p["out_proj"]
+    return leave(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -187,12 +233,13 @@ def mamba_decode_step(cfg: ArchConfig, p, x: torch.Tensor, state: dict
     ``ssm`` and ``conv`` are updated in place and returned."""
     b = x.shape[0]
     nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    di, ns = cfg.d_inner, cfg.ssm_state
     zxbcdt = x @ p["in_proj"]
-    z, _, _, _, dt = _split_proj(cfg, zxbcdt)
-    xbc, conv = _causal_conv(_xbc(cfg, zxbcdt), p["conv_w"], p["conv_b"],
+    z, _, _, _, dt = _split_proj(zxbcdt, di, ns)
+    xbc, conv = _causal_conv(_xbc(zxbcdt, di, ns), p["conv_w"], p["conv_b"],
                              state["conv"])
     state["conv"].copy_(conv)
-    xs, Bm, Cm = _split_xbc(cfg, xbc)
+    xs, Bm, Cm = _split_xbc(xbc, di, ns)
     dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]  # (B,H)
     A = -torch.exp(p["A_log"].float())
     xh = xs.reshape(b, nh, hd).float()

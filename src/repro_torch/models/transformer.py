@@ -25,7 +25,8 @@ Public surface:
     forward(cfg, model, batch)        -> (logits, aux)        [prefill]
     forward_loss(cfg, model, batch)   -> (loss, metrics)      [train]
     bind_stacked_grads(model, params) -> stacked gradient tree
-    ShardedLM(cfg, params, grads).bind() -> a mesh step's model [shards]
+    model_roles(cfg, rules, mesh)     -> each leaf's model-parallel role
+    ShardedLM(cfg, params, grads, roles).bind() -> a mesh step's model
     init_decode_state(cfg, batch, cache_len) -> state
     decode_state_logical_axes(cfg, state)    -> logical-axes tree
     decode_step(cfg, model, state, tokens)   -> (logits, state) [serve]
@@ -73,8 +74,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.parallel.sharding import (
-    LayerShards, PDef, init_from_defs, local, shifted, specs_from_defs,
-    stack_defs,
+    KEEP, PARTIAL, LayerShards, PDef, _mesh_axis_sizes, current_context,
+    in_context, init_from_defs, local, shifted, specs_from_defs, stack_defs,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -320,6 +321,113 @@ def bind_stacked_grads(model: TransformerLM, params: dict) -> dict:
     return grads
 
 
+# ---------------------------------------------------------------------------
+# The model-parallel split of the leaves
+# ---------------------------------------------------------------------------
+
+
+def _on_model(entry) -> bool:
+    return "model" in (entry if isinstance(entry, tuple) else (entry,))
+
+
+def model_roles(cfg: ArchConfig, rules, mesh) -> dict:
+    """Each leaf's role in a mesh step's model-parallel region, a tree of
+    ``model_defs(cfg)``'s structure (``parallel/sharding.py``
+    ``LayerShards``): ``KEEP`` where the block computes with this rank's
+    chunk along "model", ``PARTIAL`` where it uses the leaf whole but each
+    model rank only in part, None elsewhere (every leaf, on a "model" dim
+    of one rank or none). From the rules and the pruned specs: a block's
+    leaves split together, where each one's spec puts "model" on the dim
+    of the split's logical axis and the rules put the matching activation
+    axis on "model" (and the chunk is whole heads):
+
+    * attention (``attn``, ``xattn``, the hybrid's ``shared_attn``):
+      ``wq``, ``wo``, ``bq`` on ``heads``/``act_heads``; ``wk``, ``wv``,
+      ``bk``, ``bv`` on ``kv_heads``/``act_kv_heads`` with them, else
+      ``PARTIAL`` (each rank projects every KV head and reads the block
+      its query heads use, ``attention.kv_block``, which raises where
+      there is no such block);
+    * ``mlp``: ``w_gate``, ``w_up``, ``w_down`` on ``ffn``/``act_ffn``;
+    * ``moe``: the experts' on ``expert_ffn``/``act_ffn``; the router
+      stays whole and its gradient the same on every rank;
+    * RWKV's ``tm``: ``w_r``, ``w_k``, ``w_v``, ``w_g``, ``w_o``,
+      ``bonus_u``, ``ln_wkv`` on ``rwkv_heads`` where the model size
+      divides the heads, and then ``mu``, ``decay_base``, ``decay_A``,
+      ``decay_B`` ``PARTIAL``; ``c_k``, ``c_v`` on ``ffn``/``act_ffn``;
+    * ``mamba``: ``A_log``, ``D``, ``dt_bias`` on ``ssm_heads`` and
+      ``norm_scale``, ``out_proj`` on ``ssm_inner``, and then ``in_proj``,
+      ``conv_w``, ``conv_b`` (whose channels are not whole heads) whole
+      and ``PARTIAL``;
+    * ``embedding``: ``embed`` and ``unembed`` each on ``vocab``/
+      ``act_vocab``.
+
+    The norms, the frontends and every leaf of a block that is not split
+    are None: gathered whole, and their gradient the same on every rank,
+    since ``enter`` sums what flows back out of the region."""
+    defs = model_defs(cfg)
+    specs = specs_from_defs(defs, rules, mesh)
+    m = _mesh_axis_sizes(mesh).get("model", 1)
+
+    def block(kind: str, d: dict, sp: dict) -> dict:
+        out = {k: None for k in d}
+
+        def split(names, axis, act, whole=True) -> bool:
+            names = [n for n in names if n in d]
+            return (m > 1 and whole and _on_model(rules.axis(act))
+                    and all(_on_model(sp[n][d[n].axes.index(axis)])
+                            for n in names))
+
+        def put(names, role):
+            out.update({n: role for n in names if n in d})
+
+        if kind in ("attn", "xattn"):
+            q = ("wq", "wo", "bq")
+            kv = ("wk", "wv", "bk", "bv")
+            if split(q, "heads", "act_heads"):
+                put(q, KEEP)
+                if split(kv, "kv_heads", "act_kv_heads"):
+                    put(kv, KEEP)
+                else:
+                    for r in range(m):
+                        attn.kv_block(cfg.num_heads, cfg.num_kv_heads, m, r)
+                    put(kv, PARTIAL)
+        elif kind == "mlp":
+            ffn = ("w_gate", "w_up", "w_down")
+            put(ffn, KEEP if split(ffn, "ffn", "act_ffn") else None)
+        elif kind == "moe":
+            ffn = ("w_gate", "w_up", "w_down")
+            put(ffn, KEEP if split(ffn, "expert_ffn", "act_ffn") else None)
+        elif kind == "tm":
+            heads = ("w_r", "w_k", "w_v", "w_g", "w_o", "bonus_u", "ln_wkv")
+            if split(heads, "rwkv_heads", "rwkv_heads",
+                     cfg.rwkv_heads % m == 0):
+                put(heads, KEEP)
+                put(("mu", "decay_base", "decay_A", "decay_B"), PARTIAL)
+            ffn = ("c_k", "c_v")
+            put(ffn, KEEP if split(ffn, "ffn", "act_ffn") else None)
+        elif kind == "mamba":
+            if (split(("A_log", "D", "dt_bias"), "ssm_heads", "ssm_heads",
+                      cfg.ssm_heads % m == 0)
+                    and split(("norm_scale", "out_proj"), "ssm_inner",
+                              "ssm_inner")):
+                put(("A_log", "D", "dt_bias", "norm_scale", "out_proj"), KEEP)
+                put(("in_proj", "conv_w", "conv_b"), PARTIAL)
+        elif kind == "embedding":
+            for n in ("embed", "unembed"):
+                put((n,), KEEP if split((n,), "vocab", "act_vocab") else None)
+        return out
+
+    def walk(d, sp, key=None):
+        if isinstance(d, PDef):
+            return None
+        if key in ("attn", "xattn", "mlp", "moe", "tm", "mamba",
+                   "embedding"):
+            return block(key, d, sp)
+        return {k: walk(v, sp[k], k) for k, v in d.items()}
+
+    return walk(defs, specs)
+
+
 # the stacked trees of the layer loops, and a unit's leading layer axes
 _UNIT_AXES = {"layers": 1, "encoder": 1, "groups": 2, "tail": 1}
 
@@ -340,13 +448,16 @@ class ShardedLM:
     leaves outside them (``embedding``, ``final_norm``, ``enc_norm``,
     ``frontend``, ``shared_attn``). With ``grads`` (a tree of the local
     shards' shapes and dtypes) the backward accumulates each shard's
-    gradient there. ``bind()`` gathers ``rest`` whole and returns what
-    ``forward``, ``forward_loss`` and ``decode_step`` take in a
-    ``TransformerLM``'s place; each block gathers its own unit as it
-    runs (``_whole``)."""
+    gradient there. ``roles`` (``model_roles``; None: every leaf whole)
+    says which leaves each unit keeps as this rank's chunk along "model",
+    and whose gradient it sums there. ``bind()`` gathers ``rest`` and
+    returns what ``forward``, ``forward_loss`` and ``decode_step`` take in
+    a ``TransformerLM``'s place; each block gathers its own unit as it
+    runs (``_whole``), and computes its model chunk inside a step's
+    ``model_parallel`` region."""
 
     def __init__(self, cfg: ArchConfig, params: dict,
-                 grads: Optional[dict] = None):
+                 grads: Optional[dict] = None, roles: Optional[dict] = None):
         self.cfg = cfg
         mesh = leaves(params)[0].device_mesh
 
@@ -355,6 +466,8 @@ class ShardedLM:
                 k: v for k, v in params.items() if k not in _UNIT_AXES}
             g_tree = None if grads is None else (
                 grads[key] if key else {k: grads[k] for k in tree})
+            rl = None if roles is None else leaves(
+                roles[key] if key else {k: roles[k] for k in tree})
 
             def at(ix):
                 return (tree_map(lambda t: local(t)[ix], tree),
@@ -365,11 +478,12 @@ class ShardedLM:
                   for t in leaves(tree)]
             if key != "groups":
                 parts, g_parts = at(index)
-                return LayerShards(parts, pl, mesh, g_parts)
+                return LayerShards(parts, pl, mesh, g_parts, rl)
             made = [at(index + (i,)) for i in range(cfg.attn_every)]
             return LayerShards([m[0] for m in made], pl * cfg.attn_every,
                                mesh, None if grads is None
-                               else [m[1] for m in made])
+                               else [m[1] for m in made],
+                               None if rl is None else rl * cfg.attn_every)
 
         self.rest = unit(None, ())
         self.units = {key: [unit(key, (i,)) for i in
@@ -502,7 +616,10 @@ def _maybe_remat(fn, remat: str):
     all of them, ``"dots"`` all but the matmuls' outputs (the reference's
     ``dots_with_no_batch_dims_saveable``: the projections and the MLP's;
     attention's scores live inside B3), ``"none"``: ``fn`` itself. Remat
-    changes memory, never values."""
+    changes memory, never values: the recompute runs in the context the
+    forward ran in (``sharding.in_context``: the data-parallel split and
+    the model-parallel region), though a card's backward runs on another
+    thread."""
     if remat == "none":
         return fn
     from torch.utils.checkpoint import (
@@ -514,7 +631,15 @@ def _maybe_remat(fn, remat: str):
             _dots_policy)
     elif remat != "full":
         raise ValueError(f"remat must be none, dots or full, got {remat!r}")
-    return lambda *args: checkpoint(fn, *args, **kwargs)
+
+    def run(*args):
+        context = current_context()
+
+        def again(*a):
+            with in_context(context):
+                return fn(*a)
+        return checkpoint(again, *args, **kwargs)
+    return run
 
 
 def _forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
@@ -575,7 +700,8 @@ def forward_loss(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
     remat = cfg.remat if remat is None else remat
     logits, aux = _forward(cfg, model, batch, mode=mode, remat=remat)
     loss = L.cross_entropy_loss(logits, batch["labels"],
-                                batch.get("loss_mask"))
+                                batch.get("loss_mask"),
+                                vocab=cfg.padded_vocab())
     return loss + aux_weight * aux, {"ce_loss": loss, "moe_aux": aux}
 
 

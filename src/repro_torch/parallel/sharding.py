@@ -22,8 +22,9 @@ by these shardings, each rank holding its shard as a ``DTensor``, and
 compute on plain local tensors: the kernels read ``data_ptr()``, so no
 ``DTensor`` reaches them. ``LayerShards`` is one unit of the model's layer
 loops over this rank's shards: its ``gather`` all-gathers the unit's
-leaves whole, and its backward reduces their whole gradients into the
-shards (``reduce_leaf``), the counterpart of the reference's
+leaves whole (but for the model chunk a leaf keeps, ``roles``), and its
+backward reduces their gradients into the shards (``reduce_leaf``), the
+counterpart of the reference's
 ``_constrain_layer_params``; ``GATHER`` counts what it did. ``local``,
 ``to_placements`` and ``from_placements`` move a tensor between its layout
 and the layout a step computes in; ``reduce_over`` makes a reduction taken
@@ -31,6 +32,15 @@ on a shard global over the mesh dims that shard it (the global norm, the
 compression scale, Adafactor's means); ``data_parallel`` tells the loss,
 the MoE router and the gather's backward which mesh dims split the batch,
 so that their batch means and gradient sums are global.
+
+``model_parallel`` opens the model-parallel region of a train or prefill
+step: the blocks whose unit kept this rank's chunk of heads, ffn columns,
+vocab rows or SSM/RWKV heads (``LayerShards``' roles) compute that chunk,
+between ``enter`` (Megatron's ``f``: the identity, its backward an
+all-reduce over "model") and ``leave`` (``g``: an all-reduce, its backward
+the identity); ``model_sum`` all-reduces both ways, ``model_max`` takes a
+max with no gradient. ``MODEL`` counts their collectives. On a model group
+of one rank each is the identity and launches nothing.
 
 When no mesh is active every annotation is a no-op, as in the reference.
 """
@@ -119,6 +129,8 @@ class _Ctx(threading.local):
         self.rules: Optional[ShardingRules] = None
         self.batch_mesh = None
         self.batch_dims: tuple[int, ...] = ()
+        self.model_mesh = None
+        self.model_dim: Optional[int] = None
 
 
 _CTX = _Ctx()
@@ -133,6 +145,32 @@ def use_mesh(mesh, rules: Optional[ShardingRules] = None):
         yield
     finally:
         _CTX.mesh, _CTX.rules = prev
+
+
+_FIELDS = ("mesh", "rules", "batch_mesh", "batch_dims", "model_mesh",
+           "model_dim")
+
+
+def current_context() -> tuple:
+    """This thread's whole context (mesh, rules, the data-parallel split,
+    the model-parallel region), for ``in_context``."""
+    return tuple(getattr(_CTX, k) for k in _FIELDS)
+
+
+@contextlib.contextmanager
+def in_context(context: tuple):
+    """Within: ``context`` (``current_context()``, taken perhaps on another
+    thread) is this thread's. Remat's recompute runs in the backward, on
+    the autograd engine's thread for a card's tensors, where the forward's
+    context is not set: the recomputed function re-enters it so."""
+    prev = current_context()
+    for k, v in zip(_FIELDS, context):
+        setattr(_CTX, k, v)
+    try:
+        yield
+    finally:
+        for k, v in zip(_FIELDS, prev):
+            setattr(_CTX, k, v)
 
 
 def current_mesh():
@@ -483,6 +521,171 @@ def batch_sum(value: torch.Tensor) -> torch.Tensor:
     return value
 
 
+def model_dim_of(mesh) -> Optional[int]:
+    """The index of ``mesh``'s "model" dim, or None."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    return names.index("model") if "model" in names else None
+
+
+# ---------------------------------------------------------------------------
+# The model-parallel region: heads, ffn, vocab split over "model"
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _Counts:
+    """Counters under a lock (``add``, ``counts``, ``reset``), named by
+    ``COUNTS``."""
+    lock: Any = field(default_factory=threading.Lock, repr=False)
+
+    COUNTS = ()
+
+    def add(self, name: str, n: int = 1) -> None:
+        with self.lock:
+            setattr(self, name, getattr(self, name) + n)
+
+    def counts(self) -> dict:
+        with self.lock:
+            return {k: getattr(self, k) for k in self.COUNTS}
+
+    def reset(self) -> None:
+        with self.lock:
+            for k in self.COUNTS:
+                setattr(self, k, 0)
+
+
+@dataclass
+class ModelStats(_Counts):
+    """The model-parallel region's collectives over "model" since
+    ``reset``: ``all_reduces`` (``leave``'s and ``model_sum``'s forward,
+    ``enter``'s and ``model_sum``'s backward, ``model_max``) and the
+    ``bytes`` they reduced."""
+    all_reduces: int = 0
+    bytes: int = 0
+
+    COUNTS = ("all_reduces", "bytes")
+
+
+MODEL = ModelStats()
+
+
+@contextlib.contextmanager
+def model_parallel(mesh, dim: Optional[int]):
+    """Within: the blocks compute this rank's chunk of every leaf that its
+    unit kept split over mesh dim ``dim`` ("model"), ``enter``, ``leave``,
+    ``model_sum`` and ``model_max`` reducing over that dim's group. A dim
+    of one rank (or None) opens no region: each is then the identity."""
+    prev = (_CTX.model_mesh, _CTX.model_dim)
+    live = dim is not None and mesh.size(dim) > 1
+    _CTX.model_mesh = mesh if live else None
+    _CTX.model_dim = dim if live else None
+    try:
+        yield
+    finally:
+        _CTX.model_mesh, _CTX.model_dim = prev
+
+
+def model_index() -> int:
+    """This rank's place along the active region's "model" dim (0
+    without): its chunk of a split leaf is chunk ``model_index()``."""
+    mesh = _CTX.model_mesh
+    return mesh.get_coordinate()[_CTX.model_dim] if mesh is not None else 0
+
+
+def _model_all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
+    """A contiguous copy of ``t`` all-reduced over ``group``."""
+    import torch.distributed as dist
+
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=group)
+    MODEL.add("all_reduces")
+    MODEL.add("bytes", out.nbytes)
+    return out
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's ``f``: the identity; the backward sums the model ranks'
+    partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        return _model_all_reduce(g, ctx.group, dist.ReduceOp.SUM), None
+
+
+class _Leave(torch.autograd.Function):
+    """Megatron's ``g``: the sum of the model ranks' partial outputs; the
+    backward is the identity (each rank's gradient is already whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        return _model_all_reduce(x, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Sum(torch.autograd.Function):
+    """An all-reduce whose backward is an all-reduce: a sum of the model
+    ranks' parts that every rank then reads, as ``_gated_norm``'s squares,
+    whose gradient arrives partial on each rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        return _model_all_reduce(x, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        return _model_all_reduce(g, ctx.group, dist.ReduceOp.SUM), None
+
+
+def _model_group():
+    return _CTX.model_mesh.get_group(_CTX.model_dim)
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every model rank) into the region: the identity,
+    whose backward all-reduces the gradient over "model"."""
+    return x if _CTX.model_mesh is None else _Enter.apply(x, _model_group())
+
+
+def leave(x: torch.Tensor) -> torch.Tensor:
+    """The model ranks' partial ``x`` summed out of the region, an
+    all-reduce whose backward is the identity. Not
+    ``torch.distributed.nn.functional.all_reduce``: its backward
+    all-reduces again, which would multiply by the model size a gradient
+    that every rank already holds whole."""
+    return x if _CTX.model_mesh is None else _Leave.apply(x, _model_group())
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model ranks, with an all-reduce both ways."""
+    return x if _CTX.model_mesh is None else _Sum.apply(x, _model_group())
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The max of ``x`` over the model ranks, with no gradient."""
+    if _CTX.model_mesh is None:
+        return x
+    import torch.distributed as dist
+
+    return _model_all_reduce(x.detach(), _model_group(), dist.ReduceOp.MAX)
+
+
 def like(part: torch.Tensor, t):
     """``part``, a local part in DTensor ``t``'s layout, as a DTensor of
     ``t``'s layout; ``part`` itself when ``t`` is a plain tensor."""
@@ -522,7 +725,7 @@ def mean_over(x: torch.Tensor, t, dim: Optional[int] = None,
 
 
 @dataclass
-class GatherStats:
+class GatherStats(_Counts):
     """What ``LayerShards.gather`` did since ``reset``: ``calls`` units
     gathered, ``bytes_copied`` the bytes of the whole leaves it made (0
     where every shard is the whole), ``all_gathers`` its collectives;
@@ -537,23 +740,9 @@ class GatherStats:
     reduce_scatters: int = 0
     all_reduces: int = 0
     watch: Any = None
-    lock: Any = field(default_factory=threading.Lock, repr=False)
 
     COUNTS = ("calls", "bytes_copied", "all_gathers", "reductions",
               "reduce_scatters", "all_reduces")
-
-    def add(self, name: str, n: int = 1) -> None:
-        with self.lock:
-            setattr(self, name, getattr(self, name) + n)
-
-    def counts(self) -> dict:
-        with self.lock:
-            return {k: getattr(self, k) for k in self.COUNTS}
-
-    def reset(self) -> None:
-        with self.lock:
-            for k in self.COUNTS:
-                setattr(self, k, 0)
 
 
 GATHER = GatherStats()
@@ -619,12 +808,14 @@ def gather_leaf(part: torch.Tensor, placements: tuple, mesh) -> torch.Tensor:
 
 
 def reduce_leaf(grad: torch.Tensor, placements: tuple, mesh,
-                batch_dims: tuple) -> torch.Tensor:
+                sum_dims: tuple) -> torch.Tensor:
     """A whole leaf's gradient as this rank's shard of the gradient of the
     step, mesh dim by mesh dim (major first, as ``local_chunk`` splits): a
-    dim that splits the batch (``batch_dims``) sums, by reduce-scatter
-    where it shards the leaf and all-reduce where not; a dim that does not
-    (its ranks computed the same rows) takes this rank's chunk."""
+    dim whose ranks hold parts of the gradient (``sum_dims``: those that
+    split the batch, and "model" for a leaf that the model ranks use in
+    part) sums, by reduce-scatter where it shards the leaf and all-reduce
+    where not; another (its ranks computed the same gradient) takes this
+    rank's chunk."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
 
@@ -634,16 +825,25 @@ def reduce_leaf(grad: torch.Tensor, placements: tuple, mesh,
         if n == 1:
             continue
         if isinstance(p, Shard):
-            if k in batch_dims:
+            if k in sum_dims:
                 grad = _reduce_scatter(grad, p.dim, mesh.get_group(k), n)
             else:
                 size = grad.shape[p.dim] // n
                 grad = grad.narrow(p.dim, coord[k] * size, size)
-        elif k in batch_dims:
+        elif k in sum_dims:
             grad = grad.clone(memory_format=torch.contiguous_format)
             dist.all_reduce(grad, group=mesh.get_group(k))
             GATHER.add("all_reduces")
     return grad
+
+
+def keep_chunk(placements: tuple, dim: int) -> tuple:
+    """``placements`` with mesh dim ``dim`` read as Replicate: the layout a
+    leaf is gathered by when it keeps this rank's chunk along ``dim``."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() if k == dim else p
+                 for k, p in enumerate(placements))
 
 
 class _Gather(torch.autograd.Function):
@@ -661,8 +861,12 @@ class _Gather(torch.autograd.Function):
         unit = ctx.unit
         GATHER.add("reductions")
         return (None, None) + tuple(
-            reduce_leaf(g, pl, unit.mesh, ctx.batch_dims)
-            for g, pl in zip(grads, unit.placements))
+            reduce_leaf(g, pl, unit.mesh, ctx.batch_dims + extra)
+            for g, pl, extra in zip(grads, unit.placements, unit.sums))
+
+
+# a leaf's role in the model-parallel region (``LayerShards``' ``roles``)
+KEEP, PARTIAL = "keep", "partial"
 
 
 class LayerShards:
@@ -674,14 +878,25 @@ class LayerShards:
     shard is a leaf tensor whose ``.grad`` is its part of ``grads``: a
     backward accumulates the shard's gradient there, in its dtype.
 
-    ``gather()`` returns the leaves whole, in ``tree``'s structure. Where
-    no leaf needs a collective (every mesh dim that shards it or splits
-    the batch has one rank, as on a 1x1 mesh) that is ``tree`` itself, the
+    ``roles`` (one a leaf, None for all None) says how the leaf meets the
+    model-parallel region: ``KEEP``, the block computes with this rank's
+    chunk along "model", so the leaf is gathered only over the other mesh
+    dims, and its gradient, already this rank's, takes no sum over
+    "model"; ``PARTIAL``, the block uses the whole leaf but each model
+    rank only in part (its heads' columns, a lookup its heads read), so
+    the whole gradient is summed over "model" into the shard; None, the
+    leaf is gathered whole and every model rank's gradient of it is the
+    same, so each takes its chunk.
+
+    ``gather()`` returns the leaves (whole, or this rank's chunk where
+    kept), in ``tree``'s structure. Where no leaf needs a collective
+    (every mesh dim that shards it, splits the batch or sums its partial
+    gradient has one rank, as on a 1x1 mesh) that is ``tree`` itself, the
     state's own storage, no copy; otherwise ``_Gather``'s outputs, which
     the block that calls it holds only while it runs."""
 
     def __init__(self, tree: Any, placements: list, mesh,
-                 grads: Any = None):
+                 grads: Any = None, roles: Optional[list] = None):
         # each shard a leaf tensor of its own over the same storage
         self.parts = [s.detach() for s in leaves(tree)]
         if grads is not None:
@@ -689,18 +904,29 @@ class LayerShards:
                 s.requires_grad_(True)
                 s.grad = g
         self.tree = unflatten_like(tree, self.parts)
-        self.placements = list(placements)
         self.mesh = mesh
-        if len(self.parts) != len(self.placements):
+        if len(self.parts) != len(placements):
             raise ValueError(f"{len(self.parts)} leaves, "
-                             f"{len(self.placements)} placements")
+                             f"{len(placements)} placements")
+        roles = [None] * len(placements) if roles is None else list(roles)
+        if len(roles) != len(placements):
+            raise ValueError(f"{len(placements)} leaves, {len(roles)} roles")
+        dim = model_dim_of(mesh)
+        if dim is None or mesh.size(dim) == 1:
+            roles = [None] * len(roles)
+        self.roles = roles
+        # the layouts each leaf is gathered by, and the mesh dims over
+        # which its gradient sums beside the batch's
+        self.placements = [keep_chunk(pl, dim) if r == KEEP else tuple(pl)
+                           for pl, r in zip(placements, roles)]
+        self.sums = [(dim,) if r == PARTIAL else () for r in roles]
         self.sharded = any(_gathers(pl, mesh) for pl in self.placements)
 
     def gather(self) -> Any:
         GATHER.add("calls")
         dims = _CTX.batch_dims
         grad = torch.is_grad_enabled() and self.parts[0].requires_grad
-        if not self.sharded and not (grad and dims):
+        if not self.sharded and not (grad and (dims or any(self.sums))):
             return self.tree
         whole = _Gather.apply(self, tuple(dims), *self.parts)
         GATHER.add("bytes_copied", sum(
@@ -710,4 +936,3 @@ class LayerShards:
             for w in whole:
                 GATHER.watch(w)
         return unflatten_like(self.tree, whole)
-

@@ -28,6 +28,7 @@ rank's gather reports, to OUT.json. JAX-free: it imports only the port.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -35,6 +36,7 @@ import os
 import re
 import sys
 import tempfile
+import threading
 import weakref
 
 import numpy as np
@@ -58,11 +60,18 @@ CELLS = [
     # the backward, "dots" recomputes all but the matmuls' outputs
     ("llama3.2-3b", ("t", "train", 32, 8), "remat_none"),
     ("llama3.2-3b", ("t", "train", 32, 8), "remat_dots"),
+    # the model axis splits the SSM and RWKV heads (the leaves whose split
+    # dim is not whole heads), and MQA's one KV head stays whole on every
+    # model rank, its wk/wv gradient summed over "model"
+    ("rwkv6-1.6b", ("t", "train", 32, 8), ""),
+    ("zamba2-7b", ("t", "train", 32, 8), ""),
+    ("llama3.2-3b", ("t", "train", 32, 8), "mqa"),
 ]
 # a variant's config overrides and compress_grads
 VARIANTS = {"": ({}, False), "adafactor": ({"optimizer": "adafactor"}, False),
             "compress": ({}, True), "remat_none": ({"remat": "none"}, False),
-            "remat_dots": ({"remat": "dots"}, False)}
+            "remat_dots": ({"remat": "dots"}, False),
+            "mqa": ({"num_kv_heads": 1}, False)}
 # the share of a train state leaf's elements allowed beyond 1e-5 of its
 # scale (``mismatches``)
 TRAIN_OUTLIERS = 1e-3
@@ -157,6 +166,8 @@ def mismatches(port: dict, ref: dict, what: str,
 # the mesh dim that splits every cell's batch ("data"; the rules put
 # "batch" there, and each cell's rows divide over its 2 ranks)
 BATCH_DIMS = (0,)
+# the mesh dim the model-parallel region splits over ("model")
+MODEL_DIM = 1
 # the stacked trees of the layer loops, and a unit's leading layer axes
 UNIT_AXES = {"layers": 1, "encoder": 1, "groups": 2, "tail": 1}
 
@@ -165,13 +176,16 @@ class Spy:
     """What the gathers did on this rank while installed: the most bytes
     of whole leaves alive at once (weak references to every leaf a gather
     returns), the gradient buffers the train step hands its model, that
-    model, and the all-gathers and reduce-scatters issued."""
+    model, and the all-gathers and reduce-scatters issued; and the
+    model-parallel region's collectives (``region``, ``MODEL``'s counts
+    when it was left)."""
 
     def __init__(self):
         self.alive = self.peak = 0
         self.grads = None
         self.model = None
         self.issued = collections.Counter()
+        self.region = None
 
     def watch(self, t) -> None:
         self.alive += t.nbytes
@@ -183,16 +197,17 @@ class Spy:
 
     def __enter__(self):
         from repro_torch.models import transformer as T
-        from repro_torch.parallel.sharding import GATHER
+        from repro_torch.parallel.sharding import GATHER, MODEL
 
         GATHER.reset()
+        MODEL.reset()
         GATHER.watch = self.watch
         self._undo = [(T, "ShardedLM", T.ShardedLM)]
         spy = self
 
         class Recorded(T.ShardedLM):
-            def __init__(self, cfg, params, grads=None):
-                super().__init__(cfg, params, grads)
+            def __init__(self, cfg, params, grads=None, roles=None):
+                super().__init__(cfg, params, grads, roles)
                 spy.grads, spy.model = grads, self
 
         T.ShardedLM = Recorded
@@ -207,8 +222,9 @@ class Spy:
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.parallel.sharding import GATHER
+        from repro_torch.parallel.sharding import GATHER, MODEL
 
+        self.region = MODEL.counts()
         GATHER.watch = None
         for mod, name, real in self._undo:
             setattr(mod, name, real)
@@ -218,38 +234,48 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def expected_gathers(params_meta: dict, shardings: dict, mesh) -> dict:
-    """From the global leaves' shapes and layouts alone: ``units`` (the
-    layer loops' units), ``rest_bytes`` (the leaves outside them, whole),
-    ``unit_bytes`` (the largest unit, whole), and per pass over the model
-    the all-gathers of the ``rest`` and of the ``stacks``, and the
-    backward's reduce-scatters and all-reduces (``BATCH_DIMS`` sum)."""
+def expected_gathers(params_meta: dict, shardings: dict, mesh,
+                     roles: dict) -> dict:
+    """From the global leaves' shapes, layouts and model-parallel roles
+    (``transformer.model_roles``) alone: ``units`` (the layer loops'
+    units), ``rest_bytes`` (the leaves outside them as gathered: whole, or
+    the model chunk a leaf keeps), ``unit_bytes`` (the largest unit so
+    gathered), and per pass over the model the all-gathers of the ``rest``
+    and of the ``stacks`` (none over "model" where a leaf keeps its
+    chunk), and the backward's reduce-scatters and all-reduces
+    (``BATCH_DIMS`` sum, and "model" where a leaf's gradient is
+    partial)."""
     from torch.distributed.tensor import Shard
 
     from repro_torch._tree import flatten
+    from repro_torch.parallel.sharding import KEEP, PARTIAL
 
     out = collections.Counter()
     per_unit = {}
     flat_sh = dict(flatten(shardings))
+    flat_roles = dict(flatten(roles))
     for path, t in flatten(params_meta):
         pl = flat_sh[path].placements
+        role = flat_roles[path]
         key = path[0]
         slices = (t.shape[0] * t.shape[1] if key == "groups"
                   else t.shape[0] if key in UNIT_AXES else 1)
         split = [k for k, p in enumerate(pl)
-                 if isinstance(p, Shard) and mesh.size(k) > 1]
+                 if isinstance(p, Shard) and mesh.size(k) > 1
+                 and not (role == KEEP and k == MODEL_DIM)]
+        sums = BATCH_DIMS + ((MODEL_DIM,) if role == PARTIAL else ())
+        nbytes = _nbytes(t) // (mesh.size(MODEL_DIM) if role == KEEP else 1)
         out["stacks" if key in UNIT_AXES else "rest"] += len(split) * slices
-        out["reduce_scatters"] += slices * sum(k in BATCH_DIMS
-                                               for k in split)
+        out["reduce_scatters"] += slices * sum(k in sums for k in split)
         out["all_reduces"] += slices * sum(
-            k in BATCH_DIMS for k in range(mesh.ndim)
+            k in sums for k in range(mesh.ndim)
             if k not in split and mesh.size(k) > 1)
         if key in UNIT_AXES:
             n = t.shape[0]
-            per_unit[key] = per_unit.get(key, 0) + _nbytes(t) // n
+            per_unit[key] = per_unit.get(key, 0) + nbytes // n
             out[f"units/{key}"] = n
         else:
-            out["rest_bytes"] += _nbytes(t)
+            out["rest_bytes"] += nbytes
     out["units"] = sum(v for k, v in out.items() if k.startswith("units/"))
     out["unit_bytes"] = max(per_unit.values())
     return dict(out)
@@ -289,60 +315,148 @@ def _check(bad: list[str]) -> None:
         raise AssertionError(f"rank {dist.get_rank()}: " + "; ".join(bad[:8]))
 
 
-def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
-    """Runs one cell under a ``Spy`` and holds its values to the
-    reference's and its gathers to ``_held_gathers``; returns the latter's
-    report."""
+def _config(arch: str, cell: tuple, variant: str):
+    """A cell's reduced f32 config (``accum`` 2 where it trains), its
+    shape and whether it compresses its gradients."""
     from repro_torch.configs import ShapeSpec, get_config, reduced
-    from repro_torch.launch.steps import build_cell_program, build_train_step
-    from repro_torch.models.transformer import init_decode_state
-    from repro_torch.models.weights import (
-        state_to_numpy, train_state_from_reference)
-    from repro_torch.parallel.layouts import rules_for
-    from repro_torch.parallel.sharding import full, use_mesh
 
     shape = ShapeSpec(*cell)
     overrides, compress = VARIANTS[variant]
     cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
                               accum=2 if shape.kind == "train" else 1,
                               **overrides)
+    return cfg, shape, compress
+
+
+def _train_once(arch: str, cell: tuple, variant: str, ref, mesh):
+    """One train step of a cell from the reference's state and batch:
+    (the program, the state after it, its metrics)."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.weights import train_state_from_reference
+    from repro_torch.parallel.layouts import rules_for
+    from repro_torch.parallel.sharding import use_mesh
+
+    cfg, shape, compress = _config(arch, cell, variant)
+    key = cell_key(arch, cell, variant) + "/"
     rules = rules_for(cfg, shape, mesh)
-    prog = (build_train_step(cfg, shape, mesh, rules, compress_grads=compress)
-            if shape.kind == "train"
-            else build_cell_program(cfg, shape, mesh, rules))
-    step = prog.jitted()
+    prog = build_train_step(cfg, shape, mesh, rules, compress_grads=compress)
+    state = train_state_from_reference(
+        cfg, _torch(_tree(ref, key + "in_state")), "cpu",
+        shardings=prog.in_shardings[0])
+    with use_mesh(mesh, rules):
+        state, m = prog.jitted()(state, _torch(_tree(ref, key + "batch")))
+    return prog, state, m
+
+
+def _train_mismatches(arch, cell, variant, ref, state, m) -> list[str]:
+    """A train step's loss, grad norm and state against the reference's."""
+    from repro_torch.models.weights import state_to_numpy
+
+    key = cell_key(arch, cell, variant) + "/"
+    what = key[:-1] + " "
+    rmetrics = _tree(ref, key + "metrics")
+    if sorted(m) != sorted(rmetrics):
+        return [f"{what}metrics {sorted(m)} != {sorted(rmetrics)}"]
+    bad = []
+    for k in ("loss", "grad_norm"):
+        if k in rmetrics:
+            got, want_k = float(m[k]), float(rmetrics[k])
+            if abs(got - want_k) > 1e-5 * abs(want_k):
+                bad.append(f"{what}{k} {got} != {want_k}")
+    return bad + mismatches(flat(state_to_numpy(state)),
+                            flat(_tree(ref, key + "out_state")), what,
+                            outliers=TRAIN_OUTLIERS)
+
+
+def _unsplit_misses(arch, cell, variant, ref, mesh, state, m,
+                    bad: list[str]) -> list[str]:
+    """Where a split train step's state misses the reference's: the same
+    step with every leaf whole over "model" (the region off, each model
+    rank computing the whole block) on the same mesh. The split state
+    must match it under the present bounds, and it must miss the
+    reference in the same leaves by at least as many elements: the miss
+    is then the port's rounding against the reference's, which the split
+    does not add to. Returns what fails."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import state_to_numpy
+    from repro_torch.parallel.sharding import map_defs
+
+    real = T.model_roles
+    T.model_roles = lambda cfg, rules, mesh: map_defs(lambda d: None,
+                                                       T.model_defs(cfg))
+    try:
+        _, whole, wm = _train_once(arch, cell, variant, ref, mesh)
+    finally:
+        T.model_roles = real
+    what = cell_key(arch, cell, variant) + " "
+    out = mismatches(flat(state_to_numpy(state)),
+                     flat(state_to_numpy(whole)), what + "vs unsplit ",
+                     outliers=TRAIN_OUTLIERS)
+    base = {b.split(": ")[0]: b for b in
+            _train_mismatches(arch, cell, variant, ref, whole, wm)}
+    for b in bad:
+        leaf, _, rest = b.partition(": ")
+        if leaf not in base:
+            out.append(b)
+        elif rest.split(" of ")[0].isdigit() and int(rest.split(" of ")[0]) \
+                > int(base[leaf].split(": ")[1].split(" of ")[0]):
+            out.append(f"{b}, the unsplit step {base[leaf]}")
+    return out
+
+
+def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
+    """Runs one cell under a ``Spy`` (and a train or prefill step under a
+    ``FlopCounterMode``) and holds its values to the reference's, its
+    gathers to ``_held_gathers`` and its model-parallel region to
+    ``_held_region``; returns their report."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.steps import build_cell_program
+    from repro_torch.models.transformer import (
+        init_decode_state, model_defs, model_roles)
+    from repro_torch.models.weights import state_to_numpy
+    from repro_torch.parallel.layouts import rules_for
+    from repro_torch.parallel.sharding import full, map_defs, use_mesh
+
+    cfg, shape, _ = _config(arch, cell, variant)
+    rules = rules_for(cfg, shape, mesh)
     key = cell_key(arch, cell, variant) + "/"
     what = key[:-1] + " "
     train = shape.kind == "train"
-    want = expected_gathers(
-        prog.args[0]["params"] if train else prog.args[0],
-        prog.in_shardings[0]["params"] if train else prog.in_shardings[0],
-        mesh)
+    # the serve step gathers every leaf whole over "model"
+    roles = (map_defs(lambda d: None, model_defs(cfg))
+             if shape.kind == "decode" else model_roles(cfg, rules, mesh))
     if train:
-        state = train_state_from_reference(
-            cfg, _torch(_tree(ref, key + "in_state")), "cpu",
-            shardings=prog.in_shardings[0])
-        with Spy() as spy, use_mesh(mesh, rules):
-            state, m = step(state, _torch(_tree(ref, key + "batch")))
-        rmetrics = _tree(ref, key + "metrics")
-        if sorted(m) != sorted(rmetrics):
-            _check([f"{what}metrics {sorted(m)} != {sorted(rmetrics)}"])
-        for k in ("loss", "grad_norm"):
-            if k in rmetrics:
-                got, want_k = float(m[k]), float(rmetrics[k])
-                if abs(got - want_k) > 1e-5 * abs(want_k):
-                    _check([f"{what}{k} {got} != {want_k}"])
-        _check(mismatches(flat(state_to_numpy(state)),
-                          flat(_tree(ref, key + "out_state")), what,
-                          outliers=TRAIN_OUTLIERS))
-        return _held_gathers(spy, want, cfg, 1, what, state["params"])
+        with Spy() as spy, FlopCounterMode(display=False) as fc:
+            prog, state, m = _train_once(arch, cell, variant, ref, mesh)
+        bad = _train_mismatches(arch, cell, variant, ref, state, m)
+        want = expected_gathers(prog.args[0]["params"],
+                                prog.in_shardings[0]["params"], mesh, roles)
+        report = _held_gathers(spy, want, cfg, 1, what, state["params"])
+        params = _torch(_tree(ref, key + "in_state"))["params"]
+        batch = _torch(_tree(ref, key + "batch"))
+        report.update(_held_region(cfg, shape, roles, spy, fc, params,
+                                   batch, mesh, what))
+        if bad:
+            _check(_unsplit_misses(arch, cell, variant, ref, mesh, state, m,
+                                   bad))
+            report["misses_as_unsplit"] = bad
+        return report
+    prog = build_cell_program(cfg, shape, mesh, rules)
+    step = prog.jitted()
+    want = expected_gathers(prog.args[0], prog.in_shardings[0], mesh, roles)
     params = _tree(ref, key + "params")
     if shape.kind == "prefill":
-        with Spy() as spy, use_mesh(mesh, rules):
-            logits = step(params, _torch(_tree(ref, key + "batch")))
+        batch = _tree(ref, key + "batch")
+        with Spy() as spy, use_mesh(mesh, rules), \
+                FlopCounterMode(display=False) as fc:
+            logits = step(params, _torch(batch))
         _check(mismatches({"": full(logits).numpy()},
                           {"": ref[key + "logits"]}, what + "logits"))
-        return _held_gathers(spy, want, cfg, 1, what)
+        report = _held_gathers(spy, want, cfg, 1, what)
+        report.update(_held_region(cfg, shape, roles, spy, fc,
+                                   _torch(params), _torch(batch), mesh, what))
+        return report
     # the port's own fresh state: the reference's values (zeros), with the
     # hybrid's conv in the model's dtype where the reference starts it in
     # bf16 (ROADMAP.md, a named divergence)
@@ -361,7 +475,155 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
                               f"{what}logits{t}"))
     _check(mismatches(flat(state_to_numpy(state)),
                       flat(_tree(ref, key + "out_state")), what + "state"))
-    return _held_gathers(spy, want, cfg, 3, what)
+    report = _held_gathers(spy, want, cfg, 3, what)
+    report["model_all_reduces"] = spy.region["all_reduces"]
+    if spy.region["all_reduces"]:
+        _check([f"{what}{spy.region} model collectives in the serve step"])
+    return report
+
+
+# ---------------------------------------------------------------------------
+# The model-parallel region: flops and collectives, against the code's count
+# ---------------------------------------------------------------------------
+
+
+def _rows(cfg, shape, mesh) -> tuple[int, int, list]:
+    """(accum, rows a microbatch on this rank, the first row of each of
+    its microbatches): each microbatch's rows split over "data"."""
+    accum = max(cfg.accum, 1) if shape.kind == "train" else 1
+    rows = shape.global_batch // accum
+    shares = mesh.size(BATCH_DIMS[0])
+    per = rows // shares
+    share = mesh.get_coordinate()[BATCH_DIMS[0]]
+    return accum, per, [j * rows + share * per for j in range(accum)]
+
+
+def one_device_flops(cfg, shape, params: dict, batch: dict, mesh) -> int:
+    """The flops (``FlopCounterMode``) of the same step's model on this
+    rank's rows computed whole on one device, as a 1x1 mesh computes
+    them: each microbatch's ``forward_loss`` and backward (remat as the
+    config says), or the prefill's forward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import transformer as T
+
+    accum, per, starts = _rows(cfg, shape, mesh)
+    params = {k: v for k, v in params.items()}
+    model = T.TransformerLM.from_stacked(cfg, params)
+    with FlopCounterMode(display=False) as fc:
+        if shape.kind == "train":
+            T.bind_stacked_grads(model, params)
+            for lo in starts:
+                mb = {k: v[lo:lo + per] for k, v in batch.items()}
+                loss, _ = T.forward_loss(cfg, model, mb)
+                (loss / accum).backward()
+        else:
+            T.forward(cfg, model, {k: v[starts[0]:starts[0] + per]
+                                   for k, v in batch.items()})
+    return fc.get_total_flops()
+
+
+def replicated_flops(cfg, shape, roles: dict, mesh) -> int:
+    """The code's count of the flops of the matmuls that every model rank
+    computes whole, on this rank's rows: a train step runs each block's
+    forward once, and again in remat's recompute, and its backward takes
+    two products of each (the input's gradient and the weight's), a
+    prefill the forward alone. MQA's K/V projections (``wk``/``wv``
+    ``PARTIAL``), MoE's router (f32), RWKV's receptance ``c_r`` and decay
+    LoRA ``decay_A``, Mamba2's B and C columns of ``in_proj`` and the
+    scan's C·Bᵀ, the enc-dec frontend's projection (outside the blocks,
+    and its input takes no gradient); all else is split."""
+    from repro_torch._tree import flatten
+    from repro_torch.parallel.sharding import PARTIAL
+
+    accum, per, _ = _rows(cfg, shape, mesh)
+    s, d, n = shape.seq_len, cfg.d_model, cfg.num_layers
+    tokens = per * s
+
+    def mm(t, a, b):
+        return 2 * t * a * b
+
+    train = shape.kind == "train"
+    passes = ((1 if cfg.remat == "none" else 2) + 2) if train else 1
+    if cfg.family == "ssm":
+        layer = mm(tokens, d, d) + mm(tokens, d, cfg.rwkv_decay_rank)
+    elif cfg.family == "hybrid":
+        cs = min(cfg.ssm_chunk, s) if s % min(cfg.ssm_chunk, s) == 0 else s
+        layer = mm(tokens, d, 2 * cfg.ssm_state) + (tokens // cs) * mm(
+            cs, cfg.ssm_state, cs)
+    elif cfg.num_experts:
+        layer = mm(tokens, d, cfg.num_experts)
+    elif dict(flatten(roles)).get(("layers", "attn", "wk")) == PARTIAL:
+        layer = 2 * mm(tokens, d, cfg.num_kv_heads * cfg.resolved_head_dim)
+    else:
+        layer = 0
+    out = accum * passes * n * layer
+    if cfg.is_encdec:  # frames as long as the tokens
+        out += accum * (2 if train else 1) * mm(tokens, d, d)
+    return out
+
+
+def model_all_reduces(cfg, shape) -> int:
+    """The code's count of the model-parallel region's all-reduces in one
+    step where every block splits. A unit of the layer loops (the block
+    remat wraps) all-reduces at each split block's ``leave`` (and
+    Mamba2's gated-norm ``model_sum``) in its forward; remat's recompute
+    runs them again but for the unit's last ``leave``, whose output only
+    the residual add reads, so that ``torch.utils.checkpoint`` stops
+    before it (RWKV's channel-mix ``leave`` feeds the receptance's
+    product, which keeps it); the backward all-reduces at each ``enter``
+    (x; cross-attention's memory; MoE's routing weights) and each
+    ``model_sum``. Outside the units: the embedding's lookup, the loss's
+    max and sum in the forward, the logits' ``enter`` in the backward."""
+    from repro_torch.models.transformer import hybrid_groups
+
+    # (forward, recompute, backward) all-reduces of one unit
+    n, ae = cfg.num_layers, cfg.attn_every
+    if cfg.family == "ssm":
+        units = [(2, 2, 2)] * n
+    elif cfg.family == "hybrid":
+        ng, tail = hybrid_groups(cfg)
+        units = ([(1 + 2 * ae, 2 * ae, 1 + 2 * ae)] * ng
+                 + [(2, 1, 2)] * tail)
+    elif cfg.is_encdec:
+        units = [(2, 1, 2)] * cfg.encoder_layers + [(3, 2, 4)] * n
+    else:
+        units = [(2, 1, 3 if cfg.num_experts else 2)] * n
+    fwd, again, bwd = (sum(u[i] for u in units) for i in range(3))
+    if shape.kind != "train":
+        return fwd + 1
+    if cfg.remat == "none":
+        again = 0
+    return cfg.accum * (fwd + again + bwd + 1 + 2 + 1)
+
+
+def _held_region(cfg, shape, roles, spy, fc, params, batch, mesh,
+                 what: str) -> dict:
+    """This rank's flops (the step under ``fc``) against the same rows'
+    on one device (``one_device_flops``): the ratio must be what the
+    code's count gives, 1/model of the split matmuls and the whole of the
+    replicated ones (``replicated_flops``); and its model-region
+    all-reduces the code's count (``model_all_reduces``)."""
+    m = mesh.size(MODEL_DIM)
+    flops = fc.get_total_flops()
+    whole = one_device_flops(cfg, shape, params, batch, mesh)
+    rep = replicated_flops(cfg, shape, roles, mesh)
+    out = {"flops": flops, "flops_one_device": whole,
+           "flop_ratio": flops / whole,
+           "flop_ratio_code": ((whole - rep) / m + rep) / whole,
+           "replicated_flops": rep,
+           "model_all_reduces": spy.region["all_reduces"],
+           "model_all_reduces_code": model_all_reduces(cfg, shape),
+           "model_bytes": spy.region["bytes"]}
+    bad = []
+    if flops * m != whole - rep + m * rep:
+        bad.append(f"{what}flops {flops} of one device's {whole}, the code "
+                   f"gives ({whole} - {rep}) / {m} + {rep}")
+    if out["model_all_reduces"] != out["model_all_reduces_code"]:
+        bad.append(f"{what}{out['model_all_reduces']} model all-reduces, "
+                   f"the code gives {out['model_all_reduces_code']}")
+    _check(bad)
+    return out
 
 
 def _held_gathers(spy: Spy, want: dict, cfg, steps: int, what: str,
@@ -509,6 +771,118 @@ def _gather_cases(mesh) -> dict:
     return report
 
 
+def _plants(ref, mesh) -> dict:
+    """Four faults planted in the model-parallel region, each in a train
+    cell whose values must then miss the reference's (the number of
+    failed checks, a planted fault must make some): ``leave`` dropped
+    after attention's row-split output projection (llama); MQA's
+    ``wk``/``wv`` gradient not summed over "model" (their roles None in
+    place of ``PARTIAL``); a kept chunk's gradient summed over "model"
+    (llama's ``KEEP`` leaves given the model dim's sum); the gated norm's
+    ``model_sum`` dropped (zamba2). Every rank plants the same fault, so
+    that the collectives still pair."""
+    from repro_torch.models import attention, ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as SH
+
+    llama = ("llama3.2-3b", CELLS[0][1], "")
+    mqa = ("llama3.2-3b", CELLS[0][1], "mqa")
+    zamba = ("zamba2-7b", CELLS[0][1], "")
+    real_roles, real_init = T.model_roles, SH.LayerShards.__init__
+
+    def whole_kv(cfg, rules, mesh):
+        roles = real_roles(cfg, rules, mesh)
+        for k in ("wk", "wv"):
+            roles["layers"]["attn"][k] = None
+        return roles
+
+    def summed_chunks(self, *a, **k):
+        real_init(self, *a, **k)
+        self.sums = [(MODEL_DIM,) if r == SH.KEEP else s
+                     for r, s in zip(self.roles, self.sums)]
+
+    faults = {"leave_dropped": (attention, "leave", lambda x: x, llama),
+              "mqa_kv_sum_skipped": (T, "model_roles", whole_kv, mqa),
+              "kept_chunk_summed": (SH.LayerShards, "__init__",
+                                    summed_chunks, llama),
+              "gated_norm_sum_dropped": (ssm, "model_sum", lambda x: x,
+                                         zamba)}
+    out = {}
+    for name, (owner, attr, fault, cell) in faults.items():
+        real = getattr(owner, attr)
+        setattr(owner, attr, fault)
+        try:
+            _, state, m = _train_once(*cell, ref, mesh)
+        finally:
+            setattr(owner, attr, real)
+        out[name] = len(_train_mismatches(*cell, ref, state, m))
+    if not all(out.values()):
+        _check([f"a planted fault passed: {out}"])
+    return out
+
+
+@contextlib.contextmanager
+def _backward_on_another_thread():
+    """Each ``Tensor.backward`` run on a new thread, as the autograd engine
+    runs a card's backward (and remat's recompute in it) on a device
+    thread of its own, where what the forward's thread set up (its
+    sharding context) is not set."""
+    real = torch.Tensor.backward
+
+    def backward(self, *a, **k):
+        failed = []
+
+        def run():
+            try:
+                real(self, *a, **k)
+            except BaseException as e:  # re-raised on the caller's thread
+                failed.append(e)
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        if failed:
+            raise failed[0]
+
+    torch.Tensor.backward = backward
+    try:
+        yield
+    finally:
+        torch.Tensor.backward = real
+
+
+def _card_threads(ref, mesh) -> dict:
+    """llama's and zamba2's train cells (remat full) with every backward
+    on another thread: the values must match the reference's, since the
+    recompute re-enters the forward's context (``sharding.in_context``);
+    and must miss them without it (a planted fault: the recompute then
+    runs ``enter``/``leave``/``model_sum`` as the identity). The number of
+    failed checks of each."""
+    import contextlib as cl
+
+    from repro_torch.models import transformer as T
+
+    llama = ("llama3.2-3b", CELLS[0][1], "")
+    zamba = ("zamba2-7b", CELLS[0][1], "")
+    out = {}
+    with _backward_on_another_thread():
+        for cell in (llama, zamba):
+            _, state, m = _train_once(*cell, ref, mesh)
+            out[cell_key(*cell)] = len(_train_mismatches(*cell, ref, state,
+                                                         m))
+        real = T.in_context
+        T.in_context = lambda context: cl.nullcontext()
+        try:
+            _, state, m = _train_once(*llama, ref, mesh)
+        finally:
+            T.in_context = real
+        out["without_in_context"] = len(_train_mismatches(*llama, ref,
+                                                          state, m))
+    if out["without_in_context"] == 0 or out[cell_key(*llama)] \
+            or out[cell_key(*zamba)]:
+        _check([f"a backward on another thread: {out}"])
+    return out
+
+
 def _pipeline(ref) -> dict:
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -543,6 +917,8 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
         ref = np.load(ref_path)
         gathers = {cell_key(*c): _cell(*c, ref, mesh) for c in CELLS}
         cases = _gather_cases(mesh)
+        region_plants = _plants(ref, mesh)
+        threads = _card_threads(ref, mesh)
         pipe = _pipeline(ref)
         every = [None] * RANKS
         dist.all_gather_object(every, gathers)
@@ -555,6 +931,8 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
             with open(out_path, "w") as f:
                 json.dump({"cells": [cell_key(*c) for c in CELLS],
                            "gathers": every, "gather_cases": cases,
+                           "region_plants": region_plants,
+                           "backward_threads": threads,
                            "pipeline": pipe,
                            "world": {"ranks": dist.get_world_size(),
                                      "mesh": dict(zip(mesh.mesh_dim_names,

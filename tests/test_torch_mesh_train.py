@@ -19,13 +19,17 @@ Then the sharded world: ``tests/_torch_mesh_world.py`` in a subprocess
 with its own timeout starts 4 gloo ranks on a (2, 2) mesh and runs the
 five cells of the reference's ``tests/test_dryrun_small.py`` as programs,
 and mixtral-8x7b, Adafactor, int8-compression, remat "none" and remat
-"dots" llama3.2-3b train cells (reduced configs in f32, ``accum`` 2 where
+"dots" llama3.2-3b train cells, rwkv6-1.6b and zamba2-7b train cells and
+an MQA llama3.2-3b train cell (reduced configs in f32, ``accum`` 2 where
 a cell trains) against the reference's 1×1 results computed here, with
 the layer gather's memory, gradient buffers and collectives held on
-every rank, a unit's gather held against the whole path with three
-planted faults that must fail, and ``pipeline_apply`` on a 4-rank
-"stage" mesh against the reference's sequential forward and ``jax.grad``.
-A rank's failure fails the test.
+every rank, the model-parallel region's flops (``FlopCounterMode``,
+against the same rows on one device) and all-reduces held to the code's
+count, a unit's gather held against the whole path with three planted
+faults that must fail, four planted faults of the model-parallel region
+that must fail, and ``pipeline_apply`` on a 4-rank "stage" mesh against
+the reference's sequential forward and ``jax.grad``. A rank's failure
+fails the test.
 """
 import dataclasses
 import json
@@ -306,6 +310,8 @@ def test_the_1x1_gather_copies_nothing(mesh):
     assert GATHER.counts() == {"calls": 2 * (1 + 2 * n), "bytes_copied": 0,
                                "all_gathers": 0, "reductions": 0,
                                "reduce_scatters": 0, "all_reduces": 0}
+    # a model axis of one rank opens no model-parallel region
+    assert spy.region == {"all_reduces": 0, "bytes": 0}
     with use_mesh(mesh, rules):
         S.build_prefill_step(cfg, shape, mesh, rules).jitted()(
             state["params"], {"tokens": batch["tokens"]})
@@ -323,6 +329,62 @@ def test_the_1x1_gather_copies_nothing(mesh):
                    in {local(p).untyped_storage().data_ptr()
                        for p in leaves(state["params"])}
                    for s in unit.parts)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "zamba2-7b"])
+def test_the_1x1_step_computes_the_one_device_flops(arch, mesh):
+    """The world's yardstick for the model split's flops
+    (``_torch_mesh_world.one_device_flops``: the same rows' forward and
+    backward on one device) is what a train step on a 1x1 mesh computes,
+    flop for flop (``FlopCounterMode``), and on such a mesh every leaf is
+    whole (``model_roles`` all None)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch._tree import leaves
+    from repro_torch.models.transformer import model_roles
+
+    from _torch_mesh_world import one_device_flops
+
+    rcfg, cfg = _cfgs(arch, accum=2)
+    shape = ShapeSpec(*TRAIN)
+    rules = rules_for(cfg, shape, mesh)
+    assert not any(leaves(model_roles(cfg, rules, mesh)))
+    prog = S.build_train_step(cfg, shape, mesh, rules)
+    init = _np(_ref_train_state(rcfg, False))
+    state = train_state_from_reference(cfg, init, "cpu",
+                                       shardings=prog.in_shardings[0])
+    batch = _port(_batches(rcfg, RShapeSpec(*TRAIN), 1)[0])
+    with use_mesh(mesh, rules), FlopCounterMode(display=False) as fc:
+        prog.jitted()(state, batch)
+    whole = one_device_flops(cfg, shape, _port(init)["params"], batch, mesh)
+    assert fc.get_total_flops() == whole > 0
+
+
+def test_remat_recomputes_in_the_forward_context():
+    """Remat's recompute runs in the backward, which a card runs on the
+    autograd engine's own thread: the recomputed block still sees the
+    context its forward ran in (here the data-parallel split), with the
+    backward run on another thread as a card would run it."""
+    import threading
+    import types
+
+    from repro_torch.models.transformer import _maybe_remat
+    from repro_torch.parallel.sharding import batch_shards, data_parallel
+
+    seen = []
+
+    def block(x):
+        seen.append(batch_shards())
+        return torch.tanh(x) * 2
+
+    x = torch.ones(3, requires_grad=True)
+    stub = types.SimpleNamespace(size=lambda k: 2)
+    with data_parallel(stub, (0,)):
+        y = _maybe_remat(block, "full")(x).sum()
+    t = threading.Thread(target=y.backward)
+    t.start()
+    t.join()
+    assert seen == [2, 2] and x.grad is not None
 
 
 def test_a_rebuilt_tree_holds_its_leaves_no_longer_than_the_caller():
@@ -471,6 +533,39 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
             assert held == (g["remat"] != "none"), (name, g)
             assert g["counts"]["calls"] > 0 and g["counts"]["all_gathers"] > 0
             assert g.get("grad_bytes") == g.get("local_param_bytes"), name
+    # the model axis splits the arithmetic (each rank's flops against the
+    # same rows on one device, and the model group's all-reduces, held on
+    # every rank to the code's count): llama's matmuls all split, the other
+    # cells' but for those every model rank computes whole; the serve step
+    # keeps every leaf whole and launches no model collective
+    halves = {"llama3.2-3b/train", "llama3.2-3b/train/adafactor",
+              "llama3.2-3b/train/compress"}
+    for rank in res["gathers"]:
+        for name, g in rank.items():
+            if name.endswith("/decode"):
+                assert g["model_all_reduces"] == 0, (name, g)
+                continue
+            assert g["flop_ratio"] == g["flop_ratio_code"], (name, g)
+            assert g["flop_ratio"] < 0.55, (name, g)
+            if name in halves:
+                assert g["flop_ratio"] == 0.5, (name, g)
+            assert g["model_all_reduces"] == g["model_all_reduces_code"] > 0
+            # only rwkv6's state misses the reference, where its unsplit
+            # step misses it too (AdamW flips at gradients below its eps)
+            assert "misses_as_unsplit" not in g or \
+                name == "rwkv6-1.6b/train", (name, g)
+    assert set(res["region_plants"]) == {
+        "leave_dropped", "mqa_kv_sum_skipped", "kept_chunk_summed",
+        "gated_norm_sum_dropped"}
+    assert all(n > 0 for n in res["region_plants"].values()), \
+        res["region_plants"]
+    # a card runs the backward, and remat's recompute, on a thread of its
+    # own: with each backward on another thread the values still match,
+    # and miss without the recompute's re-entered context
+    assert res["backward_threads"] == {
+        "llama3.2-3b/train": 0, "zamba2-7b/train": 0,
+        "without_in_context": res["backward_threads"]["without_in_context"]}
+    assert res["backward_threads"]["without_in_context"] > 0
     cases = res["gather_cases"]
     assert cases["err"] <= 1e-6 and cases["alive_after_block"] == 0
     assert cases["plants"]["sum_over_model"] > 1e-6

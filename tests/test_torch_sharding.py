@@ -204,3 +204,155 @@ def _walk(defs, shardings, fn):
         return
     for k in defs:
         _walk(defs[k], shardings[k], fn)
+
+
+# ---------------------------------------------------------------------------
+# The model-parallel roles (transformer.model_roles) against the specs
+# ---------------------------------------------------------------------------
+
+# a leaf's logical axis that a model split takes, and the activation axis
+# the rules must put on "model" for a block to compute its chunk
+_SPLIT_AXES = {"heads": "act_heads", "kv_heads": "act_kv_heads",
+               "ffn": "act_ffn", "expert_ffn": "act_ffn",
+               "vocab": "act_vocab", "ssm_heads": "ssm_heads",
+               "ssm_inner": "ssm_inner", "rwkv_heads": "rwkv_heads"}
+# Mamba2's leaves whose "ssm_inner" dim is not whole heads
+_NOT_HEADS = ("in_proj", "conv_w", "conv_b")
+
+
+def _expected_roles(cfg, rules, specs, defs, m):
+    """Leaf by leaf, from the pruned specs: a leaf keeps its model chunk
+    where its spec puts "model" on a split axis whose activation axis the
+    rules put on "model" too, and the chunk is whole heads (RWKV's and
+    Mamba2's heads divide by the model size; Mamba2's z|x|B|C|dt leaves
+    never), KV heads only with the query heads. Then a leaf is partial
+    where its block is split and the rank uses it whole: unsplit K/V of
+    split attention, RWKV's mixes and decay, Mamba2's projection and
+    conv."""
+    def keeps(path, d, spec):
+        name = path[-1]
+        if m == 1 or name in _NOT_HEADS:
+            return False
+        for ax, entry in zip(d.axes, spec + (None,) * len(d.axes)):
+            act = _SPLIT_AXES.get(ax)
+            on = entry == "model" or (isinstance(entry, tuple)
+                                      and "model" in entry)
+            if act and on and "model" in str(rules.axis(act)):
+                if ax == "rwkv_heads" and cfg.rwkv_heads % m:
+                    return False
+                if ax in ("ssm_heads", "ssm_inner") and cfg.ssm_heads % m:
+                    return False
+                return True
+        return False
+
+    flat_d = dict(_flat(defs))
+    flat_s = dict(_flat(specs))
+    kept = {p for p in flat_d if keeps(p, flat_d[p], flat_s[p])}
+    # a block's leaves split together: K/V only with the query heads,
+    # Mamba2's heads only with its ssm_inner rows
+    for p in list(kept):
+        if p[-1] in ("wk", "wv", "bk", "bv") and p[:-1] + ("wq",) not in kept:
+            kept.discard(p)
+    out = {}
+    for p in flat_d:
+        blk, name = p[:-1], p[-1]
+        role = SH.KEEP if p in kept else None
+        if role is None and (
+                (name in ("wk", "wv", "bk", "bv") and blk + ("wq",) in kept)
+                or (name in ("mu", "decay_base", "decay_A", "decay_B")
+                    and blk + ("w_r",) in kept)
+                or (name in _NOT_HEADS and blk + ("A_log",) in kept)):
+            role = SH.PARTIAL
+        out[p] = role
+    return out
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _split_shape(d, spec, role, m):
+    """The shape a block computes with: the model chunk where the leaf
+    keeps it, else the whole."""
+    if role != SH.KEEP:
+        return d.shape
+    return tuple(n // m if (e == "model" or (isinstance(e, tuple)
+                                             and "model" in e)) else n
+                 for n, e in zip(d.shape, spec + (None,) * len(d.shape)))
+
+
+@pytest.mark.parametrize("mesh_name", ["2x2", "16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_roles_follow_the_pruned_specs(arch, mesh_name, fake_2x2):
+    """Which leaves keep a model chunk (and compute on it), and which
+    sum a partial gradient over "model", for every arch and train and
+    prefill shape on a (2, 2) DeviceMesh of the fake process group and on
+    the 16×16 stand-in; on the (2, 2) mesh the gather layout of a kept
+    leaf (``keep_chunk``) gives it that chunk's local shape."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh = fake_2x2 if mesh_name == "2x2" else _stand_in("16x16")
+    m = 2 if mesh_name == "2x2" else 16
+    cfg = get_config(arch)
+    defs = TF.model_defs(cfg)
+    for shape in SHAPES.values():
+        if shape.kind == "decode":
+            continue
+        rules = L.rules_for(cfg, shape, mesh)
+        specs = SH.specs_from_defs(defs, rules, mesh)
+        got = dict(_flat(TF.model_roles(cfg, rules, mesh)))
+        want = _expected_roles(cfg, rules, specs, defs, m)
+        assert got == want, (arch, shape.name, {
+            p: (got[p], want[p]) for p in want if got[p] != want[p]})
+        if mesh_name != "2x2":
+            continue
+        shardings = dict(_flat(SH.shardings_from_defs(defs, rules, mesh)))
+        for p, d in _flat(defs):
+            spec = shardings[p].spec
+            pl = shardings[p].placements
+            # the layout the unit gathers the leaf by: the mesh dims that
+            # shard it there are gathered, the others keep their chunk
+            by = SH.keep_chunk(pl, 1) if got[p] == SH.KEEP else pl
+            rep = SH.placements_for((), mesh)
+            kept = tuple(a if a != b else rep[k]
+                         for k, (a, b) in enumerate(zip(pl, by)))
+            local, _ = compute_local_shape_and_global_offset(
+                d.shape, mesh, kept)
+            assert tuple(local) == _split_shape(d, spec, got[p], m), (
+                arch, shape.name, p, spec)
+
+
+def test_llama_on_16_model_ranks_replicates_attention():
+    """24 query heads do not split over 16 model ranks: every attention
+    leaf of llama3.2-3b stays whole (the spec pruning drops "model" from
+    the heads), while its ffn and vocab keep their 1/16 chunks."""
+    mesh = _stand_in("16x16")
+    cfg = get_config("llama3.2-3b")
+    for shape in SHAPES.values():
+        if shape.kind == "decode":
+            continue
+        roles = TF.model_roles(cfg, L.rules_for(cfg, shape, mesh), mesh)
+        layer = roles["layers"]
+        assert set(layer["attn"].values()) == {None}, shape.name
+        assert set(layer["mlp"].values()) == {SH.KEEP}, shape.name
+        assert roles["embedding"] == {"embed": SH.KEEP}, shape.name
+
+
+def test_a_query_head_block_that_reads_no_whole_kv_block_raises():
+    """Where the KV heads stay whole and a rank's query heads straddle
+    them unevenly (12 heads over 4 KV heads on 3 model ranks), the split
+    raises, naming the heads and the model size; MQA serves every rank
+    from its one KV head."""
+    from repro_torch.models.attention import kv_block
+
+    with pytest.raises(ValueError, match="12 query heads over 4 KV heads"
+                                         ".* 3 model"):
+        kv_block(12, 4, 3, 1)
+    assert [kv_block(8, 1, 4, r) for r in range(4)] == [(0, 1)] * 4
+    assert [kv_block(32, 8, 16, r) for r in range(4)] == [
+        (0, 1), (0, 1), (1, 1), (1, 1)]

@@ -1,4 +1,4 @@
-"""The mesh train step sharded over four cards, against one card.
+"""The mesh train and prefill steps sharded over four cards, against one.
 
     PYTHONPATH=src python3 tools/mesh_card_world.py [--layers N]
         [--steps N] [--json PATH]
@@ -7,27 +7,32 @@
 llama3.2-3b at full width, ``--layers`` deep, in f32, ``build_train_step``
 at the config's own accum (4) over 8 rows of 2048 tokens, AdamW at lr
 3e-4, from ``init_train_state``'s seeded state: first on a 1x1 mesh on one
-card (this process), then in 4 processes, one card each, on a (2, 2)
-("data", "model") mesh over NCCL (``tcp://localhost``), the state laid
-out by the rules, so that each block gathers its layer from the shards
-and reduce-scatters its gradient back (``parallel/sharding.py``
-``LayerShards``). After the first step the sharded run's state, gathered
-whole, is held to the one-card run's: the loss and AdamW's grad norm
-within ``LOSS_RTOL``, the first moment (the clipped gradient times
-1 - b1) within ``GRAD_RTOL`` of each leaf's max, and the parameters but
-for a share ``OUTLIERS`` of a leaf within ``GRAD_RTOL``, every element
-within ``FLIP`` = 2 lr: AdamW's first step moves an element by
-lr * g / (|g| + eps), so where g is near zero the two runs' roundings may
-set it anywhere in [-lr, lr]. Then ``--steps`` more steps on each side
-are timed. Each rank
-reports its peak device memory, its local state's and gradient buffers'
-bytes against the whole model's, the gather's calls, bytes copied and
-collectives a step, and the step's ms. Prints one JSON line, with the
-cards' name and power limit; exits non-zero if a check fails. Needs four
-CUDA cards.
+card (this process), then, for each of ``MESHES`` ("data" x "model"),
+in 4 processes, one card each, over NCCL (``tcp://localhost``), the state
+laid out by the rules. Each block gathers its layer from the shards over
+"data" and reduce-scatters its gradient back (``parallel/sharding.py``
+``LayerShards``), and computes its heads, ffn columns and vocab rows over
+"model" (``model_parallel``: an all-reduce where a split block leaves,
+and where its input's gradient comes back). After the first step the
+sharded run's state, gathered whole, is held to the one-card run's: the
+loss and AdamW's grad norm within ``LOSS_RTOL``, the first moment (the
+clipped gradient times 1 - b1) within ``GRAD_RTOL`` of each leaf's max,
+and the parameters but for a share ``OUTLIERS`` of a leaf within
+``GRAD_RTOL``, every element within ``FLIP`` = 2 lr: AdamW's first step
+moves an element by lr * g / (|g| + eps), so where g is near zero the two
+runs' roundings may set it anywhere in [-lr, lr]. Then ``--steps`` more
+steps on each side are timed. Before the steps, the seeded parameters
+run ``build_prefill_step`` over 2 rows of 512 tokens, whose logits (each
+model rank's vocab chunk) are held within ``LOGITS_RTOL`` of the largest
+of one card's. Each rank reports its peak device memory, its local
+state's and gradient buffers' bytes against the whole model's, the
+gather's calls, bytes copied and collectives a step, the model region's
+all-reduces and bytes a step, the step's ms and tokens/s. Prints one JSON
+line, with the cards' name and power limit; exits non-zero if a check
+fails. Needs four CUDA cards.
 
 ``--device cpu`` rehearses the same path on the CPU: the reduced config
-(8 rows of 32 tokens), gloo in place of NCCL.
+(8 rows of 32 tokens, the prefill 2 of 32), gloo in place of NCCL.
 """
 from __future__ import annotations
 
@@ -48,6 +53,9 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 RANKS = 4
+# the ("data", "model") meshes of the four ranks: both axes, and the
+# model axis alone, where nothing is gathered
+MESHES = ((2, 2), (1, 4))
 LR = 3e-4
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-3
@@ -55,6 +63,8 @@ OUTLIERS = 1e-3
 # the most AdamW's first step can set two runs' element apart, and f32
 # rounding of the parameter beside it
 FLIP = 2 * LR * (1 + 1e-3)
+# the prefill's logits against one card's, of their largest |value|
+LOGITS_RTOL = 1e-5
 
 
 def _setup(args):
@@ -68,10 +78,13 @@ def _setup(args):
     else:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     cfg = dataclasses.replace(cfg, dtype="float32", accum=4)
-    shape = ShapeSpec("mesh", "train", 32 if args.device == "cpu" else 2048,
-                      8)
+    cpu = args.device == "cpu"
+    shape = ShapeSpec("mesh", "train", 32 if cpu else 2048, 8)
     stream = SyntheticLMStream(cfg, shape)
-    return cfg, shape, [stream.batch_at(i) for i in range(1 + args.steps)]
+    pshape = ShapeSpec("mesh_prefill", "prefill", 32 if cpu else 512, 2)
+    pre = SyntheticLMStream(cfg, pshape).batch_at(0)
+    return cfg, shape, [stream.batch_at(i) for i in range(1 + args.steps)], \
+        pshape, {"tokens": pre["tokens"]}
 
 
 def _run(args, device: str, mesh_shape: tuple) -> dict:
@@ -80,13 +93,15 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
     from repro_torch._tree import flatten, leaves
     from repro_torch.data import device_put_batch
     from repro_torch.launch.mesh import make_mesh_compat
-    from repro_torch.launch.steps import (build_train_step,
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_train_step,
                                           init_train_state, place)
     from repro_torch.optim import AdamWConfig
     from repro_torch.parallel.layouts import rules_for
-    from repro_torch.parallel.sharding import GATHER, full, local, use_mesh
+    from repro_torch.parallel.sharding import (GATHER, MODEL, full, local,
+                                               use_mesh)
 
-    cfg, shape, batches = _setup(args)
+    cfg, shape, batches, pshape, pbatch = _setup(args)
     mesh = make_mesh_compat(mesh_shape, ("data", "model"), device=device)
     rules = rules_for(cfg, shape, mesh)
     prog = build_train_step(cfg, shape, mesh, rules,
@@ -97,11 +112,20 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    # the prefill on the seeded parameters, the same on every side (after
+    # a step, AdamW's flips near g = 0 would set them apart)
+    prefill = build_prefill_step(cfg, pshape, mesh,
+                                 rules_for(cfg, pshape, mesh))
+    with use_mesh(mesh, rules):
+        logits = prefill.jitted()(state["params"],
+                                  device_put_batch(pbatch, device))
+    logits = full(logits).to("cpu", copy=True)
     step = prog.jitted()
     ms, counts = [], []
     for i, b in enumerate(batches):
         b = device_put_batch(b, device)
         GATHER.reset()
+        MODEL.reset()
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -110,7 +134,8 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
         if cuda:
             torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
-        counts.append(GATHER.counts())
+        counts.append({**GATHER.counts(), **{
+            f"model_{k}": v for k, v in MODEL.counts().items()}})
         if i == 0:
             metrics = {k: float(v) for k, v in m.items()}
             first = {"/".join(map(str, p)): full(v).to("cpu", copy=True)
@@ -119,9 +144,14 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
     params = leaves(state["params"])
     whole_gb = sum(p.numel() * p.element_size() for p in params) / 1e9
     local_gb = sum(local(t).nbytes for t in leaves(state)) / 1e9
-    return {"first": first, "metrics": metrics, "readings": {
-        "step_ms": ms, "median_ms_after_first": statistics.median(ms[1:])
-        if len(ms) > 1 else None, "gathers_per_step": counts[-1],
+    steady = statistics.median(ms[1:]) if len(ms) > 1 else None
+    return {"first": first, "metrics": metrics, "logits": logits,
+            "readings": {
+        "step_ms": ms, "median_ms_after_first": steady,
+        "tokens_per_s": (1e3 * shape.global_batch * shape.seq_len / steady
+                         if steady else None),
+        "gathers_per_step": counts[-1],
+        "gathered_gb_per_step": counts[-1]["bytes_copied"] / 1e9,
         "local_state_gb": local_gb, "local_params_gb": sum(
             local(p).nbytes for p in params) / 1e9,
         "whole_params_gb": whole_gb,
@@ -129,7 +159,8 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
         "loss": metrics["loss"], "grad_norm": metrics["grad_norm"]}}
 
 
-def _rank(rank: int, args, port: int, out_path: str) -> None:
+def _rank(rank: int, args, port: int, out_path: str,
+          mesh_shape: tuple) -> None:
     cuda = args.device != "cpu"
     if cuda:
         os.environ["LOCAL_RANK"] = str(rank)
@@ -140,12 +171,12 @@ def _rank(rank: int, args, port: int, out_path: str) -> None:
         "nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
         rank=rank, world_size=RANKS, timeout=datetime.timedelta(seconds=300))
     try:
-        res = _run(args, f"cuda:{rank}" if cuda else "cpu", (2, 2))
+        res = _run(args, f"cuda:{rank}" if cuda else "cpu", mesh_shape)
         every = [None] * RANKS
         dist.all_gather_object(every, res["readings"])
         if rank == 0:
             torch.save({"first": res["first"], "metrics": res["metrics"],
-                        "ranks": every}, out_path)
+                        "logits": res["logits"], "ranks": every}, out_path)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -154,6 +185,11 @@ def _rank(rank: int, args, port: int, out_path: str) -> None:
 def _held(got: dict, want: dict) -> tuple[list, dict]:
     """The sharded first step against the one-card one."""
     bad, worst = [], {}
+    scale = float(want["logits"].abs().max())
+    worst["logits"] = float((got["logits"].double()
+                             - want["logits"].double()).abs().max()) / scale
+    if worst["logits"] > LOGITS_RTOL:
+        bad.append(f"prefill logits {worst['logits']} of their max")
     for k in ("loss", "grad_norm"):
         rel = abs(got["metrics"][k] - want["metrics"][k]) / abs(
             want["metrics"][k])
@@ -199,20 +235,29 @@ def main() -> int:
     release_process_group()
     if cuda:
         torch.cuda.empty_cache()
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "sharded.pt")
-        mp.spawn(_rank, args=(args, port, path), nprocs=RANKS, join=True)
-        sharded = torch.load(path)
-    bad, worst = _held(sharded, one)
+    meshes, bad = {}, []
+    for mesh_shape in MESHES:
+        name = "x".join(map(str, mesh_shape))
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sharded.pt")
+            mp.spawn(_rank, args=(args, port, path, mesh_shape),
+                     nprocs=RANKS, join=True)
+            sharded = torch.load(path)
+        fails, worst = _held(sharded, one)
+        bad += [f"{name}: {f}" for f in fails]
+        meshes[name] = {"mesh": {"data": mesh_shape[0],
+                                 "model": mesh_shape[1]},
+                        "ranks": sharded["ranks"],
+                        "worst_over_leaf_max": worst, "failures": fails}
     out = {"cards": card, "arch": "llama3.2-3b", "dtype": "float32",
            "layers": args.layers if cuda else "reduced", "accum": 4,
-           "mesh": {"data": 2, "model": 2}, "one_card": one["readings"],
-           "ranks": sharded["ranks"], "worst_over_leaf_max": worst,
+           "one_card": one["readings"], "meshes": meshes,
            "limits": {"loss": LOSS_RTOL, "grad": GRAD_RTOL,
-                      "outliers": OUTLIERS, "outlier_abs": FLIP},
+                      "outliers": OUTLIERS, "outlier_abs": FLIP,
+                      "logits": LOGITS_RTOL},
            "failures": bad}
     print(json.dumps(out), flush=True)
     if args.json:
