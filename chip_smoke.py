@@ -133,7 +133,14 @@ tensor-core kernel. Then:
   gathers' calls a step held to the code's count (``mesh_gather_calls``)
   with no byte copied and no collective, every shard being the whole,
   and no collective of the model-parallel region (``MODEL``: a model axis
-  of one rank splits nothing);
+  of one rank splits nothing); slice 7d's ``mesh_serve``,
+  ``launch.steps.build_serve_step`` on the same mesh, llama3.2-3b at full
+  width and depth in bf16, MESH_SERVE's slots, cache and steps from one
+  seeded state (cache rows drawn, positions spread over the cache), held
+  bit for bit to ``decode_step`` on a copy of that state (logits, greedy
+  tokens, the state after), with no collective (the caches' sequence and
+  the model axis of one rank split nothing), no byte gathered and B2's
+  launches equal on both sides, ms a step on each side;
 * slice 1, the paper's GA offload loop at the paper's L grid
   (512x256x256): ``himeno_run``, Fig. 5 through
   ``MeteredBackend.auto(HimenoMeasuredBackend(HimenoApp(L)))`` for the
@@ -514,6 +521,9 @@ MESH_OUTLIER_RTOL = 1e-2
 # and +-lr (1.82e-2 of the leaf's max at lr 3e-4 on an NVIDIA H100 80GB HBM3)
 MESH_FLIP_RTOL = 2.5e-2
 FIRST_LOSS_NATS = 0.1
+# Slice 7d: the mesh serve step on the 1x1 mesh (mesh_serve): llama3.2-3b
+# at full width and depth in bf16, these slots, cache and greedy steps
+MESH_SERVE = dict(slots=8, cache=1024, steps=8)
 
 
 # Slice 7b: single-device training of the other five families, B4's
@@ -4734,6 +4744,121 @@ class Smoke:
         release_process_group()
         self._mesh = None
 
+    def mesh_serve(self):
+        """``build_serve_step`` on llama3.2-3b at full width and depth in
+        bf16 on the 1x1 mesh: MESH_SERVE's greedy steps from one seeded
+        state (every cache row a seeded draw, the slots' positions spread
+        over the cache) against ``decode_step`` on a copy of it, each side
+        timed a step. On one rank the serve step is ``decode_step`` on the
+        state's own storage: its logits, tokens and state must equal the
+        single device's bit for bit, with no collective of the model
+        region or the caches' sequence split (``MODEL``), no byte gathered
+        (``GATHER``: the layer gather's 1 + 28 calls a step, each the
+        state's own storage) and B2's launches (57 a step) the same on
+        both sides."""
+        import gc
+
+        import torch
+        from repro_torch._tree import flatten
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.launch.mesh import release_process_group
+        from repro_torch.launch.steps import build_serve_step, place
+        from repro_torch.models import transformer as T
+        from repro_torch.parallel.layouts import rules_for
+        from repro_torch.parallel.sharding import GATHER, MODEL, use_mesh
+
+        mesh = self.mesh()
+        cfg = get_config(ARCH)
+        slots, cache, steps = (MESH_SERVE[k] for k in
+                               ("slots", "cache", "steps"))
+        shape = ShapeSpec("mesh_serve", "decode", cache, slots)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = T.init_param_tree(cfg, gen, device="cuda")
+        model = T.TransformerLM.from_stacked(cfg, params)
+        state = T.init_decode_state(cfg, slots, cache, device="cuda")
+        for leaf in state["kv"].values():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen,
+                                   device="cuda"))
+        state["pos"].copy_(torch.arange(slots, device="cuda")
+                           * ((cache - steps) // slots) + 7)
+        other = {k: ({n: v.clone() for n, v in t.items()}
+                     if isinstance(t, dict) else t.clone())
+                 for k, t in state.items()}
+        tokens = torch.randint(0, cfg.vocab_size, (slots,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        rules = rules_for(cfg, shape, mesh)
+        prog = build_serve_step(cfg, shape, mesh, rules)
+        step = prog.jitted()
+        state = place(state, prog.in_shardings[1])
+        sides = {}
+        for side in ("serve_step", "decode_step"):
+            tok, logits_seen, ms = tokens.clone(), [], []
+            gc.collect()
+            torch.cuda.empty_cache()
+            GATHER.reset()
+            MODEL.reset()
+            before = lm_launches()
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if side == "serve_step":
+                    with use_mesh(mesh, rules):
+                        logits, state = step(params, state, tok)
+                    logits = logits.to_local()
+                else:
+                    logits, other = T.decode_step(cfg, model, other, tok)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                logits_seen.append(logits.clone())
+                tok = logits.argmax(-1).to(torch.int32)
+            sides[side] = {"logits": logits_seen, "ms": ms,
+                           "launches": launches_since(before),
+                           "gathers": GATHER.counts(),
+                           "region": MODEL.counts()}
+        serve, single = sides["serve_step"], sides["decode_step"]
+        self.path_launches[f"{ARCH} mesh serve"] = serve["launches"]
+        equal_logits = all(torch.equal(a, b) for a, b in
+                           zip(serve["logits"], single["logits"]))
+        tokens_equal = all(torch.equal(a.argmax(-1), b.argmax(-1)) for a, b
+                           in zip(serve["logits"], single["logits"]))
+        state_equal = all(torch.equal(a.to_local(), b) for (_, a), (_, b) in
+                          zip(flatten(state), flatten(other)))
+        n = cfg.num_layers
+        want_gathers = {"calls": steps * (1 + n), "bytes_copied": 0,
+                        "all_gathers": 0, "reductions": 0,
+                        "reduce_scatters": 0, "all_reduces": 0}
+        self.check(equal_logits and tokens_equal and state_equal,
+                   f"mesh_serve: the 1x1 serve step is not decode_step bit "
+                   f"for bit (logits {equal_logits}, tokens {tokens_equal}, "
+                   f"state {state_equal})")
+        self.check(serve["region"] == NO_REGION,
+                   f"mesh_serve: collectives {serve['region']} on a 1x1 mesh")
+        self.check(serve["gathers"] == want_gathers,
+                   f"mesh_serve: gathers {serve['gathers']}, the code gives "
+                   f"{want_gathers}")
+        self.check(serve["launches"]["rms_norm"]
+                   == single["launches"]["rms_norm"] == steps * (2 * n + 1),
+                   f"mesh_serve: B2 launched {serve['launches']} and "
+                   f"{single['launches']}, the code gives {2 * n + 1} a step")
+        med = {k: sorted(v["ms"][1:])[len(v["ms"][1:]) // 2]
+               for k, v in sides.items()}
+        emit({"phase": "mesh_serve", "arch": ARCH, "layers": n,
+              "dtype": cfg.dtype, "mesh": {"data": 1, "model": 1},
+              **MESH_SERVE, "entry": "launch.steps.build_serve_step",
+              "bit_equal_logits": equal_logits,
+              "greedy_tokens_equal": tokens_equal,
+              "state_equal": state_equal,
+              "step_ms": {k: v["ms"] for k, v in sides.items()},
+              "median_step_ms_after_first": med,
+              "launches": {k: v["launches"] for k, v in sides.items()},
+              "gathers": serve["gathers"], "model_collectives":
+              serve["region"], "card": self.card})
+        del params, model, state, other, prog, step, sides
+        gc.collect()
+        torch.cuda.empty_cache()
+        release_process_group()
+        self._mesh = None
+
     def lm_kernel_launches(self):
         """Each LM kernel's launches in the kernels line: the sum over the
         main paths it ran on, kept apart in ``launches_by_path``. B4's two
@@ -4805,6 +4930,7 @@ def main() -> int:
                   smoke.train_main_path, smoke.train_bf16_check,
                   smoke.families_train, smoke.train_resume,
                   smoke.mesh_train_check, smoke.mesh_train,
+                  smoke.mesh_serve,
                   smoke.lm_kernel_launches, smoke.main_path):
         t_phase = time.perf_counter()
         try:

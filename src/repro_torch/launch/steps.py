@@ -36,9 +36,9 @@ and decode take each rank's shard. The loss's and the MoE router's batch
 means are taken over the whole batch, so each rank's loss is its share
 of the global one.
 
-The ranks along "model" split the blocks' arithmetic in the train and
-prefill steps (``sharding.model_parallel``, Megatron's tensor
-parallelism at the reference's ``shard_act`` points): each unit keeps
+The ranks along "model" split the blocks' arithmetic in every step
+(``sharding.model_parallel``, Megatron's tensor parallelism at the
+reference's ``shard_act`` points): each unit keeps
 this rank's chunk of the leaves the rules split over "model" where the
 matching activation axis is on "model" too (``transformer.model_roles``:
 attention's query heads and, where they divide, its KV heads; the MLP's
@@ -51,12 +51,15 @@ heads, the SSM's B and C, RWKV's receptance and decay LoRA) each rank
 computes whole, and where its ranks use such a leaf in part its gradient
 is summed over "model". The embedding is a lookup over the vocab shards,
 the logits this rank's vocab chunk and the loss a cross-entropy over the
-shards. The sequences are not split over "model" (the reference's
-Megatron-SP ``seq``, prefill's ``seq_inner`` and the flash-decode
-``kv_seq``): that is ROADMAP.md's slice 7d part three. The serve step
-keeps every leaf whole over "model" until then, its model ranks
-computing the same rows. The optimizers update the shards, with their
-global norms, scales and means reduced over the mesh (``optim/``).
+shards. The serve step splits the decode caches along their sequence
+(the reference's flash-decode ``kv_seq``, ``sharding.kv_split``): each
+rank writes and reads its shard in place, its attention whole over the
+heads, the shards' softmax combined by all-reduces
+(``build_serve_step``). The train and prefill sequences are not split
+over "model" (the reference's Megatron-SP ``seq`` and prefill's
+``seq_inner``): that is ROADMAP.md's slice 7d part three (b). The
+optimizers update the shards, with their global norms, scales and means
+reduced over the mesh (``optim/``).
 
 ``build_train_step`` keeps the reference's arithmetic: ``accum``
 microbatches of ``global_batch / accum`` rows (row block j is microbatch
@@ -80,7 +83,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch._tree import leaves, tree_map
+from repro_torch._tree import flatten, leaves, tree_map, unflatten_like
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.lm_cost_model import Decisions
 from repro_torch.launch.mesh import mesh_device
@@ -449,6 +452,107 @@ def _state_shardings(cfg, state_shapes, rules, mesh):
                      axes, state_shapes)
 
 
+@dataclass(frozen=True)
+class ServeLayout:
+    """How the serve step computes on a mesh (``serve_layout``), by mesh
+    axis names: ``batch`` the axes that split the batch (of the tokens and
+    every state leaf alike), ``kv_seq`` those that split the caches'
+    sequence (the flash-decode group), ``gathered`` the state leaves (paths)
+    joined whole over "model" for the step, Mamba2's ``conv``."""
+    batch: tuple
+    kv_seq: tuple
+    gathered: tuple
+
+
+def _split_axes(entry, sizes: dict) -> tuple:
+    """The mesh axes of more than one rank in a spec entry."""
+    names = () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+    return tuple(a for a in names if sizes.get(a, 1) > 1)
+
+
+def serve_layout(cfg: ArchConfig, shape: ShapeSpec, rules: ShardingRules,
+                 mesh, roles: Optional[dict] = None) -> ServeLayout:
+    """The serve step's layout of ``cfg``'s decode state on ``mesh`` under
+    ``rules`` (a ``DeviceMesh`` or the stand-in of axis names and sizes),
+    checked against the blocks' model-parallel roles (``roles``, by
+    default ``model_roles``). Each state leaf is computed on as this
+    rank's local part: the batch split as the tokens' (the layer axis
+    whole); the KV caches (and enc-dec's ``cross_k``/``cross_v``) split
+    along their sequence alone, all of them over the same axes, with
+    attention's leaves whole (the reference's ``act_heads`` None); RWKV's
+    ``wkv`` split over "model" by heads exactly where the time mix keeps
+    its heads, ``tm_x``/``cm_x`` whole; Mamba2's ``ssm`` by heads exactly
+    where the block keeps its heads, and ``conv`` (channels x | B | C, of
+    which a plain chunk is not a rank's heads) gathered whole over "model"
+    for the step. A layout that breaks one of these raises, naming the
+    leaf, its shape, its spec and the mesh."""
+    from repro_torch.parallel.sharding import KEEP, _mesh_axis_sizes
+
+    roles = T.model_roles(cfg, rules, mesh) if roles is None else roles
+    sizes = _mesh_axis_sizes(mesh)
+    state_shapes = T.init_decode_state(cfg, shape.global_batch,
+                                       shape.seq_len, device="meta")
+    shardings = dict(flatten(_state_shardings(cfg, state_shapes, rules,
+                                              mesh)))
+    caches = T.decode_state_cache_keys(cfg)
+    tokens = named_sharding(mesh, rules, ("batch",), (shape.global_batch,))
+    batch = _split_axes(tokens.spec[0], sizes)
+    # (block, leaf) of every leaf a block keeps as this rank's chunk
+    kept = {path[-2:] for key, tree in roles.items()
+            for path, role in flatten(tree, (key,)) if role == KEEP}
+    for block in ("attn", "xattn"):
+        if any(b == block for b, _ in kept):
+            raise ValueError(
+                f"serve step: {block} keeps its heads' chunk over 'model' "
+                f"on mesh {sizes}, where decode reads a sequence-split "
+                f"cache with every head whole")
+
+    kv_seq, gathered = None, []
+    for path, leaf in flatten(state_shapes):
+        spec = tuple(shardings[path].spec)
+        spec += (None,) * (leaf.dim() - len(spec))
+        split = [_split_axes(e, sizes) for e in spec]
+
+        def refuse(why: str):
+            raise ValueError(f"serve step: state leaf {'/'.join(path)} of "
+                             f"shape {tuple(leaf.shape)} laid out {spec} "
+                             f"on mesh {sizes}: {why}")
+
+        if path == ("pos",):
+            if split[0]:
+                refuse("the positions must be whole on every rank")
+            continue
+        if split[0]:
+            refuse("its layer axis is split")
+        if split[1] != batch:
+            refuse(f"its batch is split over {split[1]}, the tokens' over "
+                   f"{batch}")
+        name = path[-1]
+        if path[0] in caches:
+            if kv_seq is None:
+                kv_seq = split[2]
+            if split[2] != kv_seq or any(split[3:]):
+                refuse(f"a cache is split along its sequence over {kv_seq} "
+                       f"alone")
+            continue
+        heads = {"wkv": ("tm", "w_r") in kept,
+                 "ssm": ("mamba", "A_log") in kept}
+        if name in heads:
+            want = ("model",) if heads[name] else ()
+            if split[2] != want or any(split[3:]):
+                refuse(f"its heads must be split over {want}, as the "
+                       f"blocks compute them")
+        elif name == "conv":
+            if split[2] or split[3] not in ((), ("model",)):
+                refuse("its channels may be split over 'model' alone")
+            if split[3]:
+                gathered.append(path)
+        elif any(split[2:]):
+            refuse("it must be whole but for its batch")
+    return ServeLayout(batch, kv_seq or (), tuple(gathered))
+
+
 def build_serve_step(
     cfg: ArchConfig,
     shape: ShapeSpec,
@@ -457,11 +561,26 @@ def build_serve_step(
     dec: Optional[Decisions] = None,
 ) -> CellProgram:
     """``fn(params, state, tokens) -> (logits, state)``: the state updated
-    in place in its layout (the reference donates it), the logits laid
-    out ``("batch", "act_vocab")``. Every leaf is gathered whole over
-    "model" and the model ranks compute the same rows: the flash-decode
-    split (the cache over ``kv_seq``) is slice 7d part three's."""
-    model_of = _Model(cfg)
+    in place in its layout (the reference donates it), the logits laid out
+    ``("batch", "act_vocab")``: each rank's rows and, where the model
+    ranks computed their vocab chunks, its chunk.
+
+    The step computes on each state leaf's local storage as the rules lay
+    it out (``serve_layout``), under the data-parallel split of the batch,
+    the model-parallel region (``model_roles`` under the decode rules:
+    the MLP's and the experts' ffn, the vocab, the RWKV and SSM heads
+    split over "model"; attention whole) and the caches' sequence split
+    (``sharding.kv_split``: flash-decode over the ranks that hold the
+    cache's ``kv_seq`` shards, "model", or "data" and "model" at global
+    batch 1, where the batch is whole on every rank). No cache, ``wkv``
+    or ``ssm`` leaf is gathered or copied: their new rows and states are
+    written in place. Mamba2's ``conv`` is the one leaf gathered whole
+    over "model" for the step, and this rank's chunk of it written back;
+    the positions, whole on every rank, each rank steps in place. On a
+    mesh of one rank this is ``decode_step`` on the state's own storage,
+    with no collective."""
+    roles = T.model_roles(cfg, rules, mesh)
+    model_of = _Model(cfg, roles=roles)
     state_shapes = T.init_decode_state(cfg, shape.global_batch,
                                        shape.seq_len, device="meta")
     s_shard = _state_shardings(cfg, state_shapes, rules, mesh)
@@ -471,32 +590,45 @@ def build_serve_step(
     logits_shard = named_sharding(
         mesh, rules, ("batch", "act_vocab"),
         (shape.global_batch, cfg.padded_vocab()))
+    layout = serve_layout(cfg, shape, rules, mesh, roles)
+    names = tuple(mesh.mesh_dim_names)
+    dims = tuple(names.index(a) for a in layout.batch)
+    mdim = SH.model_dim_of(mesh)
+    # the flash-decode group is made here, on every rank alike
+    split = SH.kv_split_over(mesh, tuple(names.index(a)
+                                         for a in layout.kv_seq))
 
     def serve_step(params, state, tokens):
         model = model_of(params).bind()
-        dims = _batch_dims(tokens)
+        whole = {}  # a gathered leaf's local part, by path
 
-        def split(t):  # the batch is axis 1 of every stacked leaf
-            return _split(mesh, dims, 0 if t.dim() == 1 else 1)
+        def mine(path, t):
+            if path == ("pos",):  # whole on every rank: this rank's rows
+                return SH.local_chunk(SH.local(t), _split(mesh, dims, 0),
+                                      mesh)
+            if path in layout.gathered:
+                whole[path] = SH.to_placements(
+                    t, SH.keep_chunk(t.placements, mdim))
+                return whole[path]
+            return SH.local(t)
 
-        mine = tree_map(lambda t: SH.to_placements(t, split(t)), state)
-        with SH.data_parallel(mesh, dims):
-            logits, mine = T.decode_step(cfg, model, mine,
-                                         SH.to_placements(tokens,
-                                                          split(tokens)))
-
-        def put(t, part):
-            back = SH.from_placements(part, mesh, split(t), t.placements,
-                                      t.shape)
-            if back.data_ptr() != SH.local(t).data_ptr():
-                SH.local(t).copy_(back)
-
-        tree_map(put, state, mine)
-        out = SH.from_placements(logits, mesh, split(tokens),
-                                 logits_shard.placements,
-                                 (shape.global_batch, logits.shape[-1]))
-        return (SH.from_local(out, mesh, logits_shard.placements,
-                              (shape.global_batch, logits.shape[-1])), state)
+        local = unflatten_like(state, [mine(path, t)
+                                       for path, t in flatten(state)])
+        with SH.data_parallel(mesh, dims), \
+                SH.model_parallel(mesh, mdim), SH.kv_split(split):
+            logits, _ = T.decode_step(cfg, model, local, SH.local(tokens))
+        for path, t in flatten(state):
+            if path in whole:  # this rank's chunk along "model"
+                along = _split(mesh, (mdim,), t.placements[mdim].dim)
+                SH.local(t).copy_(SH.local_chunk(whole[path], along, mesh))
+        SH.local(state["pos"]).add_(1)
+        placements = list(_split(mesh, dims, 0))
+        vocab = cfg.padded_vocab()
+        if logits.shape[-1] != vocab:  # this rank's vocab chunk
+            from torch.distributed.tensor import Shard
+            placements[mdim] = Shard(1)
+        return (SH.from_local(logits, mesh, tuple(placements),
+                              (shape.global_batch, vocab)), state)
 
     return CellProgram(
         fn=serve_step,

@@ -23,6 +23,22 @@ are then this rank's too where ``wk``/``wv`` came split; where they came
 whole (K not divisible by the model size, as MQA), the rank projects
 every KV head and hands B3 the block its query heads read
 (``kv_block``), so B3 and ``_grouped_sdpa`` see local heads only.
+
+In a mesh serve step the caches may be this rank's shard of their
+sequence (``parallel/sharding.py`` ``kv_split``: the reference's
+``kv_seq`` on "model", or on "data" and "model" at batch 1), with every
+query head and ``wo`` whole, as the reference's ``act_heads`` None gives.
+``decode_attention`` then writes a slot's new K/V row only into the
+shard that holds its global index, masks the shard's rows by their global
+indices, and combines the shards' softmax (flash-decode, ``_split_sdpa``):
+the scores' max over the shards, their exponentials' sum under it, and
+the partial products of the probabilities with V, each an all-reduce
+over the ranks that hold the other shards. The probabilities are
+normalised by the global sum before the product, so that they round to
+v's dtype as the single device's softmax rounds them; a combine of
+unnormalised partials rescaled by ``exp(m_r - M)`` would round the
+output, not the probabilities, and part from it by a bf16 ulp. Outside
+such a split the path is the single device's.
 """
 from __future__ import annotations
 
@@ -34,7 +50,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models.layers import apply_rope
-from repro_torch.parallel.sharding import PDef, enter, leave, model_index
+from repro_torch.parallel.sharding import (
+    KvSplit, PDef, current_kv_split, enter, leave, model_index,
+)
 
 def attention_defs(cfg: ArchConfig, cross: bool = False) -> dict:
     d, h, k, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -121,14 +139,13 @@ def _promote(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
     return torch.promote_types(a.dtype, b.dtype)
 
 
-def _grouped_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """The reference's ``_sdpa`` with each K/V head serving its H/K query
-    heads in place of ``_repeat_kv``: q (B, S, H, hd), k and v (B, T, K,
-    hd), ``mask`` None or (B, T). The scores are the einsum in the
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, K, H/K, S, T) f32 scores of q (B, S, H, hd) against k (B, T, K,
+    hd), each K head serving its H/K query heads: the einsum in the
     operands' (promoted) dtype, then cast to f32 and scaled, as the
-    reference's einsum rounds bf16 scores before its cast; softmax in f32,
-    the probabilities cast to v's dtype. Returns (B, S, H, hd)."""
+    reference's einsum rounds bf16 scores before its cast; NEG_INF where
+    ``mask`` (None or (B, T)) is False."""
     b, s, h, hd = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, hd)
@@ -137,9 +154,41 @@ def _grouped_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           k.to(dt)).float() * hd ** -0.5
     if mask is not None:
         scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return scores
+
+
+def _grouped_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's ``_sdpa`` with each K/V head serving its H/K query
+    heads in place of ``_repeat_kv``: q (B, S, H, hd), k and v (B, T, K,
+    hd), ``mask`` None or (B, T). The scores are ``_scores``; softmax in
+    f32, the probabilities cast to v's dtype. Returns (B, S, H, hd)."""
+    probs = torch.softmax(_scores(q, k, mask), dim=-1).to(v.dtype)
     out = torch.einsum("bkgqt,btkd->bqkgd", probs, v)
-    return out.reshape(b, s, h, hd)
+    return out.reshape(q.shape)
+
+
+def _split_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: Optional[torch.Tensor], split: KvSplit) -> torch.Tensor:
+    """``_grouped_sdpa`` over a cache whose sequence is split into
+    ``split.count`` shards, k and v (B, T/count, K, hd) this rank's, and
+    ``mask`` its rows' (flash-decode). The scores are ``_scores``; the
+    softmax takes their max over every shard (an all-reduce MAX), the sum
+    of ``exp(s - M)`` over every shard (an all-reduce SUM), and the
+    probabilities ``exp(s - M) / L`` cast to v's dtype; each shard's
+    product with its V rows, in f32, is summed over the shards (an
+    all-reduce SUM) and cast to v's dtype. A shard with no live row of a
+    slot has every score NEG_INF, finite, so its exponentials are 0 under
+    the global max, which a live row always sets (the slot's own row, or
+    the unmasked memory). Returns (B, S, H, hd)."""
+    scores = _scores(q, k, mask)
+    m = split.reduce(scores.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    total = split.reduce(e.sum(dim=-1, keepdim=True), "sum")
+    probs = (e / total).to(v.dtype)
+    out = split.reduce(torch.einsum("bkgqt,btkd->bqkgd", probs.float(),
+                                    v.float()), "sum")
+    return out.to(v.dtype).reshape(q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +285,12 @@ def decode_attention(
     the reference's functional ``.at[].set`` under a donated jit buffer.
     With ``kv_memory`` (k, v: (B, T, K, hd), an encoder's memory), the
     query attends to it unmasked and ``cache`` is returned untouched.
+    Under a ``kv_split`` the cache and the memory are this rank's shard of
+    their sequence (the module docstring says how the shards combine).
     """
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
+    split = current_kv_split()
 
     q = _project_q(cfg, p, x)
     if rope:
@@ -248,31 +300,56 @@ def decode_attention(
         mask = None
     else:
         k, v, mask = _write_cache(cfg, p, x, cache, pos, window=window,
-                                  rope=rope)
-    out = _grouped_sdpa(q, k, v, mask=mask)
+                                  rope=rope, split=split)
+    out = (_grouped_sdpa(q, k, v, mask=mask) if split is None
+           else _split_sdpa(q, k, v, mask, split))
     dt = _promote(out, p["wo"])
     return torch.einsum("bshk,hkd->bsd", out.to(dt), p["wo"].to(dt)), cache
 
 
+def _shard_rows(split: Optional[KvSplit], rows: int) -> tuple[int, int]:
+    """(the global index of this shard's first row, the whole cache's
+    rows) for a cache of ``rows`` rows here."""
+    if split is None:
+        return 0, rows
+    return split.index * rows, split.count * rows
+
+
+def _owned(live: torch.Tensor, slot: torch.Tensor,
+           rows: int) -> torch.Tensor:
+    """The live slots whose row ``slot`` (this shard's index of their
+    global row) lies in this shard of ``rows`` rows."""
+    return live & (slot >= 0) & (slot < rows)
+
+
 def _write_cache(cfg: ArchConfig, p, x: torch.Tensor, cache: dict,
-                 pos: torch.Tensor, *, window: int, rope: bool):
+                 pos: torch.Tensor, *, window: int, rope: bool,
+                 split: Optional[KvSplit] = None):
     """Write x's new K/V rows into ``cache`` in place; returns the cache's
-    k, v and the (B, length) mask of the rows each slot may see."""
+    k, v and the (B, rows) mask of the rows each slot may see. With
+    ``split`` the cache is this rank's shard of the sequence: a slot's row
+    (``pos``, or ``pos % length`` in a ring) is written only where this
+    shard holds it, and the mask reads the shard's global indices."""
     b = x.shape[0]
     k_new, v_new = _project_kv(cfg, p, x)
     if rope:
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     k, v = cache["k"], cache["v"]
-    length = k.shape[1]
+    rows_here = k.shape[1]
+    first, length = _shard_rows(split, rows_here)
     slot = (pos % length) if window else pos
     rows = torch.arange(b, device=x.device)
     # a slot whose stream ran past the cache (an idle serving slot keeps
     # stepping) writes nothing, as JAX drops an out-of-bounds scatter
-    live = (slot < length)[:, None, None]
-    slot = slot.clamp(max=length - 1)
+    live = slot < length
+    if split is not None:  # and only the shard that holds the row writes
+        slot = slot - first
+        live = _owned(live, slot, rows_here)
+    live = live[:, None, None]
+    slot = slot.clamp(min=None if split is None else 0, max=rows_here - 1)
     k[rows, slot] = torch.where(live, k_new[:, 0].to(k.dtype), k[rows, slot])
     v[rows, slot] = torch.where(live, v_new[:, 0].to(v.dtype), v[rows, slot])
-    idx = torch.arange(length, device=x.device)
+    idx = torch.arange(first, first + rows_here, device=x.device)
     if window:
         # ring buffer: once wrapped, every slot holds one of the last
         # `length` positions; before wrapping only slots <= pos are live.

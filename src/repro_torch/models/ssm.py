@@ -35,7 +35,10 @@ heads' z, x and dt columns and all of B and C (``_head_columns``). Its
 input ``enter``s, the scan runs over its heads, the gated norm's mean of
 squares over all of ``d_inner`` is a sum all-reduced both ways
 (``model_sum``), and ``out_proj``'s partial sums ``leave``. ``in_proj``,
-``conv_w`` and ``conv_b`` then get a partial gradient on each rank.
+``conv_w`` and ``conv_b`` then get a partial gradient on each rank. In a
+mesh serve step ``mamba_decode_step`` splits the same way over this
+rank's heads of ``ssm``; its ``conv`` state, whose channels are x | B | C,
+comes whole for the step (a plain chunk of it is not a rank's heads).
 """
 from __future__ import annotations
 
@@ -85,10 +88,10 @@ def _split_xbc(xbc: torch.Tensor, di: int, ns: int):
     return xbc[..., :di], xbc[..., di:di + ns], xbc[..., di + ns:]
 
 
-def _head_columns(cfg: ArchConfig, p, nh: int):
-    """This model rank's ``nh`` heads' share of the whole ``in_proj``,
-    ``conv_w`` and ``conv_b``: its z, x and dt columns and all of B and C,
-    in the z | x | B | C | dt (x | B | C) order the block reads."""
+def _head_proj(cfg: ArchConfig, p, nh: int) -> torch.Tensor:
+    """This model rank's ``nh`` heads' columns of the whole ``in_proj``:
+    its z, x and dt columns and all of B and C, in z | x | B | C | dt
+    order."""
     di, ns = cfg.d_inner, cfg.ssm_state
     w = nh * cfg.ssm_head_dim
     r = model_index()
@@ -96,9 +99,20 @@ def _head_columns(cfg: ArchConfig, p, nh: int):
     bc = slice(2 * di, 2 * di + 2 * ns)
     dt = slice(2 * di + 2 * ns + r * nh, 2 * di + 2 * ns + (r + 1) * nh)
     proj = p["in_proj"]
-    in_proj = torch.cat([proj[:, z], proj[:, xs], proj[:, bc], proj[:, dt]],
-                        dim=1)
-    cx, cbc = z, slice(di, di + 2 * ns)  # x's channels lead the conv's
+    return torch.cat([proj[:, z], proj[:, xs], proj[:, bc], proj[:, dt]],
+                     dim=1)
+
+
+def _head_columns(cfg: ArchConfig, p, nh: int):
+    """This model rank's ``nh`` heads' share of the whole ``in_proj``,
+    ``conv_w`` and ``conv_b``: its z, x and dt columns and all of B and C,
+    in the z | x | B | C | dt (x | B | C) order the block reads."""
+    di, ns = cfg.d_inner, cfg.ssm_state
+    w = nh * cfg.ssm_head_dim
+    r = model_index()
+    in_proj = _head_proj(cfg, p, nh)
+    cx, cbc = slice(r * w, (r + 1) * w), slice(di, di + 2 * ns)
+    # x's channels lead the conv's
     conv_w = torch.cat([p["conv_w"][:, cx], p["conv_w"][:, cbc]], dim=1)
     conv_b = torch.cat([p["conv_b"][cx], p["conv_b"][cbc]])
     return in_proj, conv_w, conv_b
@@ -227,19 +241,54 @@ def init_ssm_state(cfg: ArchConfig, batch: int, *, device=None) -> dict:
     }
 
 
+def _whole_xbc(cfg: ArchConfig, xbc: torch.Tensor) -> torch.Tensor:
+    """The conv's whole input row (B, 1, d_inner + 2·ssm_state) from this
+    model rank's ``xbc``, its heads' x channels and all of B and C: each
+    rank puts its x channels (and rank 0 B and C) into zeros, and ``leave``
+    sums the ranks' rows, which adds each value to zeros only: exact."""
+    di = cfg.d_inner
+    w = xbc.shape[-1] - 2 * cfg.ssm_state
+    r = model_index()
+    row = xbc.new_zeros(xbc.shape[:-1] + (di + 2 * cfg.ssm_state,))
+    row[..., r * w:(r + 1) * w] = xbc[..., :w]
+    if r == 0:
+        row[..., di:] = xbc[..., w:]
+    return leave(row)
+
+
 def mamba_decode_step(cfg: ArchConfig, p, x: torch.Tensor, state: dict
                       ) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, D) -> ((B, 1, D), state): one token, O(1). ``state``'s
-    ``ssm`` and ``conv`` are updated in place and returned."""
+    ``ssm`` and ``conv`` are updated in place and returned.
+
+    With this model rank's heads (``A_log`` shorter than the config's
+    heads), ``ssm`` is this rank's heads and ``conv`` stays whole: the
+    rank projects its z, x and dt columns and all of B and C, the ranks'
+    x channels are joined into the conv's whole input row
+    (``_whole_xbc``), every rank updates the whole ``conv`` alike, and the
+    scan, the gated norm (its mean of squares over all of d_inner a
+    ``model_sum``) and ``out_proj``'s partial sums (``leave``) run on its
+    heads."""
     b = x.shape[0]
-    nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
-    di, ns = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ p["in_proj"]
-    z, _, _, _, dt = _split_proj(zxbcdt, di, ns)
-    xbc, conv = _causal_conv(_xbc(zxbcdt, di, ns), p["conv_w"], p["conv_b"],
-                             state["conv"])
+    hd, di, ns = cfg.ssm_head_dim, cfg.d_inner, cfg.ssm_state
+    nh = p["A_log"].shape[0]  # this rank's heads
+    split = nh != cfg.ssm_heads
+    if split:
+        x = enter(x)
+        w = nh * hd
+        zxbcdt = x @ _head_proj(cfg, p, nh)
+        z, _, _, _, dt = _split_proj(zxbcdt, w, ns)
+        row = _whole_xbc(cfg, _xbc(zxbcdt, w, ns))
+    else:
+        zxbcdt = x @ p["in_proj"]
+        z, _, _, _, dt = _split_proj(zxbcdt, di, ns)
+        row = _xbc(zxbcdt, di, ns)
+    xbc, conv = _causal_conv(row, p["conv_w"], p["conv_b"], state["conv"])
     state["conv"].copy_(conv)
     xs, Bm, Cm = _split_xbc(xbc, di, ns)
+    if split:  # this rank's heads' x channels
+        r = model_index()
+        xs = xs[..., r * w:(r + 1) * w]
     dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]  # (B,H)
     A = -torch.exp(p["A_log"].float())
     xh = xs.reshape(b, nh, hd).float()
@@ -250,6 +299,7 @@ def mamba_decode_step(cfg: ArchConfig, p, x: torch.Tensor, state: dict
     ssm.add_((dt[:, :, None] * xh)[..., None] * Bf[:, None, None, :])
     y = (ssm @ Cf[:, None, :, None])[..., 0]  # (B,H,hd)
     y = y + p["D"].float()[None, :, None] * xh
-    y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
-    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps)
-    return y @ p["out_proj"], state
+    y = y.reshape(b, 1, nh * hd).to(x.dtype)
+    y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps, di)
+    y = y @ p["out_proj"]
+    return (leave(y) if split else y), state

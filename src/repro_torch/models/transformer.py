@@ -42,6 +42,10 @@ stacked leaves, so the training state keeps the reference's stacked tree
 and the model trains in place through it. A mesh step runs the same
 functions over a ``ShardedLM``: each block, and each layer of decode,
 gathers its unit's shards whole as it runs and lets them go on return.
+In a mesh serve step the decode state is this rank's local storage of
+each leaf (``launch/steps.py`` ``build_serve_step``): the caches its shard
+of their sequence, RWKV's ``wkv`` and Mamba2's ``ssm`` its heads where
+their blocks keep their heads, and the layers compute on it as they are.
 
 The decode state is updated in place: ``decode_step`` writes each layer's
 new K/V rows into the stacked cache (dense, MoE, VLM, the enc-dec

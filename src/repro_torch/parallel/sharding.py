@@ -33,14 +33,18 @@ compression scale, Adafactor's means); ``data_parallel`` tells the loss,
 the MoE router and the gather's backward which mesh dims split the batch,
 so that their batch means and gradient sums are global.
 
-``model_parallel`` opens the model-parallel region of a train or prefill
-step: the blocks whose unit kept this rank's chunk of heads, ffn columns,
-vocab rows or SSM/RWKV heads (``LayerShards``' roles) compute that chunk,
-between ``enter`` (Megatron's ``f``: the identity, its backward an
-all-reduce over "model") and ``leave`` (``g``: an all-reduce, its backward
-the identity); ``model_sum`` all-reduces both ways, ``model_max`` takes a
-max with no gradient. ``MODEL`` counts their collectives. On a model group
-of one rank each is the identity and launches nothing.
+``model_parallel`` opens the model-parallel region of a step: the blocks
+whose unit kept this rank's chunk of heads, ffn columns, vocab rows or
+SSM/RWKV heads (``LayerShards``' roles) compute that chunk, between
+``enter`` (Megatron's ``f``: the identity, its backward an all-reduce over
+"model") and ``leave`` (``g``: an all-reduce, its backward the identity);
+``model_sum`` all-reduces both ways, ``model_max`` takes a max with no
+gradient. ``kv_split`` tells decode attention which shard of the caches'
+sequence (``kv_seq``) this rank holds, and over which ranks its softmax
+statistics and partial outputs are reduced (flash-decode: ``KvSplit``,
+made by ``kv_split_over``). ``MODEL`` counts the collectives of both. On
+a model group of one rank each is the identity and launches nothing, and
+a sequence kept whole opens no split.
 
 When no mesh is active every annotation is a no-op, as in the reference.
 """
@@ -131,6 +135,7 @@ class _Ctx(threading.local):
         self.batch_dims: tuple[int, ...] = ()
         self.model_mesh = None
         self.model_dim: Optional[int] = None
+        self.kv: Optional["KvSplit"] = None
 
 
 _CTX = _Ctx()
@@ -148,12 +153,13 @@ def use_mesh(mesh, rules: Optional[ShardingRules] = None):
 
 
 _FIELDS = ("mesh", "rules", "batch_mesh", "batch_dims", "model_mesh",
-           "model_dim")
+           "model_dim", "kv")
 
 
 def current_context() -> tuple:
     """This thread's whole context (mesh, rules, the data-parallel split,
-    the model-parallel region), for ``in_context``."""
+    the model-parallel region, the caches' sequence split), for
+    ``in_context``."""
     return tuple(getattr(_CTX, k) for k in _FIELDS)
 
 
@@ -558,7 +564,8 @@ class _Counts:
 class ModelStats(_Counts):
     """The model-parallel region's collectives over "model" since
     ``reset``: ``all_reduces`` (``leave``'s and ``model_sum``'s forward,
-    ``enter``'s and ``model_sum``'s backward, ``model_max``) and the
+    ``enter``'s and ``model_sum``'s backward, ``model_max``, and a
+    ``KvSplit``'s reductions over the caches' sequence shards) and the
     ``bytes`` they reduced."""
     all_reduces: int = 0
     bytes: int = 0
@@ -684,6 +691,88 @@ def model_max(x: torch.Tensor) -> torch.Tensor:
     import torch.distributed as dist
 
     return _model_all_reduce(x.detach(), _model_group(), dist.ReduceOp.MAX)
+
+
+# ---------------------------------------------------------------------------
+# Flash-decode: the caches' sequence split over mesh dims ("kv_seq")
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class KvSplit:
+    """This rank's part of the decode caches split along their sequence:
+    shard ``index`` of ``count`` (rows ``[index·T/count, (index+1)·T/count)``
+    of a cache of T rows), and ``reduce(x, op)``, ``x`` all-reduced
+    (``op`` "max" or "sum") over the ranks that hold the other shards.
+    Decode runs under ``no_grad``: the reductions carry no gradient."""
+    index: int
+    count: int
+    reduce: Any
+
+
+@contextlib.contextmanager
+def kv_split(split: Optional[KvSplit]):
+    """Within: decode attention reads this rank's shard of the caches'
+    sequence as ``split`` says (None: the whole)."""
+    prev = _CTX.kv
+    _CTX.kv = split
+    try:
+        yield
+    finally:
+        _CTX.kv = prev
+
+
+def current_kv_split() -> Optional[KvSplit]:
+    return _CTX.kv
+
+
+def mesh_group(mesh, dims: tuple[int, ...]):
+    """The process group of this rank's ranks along mesh ``dims`` (sorted;
+    ranks in the mesh's order, the first dim major, as ``local_chunk``
+    splits): a dim's own group for one dim; for several, a ``new_group``
+    made once per mesh and dims (every rank of the mesh makes every such
+    group, in one order) and kept on the mesh."""
+    import torch.distributed as dist
+
+    dims = tuple(sorted(dims))
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    made = mesh.__dict__.setdefault("_kv_groups", {})
+    if dims not in made:
+        ranks = mesh.mesh.movedim(dims, tuple(range(mesh.ndim - len(dims),
+                                                    mesh.ndim)))
+        ranks = ranks.reshape(-1, math.prod(mesh.size(k) for k in dims))
+        me = dist.get_rank()
+        for row in ranks.tolist():
+            group = dist.new_group(ranks=row)
+            if me in row:
+                made[dims] = group
+    return made[dims]
+
+
+def _kv_reduce(group, x: torch.Tensor, op: str) -> torch.Tensor:
+    import torch.distributed as dist
+
+    return _model_all_reduce(
+        x, group, dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
+
+
+def kv_split_over(mesh, dims: tuple[int, ...]) -> Optional[KvSplit]:
+    """The split of a cache whose sequence is sharded over mesh ``dims``
+    (None where they hold one rank): this rank's shard, the first dim
+    major, and all-reduces over their group (``mesh_group``), counted in
+    ``MODEL``."""
+    import functools
+
+    dims = tuple(sorted(k for k in dims if mesh.size(k) > 1))
+    if not dims:
+        return None
+    coord = mesh.get_coordinate()
+    index = 0
+    for k in dims:
+        index = index * mesh.size(k) + coord[k]
+    return KvSplit(index, math.prod(mesh.size(k) for k in dims),
+                   functools.partial(_kv_reduce, mesh_group(mesh, dims)))
 
 
 def like(part: torch.Tensor, t):

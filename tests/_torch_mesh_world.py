@@ -13,13 +13,22 @@ over sharded leaves), llama3.2-3b with int8 gradient compression (its
 scale, a max over every shard), and llama3.2-3b at remat "none" and
 "dots"; on the reduced configs in f32 with ``accum`` 2 where a cell
 trains: the loss, AdamW's grad norm (a sum over every shard) and the
-whole updated train state, the prefill logits, the logits of three
-decode steps and the decode state, each held to the reference's
-(``mismatches``). Each cell runs under a ``Spy`` on the layer gather, and
-``_held_gathers`` holds on every rank what the gathers did: the whole
-bytes alive at once, the gradient buffers and the collectives. Then
+whole updated train state, the prefill logits, the logits and greedy
+tokens of three decode steps and the decode state, each held to the
+reference's (``mismatches``). Four more decode cells split the caches
+along their sequence (flash-decode: llama3.2-3b at batch 4 and at batch
+1, mixtral-8x7b's sliding-window ring, seamless-m4t-medium's self and
+cross caches), from seeded cache rows at positions that straddle the
+shards (``POSITIONS``). Each cell runs under a ``Spy`` on the layer
+gather, and ``_held_gathers`` holds on every rank what the gathers did:
+the whole bytes alive at once, the gradient buffers and the
+collectives; ``_held_decode`` holds a serve step's split: no cache,
+``wkv`` or ``ssm`` leaf gathered, a cache's storage 1/4 of the whole,
+the model and combine all-reduces the code's count. Then
 ``_gather_cases``: one unit's gather and backward against the whole
-path, and three planted faults that must break it. Then
+path, and three planted faults that must break it; the model region's
+and the serve step's planted faults (``_plants``, ``_decode_plants``).
+Then
 ``pipeline_apply`` over a 4-rank "stage" mesh: forward within 1e-5 and
 gradient within 1e-4 of the sequential ones. Any rank's failure raises,
 and the script exits non-zero; rank 0 writes a summary, with every
@@ -66,12 +75,31 @@ CELLS = [
     ("rwkv6-1.6b", ("t", "train", 32, 8), ""),
     ("zamba2-7b", ("t", "train", 32, 8), ""),
     ("llama3.2-3b", ("t", "train", 32, 8), "mqa"),
+    # flash-decode: the caches split along their sequence over "model"
+    # (two shards of 32), at global batch 1 over "data" and "model" (four
+    # of 16), a sliding window's ring (two of 16), and enc-dec's self and
+    # cross caches; each from a state of seeded cache rows (POSITIONS)
+    ("llama3.2-3b", ("d", "decode", 64, 4), ""),
+    ("llama3.2-3b", ("d", "decode", 64, 1), "batch1"),
+    ("mixtral-8x7b", ("d", "decode", 64, 4), ""),
+    ("seamless-m4t-medium", ("d", "decode", 64, 4), ""),
 ]
 # a variant's config overrides and compress_grads
 VARIANTS = {"": ({}, False), "adafactor": ({"optimizer": "adafactor"}, False),
             "compress": ({}, True), "remat_none": ({"remat": "none"}, False),
             "remat_dots": ({"remat": "dots"}, False),
-            "mqa": ({"num_kv_heads": 1}, False)}
+            "mqa": ({"num_kv_heads": 1}, False), "batch1": ({}, False)}
+# the decode cells that start from seeded cache rows (every cache leaf,
+# enc-dec's cross_k/cross_v too, ``seeded_state``) at these per-slot
+# positions, which straddle the shards' boundaries over the 3 steps:
+# llama's slot 0 has no live row on shard 1 and slot 1 writes rows 30, 31
+# and 32 across it; at batch 1 shard 3 stays empty and the writes cross
+# from shard 1 to 2; mixtral's ring of 32 has slot 1 cross from shard 0
+# to 1, slot 2 wrap to row 0, slot 3 live past the wrap
+POSITIONS = {"llama3.2-3b/decode": [0, 30, 32, 60],
+             "llama3.2-3b/decode/batch1": [30],
+             "mixtral-8x7b/decode": [5, 14, 31, 40],
+             "seamless-m4t-medium/decode": [0, 30, 32, 60]}
 # the share of a train state leaf's elements allowed beyond 1e-5 of its
 # scale (``mismatches``)
 TRAIN_OUTLIERS = 1e-3
@@ -81,6 +109,34 @@ RANKS = 4
 def cell_key(arch: str, cell: tuple, variant: str) -> str:
     """The cell's name, and the prefix of its leaves in REF.npz."""
     return f"{arch}/{cell[1]}" + (f"/{variant}" if variant else "")
+
+
+def decode_tokens(batch: int, t: int) -> np.ndarray:
+    """The tokens of a decode cell's step ``t``."""
+    return np.arange(batch, dtype=np.int32) * 37 + 11 * t
+
+
+# the leaves of a decode state that hold cache rows (their sequence axis)
+CACHE_KEYS = ("kv", "self", "attn", "cross_k", "cross_v")
+
+
+def seeded_state(state: dict, positions: list, seed: int = 0) -> dict:
+    """A decode state (numpy, of ``init_decode_state``'s structure) whose
+    cache rows are seeded normal draws in each leaf's dtype (a mask that
+    reads a row it should not then shows) and whose positions are
+    ``positions``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, val in state.items():
+        if key == "pos":
+            out[key] = np.asarray(positions, np.int32)
+        elif key in CACHE_KEYS:
+            out[key] = {k: rng.standard_normal(v.shape).astype(v.dtype)
+                        for k, v in val.items()} if isinstance(val, dict) \
+                else rng.standard_normal(val.shape).astype(val.dtype)
+        else:
+            out[key] = val
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +232,11 @@ class Spy:
     """What the gathers did on this rank while installed: the most bytes
     of whole leaves alive at once (weak references to every leaf a gather
     returns), the gradient buffers the train step hands its model, that
-    model, and the all-gathers and reduce-scatters issued; and the
+    model, and the all-gathers and reduce-scatters issued; the
     model-parallel region's collectives (``region``, ``MODEL``'s counts
-    when it was left)."""
+    when it was left); and, of a serve step, the storage and shape of each
+    state leaf ``decode_step`` computed on (``decoded``, a step a dict)
+    and the shape of every DTensor redistributed (``redistributed``)."""
 
     def __init__(self):
         self.alive = self.peak = 0
@@ -186,6 +244,8 @@ class Spy:
         self.model = None
         self.issued = collections.Counter()
         self.region = None
+        self.decoded = []  # each decode step's state: {path: (ptr, shape)}
+        self.redistributed = []  # each DTensor redistribution's shape
 
     def watch(self, t) -> None:
         self.alive += t.nbytes
@@ -211,6 +271,24 @@ class Spy:
                 spy.grads, spy.model = grads, self
 
         T.ShardedLM = Recorded
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch._tree import flatten
+
+        real_decode, real_redistribute = T.decode_step, DTensor.redistribute
+        self._undo += [(T, "decode_step", real_decode),
+                       (DTensor, "redistribute", real_redistribute)]
+
+        def decode_step(cfg, model, state, tokens):
+            spy.decoded.append({path: (t.data_ptr(), tuple(t.shape))
+                                for path, t in flatten(state)})
+            return real_decode(cfg, model, state, tokens)
+
+        def redistribute(t, *a, **k):
+            spy.redistributed.append(tuple(t.shape))
+            return real_redistribute(t, *a, **k)
+        T.decode_step = decode_step
+        DTensor.redistribute = redistribute
         for name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
             real = getattr(dist, name)
             self._undo.append((dist, name, real))
@@ -408,24 +486,21 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
     """Runs one cell under a ``Spy`` (and a train or prefill step under a
     ``FlopCounterMode``) and holds its values to the reference's, its
     gathers to ``_held_gathers`` and its model-parallel region to
-    ``_held_region``; returns their report."""
+    ``_held_region`` (a train or prefill step) or ``_held_decode`` (a
+    serve step); returns their report."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch.steps import build_cell_program
-    from repro_torch.models.transformer import (
-        init_decode_state, model_defs, model_roles)
-    from repro_torch.models.weights import state_to_numpy
+    from repro_torch.models.transformer import model_roles
     from repro_torch.parallel.layouts import rules_for
-    from repro_torch.parallel.sharding import full, map_defs, use_mesh
+    from repro_torch.parallel.sharding import full, use_mesh
 
     cfg, shape, _ = _config(arch, cell, variant)
     rules = rules_for(cfg, shape, mesh)
     key = cell_key(arch, cell, variant) + "/"
     what = key[:-1] + " "
     train = shape.kind == "train"
-    # the serve step gathers every leaf whole over "model"
-    roles = (map_defs(lambda d: None, model_defs(cfg))
-             if shape.kind == "decode" else model_roles(cfg, rules, mesh))
+    roles = model_roles(cfg, rules, mesh)
     if train:
         with Spy() as spy, FlopCounterMode(display=False) as fc:
             prog, state, m = _train_once(arch, cell, variant, ref, mesh)
@@ -444,7 +519,10 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
         return report
     prog = build_cell_program(cfg, shape, mesh, rules)
     step = prog.jitted()
-    want = expected_gathers(prog.args[0], prog.in_shardings[0], mesh, roles)
+    # decode runs the decoder alone, not an enc-dec config's encoder
+    want = expected_gathers({k: v for k, v in prog.args[0].items()
+                             if shape.kind != "decode" or k != "encoder"},
+                            prog.in_shardings[0], mesh, roles)
     params = _tree(ref, key + "params")
     if shape.kind == "prefill":
         batch = _tree(ref, key + "batch")
@@ -457,29 +535,167 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
         report.update(_held_region(cfg, shape, roles, spy, fc,
                                    _torch(params), _torch(batch), mesh, what))
         return report
-    # the port's own fresh state: the reference's values (zeros), with the
-    # hybrid's conv in the model's dtype where the reference starts it in
-    # bf16 (ROADMAP.md, a named divergence)
-    state = init_decode_state(cfg, shape.global_batch, shape.seq_len,
-                              device="cpu")
-    _check(mismatches(flat(state_to_numpy(state)),
-                      flat(_tree(ref, key + "in_state")), what + "init"))
     with Spy() as spy:
-        for t in range(3):
-            tokens = (np.arange(shape.global_batch, dtype=np.int32) * 37
-                      + 11 * t)
-            with use_mesh(mesh, rules):
-                logits, state = step(params, state, torch.from_numpy(tokens))
-            _check(mismatches({"": full(logits).numpy()},
-                              {"": ref[f"{key}logits{t}"]},
-                              f"{what}logits{t}"))
-    _check(mismatches(flat(state_to_numpy(state)),
-                      flat(_tree(ref, key + "out_state")), what + "state"))
+        prog, logits, state = _decode_once(arch, cell, variant, ref, mesh)
+    _check(_decode_mismatches(arch, cell, variant, ref, logits, state))
     report = _held_gathers(spy, want, cfg, 3, what)
-    report["model_all_reduces"] = spy.region["all_reduces"]
-    if spy.region["all_reduces"]:
-        _check([f"{what}{spy.region} model collectives in the serve step"])
+    report.update(_held_decode(cfg, shape, rules, roles, spy, state, mesh,
+                               what))
     return report
+
+
+def _decode_once(arch: str, cell: tuple, variant: str, ref, mesh):
+    """Three serve steps of a decode cell: (the program, each step's
+    logits as the step lays them out, the state after them). A cell of ``POSITIONS`` starts
+    from the reference's seeded state, the others from the port's own
+    fresh state (the reference's values, zeros, with the hybrid's conv in
+    the model's dtype where the reference starts it in bf16: ROADMAP.md, a
+    named divergence)."""
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.transformer import init_decode_state
+    from repro_torch.models.weights import state_to_numpy
+    from repro_torch.parallel.layouts import rules_for
+    from repro_torch.parallel.sharding import use_mesh
+
+    cfg, shape, _ = _config(arch, cell, variant)
+    rules = rules_for(cfg, shape, mesh)
+    key = cell_key(arch, cell, variant)
+    if key in POSITIONS:
+        state = _torch(_tree(ref, key + "/in_state"))
+    else:
+        state = init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                  device="cpu")
+        _check(mismatches(flat(state_to_numpy(state)),
+                          flat(_tree(ref, key + "/in_state")),
+                          key + " init"))
+    prog = build_serve_step(cfg, shape, mesh, rules)
+    step = prog.jitted()
+    params = _tree(ref, key + "/params")
+    logits = []
+    for t in range(3):
+        tokens = decode_tokens(shape.global_batch, t)
+        with use_mesh(mesh, rules):
+            out, state = step(params, state, torch.from_numpy(tokens))
+        logits.append(out)
+    return prog, logits, state
+
+
+def _decode_mismatches(arch, cell, variant, ref, logits, state) -> list:
+    """A decode cell's logits (every element within 1e-5 of the step's
+    max), greedy tokens (equal) and state against the reference's."""
+    from repro_torch.models.weights import state_to_numpy
+    from repro_torch.parallel.sharding import full
+
+    key = cell_key(arch, cell, variant)
+    bad = []
+    for t, got in enumerate(logits):
+        got = full(got).numpy()
+        want = ref[f"{key}/logits{t}"]
+        bad += mismatches({"": got}, {"": want}, f"{key} logits{t}")
+        if not np.array_equal(got.argmax(-1), as_f32(want).argmax(-1)):
+            bad.append(f"{key} greedy tokens{t} {got.argmax(-1)} != "
+                       f"{as_f32(want).argmax(-1)}")
+    return bad + mismatches(flat(state_to_numpy(state)),
+                            flat(_tree(ref, key + "/out_state")),
+                            f"{key} state")
+
+
+def decode_all_reduces(cfg, roles: dict, kv_split: bool) -> int:
+    """The code's count of a serve step's collectives over the model
+    region and the caches' sequence shards: three an attention over a
+    split cache (``attention._split_sdpa``: the scores' max, the sum of
+    their exponentials, the partial outputs), one at each split block's
+    ``leave`` (the MLP's, the experts', RWKV's time and channel mixes',
+    Mamba2's output projection) and the embedding's lookup over the vocab
+    shards; Mamba2's split decode two more, the conv's input row joined
+    (``ssm._whole_xbc``) and the gated norm's ``model_sum``. The logits'
+    ``enter`` all-reduces only in a backward."""
+    from repro_torch.models.transformer import hybrid_groups
+    from repro_torch.parallel.sharding import KEEP
+
+    kv = 3 if kv_split else 0
+
+    def kept(*path) -> int:
+        node = roles
+        for k in path:
+            node = node.get(k) if isinstance(node, dict) else None
+        return int(node == KEEP)
+
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        per = n * (kept("layers", "tm", "w_r") + kept("layers", "tm", "c_k"))
+    elif cfg.family == "hybrid":
+        ng, tail = hybrid_groups(cfg)
+        mamba = 3 * kept("groups", "mamba", "A_log")
+        per = ng * (kv + cfg.attn_every * mamba) + tail * mamba
+    elif cfg.is_encdec:
+        per = n * (2 * kv + kept("layers", "mlp", "w_up"))
+    else:
+        ffn = "moe" if cfg.num_experts else "mlp"
+        per = n * (kv + kept("layers", ffn, "w_up"))
+    return kept("embedding", "embed") + per
+
+
+def _held_decode(cfg, shape, rules, roles, spy, state, mesh,
+                 what: str) -> dict:
+    """A serve cell's split, held on this rank over its 3 steps: every
+    state leaf but Mamba2's ``conv`` was computed on in its own local
+    storage (no cache, ``wkv`` or ``ssm`` leaf gathered or copied), and
+    only ``conv`` was redistributed (gathered whole over "model"); each
+    cache leaf's storage is 1/model of the whole along its sequence (1/4
+    over "data" and "model" at global batch 1) besides the batch's split;
+    the model region's and the combine's all-reduces are the code's count
+    (``decode_all_reduces``)."""
+    from repro_torch._tree import flatten
+    from repro_torch.launch.steps import serve_layout
+    from repro_torch.parallel.sharding import local
+
+    layout = serve_layout(cfg, shape, rules, mesh, roles)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    bad = []
+    here = dict(flatten(state))
+    gathered = [tuple(here[p].shape) for p in layout.gathered]
+    for t, seen in enumerate(spy.decoded):
+        for path, (ptr, shp) in seen.items():
+            if path == ("pos",):
+                continue
+            mine = local(here[path])
+            if path in layout.gathered:  # its channels whole
+                whole = tuple(mine.shape[:-1]) + (here[path].shape[-1],)
+                if ptr == mine.data_ptr() or shp != whole:
+                    bad.append(f"{what}step {t}: {path} computed on {shp}, "
+                               f"not gathered whole {whole}")
+            elif ptr != mine.data_ptr() or shp != tuple(mine.shape):
+                bad.append(f"{what}step {t}: {path} computed on {shp}, not "
+                           f"on its local storage {tuple(mine.shape)}")
+    if sorted(spy.redistributed) != sorted(gathered * len(spy.decoded)):
+        bad.append(f"{what}redistributed {spy.redistributed}, the code "
+                   f"gathers {gathered} a step")
+    fractions = {}
+    for path, t in here.items():
+        if path[0] not in CACHE_KEYS:
+            continue
+        whole, mine = t.numel(), local(t).numel()
+        seq = np.prod([sizes[a] for a in layout.kv_seq], dtype=int)
+        batch = np.prod([sizes[a] for a in layout.batch], dtype=int)
+        fractions["/".join(path)] = mine / whole
+        want_seq = sizes["model"] * (sizes["data"]
+                                     if shape.global_batch == 1 else 1)
+        if seq != want_seq or whole != mine * seq * batch:
+            bad.append(f"{what}{path}: {mine} of {whole} elements here, "
+                       f"its sequence over {layout.kv_seq}")
+    code = 3 * decode_all_reduces(cfg, roles, bool(layout.kv_seq))
+    if spy.region["all_reduces"] != code:
+        bad.append(f"{what}{spy.region['all_reduces']} model and combine "
+                   f"all-reduces in 3 steps, the code gives {code}")
+    _check(bad)
+    return {"model_all_reduces": spy.region["all_reduces"],
+            "model_all_reduces_code": code,
+            "model_bytes": spy.region["bytes"],
+            "kv_seq_axes": list(layout.kv_seq),
+            "cache_local_fraction": fractions,
+            "gathered_state": ["/".join(p) for p in layout.gathered],
+            "redistributed": len(spy.redistributed)}
 
 
 # ---------------------------------------------------------------------------
@@ -821,6 +1037,60 @@ def _plants(ref, mesh) -> dict:
     return out
 
 
+def _decode_plants(ref, mesh) -> dict:
+    """Five faults planted in the serve step's split, each in a decode
+    cell whose values must then miss the reference's (the number of failed
+    checks: logits, greedy tokens and state leaves): a slot's new K/V row
+    written into every rank's shard, not only the one that holds its
+    global row (``attention._owned``); the shards' score maxima not
+    combined, each shard exponentiating against its own (the combine
+    without its rescale to the global max); the shard's rows read as
+    local indices, for its writes and its mask (``attention._shard_rows``);
+    at global batch 1, the combine over "model" alone, where the cache is
+    split over "data" and "model" (``sharding.mesh_group``); the decode
+    MLP's ``leave`` dropped. Every rank plants the same fault, so that the
+    collectives still pair."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as SH
+
+    llama = ("llama3.2-3b", ("d", "decode", 64, 4), "")
+    batch1 = ("llama3.2-3b", ("d", "decode", 64, 1), "batch1")
+    real_reduce = SH._kv_reduce
+
+    def own_max(group, x, op):
+        return x.clone() if op == "max" else real_reduce(group, x, op)
+
+    def mlp_kept_partial(cfg, p, x):
+        x = SH.enter(x)
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+    faults = {
+        "row_written_on_every_shard": (
+            attention, "_owned", lambda live, slot, rows: live, llama),
+        "max_not_combined": (SH, "_kv_reduce", own_max, llama),
+        "rows_read_as_local": (
+            attention, "_shard_rows",
+            lambda split, rows: (0, rows * split.count), llama),
+        "batch1_over_model_alone": (
+            SH, "mesh_group", lambda m, dims: m.get_group(MODEL_DIM), batch1),
+        "mlp_leave_dropped": (L, "mlp_apply", mlp_kept_partial, llama)}
+    out = {}
+    for name, (owner, attr, fault, cell) in faults.items():
+        real = getattr(owner, attr)
+        setattr(owner, attr, fault)
+        try:
+            _, logits, state = _decode_once(*cell, ref, mesh)
+        finally:
+            setattr(owner, attr, real)
+        out[name] = len(_decode_mismatches(*cell, ref, logits, state))
+    if not all(out.values()):
+        _check([f"a planted decode fault passed: {out}"])
+    return out
+
+
 @contextlib.contextmanager
 def _backward_on_another_thread():
     """Each ``Tensor.backward`` run on a new thread, as the autograd engine
@@ -918,6 +1188,7 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
         gathers = {cell_key(*c): _cell(*c, ref, mesh) for c in CELLS}
         cases = _gather_cases(mesh)
         region_plants = _plants(ref, mesh)
+        decode_plants = _decode_plants(ref, mesh)
         threads = _card_threads(ref, mesh)
         pipe = _pipeline(ref)
         every = [None] * RANKS
@@ -932,6 +1203,7 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
                 json.dump({"cells": [cell_key(*c) for c in CELLS],
                            "gathers": every, "gather_cases": cases,
                            "region_plants": region_plants,
+                           "decode_plants": decode_plants,
                            "backward_threads": threads,
                            "pipeline": pipe,
                            "world": {"ranks": dist.get_world_size(),

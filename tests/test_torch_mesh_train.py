@@ -21,13 +21,19 @@ five cells of the reference's ``tests/test_dryrun_small.py`` as programs,
 and mixtral-8x7b, Adafactor, int8-compression, remat "none" and remat
 "dots" llama3.2-3b train cells, rwkv6-1.6b and zamba2-7b train cells and
 an MQA llama3.2-3b train cell (reduced configs in f32, ``accum`` 2 where
-a cell trains) against the reference's 1×1 results computed here, with
+a cell trains), and four decode cells whose caches split along their
+sequence (flash-decode: llama3.2-3b at batch 4 and 1, mixtral-8x7b's
+ring, seamless-m4t-medium; seeded cache rows, the reference run on the
+same state), against the reference's 1×1 results computed here, with
 the layer gather's memory, gradient buffers and collectives held on
 every rank, the model-parallel region's flops (``FlopCounterMode``,
 against the same rows on one device) and all-reduces held to the code's
-count, a unit's gather held against the whole path with three planted
-faults that must fail, four planted faults of the model-parallel region
-that must fail, and ``pipeline_apply`` on a 4-rank "stage" mesh against
+count, a serve step's split held (no state leaf gathered but Mamba2's
+conv, a cache's storage 1/4, the model and combine all-reduces the
+code's count, greedy tokens equal), a unit's gather held against the
+whole path with three planted faults that must fail, four planted faults
+of the model-parallel region and five of the serve step's split that
+must fail, and ``pipeline_apply`` on a 4-rank "stage" mesh against
 the reference's sequential forward and ``jax.grad``. A rank's failure
 fails the test.
 """
@@ -66,8 +72,8 @@ from repro_torch.models.weights import state_to_numpy, \
 from repro_torch.parallel.layouts import rules_for
 from repro_torch.parallel.sharding import full, use_mesh
 
-from _torch_mesh_world import CELLS, TRAIN_OUTLIERS, VARIANTS, Spy, \
-    cell_key, flat, mismatches
+from _torch_mesh_world import CELLS, POSITIONS, TRAIN_OUTLIERS, VARIANTS, \
+    Spy, cell_key, decode_tokens, flat, mismatches, seeded_state
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "llama3.2-3b"
@@ -469,11 +475,13 @@ def _ref_cell(arch, cell, variant, out: dict) -> None:
             put("logits", prog.jitted()(params, batch))
         return
     state = RTF.init_decode_state(rcfg, rshape.global_batch, rshape.seq_len)
+    if key in POSITIONS:
+        state = jax.tree.map(jnp.asarray,
+                             seeded_state(_np(state), POSITIONS[key]))
     put("in_state", _np(state))
     step = prog.jitted()
     for t in range(3):
-        tokens = (np.arange(rshape.global_batch, dtype=np.int32) * 37
-                  + 11 * t)
+        tokens = decode_tokens(rshape.global_batch, t)
         with ref_use_mesh(rmesh, rules):
             logits, state = step(params, state, jnp.asarray(tokens))
         put(f"logits{t}", logits)
@@ -537,13 +545,28 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
     # same rows on one device, and the model group's all-reduces, held on
     # every rank to the code's count): llama's matmuls all split, the other
     # cells' but for those every model rank computes whole; the serve step
-    # keeps every leaf whole and launches no model collective
+    # splits the caches along their sequence (flash-decode), the MLP, the
+    # experts, the vocab and the RWKV and SSM heads, and gathers no state
+    # leaf but Mamba2's conv (held on every rank, _held_decode)
     halves = {"llama3.2-3b/train", "llama3.2-3b/train/adafactor",
               "llama3.2-3b/train/compress"}
+    decode = {cell_key(*c) for c in CELLS if c[1][1] == "decode"}
     for rank in res["gathers"]:
         for name, g in rank.items():
-            if name.endswith("/decode"):
-                assert g["model_all_reduces"] == 0, (name, g)
+            if name in decode:
+                assert g["model_all_reduces"] == \
+                    g["model_all_reduces_code"] > 0, (name, g)
+                caches = g["cache_local_fraction"]
+                if name == "rwkv6-1.6b/decode":
+                    assert not caches and not g["kv_seq_axes"], (name, g)
+                else:  # 1/4: the batch over "data", the sequence "model"
+                    assert set(caches.values()) == {0.25}, (name, g)
+                    assert g["kv_seq_axes"] == (
+                        ["data", "model"] if name.endswith("/batch1")
+                        else ["model"]), (name, g)
+                assert g["gathered_state"] == (
+                    ["mamba/conv"] if name == "zamba2-7b/decode" else []), \
+                    (name, g)
                 continue
             assert g["flop_ratio"] == g["flop_ratio_code"], (name, g)
             assert g["flop_ratio"] < 0.55, (name, g)
@@ -559,6 +582,11 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
         "gated_norm_sum_dropped"}
     assert all(n > 0 for n in res["region_plants"].values()), \
         res["region_plants"]
+    assert set(res["decode_plants"]) == {
+        "row_written_on_every_shard", "max_not_combined",
+        "rows_read_as_local", "batch1_over_model_alone", "mlp_leave_dropped"}
+    assert all(n > 0 for n in res["decode_plants"].values()), \
+        res["decode_plants"]
     # a card runs the backward, and remat's recompute, on a thread of its
     # own: with each backward on another thread the values still match,
     # and miss without the recompute's re-entered context

@@ -356,3 +356,68 @@ def test_a_query_head_block_that_reads_no_whole_kv_block_raises():
     assert [kv_block(8, 1, 4, r) for r in range(4)] == [(0, 1)] * 4
     assert [kv_block(32, 8, 16, r) for r in range(4)] == [
         (0, 1), (0, 1), (1, 1), (1, 1)]
+
+
+@pytest.mark.parametrize("mesh_name", ["2x2", "16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_roles_and_state_shapes(arch, mesh_name, fake_2x2):
+    """The serve step's split under the decode rules, for every arch and
+    decode shape on a (2, 2) DeviceMesh of the fake process group and on
+    the 16×16 stand-in: attention's leaves whole (the rules' ``act_heads``
+    None), the ffn, the vocab, the experts' ffn and the RWKV and SSM heads
+    keeping their chunk where the pruned specs split them (the same rule
+    as train and prefill); every state leaf's local shape the pruned
+    spec's (on the fake mesh, as DTensor computes it), and the layout
+    ``serve_layout`` takes: the caches' sequence over "model", or over
+    "data" and "model" at batch 1, and the batch as the tokens'."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    from repro_torch.launch import steps as S
+
+    mesh = fake_2x2 if mesh_name == "2x2" else _stand_in("16x16")
+    m = 2 if mesh_name == "2x2" else 16
+    sizes = {"data": m, "model": m}
+    cfg = get_config(arch)
+    defs = TF.model_defs(cfg)
+    for shape in SHAPES.values():
+        if shape.kind != "decode":
+            continue
+        rules = L.rules_for(cfg, shape, mesh)
+        specs = SH.specs_from_defs(defs, rules, mesh)
+        got = dict(_flat(TF.model_roles(cfg, rules, mesh)))
+        assert got == _expected_roles(cfg, rules, specs, defs, m), (
+            arch, shape.name)
+        assert not [p for p, r in got.items()
+                    if set(p) & {"attn", "xattn"} and r is not None]
+        kept = {p[-2] for p, r in got.items() if r == SH.KEEP}
+        blocks = {p[-2] for p in got} & {"mlp", "moe", "tm", "mamba",
+                                         "embedding"}
+        if mesh_name == "2x2":  # every split block splits on 2 ranks
+            assert kept == blocks, (arch, shape.name, kept, blocks)
+        layout = S.serve_layout(cfg, shape, rules, mesh)
+        has_cache = cfg.family != "ssm"
+        assert layout.kv_seq == ((("data", "model") if shape.global_batch
+                                  == 1 else ("model",)) if has_cache
+                                 else ()), (arch, shape.name, layout)
+        assert layout.batch == (() if shape.global_batch == 1
+                                else ("data",)), (arch, shape.name, layout)
+        state = TF.init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                     device="meta")
+        shardings = S._state_shardings(cfg, state, rules, mesh)
+        for (path, t), (_, sh) in zip(_flat(state), _flat(shardings)):
+            spec = tuple(sh.spec) + (None,) * (t.dim() - len(sh.spec))
+            want = tuple(n // int(np.prod([sizes[a] for a in (
+                e if isinstance(e, tuple) else (e,))])) if e else n
+                for n, e in zip(t.shape, spec))
+            block = {"wkv": ("layers", "tm", "w_r"),
+                     "ssm": ("groups", "mamba", "A_log")}.get(path[-1])
+            if block:  # this rank's heads where the blocks keep theirs
+                split = got[block] == SH.KEEP
+                assert want[2] == t.shape[2] // (m if split else 1), (
+                    arch, shape.name, path)
+            if mesh_name != "2x2":
+                continue
+            local, _ = compute_local_shape_and_global_offset(
+                tuple(t.shape), mesh, sh.placements)
+            assert tuple(local) == want, (arch, shape.name, path, spec)

@@ -33,6 +33,30 @@ fails. Needs four CUDA cards.
 
 ``--device cpu`` rehearses the same path on the CPU: the reduced config
 (8 rows of 32 tokens, the prefill 2 of 32), gloo in place of NCCL.
+
+    PYTHONPATH=src python3 tools/mesh_card_world.py --serve [--json PATH]
+
+``--serve`` runs the serve step instead: llama3.2-3b at full width and
+depth, ``SERVE``'s slots and cache, from one seeded state (every cache row
+a seeded draw, the slots' positions spread over the cache), on one card
+through ``decode_step`` and, for each of ``MESHES``, on four through
+``build_serve_step`` (the caches split along their sequence over "model",
+flash-decode; the MLP and the vocab over "model"), the parameters and
+the state laid out once. First a check in f32 on an f32 cache:
+``SERVE["check_steps"]`` greedy steps, each side feeding its own argmax,
+whose logits must lie within ``SERVE_F32_RTOL`` of the largest of one
+card's and whose tokens must be the same; the same on the cache's own
+bf16, whose gap is reported (``SERVE_RUNS`` says why). Then the timed
+run in bf16:
+``SERVE["warm"]`` steps, then ``SERVE["steps"]`` timed, fed one seeded
+token sequence, whose logits must lie within ``SERVE_BF16_RTOL`` (the
+argmax's agreement is reported). Each rank reports ms a step, the cache's
+GB it holds, its peak GB, the GB gathered a step (the layer gather's whole
+leaves, ``GATHER``, and any state leaf a DTensor redistribution gathers)
+and the all-reduces a step over the model region and the caches' shards
+(``MODEL``). Run with another checkout's ``src`` on ``PYTHONPATH`` (the
+parent commit's, unpacked by ``git archive``), it measures that one's
+serve step on the same cards.
 """
 from __future__ import annotations
 
@@ -65,6 +89,28 @@ OUTLIERS = 1e-3
 FLIP = 2 * LR * (1 + 1e-3)
 # the prefill's logits against one card's, of their largest |value|
 LOGITS_RTOL = 1e-5
+# --serve: the slots, cache rows, warm-up, timed and checked steps
+SERVE = dict(slots=8, cache=8192, warm=2, steps=16, check_steps=3)
+# its logits against one card's, of their largest |value|: in f32 the
+# split changes the order of the f32 sums (the MLP's and the vocab's
+# partial sums, the shards' softmax sums and partial outputs) and can flip
+# a bf16 rounding of an attention probability or output where the two
+# orders straddle it (the cache is bf16), a bf16 step of one element in a
+# layer; in bf16 each rank's partial sums are rounded to bf16 before the
+# all-reduce, a bf16-sized change of each split block's output, which a
+# bf16 model turns into 2-3% of its logits (PERF.md, section 6)
+SERVE_F32_RTOL = 1e-4
+SERVE_BF16_RTOL = 5e-2
+# --serve's runs: (the model's dtype, the cache's; None: its own, bf16).
+# "float32" holds SERVE_F32_RTOL where nothing rounds to bf16 (an f32
+# cache); "float32_bf16_cache" keeps the decode cache's own bf16, where an
+# f32 ulp apart in a new K/V row can round it a bf16 ulp apart, which 28
+# layers carry into the logits (PERF.md, section 6: 1.8e-3 of their max
+# on (2, 2) with the batch split alone): its gap is reported, not held;
+# "bfloat16" is the timed run
+SERVE_RUNS = {"float32": ("float32", torch.float32),
+              "float32_bf16_cache": ("float32", None),
+              "bfloat16": ("bfloat16", None)}
 
 
 def _setup(args):
@@ -159,6 +205,234 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
         "loss": metrics["loss"], "grad_norm": metrics["grad_norm"]}}
 
 
+def _serve_cfg(args, dtype: str):
+    from repro_torch.configs import ShapeSpec, get_config, reduced
+
+    cfg = get_config("llama3.2-3b")
+    cpu = args.device == "cpu"
+    if cpu:
+        cfg = reduced(cfg)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    slots, cache = SERVE["slots"], 64 if cpu else SERVE["cache"]
+    return cfg, ShapeSpec("serve", "decode", cache, slots)
+
+
+def _serve_state(cfg, shape, device: str, cache_dtype=None) -> dict:
+    """The seeded decode state, the same on every rank: every cache row a
+    normal draw (seed 1), the slots' positions spread over the cache; the
+    cache in ``cache_dtype`` (None: its own, bf16)."""
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    state = T.init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                device=device)
+    if cache_dtype is not None:
+        state["kv"] = {k: v.to(cache_dtype) for k, v in state["kv"].items()}
+    for leaf in state["kv"].values():
+        for i in range(leaf.shape[0]):  # a layer at a time
+            leaf[i].copy_(torch.randn(leaf[i].shape, generator=gen,
+                                      device=device))
+    room = shape.seq_len - SERVE["warm"] - SERVE["steps"] - 1
+    state["pos"].copy_(torch.arange(shape.global_batch, device=device)
+                       * (room // shape.global_batch) + 3)
+    return state
+
+
+def _serve_run(args, device: str, mesh_shape) -> dict:
+    """The f32 check and the timed bf16 run on one card (``mesh_shape``
+    None: ``decode_step``) or on a mesh (``build_serve_step``); the
+    logits (whole) and tokens of each, and this rank's readings."""
+    from repro_torch._tree import flatten, leaves
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as SH
+
+    cuda = device != "cpu"
+    gathered = [0]
+    if mesh_shape is not None:
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.launch.mesh import make_mesh_compat
+        from repro_torch.launch.steps import build_serve_step, place
+        from repro_torch.parallel.layouts import rules_for
+
+        mesh = make_mesh_compat(mesh_shape, ("data", "model"), device=device)
+        real = DTensor.redistribute
+
+        def redistribute(t, *a, **k):  # a state leaf gathered: its bytes
+            out = real(t, *a, **k)
+            grew = out.to_local().nbytes - t.to_local().nbytes
+            gathered[0] += max(grew, 0)
+            return out
+        DTensor.redistribute = redistribute
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    out = {}
+    try:
+        for run_name, (dtype, cache_dtype) in SERVE_RUNS.items():
+            cfg, shape = _serve_cfg(args, dtype)
+            gen = torch.Generator(device=device).manual_seed(0)
+            params = T.init_param_tree(cfg, gen, device=device)
+            state = _serve_state(cfg, shape, device, cache_dtype)
+            if mesh_shape is None:
+                model = T.TransformerLM.from_stacked(cfg, params)
+
+                def step(tokens, state):
+                    return T.decode_step(cfg, model, state, tokens)
+            else:
+                rules = rules_for(cfg, shape, mesh)
+                prog = build_serve_step(cfg, shape, mesh, rules)
+                # laid out once, as a server keeps them; the whole let go
+                params = place(params, prog.in_shardings[0])
+                state = place(state, prog.in_shardings[1])
+                run = prog.jitted()
+
+                def step(tokens, state):
+                    with SH.use_mesh(mesh, rules):
+                        logits, state = run(params, state, tokens)
+                    return SH.full(logits), state
+            check = run_name != "bfloat16"
+            n = SERVE["check_steps"] if check else (SERVE["warm"]
+                                                    + SERVE["steps"])
+            feed = torch.randint(0, cfg.vocab_size, (n, shape.global_batch),
+                                 generator=torch.Generator().manual_seed(2),
+                                 dtype=torch.int32).to(device)
+            tokens = feed[0]
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+            logits_seen, ms, counts = [], [], []
+            for i in range(n):
+                SH.GATHER.reset()
+                SH.MODEL.reset()
+                gathered[0] = 0
+                sync()
+                t0 = time.perf_counter()
+                logits, state = step(tokens, state)
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                counts.append({"gathered_gb": (SH.GATHER.bytes_copied
+                                               + gathered[0]) / 1e9,
+                               "model_all_reduces": SH.MODEL.all_reduces})
+                logits_seen.append(logits.to("cpu", copy=True))
+                tokens = (logits.argmax(-1).to(torch.int32) if check
+                          else feed[(i + 1) % n])
+            timed = ms if check else ms[SERVE["warm"]:]
+            caches = [t for p, t in flatten(state) if p[0] == "kv"]
+            out[run_name] = {
+                "logits": torch.stack(logits_seen),
+                "readings": {
+                    "step_ms": ms,
+                    "median_ms": statistics.median(timed),
+                    "cache_gb": sum(SH.local(t).nbytes for t in caches) / 1e9,
+                    "whole_cache_gb": sum(t.numel() * t.element_size()
+                                          for t in caches) / 1e9,
+                    "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                                if cuda else None),
+                    "per_step": counts[-1],
+                    "local_params_gb": sum(SH.local(p).nbytes
+                                           for p in leaves(params)) / 1e9}}
+            del params, state, step
+            if mesh_shape is None:
+                del model
+            else:
+                del prog, run
+    finally:
+        if mesh_shape is not None:
+            DTensor.redistribute = real
+    return out
+
+
+def _serve_rank(rank: int, args, port: int, out_path: str,
+                mesh_shape: tuple) -> None:
+    cuda = args.device != "cpu"
+    if cuda:
+        os.environ["LOCAL_RANK"] = str(rank)
+        torch.cuda.set_device(rank)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
+        rank=rank, world_size=RANKS, timeout=datetime.timedelta(seconds=300))
+    try:
+        res = _serve_run(args, f"cuda:{rank}" if cuda else "cpu",
+                         mesh_shape)
+        every = [None] * RANKS
+        dist.all_gather_object(every, {k: v["readings"]
+                                       for k, v in res.items()})
+        if rank == 0:
+            torch.save({"logits": {k: v["logits"] for k, v in res.items()},
+                        "ranks": every}, out_path)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_held(got: dict, want: dict) -> tuple[list, dict]:
+    """A mesh's logits against one card's: the f32 check's (an f32 cache)
+    within SERVE_F32_RTOL and its greedy tokens equal; the bf16 run's
+    within SERVE_BF16_RTOL; the f32 model's on its bf16 cache reported
+    (the argmax's agreement of each too)."""
+    bad, worst = [], {}
+    for run, rtol in (("float32", SERVE_F32_RTOL),
+                      ("float32_bf16_cache", None),
+                      ("bfloat16", SERVE_BF16_RTOL)):
+        g, w = got[run].float(), want[run].float()
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        worst[run] = err
+        agree = (g.argmax(-1) == w.argmax(-1)).double().mean()
+        worst[run + "_argmax_agreement"] = float(agree)
+        if rtol is not None and err > rtol:
+            bad.append(f"{run} logits {err} of their max, over {rtol}")
+        if run == "float32" and agree < 1:
+            bad.append(f"f32 greedy tokens differ ({float(agree)} agree)")
+    return bad, worst
+
+
+def serve_main(args, card) -> int:
+    from repro_torch.launch.mesh import release_process_group
+
+    device = "cuda:0" if args.device != "cpu" else "cpu"
+    one = _serve_run(args, device, None)
+    release_process_group()
+    if args.device != "cpu":
+        torch.cuda.empty_cache()
+    want = {k: v["logits"] for k, v in one.items()}
+    meshes, bad = {}, []
+    for mesh_shape in MESHES:
+        name = "x".join(map(str, mesh_shape))
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "serve.pt")
+            mp.spawn(_serve_rank, args=(args, port, path, mesh_shape),
+                     nprocs=RANKS, join=True)
+            sharded = torch.load(path)
+        fails, worst = _serve_held(sharded["logits"], want)
+        bad += [f"{name}: {f}" for f in fails]
+        meshes[name] = {"mesh": {"data": mesh_shape[0],
+                                 "model": mesh_shape[1]},
+                        "ranks": sharded["ranks"],
+                        "worst_over_max": worst, "failures": fails}
+    import repro_torch
+    out = {"cards": card, "arch": "llama3.2-3b", "mode": "serve",
+           "package": os.path.dirname(repro_torch.__file__),
+           "serve": SERVE, "one_card": {k: v["readings"]
+                                        for k, v in one.items()},
+           "meshes": meshes,
+           "limits": {"float32": SERVE_F32_RTOL, "float32_bf16_cache": None,
+                      "bfloat16": SERVE_BF16_RTOL},
+           "failures": bad}
+    print(json.dumps(out), flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    return 1 if bad else 0
+
+
 def _rank(rank: int, args, port: int, out_path: str,
           mesh_shape: tuple) -> None:
     cuda = args.device != "cpu"
@@ -219,6 +493,8 @@ def main() -> int:
     parser.add_argument("--layers", type=int, default=4)
     parser.add_argument("--steps", type=int, default=2)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--serve", action="store_true",
+                        help="the serve step in place of train and prefill")
     parser.add_argument("--json", help="also write the result here")
     args = parser.parse_args()
     cuda = args.device != "cpu"
@@ -229,6 +505,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines() if cuda else ["cpu"])
+    if args.serve:
+        return serve_main(args, card)
     from repro_torch.launch.mesh import release_process_group
 
     one = _run(args, "cuda:0" if cuda else "cpu", (1, 1))
