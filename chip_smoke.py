@@ -133,7 +133,11 @@ tensor-core kernel. Then:
   gathers' calls a step held to the code's count (``mesh_gather_calls``)
   with no byte copied and no collective, every shard being the whole,
   and no collective of the model-parallel region (``MODEL``: a model axis
-  of one rank splits nothing); slice 7d's ``mesh_serve``,
+  of one rank splits nothing, neither the blocks nor the sequence, so no
+  all-gather or reduce-scatter of it); ``mesh_prefill``,
+  ``launch.steps.build_prefill_step`` on the same mesh at the check's 4
+  layers in f32 over 2 x 2048 tokens, its logits bit for bit
+  ``forward``'s, with no such collective; slice 7d's ``mesh_serve``,
   ``launch.steps.build_serve_step`` on the same mesh, llama3.2-3b at full
   width and depth in bf16, MESH_SERVE's slots, cache and steps from one
   seeded state (cache rows drawn, positions spread over the cache), held
@@ -524,6 +528,9 @@ FIRST_LOSS_NATS = 0.1
 # Slice 7d: the mesh serve step on the 1x1 mesh (mesh_serve): llama3.2-3b
 # at full width and depth in bf16, these slots, cache and greedy steps
 MESH_SERVE = dict(slots=8, cache=1024, steps=8)
+# mesh_prefill: build_prefill_step on the 1x1 mesh at mesh_train_check's
+# depth in f32, over these rows of MESH["seq_len"] tokens
+MESH_PREFILL_ROWS = 2
 
 
 # Slice 7b: single-device training of the other five families, B4's
@@ -738,10 +745,12 @@ def mesh_gather_calls(cfg) -> int:
     return max(cfg.accum, 1) * (1 + again * units)
 
 
-# the model-parallel region's collectives on a 1x1 mesh: none
-# (``parallel/sharding.py`` ``MODEL``; a model axis of one rank opens no
-# region)
-NO_REGION = {"all_reduces": 0, "bytes": 0}
+# the model-parallel region's collectives on a 1x1 mesh: none, and no
+# all-gather or reduce-scatter of a sequence split (``parallel/sharding.py``
+# ``MODEL``; a model axis of one rank opens no region and splits no
+# sequence)
+NO_REGION = {"all_reduces": 0, "bytes": 0, "all_gathers": 0,
+             "gathered_bytes": 0, "reduce_scatters": 0, "scattered_bytes": 0}
 
 
 def gather_held(counts: dict, cfg, steps: int) -> bool:
@@ -4597,6 +4606,60 @@ class Smoke:
             gc.collect()
             torch.cuda.empty_cache()
 
+    def mesh_prefill(self):
+        """``build_prefill_step`` on the 1x1 mesh: llama3.2-3b at full
+        width, CHECK_LAYERS deep, f32, over MESH_PREFILL_ROWS rows of
+        MESH's length, from ``init_param_tree``'s seeded parameters. On
+        one rank it is ``forward`` on the state's own storage: its logits
+        must equal ``forward``'s on the same parameters bit for bit, with
+        no collective of the model region or its sequence split
+        (``MODEL``)."""
+        import dataclasses
+
+        import torch
+        from repro_torch.configs import ShapeSpec, get_config
+        from repro_torch.launch.steps import build_prefill_step, place
+        from repro_torch.models import synthetic_batch
+        from repro_torch.models import transformer as T
+        from repro_torch.parallel.layouts import rules_for
+        from repro_torch.parallel.sharding import MODEL, full, use_mesh
+
+        mesh = self.mesh()
+        cfg = dataclasses.replace(get_config(ARCH), num_layers=CHECK_LAYERS,
+                                  dtype="float32")
+        shape = ShapeSpec("mesh_prefill", "prefill", MESH["seq_len"],
+                          MESH_PREFILL_ROWS)
+        batch = synthetic_batch(cfg, shape, device="cuda")
+        params = T.init_param_tree(cfg, device="cuda")
+        rules = rules_for(cfg, shape, mesh)
+        prog = build_prefill_step(cfg, shape, mesh, rules)
+        placed = place(params, prog.in_shardings[0])
+        MODEL.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_mesh(mesh, rules):
+            logits = full(prog.jitted()(placed, batch))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        region = MODEL.counts()
+        want, _ = T.forward(cfg, T.TransformerLM.from_stacked(cfg, params),
+                            batch)
+        same = torch.equal(logits, want)
+        self.check(same and bool(torch.isfinite(logits).all()),
+                   f"mesh_prefill: the 1x1 prefill's logits are not "
+                   f"forward's bit for bit (worst "
+                   f"{float((logits - want).abs().max())})")
+        self.check(region == NO_REGION,
+                   f"mesh_prefill: model collectives {region} on a 1x1 "
+                   f"mesh")
+        emit({"phase": "mesh_prefill", "arch": ARCH, "layers": CHECK_LAYERS,
+              "dtype": "float32", "mesh": {"data": 1, "model": 1},
+              "tokens": [MESH_PREFILL_ROWS, MESH["seq_len"]],
+              "entry": "launch.steps.build_prefill_step",
+              "bit_equal_forward": same, "ms": ms,
+              "model_collectives": region, "card": self.card})
+        del logits, want, params, placed
+
     def mesh_train(self):
         """``launch.train.train`` on llama3.2-3b at full width and depth in
         bf16 on the 1x1 mesh (MESH's steps, batch and length; the config's
@@ -4929,8 +4992,8 @@ def main() -> int:
                   smoke.encdec_main_path, smoke.vlm_main_path,
                   smoke.train_main_path, smoke.train_bf16_check,
                   smoke.families_train, smoke.train_resume,
-                  smoke.mesh_train_check, smoke.mesh_train,
-                  smoke.mesh_serve,
+                  smoke.mesh_train_check, smoke.mesh_prefill,
+                  smoke.mesh_train, smoke.mesh_serve,
                   smoke.lm_kernel_launches, smoke.main_path):
         t_phase = time.perf_counter()
         try:

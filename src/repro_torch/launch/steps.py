@@ -51,15 +51,26 @@ heads, the SSM's B and C, RWKV's receptance and decay LoRA) each rank
 computes whole, and where its ranks use such a leaf in part its gradient
 is summed over "model". The embedding is a lookup over the vocab shards,
 the logits this rank's vocab chunk and the loss a cross-entropy over the
-shards. The serve step splits the decode caches along their sequence
-(the reference's flash-decode ``kv_seq``, ``sharding.kv_split``): each
-rank writes and reads its shard in place, its attention whole over the
+shards. The train and prefill steps also split the residual stream's
+sequence over "model" where the rules put ``seq`` there and the pruned
+spec keeps it for the stream's own length (the reference's Megatron-SP,
+``sharding.seq_parallel``, the rules handed to ``model_parallel``): the
+embedding lookup ends in a reduce-scatter into this rank's rows, the
+norms, the residual adds and the block inputs that remat keeps are this
+rank's rows, each block's ``enter`` all-gathers the sequence and its
+``leave`` reduce-scatters the partial output into the rows (a block with
+no split leaf takes its own rows of its whole output), and the logits
+gather the sequence whole before the head, so that the logits and the
+loss keep their layout. The norm scales' gradients are then summed over
+"model" (``model_roles`` with the step's shape). Prefill's
+``seq_inner`` (attention over the query rows where the heads do not
+divide the model size) is not ported: ROADMAP.md's slice 7d part three
+(c). The serve step splits the decode caches along their sequence (the
+reference's flash-decode ``kv_seq``, ``sharding.kv_split``): each rank
+writes and reads its shard in place, its attention whole over the
 heads, the shards' softmax combined by all-reduces
-(``build_serve_step``). The train and prefill sequences are not split
-over "model" (the reference's Megatron-SP ``seq`` and prefill's
-``seq_inner``): that is ROADMAP.md's slice 7d part three (b). The
-optimizers update the shards, with their global norms, scales and means
-reduced over the mesh (``optim/``).
+(``build_serve_step``). The optimizers update the shards, with their
+global norms, scales and means reduced over the mesh (``optim/``).
 
 ``build_train_step`` keeps the reference's arithmetic: ``accum``
 microbatches of ``global_batch / accum`` rows (row block j is microbatch
@@ -288,7 +299,8 @@ def build_train_step(
     accum = max(cfg.accum, 1)
     assert shape.global_batch % accum == 0, (shape.global_batch, accum)
     rows = shape.global_batch // accum
-    model_of = _Model(cfg, grads=True, roles=T.model_roles(cfg, rules, mesh))
+    model_of = _Model(cfg, grads=True,
+                      roles=T.model_roles(cfg, rules, mesh, shape))
 
     batch_specs = I.input_specs(cfg, shape)
     # each microbatch's rows split over the mesh dims that the rules give
@@ -313,6 +325,11 @@ def build_train_step(
         for g in leaves(model_of.grads):
             g.zero_()
         whole = {k: SH.local(v) for k, v in batch.items()}
+        for k, spec in batch_specs.items():  # the roles read its lengths
+            if whole[k].shape != spec.shape:
+                raise ValueError(f"batch {k!r} of shape "
+                                 f"{tuple(whole[k].shape)}, the step's "
+                                 f"{tuple(spec.shape)}")
         coord = mesh.get_coordinate()
         share = 0
         for k in dims:
@@ -320,7 +337,7 @@ def build_train_step(
         total = torch.zeros((), dtype=torch.float32,
                             device=whole["tokens"].device)
         with SH.data_parallel(mesh, dims), \
-                SH.model_parallel(mesh, SH.model_dim_of(mesh)):
+                SH.model_parallel(mesh, SH.model_dim_of(mesh), rules):
             for j in range(accum):
                 lo = j * rows + share * per
                 mb = {k: v[lo:lo + per] for k, v in whole.items()}
@@ -403,7 +420,7 @@ def build_prefill_step(
     from torch.distributed.tensor import Shard
 
     cfg = apply_decisions(cfg, dec)
-    model_of = _Model(cfg, roles=T.model_roles(cfg, rules, mesh))
+    model_of = _Model(cfg, roles=T.model_roles(cfg, rules, mesh, shape))
     mdim = SH.model_dim_of(mesh)
 
     def prefill_step(params, batch):
@@ -411,7 +428,8 @@ def build_prefill_step(
         dims = _batch_dims(batch["tokens"])
         split = _split(mesh, dims, 0)
         mine = {k: SH.to_placements(v, split) for k, v in batch.items()}
-        with SH.data_parallel(mesh, dims), SH.model_parallel(mesh, mdim):
+        with SH.data_parallel(mesh, dims), \
+                SH.model_parallel(mesh, mdim, rules):
             logits, _ = T.forward(cfg, model, mine, mode=mode, remat="none")
         vocab = cfg.padded_vocab()
         if logits.shape[-1] != vocab:  # this rank's vocab chunk

@@ -22,7 +22,16 @@ only, and the output projection's partial sums ``leave``. Its K/V heads
 are then this rank's too where ``wk``/``wv`` came split; where they came
 whole (K not divisible by the model size, as MQA), the rank projects
 every KV head and hands B3 the block its query heads read
-(``kv_block``), so B3 and ``_grouped_sdpa`` see local heads only.
+(``kv_block``), so B3 and ``_grouped_sdpa`` see local heads only. Under
+a sequence split of the residual stream (``sharding.seq_parallel``,
+Megatron-SP) its input is this rank's rows: ``enter`` all-gathers the
+sequence, so that B3 runs over the whole of it, and ``leave``
+reduce-scatters the output projection's partial sums into this rank's
+rows; attention with every head whole (its heads do not divide the model
+size) gathers its input the same way and takes its own rows of its
+output. Cross-attention's memory comes as this rank's rows where the
+encoder's stream split too, and ``enter`` gathers it whole; a memory
+whose length did not split comes whole (``memory_rows`` False).
 
 In a mesh serve step the caches may be this rank's shard of their
 sequence (``parallel/sharding.py`` ``kv_split``: the reference's
@@ -206,26 +215,27 @@ def attention(
     rope: bool = True,
     mode: str = "exec",
     positions: Optional[torch.Tensor] = None,
+    memory_rows: Optional[bool] = None,
 ) -> torch.Tensor:
     """Self-attention (``kv_x`` None) over full sequences through the flash
     kernel (causal with an optional window, or full), or cross-attention
     over ``kv_x`` (B, T, D) as PyTorch ops, with no rope and no mask.
     ``mode`` is accepted for the reference's signature; both of its modes
     compute the same function. With this rank's query heads (a model
-    split) the output is summed over the model ranks."""
-    s = x.shape[1]
+    split) the output is summed over the model ranks. Under a sequence
+    split ``memory_rows`` says whether ``kv_x`` is this rank's rows of
+    it too (None: as ``x``)."""
     split = p["wq"].shape[1] != cfg.num_heads
-    if split:
-        x = enter(x)
-        kv_x = None if kv_x is None else enter(kv_x)
+    x = enter(x, split)
+    kv_x = None if kv_x is None else enter(kv_x, split, memory_rows)
+    s = x.shape[1]
     q = _project_q(cfg, p, x)
     if kv_x is not None:
         if causal:
             raise ValueError("cross-attention takes no causal mask")
         k, v = _local_kv(cfg, q, *_project_kv(cfg, p, kv_x))
         out = _grouped_sdpa(q, k, v, mask=None)
-        out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-        return leave(out) if split else out
+        return leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), split)
     k, v = _local_kv(cfg, q, *_project_kv(cfg, p, x))
     if rope:
         pos = (positions if positions is not None
@@ -237,8 +247,7 @@ def attention(
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),
                           causal=causal, window=window if causal else 0)
-    out = torch.einsum("bhsk,hkd->bsd", out, p["wo"])
-    return leave(out) if split else out
+    return leave(torch.einsum("bhsk,hkd->bsd", out, p["wo"]), split)
 
 
 # ---------------------------------------------------------------------------

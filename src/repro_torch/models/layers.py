@@ -11,7 +11,15 @@ columns or vocab rows; it reads that off the leaf's shape (narrower than
 the config's) and computes its chunk, between ``enter`` and ``leave``:
 the MLP on its ffn columns, the embedding lookup on its vocab rows, the
 logits on its vocab chunk, and the cross-entropy over the vocab shards.
-With whole leaves each function is the single-device one.
+With whole leaves each function is the single-device one. Under a
+sequence split of the residual stream (``seq_parallel``, Megatron-SP)
+the stream is this rank's rows: ``rms_norm`` runs on them, the MLP's
+``enter`` all-gathers its input's sequence and its ``leave``
+reduce-scatters the partial output into them (an MLP with whole leaves
+takes its own rows of its output), the lookup ends in a reduce-scatter
+into them (its own rows where the table is whole), and the logits
+gather the sequence whole before the head, so that the logits and the
+loss keep the unsplit region's layout.
 """
 from __future__ import annotations
 
@@ -23,7 +31,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm.ops import rms_norm as _rms_norm_op
 from repro_torch.parallel.sharding import (
-    PDef, batch_shards, batch_sum, enter, leave, model_index, model_max,
+    PDef, batch_shards, batch_sum, current_seq_split, enter, leave,
+    model_index, model_max,
 )
 
 
@@ -87,15 +96,13 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     """With this rank's ffn columns of ``w_gate``/``w_up`` and rows of
     ``w_down`` (a model split), the partial outputs summed by ``leave``."""
     split = p["w_up"].shape[1] != cfg.d_ff
-    if split:
-        x = enter(x)
+    x = enter(x, split)
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         # jax.nn.gelu defaults to the tanh approximation; torch's to exact
         h = F.gelu(x @ p["w_up"], approximate="tanh")
-    out = h @ p["w_down"]
-    return leave(out) if split else out
+    return leave(h @ p["w_down"], split)
 
 
 # ---------------------------------------------------------------------------
@@ -111,25 +118,38 @@ def embedding_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor,
+                 front: int = 0) -> torch.Tensor:
     """The tokens' rows; from this rank's vocab rows only (a model split),
     the other ranks' tokens read zeros, and ``leave`` sums the ranks'
-    lookups into every row."""
+    lookups into every row. Under a sequence split the result is this
+    rank's rows of the stream: of the lookup with ``front`` rows of zeros
+    in front of it (where the VLM's patches go), a reduce-scatter of the
+    ranks' lookups where the table is split (the reference's
+    ``shard_act`` on the lookup), its own rows where not. Without one,
+    ``front`` adds nothing."""
     table = p["embed"]
     rows = table.shape[0]
-    if rows == cfg.padded_vocab():
-        return table[tokens]
-    idx = tokens.long() - model_index() * rows
-    inside = (idx >= 0) & (idx < rows)
-    x = table[idx.clamp(0, rows - 1)]
-    return leave(torch.where(inside[..., None], x, x.new_zeros(())))
+    split = rows != cfg.padded_vocab()
+    if split:
+        idx = tokens.long() - model_index() * rows
+        inside = (idx >= 0) & (idx < rows)
+        x = table[idx.clamp(0, rows - 1)]
+        x = torch.where(inside[..., None], x, x.new_zeros(()))
+    else:
+        x = table[tokens]
+    if front and current_seq_split() is not None:
+        x = torch.cat([x.new_zeros((x.shape[0], front) + x.shape[2:]), x],
+                      dim=1)
+    return leave(x, split)
 
 
 def lm_logits(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """Logits; over this rank's vocab chunk where the table is split."""
+    """Logits; over this rank's vocab chunk where the table is split.
+    Under a sequence split ``x`` is this rank's rows, gathered whole
+    along the sequence before the head (the reference's ``seq_inner``)."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    if w.shape[1] != cfg.padded_vocab():
-        x = enter(x)
+    x = enter(x, w.shape[1] != cfg.padded_vocab())
     return x @ w
 
 

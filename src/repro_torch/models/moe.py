@@ -27,6 +27,21 @@ its columns of every expert's SwiGLU, and the combine weights its partial output
 routing weights, which ``enter`` too, before ``leave`` sums them. So the
 routing weights' gradient arrives whole on every rank, and the router's
 gradient (its aux loss's part included) is the same on each: no sum.
+
+Under a sequence split of the residual stream (``sharding.seq_parallel``,
+Megatron-SP) the block's input is this rank's rows. Dispatch is
+row-local over the whole sequence, so ``enter`` gathers it first and the
+router reads the gathered tokens; the combine's partial outputs then
+``leave`` by a reduce-scatter into this rank's rows (the reference's
+``shard_act`` on the combine). Where the experts are split, every
+gradient inside the region is partial, as that reduce-scatter's
+backward sums it: the routing weights do not ``enter`` (their gradient
+from each rank's columns is partial), and the aux loss, the same on
+every rank, passes ``once``, so that only the first model rank's
+gradient counts it. The router's gradient is then partial on each rank,
+and summed over "model" (``transformer.model_roles``). With whole
+experts the block gathers its input and takes its own rows of its
+output.
 """
 from __future__ import annotations
 
@@ -35,7 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.parallel.sharding import (
-    PDef, batch_shards, batch_sum, enter, leave,
+    PDef, batch_shards, batch_sum, current_seq_split, enter, leave, once,
 )
 
 
@@ -103,14 +118,19 @@ def dispatch_slots(ids: torch.Tensor, num_experts: int, cap: int):
 def moe_apply(cfg: ArchConfig, p, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, S, D) in x's dtype, aux loss)."""
+    split = p["w_up"].shape[2] != cfg.d_ff
+    if current_seq_split() is None:
+        weights, ids, aux = route(cfg, p, x)
+        if split:
+            x, weights = enter(x), enter(weights)
+    else:  # the router reads the gathered sequence
+        x = enter(x, split)
+        weights, ids, aux = route(cfg, p, x)
+        if split:
+            aux = once(aux)
     b, s, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     cap = capacity(cfg, s)
-    split = p["w_up"].shape[2] != cfg.d_ff
-
-    weights, ids, aux = route(cfg, p, x)
-    if split:
-        x, weights = enter(x), enter(weights)
 
     # ---- row-local dispatch: the source token of each (E*C) slot ----------
     dest, keep = dispatch_slots(ids, e, cap)
@@ -137,4 +157,4 @@ def moe_apply(cfg: ArchConfig, p, x: torch.Tensor
     per_choice = per_choice * weights.reshape(b, s * k, 1).to(
         per_choice.dtype)
     out = per_choice.reshape(b, s, k, d).sum(dim=2)
-    return (leave(out) if split else out), aux
+    return leave(out, split), aux

@@ -27,6 +27,18 @@ output projection's partial sums ``leave``. So ``mu``, ``decay_base``,
 channel mix may hold this rank's ffn columns of ``c_k`` and rows of
 ``c_v``: the k mix ``enter``s, ``c_k``/``c_v``'s partial output
 ``leave``s, and the receptance (``c_r``, whole) gates the sum.
+
+Under a sequence split of the residual stream (``sharding.seq_parallel``,
+Megatron-SP) each mix's input is this rank's rows. The token shift reads
+the row before, so both mixes ``enter`` their input first, an all-gather
+of the sequence: the time mix then runs as above and its output
+``leave``s by a reduce-scatter into this rank's rows; the channel mix
+computes its mixes and its receptance over the whole sequence, and the
+receptance gates each rank's partial ``c_v`` output before the
+reduce-scatter, so that every gradient inside the region is partial:
+``mu_c`` and ``c_r`` then get a partial gradient too. A mix with whole
+leaves gathers its input the same way and takes its own rows of its
+output.
 """
 from __future__ import annotations
 
@@ -37,7 +49,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.wkv.ops import wkv
-from repro_torch.parallel.sharding import PDef, enter, leave, model_index
+from repro_torch.parallel.sharding import (
+    PDef, current_seq_split, enter, leave, model_index,
+)
 
 
 def rwkv_defs(cfg: ArchConfig) -> dict:
@@ -94,13 +108,13 @@ def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str = "exec",
     (y, final state, x[:, -1]) instead; a given ``state`` (B,H,hd,hd) f32
     is updated in place and returned. ``mode`` is the reference's, which
     picks its chunk loop; the port has one path."""
-    b, s, d = x.shape
+    d = x.shape[2]
     hd = cfg.rwkv_head_size
     width = p["w_r"].shape[1]  # this rank's heads' channels
     h = width // hd
     split = width != d
-    if split:
-        x = enter(x)
+    x = enter(x, split)
+    b, s = x.shape[:2]
     xx = _token_shift(x, last_x)
     xr = _mix(x, xx, p["mu"][0])
     xk = _mix(x, xx, p["mu"][1])
@@ -125,9 +139,7 @@ def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str = "exec",
     out = out * torch.rsqrt(var + cfg.norm_eps) * p["ln_wkv"][None, :, None, :]
     out = out.transpose(1, 2).reshape(b, s, width)
     out = out.to(x.dtype) * F.silu(g)
-    y = out @ p["w_o"]
-    if split:
-        y = leave(y)
+    y = leave(out @ p["w_o"], split)
     if state is not None or last_x is not None:
         return y, st, x[:, -1]
     return y
@@ -136,16 +148,21 @@ def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str = "exec",
 def rwkv_channel_mix(cfg: ArchConfig, p, x: torch.Tensor,
                      last_x: Optional[torch.Tensor] = None):
     split = p["c_k"].shape[1] != cfg.d_ff
+    seq = current_seq_split() is not None
+    if seq:  # the token shift reads the whole sequence
+        x = enter(x, split)
     xx = _token_shift(x, last_x)
     xk = _mix(x, xx, p["mu_c"][0])
     xr = _mix(x, xx, p["mu_c"][1])
-    if split:
+    if split and not seq:
         xk = enter(xk)
     k = torch.square(F.relu(xk @ p["c_k"]))
     kv = k @ p["c_v"]
-    if split:
-        kv = leave(kv)
-    out = torch.sigmoid(xr @ p["c_r"]) * kv
+    r = torch.sigmoid(xr @ p["c_r"])
+    if seq:  # each rank's partial kv gated, then scattered into its rows
+        out = leave(r * kv, split)
+    else:
+        out = r * (leave(kv) if split else kv)
     if last_x is not None:
         return out, x[:, -1]
     return out

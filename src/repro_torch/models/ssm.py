@@ -39,6 +39,12 @@ squares over all of ``d_inner`` is a sum all-reduced both ways
 mesh serve step ``mamba_decode_step`` splits the same way over this
 rank's heads of ``ssm``; its ``conv`` state, whose channels are x | B | C,
 comes whole for the step (a plain chunk of it is not a rank's heads).
+Under a sequence split of the residual stream (``sharding.seq_parallel``,
+Megatron-SP) the block's input is this rank's rows: ``enter``
+all-gathers the sequence, the conv and the scan run over the whole of
+it, and ``out_proj``'s partial sums ``leave`` by a reduce-scatter into
+this rank's rows; a block that keeps no heads gathers its input the same
+way and takes its own rows of its output.
 """
 from __future__ import annotations
 
@@ -158,18 +164,18 @@ def mamba_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
                 mode: str = "exec") -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D). Chunked SSD scan in f32; ``mode`` is
     accepted for the reference's signature."""
-    b, s, _ = x.shape
     hd, ns = cfg.ssm_head_dim, cfg.ssm_state
     nh = p["A_log"].shape[0]  # this rank's heads
     di = nh * hd
+    split = nh != cfg.ssm_heads
+    x = enter(x, split)
+    b, s, _ = x.shape
     cs = min(cfg.ssm_chunk, s)
     if s % cs:  # a chunk that does not divide S: one chunk of S
         cs = s
     nc = s // cs
 
-    split = nh != cfg.ssm_heads
     if split:
-        x = enter(x)
         in_proj, conv_w, conv_b = _head_columns(cfg, p, nh)
     else:
         in_proj, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
@@ -220,8 +226,7 @@ def mamba_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
     y = y + p["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, s, di).to(x.dtype)
     y = _gated_norm(y, z, p["norm_scale"], cfg.norm_eps, cfg.d_inner)
-    y = y @ p["out_proj"]
-    return leave(y) if split else y
+    return leave(y @ p["out_proj"], split)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ Public surface:
     forward(cfg, model, batch)        -> (logits, aux)        [prefill]
     forward_loss(cfg, model, batch)   -> (loss, metrics)      [train]
     bind_stacked_grads(model, params) -> stacked gradient tree
-    model_roles(cfg, rules, mesh)     -> each leaf's model-parallel role
+    model_roles(cfg, rules, mesh[, shape]) -> each leaf's model-parallel role
     ShardedLM(cfg, params, grads, roles).bind() -> a mesh step's model
     init_decode_state(cfg, batch, cache_len) -> state
     decode_state_logical_axes(cfg, state)    -> logical-axes tree
@@ -41,8 +41,11 @@ around the block; ``"dots"``: the same, saving the matmuls' outputs;
 stacked leaves, so the training state keeps the reference's stacked tree
 and the model trains in place through it. A mesh step runs the same
 functions over a ``ShardedLM``: each block, and each layer of decode,
-gathers its unit's shards whole as it runs and lets them go on return.
-In a mesh serve step the decode state is this rank's local storage of
+gathers its unit's shards whole as it runs and lets them go on return;
+in a train or prefill step the residual stream between the blocks (and
+an encoder's) may be this rank's rows of its sequence (Megatron-SP,
+``sharding.seq_parallel``, opened by ``_forward`` for each stream). In a
+mesh serve step the decode state is this rank's local storage of
 each leaf (``launch/steps.py`` ``build_serve_step``): the caches its shard
 of their sequence, RWKV's ``wkv`` and Mamba2's ``ssm`` its heads where
 their blocks keep their heads, and the layers compute on it as they are.
@@ -77,9 +80,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.inputs import batch_structure
 from repro_torch.parallel.sharding import (
     KEEP, PARTIAL, LayerShards, PDef, _mesh_axis_sizes, current_context,
-    in_context, init_from_defs, local, shifted, specs_from_defs, stack_defs,
+    current_seq_split, enter, in_context, init_from_defs, local,
+    seq_parallel, seq_split_for, shifted, specs_from_defs, stack_defs,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -334,7 +339,7 @@ def _on_model(entry) -> bool:
     return "model" in (entry if isinstance(entry, tuple) else (entry,))
 
 
-def model_roles(cfg: ArchConfig, rules, mesh) -> dict:
+def model_roles(cfg: ArchConfig, rules, mesh, shape=None) -> dict:
     """Each leaf's role in a mesh step's model-parallel region, a tree of
     ``model_defs(cfg)``'s structure (``parallel/sharding.py``
     ``LayerShards``): ``KEEP`` where the block computes with this rank's
@@ -367,7 +372,19 @@ def model_roles(cfg: ArchConfig, rules, mesh) -> dict:
 
     The norms, the frontends and every leaf of a block that is not split
     are None: gathered whole, and their gradient the same on every rank,
-    since ``enter`` sums what flows back out of the region."""
+    since ``enter`` sums what flows back out of the region.
+
+    Given the step's ``shape`` (train or prefill), a residual stream
+    split along its sequence over "model" (``sharding.seq_split_for``
+    from its own global shape: the tokens, a vision config's patches in
+    front of them; an enc-dec encoder's frames apart) makes more leaves
+    ``PARTIAL``, since each model rank then computes them on its own rows
+    only or, inside a split block, in part: every norm scale of the
+    stream (``ln1``, ``ln2``, ``ln_x``, the hybrid's ``shared_attn``
+    ``ln``, Mamba's ``ln``, ``final_norm``, the encoder's norms and
+    ``enc_norm``), its frontend's ``proj`` and ``ln`` (each rank keeps its
+    rows of the projection), and, where the block is split, MoE's
+    ``router`` and RWKV's channel-mix ``mu_c`` and ``c_r``."""
     defs = model_defs(cfg)
     specs = specs_from_defs(defs, rules, mesh)
     m = _mesh_axis_sizes(mesh).get("model", 1)
@@ -429,7 +446,57 @@ def model_roles(cfg: ArchConfig, rules, mesh) -> dict:
             return block(key, d, sp)
         return {k: walk(v, sp[k], k) for k, v in d.items()}
 
-    return walk(defs, specs)
+    roles = walk(defs, specs)
+    if shape is not None and m > 1:
+        for key in _seq_split_keys(cfg, shape, rules, mesh):
+            roles[key] = _seq_partial(roles[key], key)
+    return roles
+
+
+# the norms of a residual stream, by the key of their scale's parent
+_NORMS = frozenset({"ln1", "ln2", "ln_x", "ln", "final_norm", "enc_norm"})
+
+
+def _seq_split_keys(cfg: ArchConfig, shape, rules, mesh) -> list[str]:
+    """The top-level keys of ``model_defs(cfg)`` whose leaves a train or
+    prefill step of ``shape`` computes on a residual stream split along
+    its sequence over "model": the main stream's (the tokens', with a
+    vision config's patches in front) and an enc-dec encoder's (the
+    frames'), each split where its own global shape says so."""
+    if shape.kind == "decode":
+        return []
+    st = batch_structure(cfg, shape)
+    rows = shape.global_batch // (max(cfg.accum, 1)
+                                  if shape.kind == "train" else 1)
+    d = cfg.d_model
+    main = st["tokens"][0][1] + (st["patches"][0][1] if "patches" in st
+                                 else 0)
+    keys = []
+    if seq_split_for((rows, main, d), rules, mesh):
+        keys += ["layers", "groups", "tail", "shared_attn", "final_norm"]
+        if cfg.frontend == "vision":
+            keys.append("frontend")
+    if "frames" in st and seq_split_for((rows, st["frames"][0][1], d),
+                                        rules, mesh):
+        keys += ["encoder", "enc_norm", "frontend"]
+    return [k for k in keys if k in model_defs(cfg)]
+
+
+def _seq_partial(roles, key: str):
+    """``roles`` (of the subtree under ``key``) with what a sequence split
+    makes ``PARTIAL`` (``model_roles``)."""
+    if not isinstance(roles, dict):
+        return roles
+    out = {k: _seq_partial(v, k) for k, v in roles.items()}
+    if key in _NORMS and "scale" in out:
+        out["scale"] = PARTIAL
+    elif key == "frontend":  # its "ln" is a norm
+        out["proj"] = PARTIAL
+    elif key == "moe" and out["w_up"] == KEEP:
+        out["router"] = PARTIAL
+    elif key == "tm" and out["c_k"] == KEEP:
+        out["mu_c"] = out["c_r"] = PARTIAL
+    return out
 
 
 # the stacked trees of the layer loops, and a unit's leading layer axes
@@ -560,45 +627,81 @@ def _encoder_block(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str):
 
 
 def _decoder_xattn_block(cfg: ArchConfig, p, x: torch.Tensor,
-                         memory: torch.Tensor, *, mode: str):
+                         memory: torch.Tensor, *, mode: str,
+                         memory_rows: Optional[bool] = None):
     """Causal self-attention (B3), cross-attention over the encoder's
-    memory (PyTorch ops), then the MLP."""
+    memory (PyTorch ops; ``memory_rows``: ``attention``'s), then the
+    MLP."""
     p = _whole(p)
     x = x + attn.attention(cfg, p["attn"],
                            L.rms_norm(x, p["ln1"], cfg.norm_eps),
                            causal=True, mode=mode)
     x = x + attn.attention(cfg, p["xattn"],
                            L.rms_norm(x, p["ln_x"], cfg.norm_eps),
-                           kv_x=memory, causal=False, rope=False, mode=mode)
+                           kv_x=memory, causal=False, rope=False, mode=mode,
+                           memory_rows=memory_rows)
     return x + L.mlp_apply(cfg, p["mlp"],
                            L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _stream_shape(cfg: ArchConfig, batch: dict) -> tuple[int, int, int]:
+    """(rows, positions, width) of the residual stream a batch makes: the
+    tokens, and a vision config's patches in front of them."""
+    b, s = batch["tokens"].shape[:2]
+    if cfg.frontend == "vision" and "patches" in batch:
+        s += batch["patches"].shape[1]
+    return b, s, cfg.d_model
 
 
 def _embed_inputs(cfg: ArchConfig, model: TransformerLM,
                   batch: dict) -> torch.Tensor:
     """Token embeddings; for a vision config with ``patches`` (B, P, D) in
     the batch, the patches cast to the model's dtype, through
-    ``frontend.proj`` and ``frontend.ln`` (B2), in front of them."""
-    x = L.embed_tokens(cfg, model.embedding, batch["tokens"])
-    if cfg.frontend == "vision" and "patches" in batch:
+    ``frontend.proj`` and ``frontend.ln`` (B2), in front of them. Under a
+    sequence split, this rank's rows of that one sequence: its patches'
+    rows normed (the projection computed over every patch, as the
+    reference computes it before the split), then its tokens' rows."""
+    vision = cfg.frontend == "vision" and "patches" in batch
+    front = batch["patches"].shape[1] if vision else 0
+    x = L.embed_tokens(cfg, model.embedding, batch["tokens"], front)
+    if vision:
         fp = model.frontend
         patches = batch["patches"].to(x.dtype) @ fp["proj"]
-        x = torch.cat([L.rms_norm(patches, fp["ln"], cfg.norm_eps), x],
-                      dim=1)
+        split = current_seq_split()
+        if split is None:
+            return torch.cat([L.rms_norm(patches, fp["ln"], cfg.norm_eps),
+                              x], dim=1)
+        lo = split.index * x.shape[1]
+        mine = patches[:, lo:lo + x.shape[1]]  # none past the patches
+        if mine.shape[1]:
+            x = torch.cat([L.rms_norm(mine.contiguous(), fp["ln"],
+                                      cfg.norm_eps),
+                           x[:, mine.shape[1]:]], dim=1)
     return x
 
 
 def _encode(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
-            mode: str, remat: str = "none") -> torch.Tensor:
-    """The enc-dec family's memory: the stubbed ``frames`` (B, T, D) cast
-    to the model's dtype, through ``frontend.proj``, the encoder layers and
-    ``enc_norm``."""
-    x = batch["frames"].to(DTYPES[cfg.dtype]) @ model.frontend["proj"]
-    block = _maybe_remat(functools.partial(_encoder_block, cfg, mode=mode),
-                         remat)
-    for p_l in model.encoder:
-        x = block(p_l, x)
-    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+            mode: str, remat: str = "none", whole: bool = True):
+    """(the enc-dec family's memory, whether it is this rank's rows of
+    its sequence): the stubbed ``frames`` (B, T, D) cast to the model's
+    dtype, through ``frontend.proj``, the encoder layers and
+    ``enc_norm``. Under a sequence split of the frames (their own length
+    decides it) the encoder runs on this rank's rows of the projection,
+    and the memory is its rows, or, with ``whole`` (for a decoder stream
+    that is not split), gathered whole."""
+    frames = batch["frames"]
+    with seq_parallel(tuple(frames.shape)) as split:
+        x = frames.to(DTYPES[cfg.dtype]) @ model.frontend["proj"]
+        if split is not None:
+            x = split.rows(x)
+        block = _maybe_remat(functools.partial(_encoder_block, cfg,
+                                               mode=mode), remat)
+        for p_l in model.encoder:
+            x = block(p_l, x)
+        x = L.rms_norm(x, model.enc_norm, cfg.norm_eps)
+        if split is not None and whole:
+            x = enter(x, False)
+    return x, split is not None and not whole
 
 
 # the matmul ops whose outputs remat "dots" saves
@@ -649,34 +752,43 @@ def _maybe_remat(fn, remat: str):
 def _forward(cfg: ArchConfig, model: TransformerLM, batch: dict, *,
              mode: str, remat: str) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward of ``forward`` and ``forward_loss``, each block through
-    ``_maybe_remat``."""
-    x = _embed_inputs(cfg, model, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "hybrid":
-        block = _maybe_remat(lambda p_g, x: _hybrid_group_block(
-            cfg, p_g, model.shared_attn, x, mode=mode), remat)
-        for p_g in model.groups:
-            x = block(p_g, x)
-        tail = _maybe_remat(lambda p_l, x: _mamba_block(cfg, p_l, x,
-                                                        mode=mode), remat)
-        for p_l in model.tail:
-            x = tail(p_l, x)
-    elif cfg.is_encdec:
-        memory = _encode(cfg, model, batch, mode=mode, remat=remat)
-        block = _maybe_remat(lambda p_l, x, mem: _decoder_xattn_block(
-            cfg, p_l, x, mem, mode=mode), remat)
-        for p_l in model.layers:
-            x = block(p_l, x, memory)
-    else:
-        block = _maybe_remat(functools.partial(
-            _rwkv_block if cfg.family == "ssm" else _dense_block, cfg,
-            mode=mode), remat)
-        for p_l in model.layers:
-            x, a = block(p_l, x)
-            if a is not None:
-                aux = aux + a
-    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = L.lm_logits(cfg, model.embedding, x)
+    ``_maybe_remat``. In a model-parallel region the residual stream (and
+    the encoder's) may be this rank's rows of its sequence
+    (``sharding.seq_parallel``): the embedding, the blocks and the final
+    norm then compute on those rows, and the logits gather them whole."""
+    shape = _stream_shape(cfg, batch)
+    if cfg.is_encdec:  # the encoder's stream first, split by its length
+        with seq_parallel(shape) as split:  # whether the decoder's splits
+            whole = split is None
+        memory, rows = _encode(cfg, model, batch, mode=mode, remat=remat,
+                               whole=whole)
+    with seq_parallel(shape) as split:
+        x = _embed_inputs(cfg, model, batch)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "hybrid":
+            block = _maybe_remat(lambda p_g, x: _hybrid_group_block(
+                cfg, p_g, model.shared_attn, x, mode=mode), remat)
+            for p_g in model.groups:
+                x = block(p_g, x)
+            tail = _maybe_remat(lambda p_l, x: _mamba_block(
+                cfg, p_l, x, mode=mode), remat)
+            for p_l in model.tail:
+                x = tail(p_l, x)
+        elif cfg.is_encdec:
+            block = _maybe_remat(lambda p_l, x, mem: _decoder_xattn_block(
+                cfg, p_l, x, mem, mode=mode, memory_rows=rows), remat)
+            for p_l in model.layers:
+                x = block(p_l, x, memory)
+        else:
+            block = _maybe_remat(functools.partial(
+                _rwkv_block if cfg.family == "ssm" else _dense_block, cfg,
+                mode=mode), remat)
+            for p_l in model.layers:
+                x, a = block(p_l, x)
+                if a is not None:
+                    aux = aux + a
+        x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+        logits = L.lm_logits(cfg, model.embedding, x)
     return logits, aux
 
 

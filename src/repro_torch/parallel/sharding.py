@@ -39,12 +39,21 @@ SSM/RWKV heads (``LayerShards``' roles) compute that chunk, between
 ``enter`` (Megatron's ``f``: the identity, its backward an all-reduce over
 "model") and ``leave`` (``g``: an all-reduce, its backward the identity);
 ``model_sum`` all-reduces both ways, ``model_max`` takes a max with no
-gradient. ``kv_split`` tells decode attention which shard of the caches'
-sequence (``kv_seq``) this rank holds, and over which ranks its softmax
-statistics and partial outputs are reduced (flash-decode: ``KvSplit``,
-made by ``kv_split_over``). ``MODEL`` counts the collectives of both. On
-a model group of one rank each is the identity and launches nothing, and
-a sequence kept whole opens no split.
+gradient. Given the rules, the region also splits a train or prefill
+step's residual stream along its sequence over "model" where the rules
+put ``seq`` there and the pruned spec keeps it for the stream's own length
+(Megatron-SP, ``seq_parallel``, ``seq_split_for``): the norms and the
+residual adds then run on this rank's rows, ``enter`` all-gathers the
+sequence (its backward a reduce-scatter into this rank's rows) and
+``leave`` reduce-scatters the partial outputs into them (its backward an
+all-gather); a block with no split leaf gathers its input the same way and
+takes its own rows of its whole output. ``kv_split`` tells decode
+attention which shard of the caches' sequence (``kv_seq``) this rank
+holds, and over which ranks its softmax statistics and partial outputs
+are reduced (flash-decode: ``KvSplit``, made by ``kv_split_over``).
+``MODEL`` counts the collectives of all three. On a model group of one
+rank each is the identity and launches nothing, and a sequence kept whole
+opens no split.
 
 When no mesh is active every annotation is a no-op, as in the reference.
 """
@@ -135,6 +144,8 @@ class _Ctx(threading.local):
         self.batch_dims: tuple[int, ...] = ()
         self.model_mesh = None
         self.model_dim: Optional[int] = None
+        self.seq_rules: Optional[ShardingRules] = None
+        self.seq: Optional["SeqSplit"] = None
         self.kv: Optional["KvSplit"] = None
 
 
@@ -153,13 +164,13 @@ def use_mesh(mesh, rules: Optional[ShardingRules] = None):
 
 
 _FIELDS = ("mesh", "rules", "batch_mesh", "batch_dims", "model_mesh",
-           "model_dim", "kv")
+           "model_dim", "seq_rules", "seq", "kv")
 
 
 def current_context() -> tuple:
     """This thread's whole context (mesh, rules, the data-parallel split,
-    the model-parallel region, the caches' sequence split), for
-    ``in_context``."""
+    the model-parallel region and its sequence split, the caches'
+    sequence split), for ``in_context``."""
     return tuple(getattr(_CTX, k) for k in _FIELDS)
 
 
@@ -566,30 +577,45 @@ class ModelStats(_Counts):
     ``reset``: ``all_reduces`` (``leave``'s and ``model_sum``'s forward,
     ``enter``'s and ``model_sum``'s backward, ``model_max``, and a
     ``KvSplit``'s reductions over the caches' sequence shards) and the
-    ``bytes`` they reduced."""
+    ``bytes`` they reduced; under a sequence split (``seq_parallel``), the
+    ``all_gathers`` of the sequence (``enter``'s forward, ``leave``'s
+    backward) and the ``reduce_scatters`` into this rank's rows
+    (``leave``'s forward, ``enter``'s backward), with ``gathered_bytes``
+    and ``scattered_bytes``, the bytes of the whole sequence each one
+    gathered or scattered."""
     all_reduces: int = 0
     bytes: int = 0
+    all_gathers: int = 0
+    gathered_bytes: int = 0
+    reduce_scatters: int = 0
+    scattered_bytes: int = 0
 
-    COUNTS = ("all_reduces", "bytes")
+    COUNTS = ("all_reduces", "bytes", "all_gathers", "gathered_bytes",
+              "reduce_scatters", "scattered_bytes")
 
 
 MODEL = ModelStats()
 
 
 @contextlib.contextmanager
-def model_parallel(mesh, dim: Optional[int]):
+def model_parallel(mesh, dim: Optional[int],
+                   rules: Optional[ShardingRules] = None):
     """Within: the blocks compute this rank's chunk of every leaf that its
     unit kept split over mesh dim ``dim`` ("model"), ``enter``, ``leave``,
-    ``model_sum`` and ``model_max`` reducing over that dim's group. A dim
-    of one rank (or None) opens no region: each is then the identity."""
-    prev = (_CTX.model_mesh, _CTX.model_dim)
+    ``model_sum`` and ``model_max`` reducing over that dim's group; with
+    ``rules``, ``seq_parallel`` splits a residual stream along its
+    sequence where they say so. A dim of one rank (or None) opens no
+    region: each is then the identity."""
+    prev = (_CTX.model_mesh, _CTX.model_dim, _CTX.seq_rules, _CTX.seq)
     live = dim is not None and mesh.size(dim) > 1
     _CTX.model_mesh = mesh if live else None
     _CTX.model_dim = dim if live else None
+    _CTX.seq_rules = rules if live else None
+    _CTX.seq = None
     try:
         yield
     finally:
-        _CTX.model_mesh, _CTX.model_dim = prev
+        _CTX.model_mesh, _CTX.model_dim, _CTX.seq_rules, _CTX.seq = prev
 
 
 def model_index() -> int:
@@ -664,19 +690,213 @@ def _model_group():
     return _CTX.model_mesh.get_group(_CTX.model_dim)
 
 
-def enter(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (the same on every model rank) into the region: the identity,
-    whose backward all-reduces the gradient over "model"."""
-    return x if _CTX.model_mesh is None else _Enter.apply(x, _model_group())
+# ---------------------------------------------------------------------------
+# Megatron-SP: the residual stream's sequence split over "model"
+# ---------------------------------------------------------------------------
 
 
-def leave(x: torch.Tensor) -> torch.Tensor:
-    """The model ranks' partial ``x`` summed out of the region, an
-    all-reduce whose backward is the identity. Not
+@dataclass(frozen=True)
+class SeqSplit:
+    """A residual stream split along its sequence (dim 1) over the model
+    group ``group`` of ``count`` ranks: this rank holds chunk ``index``,
+    rows ``[index·S/count, (index+1)·S/count)`` of a sequence of S."""
+    index: int
+    count: int
+    group: Any
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``t`` (the whole sequence along dim 1),
+        contiguous; their gradient is zero elsewhere."""
+        n = t.shape[1] // self.count
+        return t.narrow(1, self.index * n, n).contiguous()
+
+
+def _seq_axes(shape: tuple[int, ...], rules: ShardingRules,
+              mesh) -> tuple[str, ...]:
+    """The mesh axes of more than one rank that split the sequence of an
+    activation of global ``shape`` (batch, sequence, ...): the rules'
+    ``("batch", "seq", "embed")`` spec pruned for ``shape``
+    (``_prune_spec_for``, the reference's per-activation rule)."""
+    entry = _prune_spec_for(tuple(shape),
+                            rules.spec(("batch", "seq", "embed")), mesh)[1]
+    sizes = _mesh_axis_sizes(mesh)
+    return tuple(a for a in (entry if isinstance(entry, tuple)
+                             else (entry,))
+                 if a is not None and sizes[a] > 1)
+
+
+def seq_split_for(shape: tuple[int, ...], rules: ShardingRules,
+                  mesh) -> bool:
+    """Whether an activation of global ``shape`` (batch, sequence, ...)
+    splits its sequence over "model" (``_seq_axes``)."""
+    return "model" in _seq_axes(shape, rules, mesh)
+
+
+@contextlib.contextmanager
+def seq_parallel(shape: tuple[int, ...]):
+    """Within: the residual stream, of ``shape`` (this rank's batch rows,
+    the whole sequence's length, the width), is this rank's rows of its
+    sequence split over "model" where the region was opened with rules
+    that say so for the stream's global shape (``seq_split_for``, the
+    batch counted over the data-parallel split): Megatron-SP. ``enter``
+    and ``leave`` then gather and scatter its sequence. Yields the
+    ``SeqSplit``, or None (no region, no rules, or a sequence kept
+    whole): the stream is then whole on every rank, and every op is the
+    unsplit region's."""
+    prev = _CTX.seq
+    split = None
+    mesh, rules = _CTX.model_mesh, _CTX.seq_rules
+    if mesh is not None and rules is not None:
+        whole = (shape[0] * batch_shards(),) + tuple(shape[1:])
+        axes = _seq_axes(whole, rules, mesh)
+        if axes and axes != ("model",):
+            raise NotImplementedError(f"a sequence split over {axes}: the "
+                                      f"port splits it over 'model' alone")
+        if axes:
+            split = SeqSplit(model_index(), mesh.size(_CTX.model_dim),
+                             _model_group())
+    _CTX.seq = split
+    try:
+        yield split
+    finally:
+        _CTX.seq = prev
+
+
+def current_seq_split() -> Optional[SeqSplit]:
+    """The active residual stream's sequence split, or None."""
+    return _CTX.seq
+
+
+def _seq_all_gather(x: torch.Tensor, sp: SeqSplit) -> torch.Tensor:
+    """The model ranks' rows of ``x`` joined along dim 1, in rank order."""
+    import torch.distributed as dist
+
+    part = x.movedim(1, 0).contiguous()
+    out = torch.empty((sp.count * part.shape[0],) + part.shape[1:],
+                      dtype=part.dtype, device=part.device)
+    dist.all_gather_into_tensor(out, part, group=sp.group)
+    MODEL.add("all_gathers")
+    MODEL.add("gathered_bytes", out.nbytes)
+    return out.movedim(0, 1).contiguous()
+
+
+def _seq_reduce_scatter(x: torch.Tensor, sp: SeqSplit) -> torch.Tensor:
+    """This rank's rows (along dim 1) of the sum of the model ranks'
+    ``x``."""
+    import torch.distributed as dist
+
+    whole = x.movedim(1, 0).contiguous()
+    out = torch.empty((whole.shape[0] // sp.count,) + whole.shape[1:],
+                      dtype=whole.dtype, device=whole.device)
+    dist.reduce_scatter_tensor(out, whole, group=sp.group)
+    MODEL.add("reduce_scatters")
+    MODEL.add("scattered_bytes", whole.nbytes)
+    return out.movedim(0, 1).contiguous()
+
+
+def _own_rows(x: torch.Tensor, sp: SeqSplit) -> torch.Tensor:
+    """This rank's rows of ``x``, in storage of their own."""
+    rows = sp.rows(x)
+    return rows.clone() if rows._is_view() else rows
+
+
+class _SeqEnter(torch.autograd.Function):
+    """Megatron-SP's ``g``: this rank's rows all-gathered along the
+    sequence. The backward reduce-scatters the model ranks' partial
+    gradients into this rank's rows where the block computes a model split
+    (``split``), and takes this rank's rows of the gradient where not:
+    every model rank then computed the whole of it."""
+
+    @staticmethod
+    def forward(ctx, x, sp, split):
+        ctx.sp, ctx.split = sp, split
+        return _seq_all_gather(x, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.sp
+        return (_seq_reduce_scatter(g, sp) if ctx.split
+                else _own_rows(g, sp)), None, None
+
+
+class _SeqLeave(torch.autograd.Function):
+    """Megatron-SP's ``ḡ``: the model ranks' partial outputs summed into
+    this rank's rows by a reduce-scatter where the block computes a model
+    split (``split``), this rank's rows of the output where not; the
+    backward all-gathers the rows' gradient, whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, sp, split):
+        ctx.sp = sp
+        return _seq_reduce_scatter(x, sp) if split else _own_rows(x, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_all_gather(g, ctx.sp), None, None
+
+
+class _Once(torch.autograd.Function):
+    """The identity; the backward keeps the gradient on the first model
+    rank and gives the others zeros."""
+
+    @staticmethod
+    def forward(ctx, x, first):
+        ctx.first = first
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+def enter(x: torch.Tensor, split: bool = True,
+          rows: Optional[bool] = None) -> torch.Tensor:
+    """A block's input ``x`` into the region; ``split``: the block
+    computes a model split (a kept chunk), so its output is partial over
+    the model ranks. Without a sequence split: where ``split``, the
+    identity whose backward all-reduces the gradient over "model"
+    (Megatron's ``f``), else ``x`` itself. Under ``seq_parallel``'s split
+    ``x`` is this rank's rows and comes out whole along the sequence, an
+    all-gather (``_SeqEnter``) whatever ``split`` says; ``rows`` False
+    says ``x`` is whole there all the same (an encoder's memory whose
+    own length did not split), None that it is the stream's."""
+    sp = _CTX.seq if rows is None or rows else None
+    if sp is not None:
+        return _SeqEnter.apply(x, sp, split)
+    if _CTX.model_mesh is None or not split:
+        return x
+    return _Enter.apply(x, _model_group())
+
+
+def leave(x: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """A block's output ``x`` out of the region; ``split`` as for
+    ``enter``. Without a sequence split: where ``split``, the model ranks'
+    partial ``x`` summed, an all-reduce whose backward is the identity
+    (Megatron's ``g``), else ``x`` itself. Not
     ``torch.distributed.nn.functional.all_reduce``: its backward
     all-reduces again, which would multiply by the model size a gradient
-    that every rank already holds whole."""
-    return x if _CTX.model_mesh is None else _Leave.apply(x, _model_group())
+    that every rank already holds whole. Under ``seq_parallel``'s split
+    the output comes out as this rank's rows: a reduce-scatter of the
+    partial sums where ``split``, this rank's rows of the whole where not
+    (``_SeqLeave``; a reduce-scatter there would multiply it by the model
+    size)."""
+    sp = _CTX.seq
+    if sp is not None:
+        return _SeqLeave.apply(x, sp, split)
+    if _CTX.model_mesh is None or not split:
+        return x
+    return _Leave.apply(x, _model_group())
+
+
+def once(x: torch.Tensor) -> torch.Tensor:
+    """``x``, the same on every model rank, whose gradient (the same on
+    every rank) only the first model rank keeps, so that a sum of the
+    ranks' gradients counts it once: the MoE aux loss under a sequence
+    split, whose router reads a gathered stream whose gradient is summed
+    by ``enter``'s reduce-scatter. ``x`` itself outside a region."""
+    if _CTX.model_mesh is None:
+        return x
+    return _Once.apply(x, model_index() == 0)
 
 
 def model_sum(x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,14 @@ scale, a max over every shard), and llama3.2-3b at remat "none" and
 trains: the loss, AdamW's grad norm (a sum over every shard) and the
 whole updated train state, the prefill logits, the logits and greedy
 tokens of three decode steps and the decode state, each held to the
-reference's (``mismatches``). Four more decode cells split the caches
+reference's (``mismatches``). Every train and prefill cell splits its
+residual stream along the sequence over "model" (Megatron-SP): among
+them a llama3.2-3b train cell whose 3 heads do not divide the model
+size (its attention gathers its input and takes its own rows) and a
+llava-next-mistral-7b prefill whose patches and tokens split as one
+sequence; two seamless-m4t-medium prefills (``LENGTHS``, ``_lengths``)
+have frames of another length than the tokens, so that one stream splits
+and the other, of odd length, stays whole. Four more decode cells split the caches
 along their sequence (flash-decode: llama3.2-3b at batch 4 and at batch
 1, mixtral-8x7b's sliding-window ring, seamless-m4t-medium's self and
 cross caches), from seeded cache rows at positions that straddle the
@@ -24,10 +31,14 @@ gather, and ``_held_gathers`` holds on every rank what the gathers did:
 the whole bytes alive at once, the gradient buffers and the
 collectives; ``_held_decode`` holds a serve step's split: no cache,
 ``wkv`` or ``ssm`` leaf gathered, a cache's storage 1/4 of the whole,
-the model and combine all-reduces the code's count. Then
+the model and combine all-reduces the code's count; ``_held_region``
+holds a train or prefill step's flops, its model all-reduces, its
+all-gathers and reduce-scatters of the sequence (and their bytes) and
+the block inputs remat holds to the code's count. Then
 ``_gather_cases``: one unit's gather and backward against the whole
 path, and three planted faults that must break it; the model region's
-and the serve step's planted faults (``_plants``, ``_decode_plants``).
+and the sequence split's (``_plants``, seven) and the serve step's
+(``_decode_plants``) planted faults.
 Then
 ``pipeline_apply`` over a 4-rank "stage" mesh: forward within 1e-5 and
 gradient within 1e-4 of the sequential ones. Any rank's failure raises,
@@ -75,6 +86,13 @@ CELLS = [
     ("rwkv6-1.6b", ("t", "train", 32, 8), ""),
     ("zamba2-7b", ("t", "train", 32, 8), ""),
     ("llama3.2-3b", ("t", "train", 32, 8), "mqa"),
+    # the model axis splits the residual stream's sequence (Megatron-SP)
+    # in every train and prefill cell: here an attention whose 3 heads do
+    # not divide the model size, which gathers its input and takes its own
+    # rows of its output, and a VLM's patches and tokens split as one
+    # sequence
+    ("llama3.2-3b", ("t", "train", 32, 8), "heads3"),
+    ("llava-next-mistral-7b", ("p", "prefill", 32, 4), ""),
     # flash-decode: the caches split along their sequence over "model"
     # (two shards of 32), at global batch 1 over "data" and "model" (four
     # of 16), a sliding window's ring (two of 16), and enc-dec's self and
@@ -88,7 +106,8 @@ CELLS = [
 VARIANTS = {"": ({}, False), "adafactor": ({"optimizer": "adafactor"}, False),
             "compress": ({}, True), "remat_none": ({"remat": "none"}, False),
             "remat_dots": ({"remat": "dots"}, False),
-            "mqa": ({"num_kv_heads": 1}, False), "batch1": ({}, False)}
+            "mqa": ({"num_kv_heads": 1}, False), "batch1": ({}, False),
+            "heads3": ({"num_heads": 3, "num_kv_heads": 3}, False)}
 # the decode cells that start from seeded cache rows (every cache leaf,
 # enc-dec's cross_k/cross_v too, ``seeded_state``) at these per-slot
 # positions, which straddle the shards' boundaries over the 3 steps:
@@ -100,6 +119,12 @@ POSITIONS = {"llama3.2-3b/decode": [0, 30, 32, 60],
              "llama3.2-3b/decode/batch1": [30],
              "mixtral-8x7b/decode": [5, 14, 31, 40],
              "seamless-m4t-medium/decode": [0, 30, 32, 60]}
+# enc-dec prefills whose frames are not as long as the tokens (tokens,
+# frames), under the rules of a 32-token prefill ("seq" on "model"): each
+# stream splits by its own length, the odd one stays whole, and the
+# memory crosses between the two layouts (``transformer._forward``)
+LENGTHS = {"seamless-m4t-medium/prefill/frames31": (32, 31),
+           "seamless-m4t-medium/prefill/tokens31": (31, 32)}
 # the share of a train state leaf's elements allowed beyond 1e-5 of its
 # scale (``mismatches``)
 TRAIN_OUTLIERS = 1e-3
@@ -226,6 +251,10 @@ BATCH_DIMS = (0,)
 MODEL_DIM = 1
 # the stacked trees of the layer loops, and a unit's leading layer axes
 UNIT_AXES = {"layers": 1, "encoder": 1, "groups": 2, "tail": 1}
+# the rules' activation axes by which a block keeps its model chunk
+# (``transformer.model_roles``)
+REGION_AXES = ("act_heads", "act_kv_heads", "act_ffn", "act_vocab",
+               "rwkv_heads", "ssm_heads", "ssm_inner")
 
 
 class Spy:
@@ -234,12 +263,16 @@ class Spy:
     returns), the gradient buffers the train step hands its model, that
     model, and the all-gathers and reduce-scatters issued; the
     model-parallel region's collectives (``region``, ``MODEL``'s counts
-    when it was left); and, of a serve step, the storage and shape of each
-    state leaf ``decode_step`` computed on (``decoded``, a step a dict)
-    and the shape of every DTensor redistributed (``redistributed``)."""
+    when it was left); the most bytes of tensors handed to
+    ``torch.utils.checkpoint`` alive at once (``saved_peak``: remat's
+    block inputs, each counted once, held until its block's backward);
+    and, of a serve step, the storage and shape of each state leaf
+    ``decode_step`` computed on (``decoded``, a step a dict) and the shape
+    of every DTensor redistributed (``redistributed``)."""
 
     def __init__(self):
         self.alive = self.peak = 0
+        self.saved, self.saved_alive, self.saved_peak = {}, 0, 0
         self.grads = None
         self.model = None
         self.issued = collections.Counter()
@@ -254,6 +287,18 @@ class Spy:
 
     def _gone(self, n: int) -> None:
         self.alive -= n
+
+    def keep(self, t) -> None:
+        """``t``, a tensor handed to checkpoint, alive until collected."""
+        if id(t) in self.saved:
+            return
+        self.saved[id(t)] = t.nbytes
+        self.saved_alive += t.nbytes
+        self.saved_peak = max(self.saved_peak, self.saved_alive)
+        weakref.finalize(t, self._unsaved, id(t))
+
+    def _unsaved(self, key: int) -> None:
+        self.saved_alive -= self.saved.pop(key)
 
     def __enter__(self):
         from repro_torch.models import transformer as T
@@ -289,6 +334,17 @@ class Spy:
             return real_redistribute(t, *a, **k)
         T.decode_step = decode_step
         DTensor.redistribute = redistribute
+        import torch.utils.checkpoint as ckpt
+
+        real_checkpoint = ckpt.checkpoint
+        self._undo.append((ckpt, "checkpoint", real_checkpoint))
+
+        def checkpoint(fn, *args, **kwargs):
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    spy.keep(a)
+            return real_checkpoint(fn, *args, **kwargs)
+        ckpt.checkpoint = checkpoint
         for name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
             real = getattr(dist, name)
             self._undo.append((dist, name, real))
@@ -449,19 +505,20 @@ def _train_mismatches(arch, cell, variant, ref, state, m) -> list[str]:
 def _unsplit_misses(arch, cell, variant, ref, mesh, state, m,
                     bad: list[str]) -> list[str]:
     """Where a split train step's state misses the reference's: the same
-    step with every leaf whole over "model" (the region off, each model
-    rank computing the whole block) on the same mesh. The split state
+    step with every block's leaves whole over "model" (each model rank
+    computing the whole block; a sequence split stays) on the same mesh. The split state
     must match it under the present bounds, and it must miss the
     reference in the same leaves by at least as many elements: the miss
     is then the port's rounding against the reference's, which the split
     does not add to. Returns what fails."""
     from repro_torch.models import transformer as T
     from repro_torch.models.weights import state_to_numpy
-    from repro_torch.parallel.sharding import map_defs
 
     real = T.model_roles
-    T.model_roles = lambda cfg, rules, mesh: map_defs(lambda d: None,
-                                                       T.model_defs(cfg))
+    # no block keeps a chunk; a sequence split keeps its norms' sums
+    T.model_roles = lambda cfg, rules, mesh, shape=None: real(
+        cfg, rules.with_overrides(**{a: None for a in REGION_AXES}), mesh,
+        shape)
     try:
         _, whole, wm = _train_once(arch, cell, variant, ref, mesh)
     finally:
@@ -500,7 +557,7 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
     key = cell_key(arch, cell, variant) + "/"
     what = key[:-1] + " "
     train = shape.kind == "train"
-    roles = model_roles(cfg, rules, mesh)
+    roles = model_roles(cfg, rules, mesh, shape)
     if train:
         with Spy() as spy, FlopCounterMode(display=False) as fc:
             prog, state, m = _train_once(arch, cell, variant, ref, mesh)
@@ -739,6 +796,29 @@ def one_device_flops(cfg, shape, params: dict, batch: dict, mesh) -> int:
     return fc.get_total_flops()
 
 
+def _attention_flops(cfg, rows: int, s: int) -> tuple[int, int]:
+    """(forward, backward) flops of one whole attention (``FlopCounterMode``)
+    over ``rows`` rows of ``s`` positions on one device: the share of a
+    block whose heads do not split, which every model rank computes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import DTYPES
+    from repro_torch.parallel.sharding import init_from_defs
+
+    p = init_from_defs(torch.Generator().manual_seed(0),
+                       attn.attention_defs(cfg), DTYPES[cfg.dtype])
+    x = torch.randn(rows, s, cfg.d_model, requires_grad=True)
+    for t in p.values():
+        t.requires_grad_(True)
+    with FlopCounterMode(display=False) as fwd:
+        out = attn.attention(cfg, p, x, causal=True,
+                             window=cfg.sliding_window)
+    with FlopCounterMode(display=False) as bwd:
+        out.sum().backward()
+    return fwd.get_total_flops(), bwd.get_total_flops()
+
+
 def replicated_flops(cfg, shape, roles: dict, mesh) -> int:
     """The code's count of the flops of the matmuls that every model rank
     computes whole, on this rank's rows: a train step runs each block's
@@ -747,14 +827,18 @@ def replicated_flops(cfg, shape, roles: dict, mesh) -> int:
     prefill the forward alone. MQA's K/V projections (``wk``/``wv``
     ``PARTIAL``), MoE's router (f32), RWKV's receptance ``c_r`` and decay
     LoRA ``decay_A``, Mamba2's B and C columns of ``in_proj`` and the
-    scan's C·Bᵀ, the enc-dec frontend's projection (outside the blocks,
-    and its input takes no gradient); all else is split."""
+    scan's C·Bᵀ, the frontends' projections (outside the blocks, over
+    every frame or patch; their inputs take no gradient), and an
+    attention whose heads do not split (``_attention_flops``); all else is
+    split. A sequence split of the residual stream changes none of it:
+    every block computes on the gathered sequence."""
     from repro_torch._tree import flatten
-    from repro_torch.parallel.sharding import PARTIAL
+    from repro_torch.parallel.sharding import KEEP, PARTIAL
 
     accum, per, _ = _rows(cfg, shape, mesh)
     s, d, n = shape.seq_len, cfg.d_model, cfg.num_layers
     tokens = per * s
+    flat_roles = dict(flatten(roles))
 
     def mm(t, a, b):
         return 2 * t * a * b
@@ -769,48 +853,157 @@ def replicated_flops(cfg, shape, roles: dict, mesh) -> int:
             cs, cfg.ssm_state, cs)
     elif cfg.num_experts:
         layer = mm(tokens, d, cfg.num_experts)
-    elif dict(flatten(roles)).get(("layers", "attn", "wk")) == PARTIAL:
+    elif flat_roles.get(("layers", "attn", "wk")) == PARTIAL:
         layer = 2 * mm(tokens, d, cfg.num_kv_heads * cfg.resolved_head_dim)
     else:
         layer = 0
     out = accum * passes * n * layer
     if cfg.is_encdec:  # frames as long as the tokens
         out += accum * (2 if train else 1) * mm(tokens, d, d)
+    if cfg.frontend == "vision":  # the patches in front of the tokens
+        patches = min(cfg.frontend_tokens, s // 2)
+        out += accum * (2 if train else 1) * mm(per * patches, d, d)
+    if cfg.family == "dense" and not cfg.is_encdec and \
+            flat_roles.get(("layers", "attn", "wq")) != KEEP:
+        fwd, bwd = _attention_flops(cfg, per, s)
+        again = 0 if not train or cfg.remat == "none" else 1
+        out += accum * n * ((1 + again) * fwd + (bwd if train else 0))
     return out
 
 
-def model_all_reduces(cfg, shape) -> int:
-    """The code's count of the model-parallel region's all-reduces in one
-    step where every block splits. A unit of the layer loops (the block
-    remat wraps) all-reduces at each split block's ``leave`` (and
-    Mamba2's gated-norm ``model_sum``) in its forward; remat's recompute
-    runs them again but for the unit's last ``leave``, whose output only
-    the residual add reads, so that ``torch.utils.checkpoint`` stops
-    before it (RWKV's channel-mix ``leave`` feeds the receptance's
-    product, which keeps it); the backward all-reduces at each ``enter``
-    (x; cross-attention's memory; MoE's routing weights) and each
-    ``model_sum``. Outside the units: the embedding's lookup, the loss's
-    max and sum in the forward, the logits' ``enter`` in the backward."""
+def _kept(roles: dict, *path) -> bool:
+    from repro_torch.parallel.sharding import KEEP
+
+    node = roles
+    for k in path:
+        node = node.get(k) if isinstance(node, dict) else None
+    return node == KEEP
+
+
+def seq_units(cfg, shape, roles: dict) -> list:
+    """The units of the layer loops (the blocks remat wraps) as a step
+    under a sequence split runs them: each a list of its sublayers in
+    order, a sublayer ``(enters, out, split, sums)``: the lengths of the
+    streams its ``enter`` gathers (cross-attention's memory too), the
+    length of its output's stream, whether it keeps a model chunk (its
+    output partial), and its ``model_sum`` all-reduces (Mamba2's gated
+    norm, where it keeps its heads). The tokens' stream is the shape's
+    length (a VLM's patches and tokens together), an enc-dec encoder's
+    frames as long."""
     from repro_torch.models.transformer import hybrid_groups
 
-    # (forward, recompute, backward) all-reduces of one unit
-    n, ae = cfg.num_layers, cfg.attn_every
+    s = t = shape.seq_len
+    n = cfg.num_layers
+
+    def sub(split, enters=(s,), out=s, sums=0):
+        return (tuple(enters), out, bool(split), sums)
+
     if cfg.family == "ssm":
-        units = [(2, 2, 2)] * n
-    elif cfg.family == "hybrid":
+        return [[sub(_kept(roles, "layers", "tm", "w_r")),
+                 sub(_kept(roles, "layers", "tm", "c_k"))]] * n
+    if cfg.family == "hybrid":
         ng, tail = hybrid_groups(cfg)
-        units = ([(1 + 2 * ae, 2 * ae, 1 + 2 * ae)] * ng
-                 + [(2, 1, 2)] * tail)
-    elif cfg.is_encdec:
-        units = [(2, 1, 2)] * cfg.encoder_layers + [(3, 2, 4)] * n
-    else:
-        units = [(2, 1, 3 if cfg.num_experts else 2)] * n
-    fwd, again, bwd = (sum(u[i] for u in units) for i in range(3))
-    if shape.kind != "train":
-        return fwd + 1
-    if cfg.remat == "none":
-        again = 0
-    return cfg.accum * (fwd + again + bwd + 1 + 2 + 1)
+        mk = _kept(roles, "groups", "mamba", "A_log")
+        mamba = sub(mk, sums=int(mk))
+        return ([[sub(_kept(roles, "shared_attn", "attn", "wq"))]
+                 + [mamba] * cfg.attn_every] * ng + [[mamba]] * tail)
+    if cfg.is_encdec:
+        enc = [sub(_kept(roles, "encoder", "attn", "wq"), (t,), t),
+               sub(_kept(roles, "encoder", "mlp", "w_up"), (t,), t)]
+        dec = [sub(_kept(roles, "layers", "attn", "wq")),
+               sub(_kept(roles, "layers", "xattn", "wq"), (s, t)),
+               sub(_kept(roles, "layers", "mlp", "w_up"))]
+        return [enc] * cfg.encoder_layers + [dec] * n
+    ffn = ("moe", "w_up") if cfg.num_experts else ("mlp", "w_up")
+    return [[sub(_kept(roles, "layers", "attn", "wq")),
+             sub(_kept(roles, "layers", *ffn))]] * n
+
+
+SEQ_COUNTS = ("all_gathers", "gathered_bytes", "reduce_scatters",
+              "scattered_bytes")
+
+
+def seq_collectives(cfg, shape, roles: dict, mesh) -> dict:
+    """The code's count of a train or prefill step's all-gathers and
+    reduce-scatters of the sequence over "model" (``MODEL``), with the
+    bytes of the whole sequence each one moves, where every stream splits
+    (``seq_units``). A sublayer's ``enter`` all-gathers its inputs in the
+    forward and reduce-scatters their gradients in the backward where it
+    keeps a chunk (else takes its own rows); its ``leave`` reduce-scatters
+    where it keeps a chunk (else takes its own rows) and all-gathers the
+    gradient in the backward. Remat's recompute (remat full or dots) runs
+    each unit's forward again but for its last ``leave``, whose output
+    only the residual add reads. Outside the units: the lookup's
+    reduce-scatter into this rank's rows (its own rows where the table is
+    whole) and its gradient's all-gather, the logits' all-gather and its
+    gradient's reduce-scatter (where the vocab splits)."""
+    from repro_torch.models.transformer import DTYPES
+
+    accum, per, _ = _rows(cfg, shape, mesh)
+    width = cfg.d_model * DTYPES[cfg.dtype].itemsize * per
+    train = shape.kind == "train"
+    again = train and cfg.remat != "none"
+    vocab = _kept(roles, "embedding", "embed")
+    s = shape.seq_len
+    out = collections.Counter()
+
+    def add(kind, length, times=1):
+        out[kind + "s"] += times
+        out[("gathered" if kind == "all_gather" else "scattered")
+            + "_bytes"] += times * length * width
+
+    for unit in seq_units(cfg, shape, roles):
+        for j, (enters, length, split, _) in enumerate(unit):
+            for e in enters:
+                add("all_gather", e, 1 + again)
+                if train and split:
+                    add("reduce_scatter", e)
+            if split:
+                last = j == len(unit) - 1
+                add("reduce_scatter", length, 1 + (again and not last))
+            if train:
+                add("all_gather", length)
+    add("all_gather", s)  # the logits' input
+    if vocab:
+        add("reduce_scatter", s)  # the lookup
+    if train:
+        add("all_gather", s)  # the lookup's gradient
+        if vocab:
+            add("reduce_scatter", s)  # the logits' input's gradient
+    return {k: accum * out[k] for k in SEQ_COUNTS}
+
+
+def model_all_reduces(cfg, shape, roles: dict) -> int:
+    """The code's count of the model-parallel region's all-reduces in one
+    step whose streams split along their sequence: the loss's max and sum
+    over the vocab shards in the forward of each microbatch, and Mamba2's
+    gated-norm ``model_sum`` where it keeps its heads, in its forward, in
+    remat's recompute and in its backward. ``enter`` and ``leave``
+    all-gather and reduce-scatter instead (``seq_collectives``)."""
+    train = shape.kind == "train"
+    sums = sum(u[3] for unit in seq_units(cfg, shape, roles) for u in unit)
+    if not train:
+        return sums
+    again = 0 if cfg.remat == "none" else 1
+    return cfg.accum * (sums * (2 + again) + 2)
+
+
+def saved_boundary_bytes(cfg, shape, mesh, split: bool = True) -> int:
+    """The code's count of the bytes remat (full or dots) holds at the
+    block boundaries of one microbatch: each unit's input, this rank's
+    rows of its stream (``split``; the whole stream without), and an
+    enc-dec decoder's memory once."""
+    from repro_torch.models.transformer import DTYPES, hybrid_groups
+
+    _, per, _ = _rows(cfg, shape, mesh)
+    rows = shape.seq_len // (mesh.size(MODEL_DIM) if split else 1)
+    one = per * rows * cfg.d_model * DTYPES[cfg.dtype].itemsize
+    if cfg.family == "hybrid":
+        ng, tail = hybrid_groups(cfg)
+        return (ng + tail) * one
+    if cfg.is_encdec:
+        return (cfg.encoder_layers + cfg.num_layers + 1) * one
+    return cfg.num_layers * one
 
 
 def _held_region(cfg, shape, roles, spy, fc, params, batch, mesh,
@@ -818,8 +1011,12 @@ def _held_region(cfg, shape, roles, spy, fc, params, batch, mesh,
     """This rank's flops (the step under ``fc``) against the same rows'
     on one device (``one_device_flops``): the ratio must be what the
     code's count gives, 1/model of the split matmuls and the whole of the
-    replicated ones (``replicated_flops``); and its model-region
-    all-reduces the code's count (``model_all_reduces``)."""
+    replicated ones (``replicated_flops``); its model-region all-reduces
+    (``model_all_reduces``) and its sequence all-gathers and
+    reduce-scatters with their bytes (``seq_collectives``) the code's
+    count; and a train step's remat-saved block inputs
+    (``Spy.saved_peak``, remat full or dots) the code's count, this
+    rank's rows of each stream (``saved_boundary_bytes``)."""
     m = mesh.size(MODEL_DIM)
     flops = fc.get_total_flops()
     whole = one_device_flops(cfg, shape, params, batch, mesh)
@@ -829,8 +1026,10 @@ def _held_region(cfg, shape, roles, spy, fc, params, batch, mesh,
            "flop_ratio_code": ((whole - rep) / m + rep) / whole,
            "replicated_flops": rep,
            "model_all_reduces": spy.region["all_reduces"],
-           "model_all_reduces_code": model_all_reduces(cfg, shape),
-           "model_bytes": spy.region["bytes"]}
+           "model_all_reduces_code": model_all_reduces(cfg, shape, roles),
+           "model_bytes": spy.region["bytes"],
+           "seq": {k: spy.region[k] for k in SEQ_COUNTS},
+           "seq_code": seq_collectives(cfg, shape, roles, mesh)}
     bad = []
     if flops * m != whole - rep + m * rep:
         bad.append(f"{what}flops {flops} of one device's {whole}, the code "
@@ -838,6 +1037,18 @@ def _held_region(cfg, shape, roles, spy, fc, params, batch, mesh,
     if out["model_all_reduces"] != out["model_all_reduces_code"]:
         bad.append(f"{what}{out['model_all_reduces']} model all-reduces, "
                    f"the code gives {out['model_all_reduces_code']}")
+    if out["seq"] != out["seq_code"]:
+        bad.append(f"{what}sequence collectives {out['seq']}, the code "
+                   f"gives {out['seq_code']}")
+    if shape.kind == "train" and cfg.remat != "none":
+        out["saved_bytes"] = spy.saved_peak
+        out["saved_bytes_code"] = saved_boundary_bytes(cfg, shape, mesh)
+        out["saved_bytes_unsplit"] = saved_boundary_bytes(cfg, shape, mesh,
+                                                          split=False)
+        if out["saved_bytes"] != out["saved_bytes_code"]:
+            bad.append(f"{what}remat held {out['saved_bytes']} bytes of "
+                       f"block inputs at once, the code gives "
+                       f"{out['saved_bytes_code']}")
     _check(bad)
     return out
 
@@ -873,10 +1084,11 @@ def _held_gathers(spy: Spy, want: dict, cfg, steps: int, what: str,
                 "reductions": 0, "reduce_scatters": 0, "all_reduces": 0}
     bad = [f"{what}gather {k} {got[k]}, the code gives {v}"
            for k, v in code.items() if got[k] != v]
+    # the layer gather's and the sequence split's (MODEL) collectives
     issued = {"all_gathers": spy.issued["all_gather_into_tensor"],
               "reduce_scatters": spy.issued["reduce_scatter_tensor"]}
-    bad += [f"{what}{v} {k} issued, {got[k]} counted"
-            for k, v in issued.items() if v != got[k]]
+    bad += [f"{what}{v} {k} issued, {got[k]} + {spy.region[k]} counted"
+            for k, v in issued.items() if v != got[k] + spy.region[k]]
     bound = want["rest_bytes"] + want["unit_bytes"]
     if cfg.remat != "none" and spy.peak > bound:
         bad.append(f"{what}{spy.peak} bytes of whole leaves alive at once, "
@@ -988,15 +1200,22 @@ def _gather_cases(mesh) -> dict:
 
 
 def _plants(ref, mesh) -> dict:
-    """Four faults planted in the model-parallel region, each in a train
+    """Seven faults planted in the model-parallel region, each in a train
     cell whose values must then miss the reference's (the number of
-    failed checks, a planted fault must make some): ``leave`` dropped
-    after attention's row-split output projection (llama); MQA's
-    ``wk``/``wv`` gradient not summed over "model" (their roles None in
-    place of ``PARTIAL``); a kept chunk's gradient summed over "model"
-    (llama's ``KEEP`` leaves given the model dim's sum); the gated norm's
-    ``model_sum`` dropped (zamba2). Every rank plants the same fault, so
-    that the collectives still pair."""
+    failed checks, a planted fault must make some): ``leave``'s sum
+    dropped after attention's row-split output projection (llama: each
+    rank takes its rows of its partial output, where the reduce-scatter
+    sums them); MQA's ``wk``/``wv`` gradient not summed
+    over "model" (their roles None in place of ``PARTIAL``); a kept
+    chunk's gradient summed over "model" (llama's ``KEEP`` leaves given
+    the model dim's sum); the gated norm's ``model_sum`` dropped (zamba2);
+    and of the sequence split: the norm scales' gradients not summed over
+    "model" (llama's ``ln1``, ``ln2`` and ``final_norm`` roles None in
+    place of ``PARTIAL``); an attention with no split leaf (heads3) that
+    reduce-scatters its whole output instead of taking its rows; a rank
+    that takes the rows of the next shard (heads3, ``SeqSplit.rows``).
+    Every rank plants the same fault, so that the collectives still
+    pair."""
     from repro_torch.models import attention, ssm
     from repro_torch.models import transformer as T
     from repro_torch.parallel import sharding as SH
@@ -1004,37 +1223,70 @@ def _plants(ref, mesh) -> dict:
     llama = ("llama3.2-3b", CELLS[0][1], "")
     mqa = ("llama3.2-3b", CELLS[0][1], "mqa")
     zamba = ("zamba2-7b", CELLS[0][1], "")
+    heads3 = ("llama3.2-3b", CELLS[0][1], "heads3")
     real_roles, real_init = T.model_roles, SH.LayerShards.__init__
+    real_leave, real_rows = attention.leave, SH.SeqSplit.rows
 
-    def whole_kv(cfg, rules, mesh):
-        roles = real_roles(cfg, rules, mesh)
+    def whole_kv(cfg, rules, mesh, shape=None):
+        roles = real_roles(cfg, rules, mesh, shape)
         for k in ("wk", "wv"):
             roles["layers"]["attn"][k] = None
         return roles
+
+    def norms_unsummed(cfg, rules, mesh, shape=None):
+        roles = real_roles(cfg, rules, mesh, shape)
+        for norm in (roles["layers"]["ln1"], roles["layers"]["ln2"],
+                     roles["final_norm"]):
+            norm["scale"] = None
+        return roles
+
+    def next_rows(self, t):
+        return real_rows(dataclasses.replace(
+            self, index=(self.index + 1) % self.count), t)
 
     def summed_chunks(self, *a, **k):
         real_init(self, *a, **k)
         self.sums = [(MODEL_DIM,) if r == SH.KEEP else s
                      for r, s in zip(self.roles, self.sums)]
 
-    faults = {"leave_dropped": (attention, "leave", lambda x: x, llama),
+    faults = {"leave_dropped": (attention, "leave",
+                                lambda x, split=True: real_leave(x, False),
+                                llama),
               "mqa_kv_sum_skipped": (T, "model_roles", whole_kv, mqa),
               "kept_chunk_summed": (SH.LayerShards, "__init__",
                                     summed_chunks, llama),
               "gated_norm_sum_dropped": (ssm, "model_sum", lambda x: x,
-                                         zamba)}
+                                         zamba),
+              "norm_sum_skipped": (T, "model_roles", norms_unsummed, llama),
+              "unsplit_scattered": (
+                  attention, "leave",
+                  lambda x, split=True: real_leave(x, True), heads3),
+              "next_shard_rows": (SH.SeqSplit, "rows", next_rows, heads3)}
     out = {}
     for name, (owner, attr, fault, cell) in faults.items():
         real = getattr(owner, attr)
         setattr(owner, attr, fault)
         try:
-            _, state, m = _train_once(*cell, ref, mesh)
+            out[name] = _planted_misses(cell, ref, mesh)
         finally:
             setattr(owner, attr, real)
-        out[name] = len(_train_mismatches(*cell, ref, state, m))
     if not all(out.values()):
         _check([f"a planted fault passed: {out}"])
     return out
+
+
+def _planted_misses(cell: tuple, ref, mesh) -> int:
+    """The failed checks of one train step of ``cell`` with a fault
+    planted: its mismatches with the reference's, or 1 where the step
+    raised (every rank plants the same fault, so every rank raises at the
+    same point and no collective is left unpaired)."""
+    from torch.utils.checkpoint import CheckpointError
+
+    try:
+        _, state, m = _train_once(*cell, ref, mesh)
+    except (CheckpointError, RuntimeError):
+        return 1
+    return len(_train_mismatches(*cell, ref, state, m))
 
 
 def _decode_plants(ref, mesh) -> dict:
@@ -1125,7 +1377,8 @@ def _card_threads(ref, mesh) -> dict:
     on another thread: the values must match the reference's, since the
     recompute re-enters the forward's context (``sharding.in_context``);
     and must miss them without it (a planted fault: the recompute then
-    runs ``enter``/``leave``/``model_sum`` as the identity). The number of
+    runs ``enter``/``leave``/``model_sum`` as the identity, on rows that
+    are not the forward's, which checkpoint refuses). The number of
     failed checks of each."""
     import contextlib as cl
 
@@ -1142,14 +1395,47 @@ def _card_threads(ref, mesh) -> dict:
         real = T.in_context
         T.in_context = lambda context: cl.nullcontext()
         try:
-            _, state, m = _train_once(*llama, ref, mesh)
+            out["without_in_context"] = _planted_misses(llama, ref, mesh)
         finally:
             T.in_context = real
-        out["without_in_context"] = len(_train_mismatches(*llama, ref,
-                                                          state, m))
     if out["without_in_context"] == 0 or out[cell_key(*llama)] \
             or out[cell_key(*zamba)]:
         _check([f"a backward on another thread: {out}"])
+    return out
+
+
+def _lengths(ref, mesh) -> dict:
+    """The ``LENGTHS`` prefills through ``build_prefill_step``'s function
+    on batches split over "data" alone: their logits held to the
+    reference's at 1e-5, with sequence collectives in both (the split
+    stream's). Returns each one's ``MODEL`` counts."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import build_prefill_step, place
+    from repro_torch.parallel.layouts import rules_for
+    from repro_torch.parallel.sharding import (MODEL, NamedSharding, full,
+                                               use_mesh)
+
+    out = {}
+    for key, (s, t) in LENGTHS.items():
+        cfg, _, _ = _config("seamless-m4t-medium", ("p", "prefill", 32, 4),
+                            "")
+        shape = ShapeSpec("p", "prefill", 32, 4)
+        rules = rules_for(cfg, shape, mesh)
+        prog = build_prefill_step(cfg, shape, mesh, rules)
+        params = place(_torch(_tree(ref, key + "/params")),
+                       prog.in_shardings[0])
+        rows = NamedSharding(mesh, ("data",))
+        batch = {k: place(v, rows) for k, v in
+                 _torch(_tree(ref, key + "/batch")).items()}
+        MODEL.reset()
+        with use_mesh(mesh, rules):
+            logits = full(prog.fn(params, batch))
+        out[key] = MODEL.counts()
+        bad = mismatches({"": logits.numpy()}, {"": ref[key + "/logits"]},
+                         key + " logits")
+        if not out[key]["all_gathers"]:
+            bad.append(f"{key}: no sequence all-gather")
+        _check(bad)
     return out
 
 
@@ -1190,6 +1476,7 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
         region_plants = _plants(ref, mesh)
         decode_plants = _decode_plants(ref, mesh)
         threads = _card_threads(ref, mesh)
+        lengths = _lengths(ref, mesh)
         pipe = _pipeline(ref)
         every = [None] * RANKS
         dist.all_gather_object(every, gathers)
@@ -1205,7 +1492,7 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
                            "region_plants": region_plants,
                            "decode_plants": decode_plants,
                            "backward_threads": threads,
-                           "pipeline": pipe,
+                           "pipeline": pipe, "lengths": lengths,
                            "world": {"ranks": dist.get_world_size(),
                                      "mesh": dict(zip(mesh.mesh_dim_names,
                                                       mesh.shape))},

@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from repro.configs import SHAPES as REF_SHAPES
+from repro.configs.base import ShapeSpec as RShapeSpec
 from repro.configs import get_config as ref_get_config
 from repro.models import attention as RA
 from repro.models import inputs as RI
@@ -29,7 +30,7 @@ from repro.models import transformer as RTF
 from repro.parallel import layouts as RL
 from repro.parallel import sharding as RSH
 from repro.parallel.pipeline import bubble_fraction as ref_bubble
-from repro_torch.configs import SHAPES, get_config, list_configs
+from repro_torch.configs import SHAPES, ShapeSpec, get_config, list_configs
 from repro_torch.launch import mesh as MESH
 from repro_torch.models import attention as A
 from repro_torch.models import inputs as I
@@ -325,6 +326,78 @@ def test_model_roles_follow_the_pruned_specs(arch, mesh_name, fake_2x2):
                 d.shape, mesh, kept)
             assert tuple(local) == _split_shape(d, spec, got[p], m), (
                 arch, shape.name, p, spec)
+
+
+SEQ_MESHES = {"2x2": (("data", "model"), (2, 2)), **MESHES}
+
+
+def _seq_streams(cfg, shape, patches=None, frames=None):
+    """The global (batch, length, width) of each residual stream a train
+    or prefill step of ``shape`` runs: the tokens (with a vision config's
+    patches in front, ``patches`` of them if given) and an enc-dec
+    config's frames (``frames`` of them if given)."""
+    st = I.batch_structure(cfg, shape)
+    b, d = shape.global_batch, cfg.d_model
+    p = (st["patches"][0][1] if patches is None else patches) \
+        if "patches" in st else 0
+    out = {"main": (b, st["tokens"][0][1] + p, d)}
+    if "frames" in st:
+        out["encoder"] = (b, st["frames"][0][1] if frames is None
+                          else frames, d)
+    return out
+
+
+@pytest.mark.parametrize("mesh_name", sorted(SEQ_MESHES))
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b",
+                                  "seamless-m4t-medium", "llama3.2-3b"])
+def test_the_sequence_split_follows_the_reference_pruning(arch, mesh_name):
+    """The port's per-activation decision to split a residual stream's
+    sequence over "model" (``sharding.seq_split_for``, Megatron-SP) is the
+    reference's: "model" kept on the sequence by its ``_prune_spec_for``
+    of the rules' ``("batch", "seq", "embed")`` spec for the stream's own
+    global shape. Over every train and prefill shape and odd lengths: a
+    VLM's patches and tokens as one sequence (P + S, with P that makes it
+    odd), an enc-dec encoder's frames of their own length (T odd beside
+    S even), and odd token counts. ``model_roles`` with the step's shape
+    makes the stream's norm scales ``PARTIAL`` exactly where it splits."""
+    axes, dims = SEQ_MESHES[mesh_name]
+    mesh = types.SimpleNamespace(axis_names=axes, devices=np.empty(dims))
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    m = dict(zip(axes, dims))["model"]
+    cases = []
+    for name, shape in SHAPES.items():
+        if shape.kind == "decode":
+            continue
+        cases.append((shape, {}))
+        for odd in (1, 3, m + 1):
+            cases.append((shape, {"patches": odd, "frames": odd}))
+        odd_seq = ShapeSpec(shape.name, shape.kind, shape.seq_len + 1,
+                            shape.global_batch)
+        cases.append((odd_seq, {}))
+    seen = set()
+    for shape, over in cases:
+        rules = L.rules_for(cfg, shape, mesh)
+        rshape = RShapeSpec(shape.name, shape.kind, shape.seq_len,
+                            shape.global_batch)
+        rrules = RL.rules_for(rcfg, rshape, mesh)
+        streams = _seq_streams(cfg, shape, **over)
+        for stream, gshape in streams.items():
+            want = RSH._prune_spec_for(gshape, rrules.spec(
+                ("batch", "seq", "embed")), mesh)[1]
+            want = "model" in (want if isinstance(want, tuple)
+                               else (want,)) and m > 1
+            got = SH.seq_split_for(gshape, rules, mesh)
+            assert got == want, (shape.name, stream, gshape)
+            seen.add((stream, got))
+        if not over:  # the step's own stream shapes
+            roles = TF.model_roles(cfg, rules, mesh, shape)
+            main = SH.seq_split_for(streams["main"], rules, mesh)
+            assert (roles["final_norm"]["scale"] == SH.PARTIAL) == main
+            if "encoder" in streams:
+                enc = SH.seq_split_for(streams["encoder"], rules, mesh)
+                assert (roles["enc_norm"]["scale"] == SH.PARTIAL) == enc
+    # both decisions met on every stream
+    assert {got for _, got in seen} == {True, False}, seen
 
 
 def test_llama_on_16_model_ranks_replicates_attention():

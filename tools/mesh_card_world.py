@@ -12,8 +12,12 @@ in 4 processes, one card each, over NCCL (``tcp://localhost``), the state
 laid out by the rules. Each block gathers its layer from the shards over
 "data" and reduce-scatters its gradient back (``parallel/sharding.py``
 ``LayerShards``), and computes its heads, ffn columns and vocab rows over
-"model" (``model_parallel``: an all-reduce where a split block leaves,
-and where its input's gradient comes back). After the first step the
+"model" (``model_parallel``); the residual stream between the blocks is
+each model rank's rows of the sequence (Megatron-SP, ``seq_parallel``:
+an all-gather of the sequence where a block enters, a reduce-scatter into
+the rows where it leaves, and the reverse for the gradient), so the
+norms, the residual adds and the block inputs remat keeps are 1/model a
+rank. After the first step the
 sharded run's state, gathered whole, is held to the one-card run's: the
 loss and AdamW's grad norm within ``LOSS_RTOL``, the first moment (the
 clipped gradient times 1 - b1) within ``GRAD_RTOL`` of each leaf's max,
@@ -27,7 +31,11 @@ model rank's vocab chunk) are held within ``LOGITS_RTOL`` of the largest
 of one card's. Each rank reports its peak device memory, its local
 state's and gradient buffers' bytes against the whole model's, the
 gather's calls, bytes copied and collectives a step, the model region's
-all-reduces and bytes a step, the step's ms and tokens/s. Prints one JSON
+all-reduces and bytes a step, its all-gathers and reduce-scatters of the
+sequence and the GB of the whole sequence they move a step, the most
+bytes of block inputs remat held at once (the tensors handed to
+``torch.utils.checkpoint``, each counted once while alive), the step's
+ms and tokens/s. Prints one JSON
 line, with the cards' name and power limit; exits non-zero if a check
 fails. Needs four CUDA cards.
 
@@ -71,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -133,6 +142,37 @@ def _setup(args):
         pshape, {"tokens": pre["tokens"]}
 
 
+class _SavedInputs:
+    """Within: the most bytes of tensors handed to
+    ``torch.utils.checkpoint`` alive at once (``peak``), each counted once
+    until it is collected: remat's block inputs."""
+
+    def __enter__(self):
+        import torch.utils.checkpoint as ckpt
+
+        self.alive, self.peak, self.held = 0, 0, {}
+        self._real = real = ckpt.checkpoint
+
+        def checkpoint(fn, *args, **kwargs):
+            for a in args:
+                if isinstance(a, torch.Tensor) and id(a) not in self.held:
+                    self.held[id(a)] = a.nbytes
+                    self.alive += a.nbytes
+                    self.peak = max(self.peak, self.alive)
+                    weakref.finalize(a, self._gone, id(a))
+            return real(fn, *args, **kwargs)
+        ckpt.checkpoint = checkpoint
+        return self
+
+    def _gone(self, key: int) -> None:
+        self.alive -= self.held.pop(key)
+
+    def __exit__(self, *exc):
+        import torch.utils.checkpoint as ckpt
+
+        ckpt.checkpoint = self._real
+
+
 def _run(args, device: str, mesh_shape: tuple) -> dict:
     """The steps on a mesh of ``mesh_shape`` over this process group; the
     first step's state whole (on every rank) and this rank's readings."""
@@ -175,13 +215,14 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with use_mesh(mesh, rules):
+        with use_mesh(mesh, rules), _SavedInputs() as saved:
             state, m = step(state, b)
         if cuda:
             torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         counts.append({**GATHER.counts(), **{
-            f"model_{k}": v for k, v in MODEL.counts().items()}})
+            f"model_{k}": v for k, v in MODEL.counts().items()},
+            "remat_saved_bytes": saved.peak})
         if i == 0:
             metrics = {k: float(v) for k, v in m.items()}
             first = {"/".join(map(str, p)): full(v).to("cpu", copy=True)
@@ -198,6 +239,11 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
                          if steady else None),
         "gathers_per_step": counts[-1],
         "gathered_gb_per_step": counts[-1]["bytes_copied"] / 1e9,
+        "seq_all_gather_gb_per_step":
+            counts[-1]["model_gathered_bytes"] / 1e9,
+        "seq_reduce_scatter_gb_per_step":
+            counts[-1]["model_scattered_bytes"] / 1e9,
+        "remat_saved_gb": counts[-1]["remat_saved_bytes"] / 1e9,
         "local_state_gb": local_gb, "local_params_gb": sum(
             local(p).nbytes for p in params) / 1e9,
         "whole_params_gb": whole_gb,
