@@ -18,6 +18,12 @@ computes the same function; times each step of B2's and B4's launch paths
 at the decode shape, and counts the cycles of each phase of B4's
 tensor-core kernel. Then:
 
+* slice 7d part three (c), ``flash_offset_check``: B3 with a query
+  offset, at llama3.2-3b's query rows of 16 model ranks under prefill's
+  ``seq_inner`` (2 x 2,048 rows of 24 heads against the whole 32,768
+  keys of 8), bit for bit the same rows of one whole-sequence launch and
+  within 3e-2 of its plain version (f32 on the scalar kernel within
+  2e-5), timed beside its bound and SDPA's;
 * slices 2 and 3a-3d, the six LM families the port runs: the dense LM
   at llama3.2-3b's full width (through B2 and B3 at head dim 128), the
   RWKV LM at rwkv6-1.6b's (B2 and B4: every forward WKV on B4's
@@ -45,8 +51,8 @@ tensor-core kernel. Then:
   ``ServingEngine`` with ``serve``'s requests), a ragged run through
   ``ServingEngine`` (not for llava: its decode step is the dense block on
   tokens, which llama3.2-3b's ragged run drives; each over the first
-  layers of its model, ``RAGGED_LAYERS``: 2 of llama3.2-3b's, 2 of
-  rwkv6-1.6b's, 2 of mixtral-8x7b's, 2 of seamless-m4t-medium's decoder
+  layers of its model, ``RAGGED_LAYERS``: 1 of llama3.2-3b's, of
+  rwkv6-1.6b's, of mixtral-8x7b's and of seamless-m4t-medium's decoder
   layers, and zamba2-7b's first group and a tail layer, 7 layers, to fit
   the run's budget; 12 requests on 8 slots, so freed slots admit new
   prompts while others decode) and
@@ -57,8 +63,9 @@ tensor-core kernel. Then:
   reference's ``serve()`` applies, and its line reports their modeled
   Watt·s (a TPU v5e model's, not the card's) beside the metered ones;
 * slices 3e and 4a, on llama3.2-3b's and rwkv6-1.6b's full-width models:
-  ``migration``, ``serve()``'s requests on two engines that share the
-  model, a live slot moved between them at admission, mid-decode and one
+  ``migration``, ``serve()``'s requests on two engines that share a
+  view of the model's first layers (``MIGRATION_LAYERS``: 7 of llama's,
+  8 of rwkv's), a live slot moved between them at admission, mid-decode and one
   token before its end (on llama also into an engine of half the cache),
   its tokens held to the never-migrated baseline's; and ``placement``,
   ``serve(..., adaptive=True)`` with its controller's planning time, and
@@ -87,8 +94,8 @@ tensor-core kernel. Then:
   (8 steps of 2 x 2048 tokens, remat full), metered on the GPU's power
   counter, its launches of B2, B3 and B3's backward held to the count the
   code gives,
-  then one step profiled; ``train_bf16_check``, that bf16 step at full
-  depth through the kernels against the same step through the plain
+  then one step profiled; ``train_bf16_check``, that bf16 step at 14
+  layers through the kernels against the same step through the plain
   versions from one seeded state (step 1's gradient leaf by leaf against
   the f32 gradient, two steps' losses and grad norms), then 8 steps on
   one batch repeated, whose loss must fall;
@@ -107,18 +114,19 @@ tensor-core kernel. Then:
   layers, 8 experts), seamless-m4t-medium and llava-next-mistral-7b (16
   layers, 5,760 positions): ``family_model_check`` (f32, 2 layers; zamba2
   7), every gradient leaf through the kernels against the plain versions;
-  ``family_bf16_check``, one bf16 step's gradient at the training depth,
-  leaf by leaf against the f32 plain gradient beside plain bf16's (rwkv
-  also in f32 at that depth, each leaf held within twice what a one-ulp
-  nudge of the embedding moves the plain gradient); and
-  ``family_train``, 3 steps of ``launch.train.train`` (the VLM, which
+  ``family_bf16_check``, one bf16 step's gradient (at the training depth;
+  rwkv at 4 layers, zamba2 at 7, llava at 4), leaf by leaf against the
+  f32 plain gradient beside plain bf16's (rwkv also in f32 at that depth,
+  each leaf held within twice what a one-ulp nudge of the embedding moves
+  the plain gradient); and
+  ``family_train``, 2 steps of ``launch.train.train`` (the VLM, which
   ``train()`` refuses as the reference's fails, ``train_step`` on
   ``synthetic_batch``), metered, each kernel's launches held to the count
   the code gives and the first loss to what random init gives
   (``expected_first_loss``); rwkv and zamba2 also profiled a step;
 * slice 7c, the mesh step builders on a 1x1 ("data", "model") mesh
   (``launch/mesh.py`` ``make_mesh_compat``, a process group of one rank):
-  ``mesh_train_check``, llama3.2-3b at full width, 4 layers, f32,
+  ``mesh_train_check``, llama3.2-3b at full width, 2 layers, f32,
   ``launch.steps.build_train_step`` at accum 4 over 8 x 2048 tokens
   through the kernels against the same through the plain versions, with
   AdamW, with int8 gradient compression and with Adafactor (the gradient,
@@ -135,8 +143,8 @@ tensor-core kernel. Then:
   and no collective of the model-parallel region (``MODEL``: a model axis
   of one rank splits nothing, neither the blocks nor the sequence, so no
   all-gather or reduce-scatter of it); ``mesh_prefill``,
-  ``launch.steps.build_prefill_step`` on the same mesh at the check's 4
-  layers in f32 over 2 x 2048 tokens, its logits bit for bit
+  ``launch.steps.build_prefill_step`` on the same mesh at 4 layers in
+  f32 over 2 x 2048 tokens, its logits bit for bit
   ``forward``'s, with no such collective; slice 7d's ``mesh_serve``,
   ``launch.steps.build_serve_step`` on the same mesh, llama3.2-3b at full
   width and depth in bf16, MESH_SERVE's slots, cache and steps from one
@@ -244,9 +252,10 @@ RAGGED = dict(slots=8, max_len=1024, requests=12, prompt=(64, 512),
 # (a run of 853 s, the ragged runs 39 s of it), 12 requests, not 16, on
 # the 8 slots (more requests than slots, so a freed slot admits a prompt
 # while the others decode), over 2 (llama), 2 (mixtral), 2 (rwkv) and 2
-# (seamless) layers.
-RAGGED_LAYERS = {"llama3.2-3b": 2, "mixtral-8x7b": 2, "rwkv6-1.6b": 2,
-                 "seamless-m4t-medium": 2}
+# (seamless) layers; over 1 each once prefill's seq_inner check joined
+# (the four took 25 s of a run of 890).
+RAGGED_LAYERS = {"llama3.2-3b": 1, "mixtral-8x7b": 1, "rwkv6-1.6b": 1,
+                 "seamless-m4t-medium": 1}
 # zamba2-7b's ragged run over its first group of 6 and one tail layer (a
 # view sharing the weights), cut to make room for the fleet: its 27 layers
 # took ~42 s of the run.
@@ -308,6 +317,13 @@ FLASH_SHAPES = ((2, 24, 8, 2048, 128, "bfloat16", True, 0),
                 # llava-next-mistral-7b's prefill: 2,880 patches and 2,880
                 # tokens a row, GQA 4
                 (2, 32, 8, 5760, 128, "bfloat16", True, 0))
+# B3 with a query offset (prefill's seq_inner): llama3.2-3b's query rows on
+# the production mesh's 16 model ranks at prefill_32k, each rank's 2,048 of
+# 32,768 rows (2 rows of 24 heads of 128) against the whole sequence's K/V
+# (8 heads), causal, in bf16 at the ranks below (offset rank x 2,048, a
+# multiple of both kernels' query tiles) and in f32 at the rank f32_rank
+FLASH_OFFSET = dict(batch=2, heads=24, kv_heads=8, rows=2048, model=16,
+                    head_dim=128, ranks=(0, 7, 15), f32_rank=7)
 # B3 (tensor cores) inside the bf16 llama3.2-3b at full width, CHECK_LAYERS
 # deep, against the plain attention, as a share of max |logits|: the bf16
 # bound between the two packages' models on the CPU (PERF.md section 7)
@@ -320,6 +336,10 @@ HOST_CALLS = 10_000  # calls each step of B2's and B4's launch paths is timed
 # NEAR_TIE_RTOL of max |logits| (tests/test_torch_serving.py's bf16 rule).
 MIGRATION = dict(slots=4, max_len=1024, requests=8, max_new_tokens=32,
                  resize_len=512, resize_rid=2)
+# The migration runs over a view of the path model's first layers
+# (``first_layers``, sharing its weights): at full depth llama's took 19 s
+# and rwkv's 8 of a run of 890.
+MIGRATION_LAYERS = {"llama3.2-3b": 7, "rwkv6-1.6b": 8}
 NEAR_TIE_RTOL = 2e-2
 
 # Slice 4b: the fleet on llama3.2-3b's full-width model. serve_fleet's
@@ -484,7 +504,9 @@ TRAIN = dict(steps=8, global_batch=2, seq_len=2048)
 # mis-scaled gradient is 1 or more away); each step's loss and grad norm
 # within BF16_LOSS_RTOL (the CPU end-to-end test's bf16 limit). Then TRAIN's
 # steps on one batch repeated: the loss must fall by "repeat_drop" nats
-BF16_CHECK = dict(steps=2, lr=1e-3, repeat_drop=1.0)
+# (at 14 of the 28 layers since prefill's seq_inner check joined: at 28 it
+# took 13 s of a run of 890)
+BF16_CHECK = dict(steps=2, lr=1e-3, repeat_drop=1.0, layers=14)
 BF16_LOSS_RTOL = 1e-2
 # resume: full width over 1 layer (~5 GB of state a checkpoint, most of it
 # the embedding's; 2 layers and 5 steps took 51 s before the five families'
@@ -494,7 +516,7 @@ BF16_LOSS_RTOL = 1e-2
 RESUME = dict(layers=1, steps=4, saved=2)
 RESUME_RTOL = 1e-3
 # Slice 7c: the mesh step builders on a 1x1 ("data", "model") mesh.
-# mesh_train_check: llama3.2-3b at full width, CHECK_LAYERS deep, f32,
+# mesh_train_check: llama3.2-3b at full width, MESH_CHECK_LAYERS deep, f32,
 # build_train_step at MESH_ACCUM microbatches over MESH["global_batch"] rows
 # of MESH["seq_len"], one step through the kernels and one through the
 # plain versions from one seeded state, for each of MESH_CHECK_VARIANTS:
@@ -515,6 +537,9 @@ RESUME_RTOL = 1e-3
 # of expected_first_loss
 MESH = dict(steps=3, global_batch=8, seq_len=2048)
 MESH_ACCUM = 4
+# mesh_train_check's depth (at CHECK_LAYERS, 4, it took 15 s of a run of
+# 890)
+MESH_CHECK_LAYERS = 2
 MESH_CHECK_VARIANTS = ("adamw", "compress_grads", "adafactor")
 MESH_EXTRA_STEPS = 2
 MESH_OUTLIERS = 1e-3
@@ -562,19 +587,24 @@ FAMILY_GRAD_SHAPES = (
      0),
     ("llava-next-mistral-7b", "flash_attention", (2, 32, 8, 5760, 128), True,
      0))
-# (arch, train depth (None: full), f32 check depth, positions a row): the
-# depths one 80 GB card holds at 12 B a parameter (bf16 weights and
-# gradients, f32 moments); zamba2 at its served 27 layers (4 groups and a
-# tail of 3), its check at one group and a tail layer; mixtral at 2 of 32
-# layers with all 8 experts (3 layers, 4.6B parameters, ~55 GB before
-# activations, is too close); llava at 16 of 32 over 2,880 patches and
-# 2,880 tokens a row; seamless's check at 2 encoder and 2 decoder layers
-TRAIN_FAMILIES = (("rwkv6-1.6b", None, 2, 2048),
-                  ("zamba2-7b", 27, 7, 2048),
-                  ("mixtral-8x7b", 2, 2, 2048),
-                  ("seamless-m4t-medium", None, 2, 2048),
-                  ("llava-next-mistral-7b", 16, 2, 5760))
-FAMILY_TRAIN = dict(steps=3)
+# (arch, train depth (None: full), f32 check depth, bf16 check depth (None:
+# the train depth), positions a row): the depths one 80 GB card holds at 12
+# B a parameter (bf16 weights and gradients, f32 moments); zamba2 at its
+# served 27 layers (4 groups and a tail of 3), its checks at one group and
+# a tail layer; mixtral at 2 of 32 layers with all 8 experts (3 layers,
+# 4.6B parameters, ~55 GB before activations, is too close); llava at 16 of
+# 32 over 2,880 patches and 2,880 tokens a row; seamless's check at 2
+# encoder and 2 decoder layers. The bf16 checks of rwkv (at its 24 layers,
+# whose plain WKV runs three times, 64 s of a run of 890), zamba2 and llava
+# at a cut depth since prefill's seq_inner check joined.
+TRAIN_FAMILIES = (("rwkv6-1.6b", None, 2, 4, 2048),
+                  ("zamba2-7b", 27, 7, 7, 2048),
+                  ("mixtral-8x7b", 2, 2, None, 2048),
+                  ("seamless-m4t-medium", None, 2, None, 2048),
+                  ("llava-next-mistral-7b", 16, 2, 4, 5760))
+# steps of each family's training run (3 until prefill's seq_inner check
+# joined)
+FAMILY_TRAIN = dict(steps=2)
 # a family's first training loss against expected_first_loss, in nats: the
 # first runs read 0.008-0.032 from it (0.20-0.83 above ln V)
 FIRST_LOSS_ATOL = 0.1
@@ -921,6 +951,42 @@ def flash_bound_ms(b, h, kh, s, d, dtype_bytes, causal, window
                                        else "operations")
 
 
+def flash_offset_bound_ms(b, h, kh, sq, sk, d, dtype_bytes, offset
+                          ) -> tuple[float, str]:
+    """B3 over q's Sq rows at ``offset`` against Sk keys, causal: QK^T and
+    PV over the pairs the mask lets through (4*D operations a pair; query
+    row i sees offset + i + 1 keys) at the peak for the inputs' type; q
+    and o (H heads of Sq rows) read or written once, and of k and v (K
+    heads) the offset + Sq rows the mask lets any query see."""
+    flops = 4 * d * (sq * offset + sq * (sq + 1) // 2) * b * h
+    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
+    nbytes = dtype_bytes * b * d * (2 * h * sq + 2 * kh * min(sk,
+                                                            offset + sq))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def sdpa_backend(call, candidates) -> str:
+    """The backend SDPA picks for ``call`` (no arguments; it runs
+    ``F.scaled_dot_product_attention`` as the caller times it): the one of
+    ``candidates`` (``SDPBackend`` members) whose output, run alone, equals
+    the call's bit for bit, each forward being deterministic; "unknown"
+    if none does. No profiler: its first start-up alone takes seconds."""
+    from torch.nn.attention import sdpa_kernel
+
+    want = call()
+    for backend in candidates:
+        try:
+            with sdpa_kernel([backend]):
+                got = call()
+        except RuntimeError:  # this backend does not take the call
+            continue
+        if got.shape == want.shape and bool((got == want).all()):
+            return backend.name.lower()
+    return "unknown"
+
+
 def flash_backward_bound_ms(b, h, kh, s, d, dtype_bytes, causal, window
                             ) -> tuple[float, str]:
     """The gradient's four products over the unmasked pairs, dV = P^T dO,
@@ -1217,8 +1283,9 @@ def plain_training():
         rms, flash, wkv = layers._rms_norm_op, attn.flash_attention, rwkv.wkv
         layers._rms_norm_op = lambda x, scale, eps: rms_norm_ref(x, scale,
                                                                  eps)
-        attn.flash_attention = lambda q, k, v, causal, window: attention_ref(
-            q, k, v, causal=causal, window=window)
+        attn.flash_attention = \
+            lambda q, k, v, causal, window, q_offset=0: attention_ref(
+                q, k, v, causal=causal, window=window, q_offset=q_offset)
         rwkv.wkv = lambda r, k, v, lw, u, state=None, chunk=64: \
             plain_wkv_fn().apply(r, k, v, lw, u)
         try:
@@ -1228,6 +1295,21 @@ def plain_training():
                 rms, flash, wkv
 
     return patched()
+
+
+def attention_per_step(n: int) -> dict:
+    """The dense and MoE paths' launches a decode step at n layers: ln1
+    and ln2 a layer and the final norm; no B3, since decode attention is
+    PyTorch ops."""
+    return {"rms_norm": 2 * n + 1, "flash_attention": 0,
+            "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
+
+
+def rwkv_per_step(n: int) -> dict:
+    """The RWKV path's launches a decode step at n layers: every WKV on
+    the sequential kernel."""
+    return {"rms_norm": 2 * n + 1, "flash_attention": 0,
+            "flash_attention_tc": 0, "wkv": n, "wkv_tc": 0}
 
 
 def first_layers(cfg, model, layers: int):
@@ -1725,6 +1807,165 @@ class Smoke:
             ragged_unmasked=b3(1, 16, 16, 333, 64, 0, scalar=False,
                                causal=False),
             llava=b3(2, 32, 8, 5760, 128, 0, scalar=False))
+
+    # -- phase 4a: B3 with a query offset (prefill's seq_inner) -----------
+    def flash_offset_check(self):
+        """B3 at llama3.2-3b's query rows under prefill's ``seq_inner`` on
+        the production mesh (FLASH_OFFSET): model rank r's 2,048 rows of
+        24 heads at offset r x 2,048 against the whole sequence's 32,768
+        keys of 8 heads, causal. At each rank of FLASH_OFFSET the launch
+        must equal bit for bit the same rows of one launch over the whole
+        sequence (each block does the arithmetic of the whole launch's
+        block over the same rows), its plain version within
+        FLASH_BF16_ATOL, and every element within ``bf16_error_bound`` at
+        the offset (the bound that P's and o's rounding to bf16 allows
+        against the f32 attention of the same bf16 values, as
+        ``dense_kernel_phase`` holds the whole launches: FLASH_BF16_ATOL
+        lies above a typical |o| over 32,768 keys), each run a K/V head at
+        a time (the f32 scores of every head at once would be 12.9 GB);
+        the scalar kernel in f32 at
+        FLASH_OFFSET's ``f32_rank`` within F32_ATOL. Times
+        (``timed_pair``): ms a launch, its bound, the plain version's and
+        SDPA's (an explicit boolean mask of the rows' causal frontier,
+        ``enable_gqa``; the backend it picks named at the first rank,
+        ``sdpa_backend``), for each rank and for the whole launch (SDPA
+        causal, its math path left out: its scores would not fit). Added
+        to the kernels line's B3 entry as ``seq_inner_rows``."""
+        import torch
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        from repro_torch.kernels.flash_attention import (
+            attention_ref, flash_attention_cuda)
+        from repro_torch.kernels.flash_attention.kernel import kernel_for
+        from repro_torch.kernels.flash_attention.ref import bf16_error_bound
+
+        fo = FLASH_OFFSET
+        b, h, kh, n, d = (fo[k] for k in ("batch", "heads", "kv_heads",
+                                          "rows", "head_dim"))
+        s = n * fo["model"]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def draw(heads):
+            return torch.randn((b, heads, s, d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+
+        def plain(q, k, v, off):  # a K/V head (and its query heads) a call
+            grp = h // kh
+            return torch.cat([attention_ref(
+                q[:, j * grp:(j + 1) * grp], k[:, j:j + 1], v[:, j:j + 1],
+                causal=True, q_offset=off) for j in range(kh)], dim=1)
+
+        def launch(q, k, v, off):
+            return flash_attention_cuda(q, k, v, causal=True, q_offset=off)
+
+        def over_bound(o, q, k, v, off):
+            """The largest |o - o32| / bound over o's elements, a K/V head
+            (and its query heads) a call, as ``plain``."""
+            grp, worst = h // kh, 0.0
+            for j in range(kh):
+                hs = slice(j * grp, (j + 1) * grp)
+                o32, bound = bf16_error_bound(
+                    q[:, hs], k[:, j:j + 1], v[:, j:j + 1], causal=True,
+                    q_offset=off)
+                worst = max(worst, float(((o[:, hs].float() - o32).abs()
+                                          / bound).max()))
+                del o32, bound
+            return worst
+
+        q_all, k, v = draw(h), draw(kh), draw(kh)
+        whole = flash_attention_cuda(q_all, k, v, causal=True)
+        out = {"shape": [b, h, n, d], "kv_shape": [b, kh, s, d],
+               "dtype": "bfloat16", "causal": True, "ranks": {}}
+        backend = None  # SDPA's, named at the first rank
+        for r in fo["ranks"]:
+            off = r * n
+            q = q_all[:, :, off:off + n].contiguous()
+            n_tc = flash_attention_cuda.launches_tc
+            o = launch(q, k, v, off)
+            on_tc = flash_attention_cuda.launches_tc - n_tc == 1
+            ref = plain(q, k, v, off)
+            torch.cuda.synchronize()
+            err = float((o.float() - ref.float()).abs().max())
+            same = torch.equal(o, whole[:, :, off:off + n])
+            # F32_SLACK counts the worst case of f32 sums over 2,048 keys;
+            # over 32,768 the check leans on their roundings not all
+            # falling one way (the ratio is recorded)
+            worst = over_bound(o, q, k, v, off)
+            label = f"flash_offset rank {r} (offset {off})"
+            self.check(on_tc, f"{label}: not on the tensor-core kernel")
+            self.check(err <= FLASH_BF16_ATOL,
+                       f"{label}: max_abs_err {err} > {FLASH_BF16_ATOL}")
+            self.check(worst <= 1.0, f"{label}: |o - o32| reaches {worst} "
+                                     "of its bf16 rounding bound")
+            self.check(same, f"{label}: not the whole launch's rows bit for "
+                             f"bit")
+            del o, ref
+            pos = torch.arange(off, off + n, device="cuda")[:, None]
+            mask = torch.arange(s, device="cuda")[None, :] <= pos
+            sdpa = functools.partial(F.scaled_dot_product_attention, q, k,
+                                     v, attn_mask=mask, enable_gqa=True)
+            if backend is None:
+                backend = sdpa_backend(sdpa, (
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH))
+            row = {"rank": r, "offset": off, "kernel": "tensor_core",
+                   "max_abs_err": err, "tolerance": FLASH_BF16_ATOL,
+                   "err_vs_f32_over_bound": worst, "bit_equal_whole": same,
+                   "library_call": f"SDPA, boolean mask, enable_gqa, "
+                                   f"{backend}"}
+            row.update(timed_pair(functools.partial(launch, q, k, v, off),
+                                  functools.partial(plain, q, k, v, off),
+                                  REPS, sdpa, plain_reps=2))
+            row["bound_ms"], row["bound_by"] = flash_offset_bound_ms(
+                b, h, kh, n, s, d, 2, off)
+            if r == fo["f32_rank"]:
+                q32, k32, v32 = q.float(), k.float(), v.float()
+                n_tc = flash_attention_cuda.launches_tc
+                o32 = launch(q32, k32, v32, off)
+                ref32 = plain(q32, k32, v32, off)
+                torch.cuda.synchronize()
+                err32 = float((o32 - ref32).abs().max())
+                self.check(kernel_for(torch.float32, d) == "scalar"
+                           and flash_attention_cuda.launches_tc == n_tc,
+                           f"{label} f32: not on the scalar kernel")
+                self.check(err32 <= F32_ATOL, f"{label} f32: max_abs_err "
+                                              f"{err32} > {F32_ATOL}")
+                bound = flash_offset_bound_ms(b, h, kh, n, s, d, 4, off)
+                row["scalar_f32"] = {
+                    "max_abs_err": err32, "tolerance": F32_ATOL,
+                    "ms": time_ms(functools.partial(launch, q32, k32, v32,
+                                                    off), REPS // 4),
+                    "bound_ms": bound[0], "bound_by": bound[1]}
+                del q32, k32, v32, o32, ref32
+            emit({"phase": "flash_offset", **row, "card": self.card})
+            out["ranks"][r] = row
+            del q, mask, sdpa
+            torch.cuda.empty_cache()
+        sdpa = functools.partial(F.scaled_dot_product_attention, q_all, k, v,
+                                 is_causal=True, enable_gqa=True)
+        fused = (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                 SDPBackend.EFFICIENT_ATTENTION)
+        with sdpa_kernel(list(fused)):
+            try:
+                whole_backend = sdpa_backend(sdpa, fused)
+                library = time_ms(sdpa, REPS // 4)
+            except RuntimeError as e:
+                whole_backend, library = f"none: {e}"[:200], None
+        bound = flash_bound_ms(b, h, kh, s, d, 2, True, 0)
+        out["whole"] = {
+            "shape": [b, h, s, d], "ms": time_ms(functools.partial(
+                flash_attention_cuda, q_all, k, v, causal=True), REPS // 4),
+            "bound_ms": bound[0], "bound_by": bound[1], "plain_ms": None,
+            "library_ms": library,
+            "library_call": f"SDPA, causal, enable_gqa, {whole_backend}"}
+        ends = out["ranks"][max(fo["ranks"])], out["ranks"][min(fo["ranks"])]
+        out["imbalance"] = {"ms": ends[0]["ms"] / ends[1]["ms"],
+                            "bound": ends[0]["bound_ms"] / ends[1]["bound_ms"]}
+        emit({"phase": "flash_offset", "whole": out["whole"],
+              "imbalance": out["imbalance"], "card": self.card})
+        self.kernels["flash_attention"]["seq_inner_rows"] = out
+        del q_all, k, v, whole
+        torch.cuda.empty_cache()
 
     # -- phase 4b: where a B2 launch's host time goes at decode -----------
     def rms_host_path(self):
@@ -3126,21 +3367,27 @@ class Smoke:
         """The dense and MoE paths: ln1 and ln2 a layer and the final norm;
         B3 once a layer in the forward, on the tensor cores, since decode
         attention is PyTorch ops. The ragged run at RAGGED_LAYERS' depth."""
-        def per_step(n):
-            return {"rms_norm": 2 * n + 1, "flash_attention": 0,
-                    "flash_attention_tc": 0, "wkv": 0, "wkv_tc": 0}
-
         n, cut = cfg.num_layers, RAGGED_LAYERS[cfg.name]
-        per = per_step(n)
+        per = attention_per_step(n)
         self.lm_main_path(cfg, per, {**per, "flash_attention": n,
                                      "flash_attention_tc": n},
-                          ragged=(cut, per_step(cut)), then=then)
+                          ragged=(cut, attention_per_step(cut)), then=then)
+
+    def cut_migration(self, per_step, resize=False):
+        """``migration_run`` over a view of the path model's first
+        MIGRATION_LAYERS layers, for ``lm_main_path``'s ``then``;
+        ``per_step(n)``: the path's launches a decode step at n layers."""
+        def then(cfg, model, _):
+            cut = MIGRATION_LAYERS[cfg.name]
+            self.migration_run(*first_layers(cfg, model, cut), per_step(cut),
+                               resize=resize)
+        return then
 
     def dense_main_path(self):
         from repro_torch.configs import get_config
 
-        self.attention_main_path(get_config(ARCH), then=functools.partial(
-            self.migration_run, resize=True))
+        self.attention_main_path(get_config(ARCH), then=self.cut_migration(
+            attention_per_step, resize=True))
 
     def moe_main_path(self):
         import dataclasses
@@ -3153,18 +3400,13 @@ class Smoke:
     def rwkv_main_path(self):
         from repro_torch.configs import get_config
 
-        def per_step(n):
-            # every decode step's WKVs on the sequential kernel
-            return {"rms_norm": 2 * n + 1, "flash_attention": 0,
-                    "flash_attention_tc": 0, "wkv": n, "wkv_tc": 0}
-
         cfg = get_config(RWKV_ARCH)
         n, cut = cfg.num_layers, RAGGED_LAYERS[RWKV_ARCH]
-        per = per_step(n)
+        per = rwkv_per_step(n)
         # every one of the forward's WKVs on the tensor-core kernel
         self.lm_main_path(cfg, per, {**per, "wkv_tc": n},
-                          ragged=(cut, per_step(cut)),
-                          then=self.migration_run)
+                          ragged=(cut, rwkv_per_step(cut)),
+                          then=self.cut_migration(rwkv_per_step))
 
     def hybrid_main_path(self):
         import dataclasses
@@ -3627,8 +3869,8 @@ class Smoke:
                            TRAIN["global_batch"])).batch_at(0), "cuda"))
 
     def train_bf16_check(self):
-        """The bf16 step of ``train_main_path`` (full width and depth, remat
-        full, TRAIN's batch) held to the same step through the plain
+        """The bf16 step of ``train_main_path`` (full width, BF16_CHECK's
+        layers, remat full, TRAIN's batch) held to the same step through the plain
         versions. Both start from ``init_train_state``'s seeded state and
         take BF16_CHECK's steps of ``train_step`` on the same batches.
         Step 1's gradient, before any update, is held leaf by leaf to the
@@ -3651,7 +3893,8 @@ class Smoke:
         from repro_torch.models import transformer as MT
         from repro_torch.optim import AdamWConfig
 
-        cfg = get_config(ARCH)
+        cfg = dataclasses.replace(get_config(ARCH),
+                                  num_layers=BF16_CHECK["layers"])
         stream = SyntheticLMStream(cfg, ShapeSpec(
             "train", "train", TRAIN["seq_len"], TRAIN["global_batch"]))
 
@@ -4177,7 +4420,8 @@ class Smoke:
 
     def family_bf16_check(self, arch, layers, seq):
         """One bf16 step's gradient of ``arch`` at full width, ``layers``
-        deep (the depth it trains at), 2 x ``seq`` positions, leaf by leaf:
+        deep (TRAIN_FAMILIES' bf16 check depth), 2 x ``seq`` positions,
+        leaf by leaf:
         its L2 distance from the f32 gradient of the plain versions at the
         same weights (cast up), through the kernels and through the plain
         versions in bf16; the kernels' at most FAMILY_BF16_RATIO times
@@ -4436,9 +4680,9 @@ class Smoke:
     def families_train(self):
         """Slice 7b's paths and checks, family by family: the f32 model
         check, the bf16 gradient at depth, then the training run."""
-        for arch, layers, check_layers, seq in TRAIN_FAMILIES:
+        for arch, layers, check_layers, bf16_layers, seq in TRAIN_FAMILIES:
             self.family_model_check(arch, check_layers)
-            self.family_bf16_check(arch, layers, seq)
+            self.family_bf16_check(arch, bf16_layers or layers, seq)
             self.family_train(arch, layers, seq)
 
     def mesh(self):
@@ -4450,7 +4694,7 @@ class Smoke:
         return self._mesh
 
     def mesh_train_check(self):
-        """llama3.2-3b at full width, CHECK_LAYERS deep, f32, on the 1x1
+        """llama3.2-3b at full width, MESH_CHECK_LAYERS deep, f32, on the 1x1
         mesh: ``build_train_step`` at MESH_ACCUM microbatches over MESH's
         rows, one step from ``init_train_state``'s seeded state through the
         kernels and one through the plain versions, for each of
@@ -4480,7 +4724,8 @@ class Smoke:
         from repro_torch.parallel.sharding import GATHER, MODEL, full, use_mesh
 
         mesh = self.mesh()
-        base = dataclasses.replace(get_config(ARCH), num_layers=CHECK_LAYERS,
+        base = dataclasses.replace(get_config(ARCH),
+                                   num_layers=MESH_CHECK_LAYERS,
                                    dtype="float32", accum=MESH_ACCUM)
         shape = ShapeSpec("mesh", "train", MESH["seq_len"],
                           MESH["global_batch"])
@@ -4975,7 +5220,8 @@ def main() -> int:
     # f32 matmuls of the plain versions in full f32, as PyTorch's default
     torch.backends.cuda.matmul.allow_tf32 = False
     for phase in (smoke.card_and_build, smoke.kernel_phase,
-                  smoke.dense_kernel_phase, smoke.rms_host_path,
+                  smoke.dense_kernel_phase, smoke.flash_offset_check,
+                  smoke.rms_host_path,
                   smoke.wkv_kernel_phase, smoke.wkv_backward_check,
                   smoke.wkv_host_path, smoke.wkv_cycles,
                   smoke.dense_model_check,

@@ -20,6 +20,16 @@
 // window's edge or the ragged end (S not a multiple of the tile), and launch
 // the heavy (late) causal q tiles first.
 //
+// Query offset (the forward only): q may be Sq rows at q_offset in a
+// sequence whose Sk keys k and v hold (a model rank's query rows under
+// prefill's `seq_inner`, against the sequence's all-gathered K/V). Every
+// mask counts whole-sequence positions, query row i at q_offset + i: the
+// causal mask keeps keys j <= q_offset + i, the window keys j > q_offset +
+// i - window, and the key-tile range, the edge tiles and the ragged end
+// (Sk) move with them. A launch at offset 0 with Sq = Sk is the one-length
+// launch. At an offset that is a multiple of the query tile a block does
+// what the whole launch's block over the same rows does, bit for bit.
+//
 // Bound on an H100 at the dense path's prefill (B=2, H=24, KH=8, S=2048,
 // D=128, causal, bf16): QK^T and PV over the 2.1 M unmasked (q,k) pairs of
 // each of the 48 heads are 51.6 GFLOP, 52 us at 989 TFLOP/s (dense bf16);
@@ -250,8 +260,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int KH, int S, float scale,
-                 int causal, int window) {
+                 float* __restrict__ lse, int H, int KH, int Sq, int Sk,
+                 int q_offset, float scale, int causal, int window) {
   constexpr int STR = D + 4;
   constexpr int TN = D / 16;  // O columns a thread owns
   extern __shared__ float smem[];
@@ -266,11 +276,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H, h = bh - b * H;
   const int bkh = b * KH + h / (H / KH);
   const int q0 = qt * BQ;
-  const T* qb = q + ((int64_t)bh * S + q0) * D;
-  const T* kb = k + (int64_t)bkh * S * D;
-  const T* vb = v + (int64_t)bkh * S * D;
+  const T* qb = q + ((int64_t)bh * Sq + q0) * D;
+  const T* kb = k + (int64_t)bkh * Sk * D;
+  const T* vb = v + (int64_t)bkh * Sk * D;
 
-  load_tile<T, D>(Qs, qb, S - q0);
+  load_tile<T, D>(Qs, qb, Sq - q0);
 
   float m[4], l[4], acc[4][TN];
 #pragma unroll
@@ -281,17 +291,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < TN; ++c) acc[i][c] = 0.0f;
   }
 
-  const int last_row = min(q0 + BQ, S) - 1;
-  int kt_lo = 0, kt_hi = (S - 1) / BK;
+  // rows and keys by their place in the whole sequence: query row i is
+  // row q_offset + i there
+  const int g0 = q_offset + q0;
+  const int last_row = q_offset + min(q0 + BQ, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Sk - 1) / BK;
   if (causal) {
     kt_hi = last_row / BK;
-    if (window) kt_lo = max(0, q0 - window + 1) / BK;
+    if (window) kt_lo = max(0, g0 - window + 1) / BK;
   }
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's PV is done with KVs and Ps
-    load_tile<T, D>(KVs, kb + (int64_t)k0 * D, S - k0);
+    load_tile<T, D>(KVs, kb + (int64_t)k0 * D, Sk - k0);
     __syncthreads();
 
     // S = Q K^T for rows ty*4+i and key columns tx+16j
@@ -320,12 +333,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // scale, mask, online softmax; P to shared memory
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+      const int row = g0 + ty * 4 + i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        bool ok = col < S;
+        bool ok = col < Sk;
         if (causal) {
           ok = ok && col <= row;
           if (window) ok = ok && col > row - window;
@@ -354,7 +367,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < TN; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();  // S is done with K; P is complete
-    load_tile<T, D>(KVs, vb + (int64_t)k0 * D, S - k0);
+    load_tile<T, D>(KVs, vb + (int64_t)k0 * D, Sk - k0);
     __syncthreads();
 
     // O += P V
@@ -396,14 +409,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
-    if (q0 + r >= S) continue;
+    if (q0 + r >= Sq) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-20f);
     // m is the row's largest scaled logit: log2 of sum exp = m log2 e +
     // log2 l, in the log2 domain the backward recomputes P in
     if (lse != nullptr && tx == 0)
-      lse[(int64_t)bh * S + q0 + r] = m[i] * LOG2E_F + log2f(fmaxf(l[i],
-                                                                  1e-20f));
-    T* orow = o + ((int64_t)bh * S + q0 + r) * D;
+      lse[(int64_t)bh * Sq + q0 + r] = m[i] * LOG2E_F + log2f(fmaxf(l[i],
+                                                                   1e-20f));
+    T* orow = o + ((int64_t)bh * Sq + q0 + r) * D;
 #pragma unroll
     for (int c = 0; c < TN; ++c) from_float(orow + out_col<D>(tx, c),
                                             acc[i][c] * inv);
@@ -412,8 +425,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int KH, int S, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   float* lse, int B, int H, int KH, int Sq, int Sk,
+                   int q_offset, float scale, int causal, int window,
+                   cudaStream_t stream) {
   constexpr int STR = D + 4;
   constexpr size_t SMEM = sizeof(float) * (2 * 64 * STR + BQ * PSTR);
   static bool configured = false;
@@ -424,11 +438,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, D><<<grid, THREADS, SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, S, scale,
-      causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, Sq, Sk,
+      q_offset, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -1070,17 +1084,19 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 // registers outgrow its budget (168 a thread, whatever setmaxnreg gives) and
 // it reuses those of the operand in flight.
 struct Rows {
-  int row0;  // the first row; the second is 8 below
+  int row0;  // the first row in the whole sequence; the second is 8 below
   int cq;    // the lane's first column in each 8-column chunk
   float m[2], l[2], al[2];
 };
 
+// k0 and q0 (the block's first query row) count in the whole sequence, of
+// Sk keys.
 __device__ __forceinline__ void online_softmax(float (&sc)[64],
                                                Rows& r,
-                                               int k0, int q0, int S,
+                                               int k0, int q0, int Sk,
                                                int causal, int window,
                                                float scale_log2) {
-  const bool edge = k0 + BK > S ||
+  const bool edge = k0 + BK > Sk ||
                     (causal && (k0 + BK - 1 > q0 ||
                                 (window && k0 <= q0 + BQ - 1 - window)));
   if (edge) {
@@ -1090,7 +1106,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[64],
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * n + r.cq + (e & 1);
         const int row = r.row0 + 8 * (e >> 1);
-        bool ok = col < S;
+        bool ok = col < Sk;
         if (causal) {
           ok = ok && col <= row;
           if (window) ok = ok && col > row - window;
@@ -1139,7 +1155,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
              __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
-             int KH, int S, float scale_log2, int causal, int window) {
+             int KH, int Sq, int Sk, int q_offset, float scale_log2,
+             int causal, int window) {
   constexpr int DP = padded(D);  // columns a tile holds in shared memory
   using L = Smem<DP>;
   constexpr int NB = DP / 64;   // boxes across DP
@@ -1156,14 +1173,15 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heavy causal tiles first
-  const int q0 = qt * BQ;
+  const int q0 = qt * BQ;  // of q's Sq rows
+  const int g0 = q_offset + q0;  // the same row in the whole sequence
   const int b = bh / H, h = bh - b * H;
   const int bkh = b * KH + h / (H / KH);
-  const int last_row = min(q0 + BQ, S) - 1;
-  int kt_lo = 0, kt_hi = (S - 1) / BK;
+  const int last_row = q_offset + min(q0 + BQ, Sq) - 1;
+  int kt_lo = 0, kt_hi = (Sk - 1) / BK;
   if (causal) {
     kt_hi = last_row / BK;
-    if (window) kt_lo = max(0, q0 - window + 1) / BK;
+    if (window) kt_lo = max(0, g0 - window + 1) / BK;
   }
 
   if (threadIdx.x == 0) {
@@ -1209,14 +1227,15 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
   const int r_lo = 16 * (t / 32) + lane / 4;  // rows r_lo and r_lo + 8
-  const int row0 = q0 + 64 * wg + r_lo;
+  const int row0 = q0 + 64 * wg + r_lo;  // of q; q_offset + row0 in all
   const int cq = 2 * (lane % 4);
   const uint32_t qa = base + wg * 64 * 128;  // this warpgroup's rows of Q
 
   float acc[DP / 2];  // O over DP columns; those past D stay 0
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
-  Rows rows{row0, cq, {NEG_INF, NEG_INF}, {0.0f, 0.0f}, {1.0f, 1.0f}};
+  Rows rows{q_offset + row0, cq, {NEG_INF, NEG_INF}, {0.0f, 0.0f},
+            {1.0f, 1.0f}};
   auto kd = [&](int i) { return base + L::KV + 2 * (i % STAGES) * L::TILE; };
   auto phase = [](int i) { return static_cast<uint32_t>((i / STAGES) & 1); };
 
@@ -1235,7 +1254,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   named_arrive(TURN + 1 - wg);
   wgmma_wait();
   fence_regs(sc);
-  online_softmax(sc, rows, kt_lo * BK, q0, S, causal, window, scale_log2);
+  online_softmax(sc, rows, kt_lo * BK, g0, Sk, causal, window, scale_log2);
 #pragma unroll
   for (int j = 0; j < 32; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
   for (int i = 1; i < n_tiles; ++i) {
@@ -1250,7 +1269,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     named_arrive(TURN + 1 - wg);
     wgmma_wait_one();  // S of tile i
     fence_regs(sc);
-    online_softmax(sc, rows, (kt_lo + i) * BK, q0, S, causal, window,
+    online_softmax(sc, rows, (kt_lo + i) * BK, g0, Sk, causal, window,
                    scale_log2);
     wgmma_wait();  // PV of tile i-1
     fence_regs(acc);
@@ -1290,11 +1309,11 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   // log2 e + log2 l; only here, after the last PV retired, so no register
   // of a wgmma in flight is written (ptxas would serialise them all)
   if (LSE && lane % 4 == 0) {
-    if (row0 < S)
-      lse[(int64_t)bh * S + row0] = fmaf(rows.m[0], scale_log2, log2f(
+    if (row0 < Sq)
+      lse[(int64_t)bh * Sq + row0] = fmaf(rows.m[0], scale_log2, log2f(
           fmaxf(l0, 1e-20f)));
-    if (row0 + 8 < S)
-      lse[(int64_t)bh * S + row0 + 8] = fmaf(rows.m[1], scale_log2, log2f(
+    if (row0 + 8 < Sq)
+      lse[(int64_t)bh * Sq + row0 + 8] = fmaf(rows.m[1], scale_log2, log2f(
           fmaxf(l1, 1e-20f)));
   }
 #pragma unroll
@@ -1313,10 +1332,10 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
   for (int i = t; i < 64 * CPR; i += 128) {
     const int r = i / CPR, c = i % CPR;
     const int row = q0 + 64 * wg + r;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const uint4 val = *reinterpret_cast<const uint4*>(
         smem + (c / 8) * BOX + (64 * wg + r) * 128 + (((c % 8) ^ (r & 7)) * 16));
-    *reinterpret_cast<uint4*>(o + ((int64_t)bh * S + row) * D + c * 8) = val;
+    *reinterpret_cast<uint4*>(o + ((int64_t)bh * Sq + row) * D + c * 8) = val;
   }
 }
 
@@ -1361,8 +1380,9 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int KH, int S, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   float* lse, int B, int H, int KH, int Sq, int Sk,
+                   int q_offset, float scale, int causal, int window,
+                   cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     constexpr int bytes = Smem<padded(D)>::ALLOC;
@@ -1379,18 +1399,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  if (!tensor_map(encode, &qm, q, B * H, S, D) ||
-      !tensor_map(encode, &km, k, B * KH, S, D) ||
-      !tensor_map(encode, &vm, v, B * KH, S, D))
+  // q's map has Sq rows a head, K's and V's Sk: the rows past each end
+  // read as TMA's zero fill
+  if (!tensor_map(encode, &qm, q, B * H, Sq, D) ||
+      !tensor_map(encode, &km, k, B * KH, Sk, D) ||
+      !tensor_map(encode, &vm, v, B * KH, Sk, D))
     return cudaErrorInvalidValue;
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   // without lse (the serving call) the instance whose epilogue has no
   // write of it: the untaken branch alone slowed every launch measurably
   auto kernel = lse != nullptr ? flash_fwd_tc<D, true>
                                : flash_fwd_tc<D, false>;
   kernel<<<grid, THREADS, Smem<padded(D)>::ALLOC, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, KH, S,
-      scale * LOG2E, causal, window);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, KH, Sq, Sk,
+      q_offset, scale * LOG2E, causal, window);
   return cudaGetLastError();
 }
 
@@ -1867,48 +1889,58 @@ const char* flash_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The scalar kernel: q, o (B, H, S, D); k, v (B, KH, S, D); contiguous,
+// The scalar kernel: q, o (B, H, Sq, D); k, v (B, KH, Sk, D); contiguous,
 // 16-byte aligned, H a multiple of KH, B*H <= 65535 (the wrapper checks).
 // dtype: 0 = f32 with D in {16, 64, 112, 128}, 1 = bf16 with D = 16.
 // causal and window as in the Pallas kernel (window applies only with
-// causal; 0 = none). lse: null, or (B, H, S) f32 that gets each row's
-// log-sum-exp in the log2 domain (for the backward). Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// causal; 0 = none), over positions in the whole sequence of Sk keys:
+// query row i is row q_offset + i there, so the causal mask keeps keys
+// j <= q_offset + i and the window keys j > q_offset + i - window
+// (q_offset + Sq <= Sk under a mask; an unmasked call takes any Sq, Sk).
+// lse: null, or (B, H, Sq) f32 that gets each row's log-sum-exp in the
+// log2 domain (for the backward). Launches on `stream`, allocates
+// nothing, returns cudaGetLastError().
 int flash_attention_forward(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int B, int H, int KH, int S,
-                            int D, float scale, int causal, int window,
-                            int dtype, void* stream) {
+                            void* o, void* lse, int B, int H, int KH, int Sq,
+                            int Sk, int q_offset, int D, float scale,
+                            int causal, int window, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH)
+  if (B <= 0 || H <= 0 || KH <= 0 || Sq <= 0 || Sk <= 0 || H % KH ||
+      q_offset < 0 || (causal && q_offset + Sq > Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_type_and_dim<Forward>(
-      dtype, D, q, k, v, o, static_cast<float*>(lse), B, H, KH, S, scale,
-      causal, window, s));
+      dtype, D, q, k, v, o, static_cast<float*>(lse), B, H, KH, Sq, Sk,
+      q_offset, scale, causal, window, s));
 }
 
-// The tensor-core kernel: bf16 q, o (B, H, S, D) and k, v (B, KH, S, D),
-// contiguous, 16-byte aligned, H a multiple of KH, D in {64, 112, 128}
-// (the wrapper checks). causal, window and lse as above. Launches on
-// `stream`, allocates nothing, returns the first CUDA error
+// The tensor-core kernel: bf16 q, o (B, H, Sq, D) and k, v (B, KH, Sk,
+// D), contiguous, 16-byte aligned, H a multiple of KH, D in {64, 112, 128}
+// (the wrapper checks). causal, window, q_offset and lse as above.
+// Launches on `stream`, allocates nothing, returns the first CUDA error
 // (cudaErrorNotSupported if cuTensorMapEncodeTiled cannot be found).
 int flash_attention_forward_tc(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int KH,
-                               int S, int D, float scale, int causal,
-                               int window, void* stream) {
+                               int Sq, int Sk, int q_offset, int D,
+                               float scale, int causal, int window,
+                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (B <= 0 || H <= 0 || KH <= 0 || S <= 0 || H % KH)
+  if (B <= 0 || H <= 0 || KH <= 0 || Sq <= 0 || Sk <= 0 || H % KH ||
+      q_offset < 0 || (causal && q_offset + Sq > Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
-      return static_cast<int>(tc::launch<64>(q, k, v, o, l, B, H, KH, S,
-                                             scale, causal, window, s));
+      return static_cast<int>(tc::launch<64>(q, k, v, o, l, B, H, KH, Sq,
+                                             Sk, q_offset, scale, causal,
+                                             window, s));
     case 112:
-      return static_cast<int>(tc::launch<112>(q, k, v, o, l, B, H, KH, S,
-                                              scale, causal, window, s));
+      return static_cast<int>(tc::launch<112>(q, k, v, o, l, B, H, KH, Sq,
+                                              Sk, q_offset, scale, causal,
+                                              window, s));
     case 128:
-      return static_cast<int>(tc::launch<128>(q, k, v, o, l, B, H, KH, S,
-                                              scale, causal, window, s));
+      return static_cast<int>(tc::launch<128>(q, k, v, o, l, B, H, KH, Sq,
+                                              Sk, q_offset, scale, causal,
+                                              window, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -23,8 +23,16 @@ float32 or bfloat16. The scale is D^-1/2 of the true head dim; the
 tensor-core kernel lays D = 112 out in shared memory as 128 columns, of
 which the 16 past D are zeros.
 
+``flash_attention_cuda(..., q_offset=r)`` takes q (B, H, Sq, D) as the
+rows ``[r, r + Sq)`` of a sequence whose Sk keys k and v (B, K, Sk, D)
+hold (a model rank's query rows under prefill's ``seq_inner``, against the
+sequence's all-gathered K/V): the causal mask keeps keys ``j <= r + i``
+for query row i and the window keys ``j > r + i - window``; a masked call
+needs ``r + Sq <= Sk``, an unmasked one takes any Sq and Sk. The forward
+alone: the backward takes one length and refuses an offset.
+
 ``flash_attention_cuda(..., return_lse=True)`` also returns each row's
-log-sum-exp (B, H, S) in f32, in the log2 domain (log2 of the softmax's
+log-sum-exp (B, H, Sq) in f32, in the log2 domain (log2 of the softmax's
 denominator with the row's max folded in), which the backward recomputes
 the probabilities from; without it the kernels write nothing more.
 
@@ -74,9 +82,9 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_forward.argtypes = [ptr] * 5 + [i32] * 5 + [
+    lib.flash_attention_forward.argtypes = [ptr] * 5 + [i32] * 7 + [
         f32, i32, i32, i32, ptr]
-    lib.flash_attention_forward_tc.argtypes = [ptr] * 5 + [i32] * 5 + [
+    lib.flash_attention_forward_tc.argtypes = [ptr] * 5 + [i32] * 7 + [
         f32, i32, i32, ptr]
     lib.flash_attention_backward.argtypes = [ptr] * 10 + [i32] * 6 + [
         f32, i32, i32, i32, ptr]
@@ -96,17 +104,17 @@ _tensor_core_backward = LIBRARY.launcher("flash_attention_backward_tc")
 
 
 def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Check the operands; True for CUDA tensors, False for CPU tensors."""
+    """Check the operands (their lengths apart: ``_lengths``); True for
+    CUDA tensors, False for CPU tensors."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"q must be (B,H,S,D) and k, v (B,K,S,D), got "
+        raise ValueError(f"q must be (B,H,Sq,D) and k, v (B,K,Sk,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    b, h, s, d = q.shape
+    b, h, _, d = q.shape
     kh = k.shape[1]
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or kh == 0 \
-            or h % kh:
+    if (k.shape[0], k.shape[3]) != (b, d) or kh == 0 or h % kh:
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q "
-                         f"{tuple(q.shape)}: same B, S, D and K dividing H")
+                         f"{tuple(q.shape)}: same B, D and K dividing H")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the flash kernel takes float32 or bfloat16 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -126,6 +134,18 @@ def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     return True
 
 
+def _lengths(q: torch.Tensor, k: torch.Tensor, causal: bool,
+             q_offset: int) -> None:
+    """A masked call's queries must lie inside the keys' sequence: q's Sq
+    rows at ``q_offset`` end at or before Sk; an unmasked call takes any
+    Sq and Sk."""
+    sq, sk = q.shape[2], k.shape[2]
+    if q_offset < 0 or (causal and q_offset + sq > sk):
+        raise ValueError(f"q of {sq} rows at offset {q_offset} do not lie "
+                         f"in k, v of {sk}: a masked call takes q_offset + "
+                         f"Sq <= Sk")
+
+
 def _laid_out(*ops: torch.Tensor) -> None:
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("the flash kernel takes contiguous operands")
@@ -136,19 +156,23 @@ def _laid_out(*ops: torch.Tensor) -> None:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          scale: Optional[float] = None,
-                         return_lse: bool = False):
-    """Attention forward over q (B,H,S,D) and k, v (B,K,S,D): causal with an
-    optional sliding window (k > q - window), or full; scale D^-1/2 unless
+                         return_lse: bool = False, q_offset: int = 0):
+    """Attention forward over q (B,H,Sq,D) and k, v (B,K,Sk,D): causal with
+    an optional sliding window (k > q - window), or full, query row i at
+    position ``q_offset + i`` of the keys' sequence; scale D^-1/2 unless
     given; output in q's dtype. With ``return_lse``, (output, lse): lse
-    (B,H,S) f32, each row's log-sum-exp of its masked, scaled logits in the
-    log2 domain."""
-    if not _on_card(q, k, v):
+    (B,H,Sq) f32, each row's log-sum-exp of its masked, scaled logits in
+    the log2 domain."""
+    on_card = _on_card(q, k, v)
+    q_offset = int(q_offset)
+    _lengths(q, k, causal, q_offset)
+    if not on_card:
         out = attention_ref(q, k, v, causal=causal, window=window,
-                            scale=scale)
+                            scale=scale, q_offset=q_offset)
         if not return_lse:
             return out
         return out, attention_lse_ref(q, k, causal=causal, window=window,
-                                      scale=scale)
+                                      scale=scale, q_offset=q_offset)
     b, h, s, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
@@ -157,7 +181,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() > 0:
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, h, k.shape[1],
-                s, d, scale, int(causal), int(window))
+                s, k.shape[2], q_offset, d, scale, int(causal), int(window))
         if kernel_for(q.dtype, d) == "tensor_core":
             _tensor_core(q.get_device(), *args)
             count_launch(flash_attention_cuda, "launches", "launches_tc")
@@ -174,13 +198,19 @@ flash_attention_cuda.launches_tc = 0
 def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, o: torch.Tensor,
                                   lse: torch.Tensor, do: torch.Tensor, *,
-                                  causal: bool = True, window: int = 0
+                                  causal: bool = True, window: int = 0,
+                                  q_offset: int = 0
                                   ) -> tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of o = attention(q, k, v) for the cotangent ``do``,
     from the forward's output ``o`` and ``lse`` (``return_lse``): q, o, do
     (B,H,S,D) and k, v (B,K,S,D) of one dtype, lse (B,H,S) f32; scale
-    D^-1/2. The gradients come in q's dtype."""
+    D^-1/2. The gradients come in q's dtype. One length: q of another
+    length than k and v, or a ``q_offset``, raises."""
     on_card = _on_card(q, k, v)
+    if q_offset or q.shape[2] != k.shape[2]:
+        raise ValueError(f"the flash backward takes q, k and v of one "
+                         f"length at offset 0, got q of {q.shape[2]} rows "
+                         f"at offset {q_offset} and k, v of {k.shape[2]}")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o and do must be {tuple(q.shape)}, got "
                          f"{tuple(o.shape)}, {tuple(do.shape)}")

@@ -122,25 +122,29 @@ class FlashAttentionFn(torch.autograd.Function):
     CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset):
         o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                      return_lse=True)
+                                      return_lse=True, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return o
 
     @staticmethod
     def backward(ctx, do):
         dq, dk, dv = flash_attention_backward_cuda(
             *ctx.saved_tensors, do.contiguous(), causal=ctx.causal,
-            window=ctx.window)
-        return dq, dk, dv, None, None
+            window=ctx.window, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, H, S, D); k, v: (B, K, S, D), K dividing H -> (B, H, S, D)."""
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, K, Sk, D), K dividing H -> (B, H, Sq,
+    D); query row i at position ``q_offset + i`` of the keys' sequence (a
+    gradient then raises in the backward, which takes one length)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, window)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)

@@ -14,12 +14,27 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
+def _mask(q: torch.Tensor, k: torch.Tensor, window: int,
+          q_offset: int) -> torch.Tensor:
+    """(Sq, Sk): query row i, at position ``q_offset + i`` of the keys'
+    sequence, sees key j where j <= q_offset + i (and j > q_offset + i -
+    window with a window)."""
+    qi = torch.arange(q_offset, q_offset + q.shape[2],
+                      device=q.device)[:, None]
+    ki = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = ki <= qi
+    if window:
+        mask &= ki > qi - window
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, S, D); k, v: (B, K, S, D) with K dividing H.
-    Returns (B, H, S, D)."""
-    s = q.shape[2]
+                  scale: Optional[float] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, K, Sk, D) with K dividing H, query row
+    i at position ``q_offset + i`` of the keys' sequence.
+    Returns (B, H, Sq, D)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group = q.shape[1] // k.shape[1]
     if group > 1:
@@ -27,12 +42,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = v.repeat_interleave(group, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
     if causal:
-        qi = torch.arange(s, device=q.device)[:, None]
-        ki = torch.arange(s, device=q.device)[None, :]
-        mask = ki <= qi
-        if window:
-            mask &= ki > qi - window
-        logits = torch.where(mask, logits, NEG_INF)
+        logits = torch.where(_mask(q, k, window, q_offset), logits, NEG_INF)
     probs = torch.exp(logits - torch.amax(logits, -1, keepdim=True))
     probs = probs / torch.sum(probs, -1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
@@ -40,24 +50,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      q_offset: int = 0) -> torch.Tensor:
     """Each row's log-sum-exp of its masked, scaled logits, formed in f32
     from q and k as the kernels form them, in the log2 domain (natural
-    log-sum-exp times log2 e): (B, H, S) f32, what the forward kernels
+    log-sum-exp times log2 e): (B, H, Sq) f32, what the forward kernels
     write with ``return_lse``."""
-    s = q.shape[2]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     group = q.shape[1] // k.shape[1]
     if group > 1:
         k = k.repeat_interleave(group, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
-        qi = torch.arange(s, device=q.device)[:, None]
-        ki = torch.arange(s, device=q.device)[None, :]
-        mask = ki <= qi
-        if window:
-            mask &= ki > qi - window
-        logits = torch.where(mask, logits, NEG_INF)
+        logits = torch.where(_mask(q, k, window, q_offset), logits, NEG_INF)
     return torch.logsumexp(logits, -1) * math.log2(math.e)
 
 
@@ -70,7 +75,7 @@ F32_SLACK = 1.0 / 16
 
 
 def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     causal: bool = True, window: int = 0
+                     causal: bool = True, window: int = 0, q_offset: int = 0
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """(o32, bound) for bf16 q, k, v: ``o32`` is the attention in f32 on the
     same bf16 values, and ``bound`` bounds |o - o32| elementwise for any
@@ -85,7 +90,9 @@ def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the weights it carries, which at S = 2048 is far above this bound while
     it is still far below a flat 3e-2."""
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    o32 = attention_ref(q32, k32, v32, causal=causal, window=window)
-    spread = attention_ref(q32, k32, v32.abs(), causal=causal, window=window)
+    o32 = attention_ref(q32, k32, v32, causal=causal, window=window,
+                        q_offset=q_offset)
+    spread = attention_ref(q32, k32, v32.abs(), causal=causal, window=window,
+                           q_offset=q_offset)
     bound = BF16_UNIT * (1 + F32_SLACK) * (spread + o32.abs())
     return o32, bound

@@ -62,10 +62,18 @@ rank's rows, each block's ``enter`` all-gathers the sequence and its
 no split leaf takes its own rows of its whole output), and the logits
 gather the sequence whole before the head, so that the logits and the
 loss keep their layout. The norm scales' gradients are then summed over
-"model" (``model_roles`` with the step's shape). Prefill's
-``seq_inner`` (attention over the query rows where the heads do not
-divide the model size) is not ported: ROADMAP.md's slice 7d part three
-(c). The serve step splits the decode caches along their sequence (the
+"model" (``model_roles`` with the step's shape). A prefill step also
+keeps the blocks' inner sequence on "model" where the rules put
+``seq_inner`` there (the reference's layout where the heads do not divide
+the model size, or the genome's ``overrides``; ``sharding.seq_inner_for``):
+attention, the MLP, RWKV, Mamba2 and the head are then whole on every
+model rank, attention runs this rank's query rows against K and V
+all-gathered along the sequence (B3 at the rows' offset), the MLP and the
+head compute on the rows with no sequence collective, and the logits stay
+this rank's rows; MoE's experts keep their split, and RWKV and Mamba2,
+whose recurrences read the whole sequence, gather it and keep their own
+rows of their output. The train step ignores ``seq_inner``. The serve
+step splits the decode caches along their sequence (the
 reference's flash-decode ``kv_seq``, ``sharding.kv_split``): each rank
 writes and reads its shard in place, its attention whole over the
 heads, the shards' softmax combined by all-reduces
@@ -414,14 +422,20 @@ def build_prefill_step(
 ) -> CellProgram:
     """``fn(params, batch) -> logits``, a DTensor laid out as the
     reference's last ``shard_act`` leaves them, ``("batch", "seq_inner",
-    "act_vocab")``: split over the batch's mesh dims like the batch, and
-    over "model" along the vocab where the model ranks computed their
-    vocab chunks."""
+    "act_vocab")`` pruned: split over the batch's mesh dims like the
+    batch, and over "model" along the sequence where the rules keep the
+    inner sequence there (``seq_inner``: this rank's rows against the
+    whole vocab), else along the vocab where the model ranks computed
+    their vocab chunks."""
     from torch.distributed.tensor import Shard
 
     cfg = apply_decisions(cfg, dec)
     model_of = _Model(cfg, roles=T.model_roles(cfg, rules, mesh, shape))
     mdim = SH.model_dim_of(mesh)
+    # the main stream's (batch, length, width): the head computes on its
+    # rows where the rules keep the inner sequence on "model"
+    stream = next(iter(T._streams(cfg, shape)))
+    inner = SH.seq_inner_for(stream, rules, mesh)
 
     def prefill_step(params, batch):
         model = model_of(params).bind()
@@ -429,15 +443,17 @@ def build_prefill_step(
         split = _split(mesh, dims, 0)
         mine = {k: SH.to_placements(v, split) for k, v in batch.items()}
         with SH.data_parallel(mesh, dims), \
-                SH.model_parallel(mesh, mdim, rules):
+                SH.model_parallel(mesh, mdim, rules, inner=True):
             logits, _ = T.forward(cfg, model, mine, mode=mode, remat="none")
         vocab = cfg.padded_vocab()
-        if logits.shape[-1] != vocab:  # this rank's vocab chunk
+        if inner:  # this rank's rows
+            split = tuple(Shard(1) if k == mdim else pl
+                          for k, pl in enumerate(split))
+        elif logits.shape[-1] != vocab:  # this rank's vocab chunk
             split = tuple(Shard(2) if k == mdim else pl
                           for k, pl in enumerate(split))
         return SH.from_local(logits, mesh, split,
-                             (shape.global_batch,) + logits.shape[1:-1]
-                             + (vocab,))
+                             (shape.global_batch, stream[1], vocab))
 
     batch_specs = I.input_specs(cfg, shape)
     return CellProgram(

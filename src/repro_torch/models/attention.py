@@ -33,6 +33,17 @@ output. Cross-attention's memory comes as this rank's rows where the
 encoder's stream split too, and ``enter`` gathers it whole; a memory
 whose length did not split comes whole (``memory_rows`` False).
 
+In a prefill whose rules keep the blocks' inner sequence on "model" (the
+reference's ``seq_inner``, ``SeqSplit.inner``), every head and leaf is
+whole and attention runs on this rank's rows with no ``enter`` or
+``leave``: q, K and V are projected from the rows, roped at their
+positions in the whole sequence (the rank's offset, a VLM's patches
+counted in it), K and V all-gathered along the sequence
+(``sharding.seq_gather``), and B3 takes the rows' queries at their offset
+against the whole K/V (``q_offset``, Sq != Sk); ``wo`` projects the rows.
+Cross-attention takes its queries as rows and its memory whole (gathered
+where it comes as rows).
+
 In a mesh serve step the caches may be this rank's shard of their
 sequence (``parallel/sharding.py`` ``kv_split``: the reference's
 ``kv_seq`` on "model", or on "data" and "model" at batch 1), with every
@@ -60,7 +71,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models.layers import apply_rope
 from repro_torch.parallel.sharding import (
-    KvSplit, PDef, current_kv_split, enter, leave, model_index,
+    KvSplit, PDef, current_kv_split, current_seq_split, enter, leave,
+    model_index, on_rows, seq_gather,
 )
 
 def attention_defs(cfg: ArchConfig, cross: bool = False) -> dict:
@@ -224,9 +236,14 @@ def attention(
     compute the same function. With this rank's query heads (a model
     split) the output is summed over the model ranks. Under a sequence
     split ``memory_rows`` says whether ``kv_x`` is this rank's rows of
-    it too (None: as ``x``)."""
+    it too (None: as ``x``). Under prefill's ``seq_inner`` with whole
+    heads (``on_rows``) ``x`` stays this rank's rows, from row
+    ``index·rows`` of the whole sequence: no ``enter`` or ``leave``, K and
+    V gathered along the sequence, B3 at that query offset."""
     split = p["wq"].shape[1] != cfg.num_heads
-    x = enter(x, split)
+    rows = on_rows(split)  # seq_inner: this rank's rows, no enter/leave
+    off = current_seq_split().index * x.shape[1] if rows else 0
+    x = x if rows else enter(x, split)
     kv_x = None if kv_x is None else enter(kv_x, split, memory_rows)
     s = x.shape[1]
     q = _project_q(cfg, p, x)
@@ -234,20 +251,25 @@ def attention(
         if causal:
             raise ValueError("cross-attention takes no causal mask")
         k, v = _local_kv(cfg, q, *_project_kv(cfg, p, kv_x))
-        out = _grouped_sdpa(q, k, v, mask=None)
-        return leave(torch.einsum("bshk,hkd->bsd", out, p["wo"]), split)
+        out = torch.einsum("bshk,hkd->bsd", _grouped_sdpa(q, k, v, mask=None),
+                           p["wo"])
+        return out if rows else leave(out, split)
     k, v = _local_kv(cfg, q, *_project_kv(cfg, p, x))
     if rope:
-        pos = (positions if positions is not None
-               else torch.arange(s, device=x.device))
+        pos = (positions[..., off:off + s] if positions is not None
+               else torch.arange(off, off + s, device=x.device))
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    if rows:  # every rank's rows read the whole sequence's K/V
+        k, v = seq_gather(k), seq_gather(v)
     # (B, S, heads, hd) -> (B, heads, S, hd); K/V keep their K heads
     out = flash_attention(q.transpose(1, 2).contiguous(),
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),
-                          causal=causal, window=window if causal else 0)
-    return leave(torch.einsum("bhsk,hkd->bsd", out, p["wo"]), split)
+                          causal=causal, window=window if causal else 0,
+                          q_offset=off)
+    out = torch.einsum("bhsk,hkd->bsd", out, p["wo"])
+    return out if rows else leave(out, split)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,11 @@ reduce-scatters the partial output into them (an MLP with whole leaves
 takes its own rows of its output), the lookup ends in a reduce-scatter
 into them (its own rows where the table is whole), and the logits
 gather the sequence whole before the head, so that the logits and the
-loss keep the unsplit region's layout.
+loss keep the unsplit region's layout. In a prefill that keeps the
+blocks' inner sequence on "model" too (the reference's ``seq_inner``,
+``SeqSplit.inner``) the MLP, with whole leaves, and the head, against the
+whole vocab, compute on this rank's rows with no sequence collective: the
+logits stay the rows'.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm.ops import rms_norm as _rms_norm_op
 from repro_torch.parallel.sharding import (
     PDef, batch_shards, batch_sum, current_seq_split, enter, leave,
-    model_index, model_max,
+    model_index, model_max, on_rows,
 )
 
 
@@ -96,13 +100,15 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     """With this rank's ffn columns of ``w_gate``/``w_up`` and rows of
     ``w_down`` (a model split), the partial outputs summed by ``leave``."""
     split = p["w_up"].shape[1] != cfg.d_ff
-    x = enter(x, split)
+    rows = on_rows(split)  # seq_inner: this rank's rows, no gather
+    x = x if rows else enter(x, split)
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         # jax.nn.gelu defaults to the tanh approximation; torch's to exact
         h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return leave(h @ p["w_down"], split)
+    out = h @ p["w_down"]
+    return out if rows else leave(out, split)
 
 
 # ---------------------------------------------------------------------------
@@ -147,10 +153,12 @@ def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor,
 def lm_logits(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     """Logits; over this rank's vocab chunk where the table is split.
     Under a sequence split ``x`` is this rank's rows, gathered whole
-    along the sequence before the head (the reference's ``seq_inner``)."""
+    along the sequence before the head, or, where the rules keep the
+    inner sequence on "model" (``seq_inner``), the rows' logits against
+    the whole vocab."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    x = enter(x, w.shape[1] != cfg.padded_vocab())
-    return x @ w
+    split = w.shape[1] != cfg.padded_vocab()
+    return (x if on_rows(split) else enter(x, split)) @ w
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -84,7 +84,8 @@ from repro_torch.models.inputs import batch_structure
 from repro_torch.parallel.sharding import (
     KEEP, PARTIAL, LayerShards, PDef, _mesh_axis_sizes, current_context,
     current_seq_split, enter, in_context, init_from_defs, local,
-    seq_parallel, seq_split_for, shifted, specs_from_defs, stack_defs,
+    seq_inner_for, seq_parallel, seq_split_for, shifted, specs_from_defs,
+    stack_defs,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -384,13 +385,32 @@ def model_roles(cfg: ArchConfig, rules, mesh, shape=None) -> dict:
     ``ln``, Mamba's ``ln``, ``final_norm``, the encoder's norms and
     ``enc_norm``), its frontend's ``proj`` and ``ln`` (each rank keeps its
     rows of the projection), and, where the block is split, MoE's
-    ``router`` and RWKV's channel-mix ``mu_c`` and ``c_r``."""
+    ``router`` and RWKV's channel-mix ``mu_c`` and ``c_r``.
+
+    A prefill ``shape`` whose stream keeps its inner sequence on "model"
+    (``sharding.seq_inner_for``: the rules' ``seq_inner``, which the
+    reference's pruning lets claim "model" before the heads, ffn and vocab
+    that follow it) splits no block whose ``shard_act`` point names
+    ``seq_inner``: attention (``attn``, ``xattn``, ``shared_attn``), the
+    MLP, RWKV's time and channel mix, Mamba2 and the head (``unembed``, or
+    the tied ``embed``) are whole on every model rank, which computes
+    them on its rows; MoE's experts (``expert_ffn``, a point with no
+    ``seq_inner``) keep their split. The train step ignores ``seq_inner``
+    (ROADMAP.md, a named divergence)."""
     defs = model_defs(cfg)
     specs = specs_from_defs(defs, rules, mesh)
     m = _mesh_axis_sizes(mesh).get("model", 1)
+    inner = (_seq_inner_keys(cfg, shape, rules, mesh)
+             if shape is not None and m > 1 else ())
 
-    def block(kind: str, d: dict, sp: dict) -> dict:
+    def block(kind: str, d: dict, sp: dict, top) -> dict:
         out = {k: None for k in d}
+        if top in inner and kind in ("attn", "xattn", "mlp", "tm",
+                                     "mamba"):
+            return out
+        if top in inner and kind == "embedding":  # the head's leaf whole
+            head = "embed" if cfg.tie_embeddings else "unembed"
+            d = {k: v for k, v in d.items() if k != head}
 
         def split(names, axis, act, whole=True) -> bool:
             names = [n for n in names if n in d]
@@ -438,19 +458,50 @@ def model_roles(cfg: ArchConfig, rules, mesh, shape=None) -> dict:
                 put((n,), KEEP if split((n,), "vocab", "act_vocab") else None)
         return out
 
-    def walk(d, sp, key=None):
+    def walk(d, sp, key=None, top=None):
         if isinstance(d, PDef):
             return None
         if key in ("attn", "xattn", "mlp", "moe", "tm", "mamba",
                    "embedding"):
-            return block(key, d, sp)
-        return {k: walk(v, sp[k], k) for k, v in d.items()}
+            return block(key, d, sp, top)
+        return {k: walk(v, sp[k], k, top or k) for k, v in d.items()}
 
     roles = walk(defs, specs)
     if shape is not None and m > 1:
         for key in _seq_split_keys(cfg, shape, rules, mesh):
             roles[key] = _seq_partial(roles[key], key)
     return roles
+
+
+def _streams(cfg: ArchConfig, shape) -> dict:
+    """The global (batch, length, width) of each residual stream a train
+    or prefill step of ``shape`` runs, by the top-level keys of
+    ``model_defs(cfg)`` that compute on it: the main stream (the tokens',
+    with a vision config's patches in front) and an enc-dec encoder's
+    (the frames')."""
+    st = batch_structure(cfg, shape)
+    rows = shape.global_batch // (max(cfg.accum, 1)
+                                  if shape.kind == "train" else 1)
+    d = cfg.d_model
+    main = st["tokens"][0][1] + (st["patches"][0][1] if "patches" in st
+                                 else 0)
+    out = {(rows, main, d): ("layers", "groups", "tail", "shared_attn",
+                             "final_norm", "embedding")
+           + (("frontend",) if cfg.frontend == "vision" else ())}
+    if "frames" in st:
+        enc = (rows, st["frames"][0][1], d)
+        out[enc] = out.get(enc, ()) + ("encoder", "enc_norm", "frontend")
+    return out
+
+
+def _seq_inner_keys(cfg: ArchConfig, shape, rules, mesh) -> tuple:
+    """The top-level keys of ``model_defs(cfg)`` whose blocks a prefill of
+    ``shape`` computes on its streams' rows inside too (``seq_inner_for``
+    of each stream's own global shape); none for a train step."""
+    if shape.kind != "prefill":
+        return ()
+    return tuple(k for stream, keys in _streams(cfg, shape).items()
+                 if seq_inner_for(stream, rules, mesh) for k in keys)
 
 
 # the norms of a residual stream, by the key of their scale's parent
@@ -465,21 +516,10 @@ def _seq_split_keys(cfg: ArchConfig, shape, rules, mesh) -> list[str]:
     frames'), each split where its own global shape says so."""
     if shape.kind == "decode":
         return []
-    st = batch_structure(cfg, shape)
-    rows = shape.global_batch // (max(cfg.accum, 1)
-                                  if shape.kind == "train" else 1)
-    d = cfg.d_model
-    main = st["tokens"][0][1] + (st["patches"][0][1] if "patches" in st
-                                 else 0)
-    keys = []
-    if seq_split_for((rows, main, d), rules, mesh):
-        keys += ["layers", "groups", "tail", "shared_attn", "final_norm"]
-        if cfg.frontend == "vision":
-            keys.append("frontend")
-    if "frames" in st and seq_split_for((rows, st["frames"][0][1], d),
-                                        rules, mesh):
-        keys += ["encoder", "enc_norm", "frontend"]
-    return [k for k in keys if k in model_defs(cfg)]
+    defs = model_defs(cfg)
+    return list(dict.fromkeys(
+        k for stream, keys in _streams(cfg, shape).items()
+        if seq_split_for(stream, rules, mesh) for k in keys if k in defs))
 
 
 def _seq_partial(roles, key: str):

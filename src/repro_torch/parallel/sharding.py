@@ -47,7 +47,13 @@ residual adds then run on this rank's rows, ``enter`` all-gathers the
 sequence (its backward a reduce-scatter into this rank's rows) and
 ``leave`` reduce-scatters the partial outputs into them (its backward an
 all-gather); a block with no split leaf gathers its input the same way and
-takes its own rows of its whole output. ``kv_split`` tells decode
+takes its own rows of its whole output. A prefill's region (``inner``)
+also keeps the blocks' inner sequence on "model" where the rules put
+``seq_inner`` there and the pruned specs keep it (``seq_inner_for``, the
+reference's first-use claim, which leaves the heads, ffn and vocab
+whole): attention then runs this rank's query rows against K and V
+all-gathered along the sequence (``seq_gather``), and the MLP and the head
+compute on the rows with no sequence collective (``SeqSplit.inner``). ``kv_split`` tells decode
 attention which shard of the caches' sequence (``kv_seq``) this rank
 holds, and over which ranks its softmax statistics and partial outputs
 are reduced (flash-decode: ``KvSplit``, made by ``kv_split_over``).
@@ -145,6 +151,7 @@ class _Ctx(threading.local):
         self.model_mesh = None
         self.model_dim: Optional[int] = None
         self.seq_rules: Optional[ShardingRules] = None
+        self.inner = False
         self.seq: Optional["SeqSplit"] = None
         self.kv: Optional["KvSplit"] = None
 
@@ -164,7 +171,7 @@ def use_mesh(mesh, rules: Optional[ShardingRules] = None):
 
 
 _FIELDS = ("mesh", "rules", "batch_mesh", "batch_dims", "model_mesh",
-           "model_dim", "seq_rules", "seq", "kv")
+           "model_dim", "seq_rules", "inner", "seq", "kv")
 
 
 def current_context() -> tuple:
@@ -599,23 +606,29 @@ MODEL = ModelStats()
 
 @contextlib.contextmanager
 def model_parallel(mesh, dim: Optional[int],
-                   rules: Optional[ShardingRules] = None):
+                   rules: Optional[ShardingRules] = None,
+                   inner: bool = False):
     """Within: the blocks compute this rank's chunk of every leaf that its
     unit kept split over mesh dim ``dim`` ("model"), ``enter``, ``leave``,
     ``model_sum`` and ``model_max`` reducing over that dim's group; with
     ``rules``, ``seq_parallel`` splits a residual stream along its
-    sequence where they say so. A dim of one rank (or None) opens no
-    region: each is then the identity."""
-    prev = (_CTX.model_mesh, _CTX.model_dim, _CTX.seq_rules, _CTX.seq)
+    sequence where they say so, and, with ``inner`` (a prefill step: the
+    rules set ``seq_inner`` for prefill alone), the blocks' inner sequence
+    where they say so (``seq_inner_for``). A dim of one rank (or None)
+    opens no region: each is then the identity."""
+    prev = (_CTX.model_mesh, _CTX.model_dim, _CTX.seq_rules, _CTX.inner,
+            _CTX.seq)
     live = dim is not None and mesh.size(dim) > 1
     _CTX.model_mesh = mesh if live else None
     _CTX.model_dim = dim if live else None
     _CTX.seq_rules = rules if live else None
+    _CTX.inner = inner and live
     _CTX.seq = None
     try:
         yield
     finally:
-        _CTX.model_mesh, _CTX.model_dim, _CTX.seq_rules, _CTX.seq = prev
+        (_CTX.model_mesh, _CTX.model_dim, _CTX.seq_rules, _CTX.inner,
+         _CTX.seq) = prev
 
 
 def model_index() -> int:
@@ -699,10 +712,13 @@ def _model_group():
 class SeqSplit:
     """A residual stream split along its sequence (dim 1) over the model
     group ``group`` of ``count`` ranks: this rank holds chunk ``index``,
-    rows ``[index·S/count, (index+1)·S/count)`` of a sequence of S."""
+    rows ``[index·S/count, (index+1)·S/count)`` of a sequence of S.
+    ``inner``: the blocks keep those rows inside too (prefill's
+    ``seq_inner``, ``seq_inner_for``)."""
     index: int
     count: int
     group: Any
+    inner: bool = False
 
     def rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's rows of ``t`` (the whole sequence along dim 1),
@@ -732,6 +748,49 @@ def seq_split_for(shape: tuple[int, ...], rules: ShardingRules,
     return "model" in _seq_axes(shape, rules, mesh)
 
 
+def _inner_axes(shape: tuple[int, ...], rules: ShardingRules,
+                mesh) -> tuple[str, ...]:
+    """The mesh axes of more than one rank that the reference's
+    ``shard_act`` points naming ``seq_inner`` keep on the sequence of an
+    activation of global ``shape`` (batch, sequence, ...): attention's q,
+    K, V and output, the MLP's hidden, RWKV's and Mamba2's heads, the
+    head's logits, each ``("batch", "seq_inner", ...)`` pruned for its
+    shape (``_prune_spec_for``). Their batch and sequence dims are the
+    stream's, and the pruning claims axes dim by dim, so the stream's
+    ``(batch, sequence)`` decides for all of them; an axis the sequence
+    keeps is gone from the heads, ffn or vocab after it (first use
+    wins)."""
+    entry = _prune_spec_for(tuple(shape[:2]),
+                            rules.spec(("batch", "seq_inner")), mesh)[1]
+    sizes = _mesh_axis_sizes(mesh)
+    return tuple(a for a in (entry if isinstance(entry, tuple)
+                             else (entry,))
+                 if a is not None and sizes[a] > 1)
+
+
+def seq_inner_for(shape: tuple[int, ...], rules: ShardingRules,
+                  mesh) -> bool:
+    """Whether a prefill's blocks inside a stream of global ``shape``
+    (batch, sequence, ...) keep its sequence on "model" (``_inner_axes``):
+    attention over this rank's query rows, the MLP and the head on its
+    rows, their heads, ffn and vocab whole. Raises for what the port does
+    not take: the inner sequence over another axis, or on "model" where
+    the residual stream's is not (``seq_split_for``), a layout that the
+    reference's ``rules_for`` never makes (only its ``overrides`` can)."""
+    axes = _inner_axes(shape, rules, mesh)
+    if not axes:
+        return False
+    if axes != ("model",):
+        raise NotImplementedError(f"seq_inner over {axes}: the port splits "
+                                  f"it over 'model' alone")
+    if not seq_split_for(shape, rules, mesh):
+        raise ValueError(
+            f"seq_inner on 'model' for a stream of {tuple(shape)} whose "
+            f"residual stream's seq is not ({rules.axis('seq')!r}): a "
+            f"layout the reference's rules_for never makes")
+    return True
+
+
 @contextlib.contextmanager
 def seq_parallel(shape: tuple[int, ...]):
     """Within: the residual stream, of ``shape`` (this rank's batch rows,
@@ -742,7 +801,8 @@ def seq_parallel(shape: tuple[int, ...]):
     and ``leave`` then gather and scatter its sequence. Yields the
     ``SeqSplit``, or None (no region, no rules, or a sequence kept
     whole): the stream is then whole on every rank, and every op is the
-    unsplit region's."""
+    unsplit region's. In a prefill's region the split's ``inner`` says
+    whether the blocks keep the rows inside too (``seq_inner_for``)."""
     prev = _CTX.seq
     split = None
     mesh, rules = _CTX.model_mesh, _CTX.seq_rules
@@ -752,9 +812,10 @@ def seq_parallel(shape: tuple[int, ...]):
         if axes and axes != ("model",):
             raise NotImplementedError(f"a sequence split over {axes}: the "
                                       f"port splits it over 'model' alone")
+        inner = _CTX.inner and seq_inner_for(whole, rules, mesh)
         if axes:
             split = SeqSplit(model_index(), mesh.size(_CTX.model_dim),
-                             _model_group())
+                             _model_group(), inner)
     _CTX.seq = split
     try:
         yield split
@@ -886,6 +947,25 @@ def leave(x: torch.Tensor, split: bool = True) -> torch.Tensor:
     if _CTX.model_mesh is None or not split:
         return x
     return _Leave.apply(x, _model_group())
+
+
+def on_rows(split: bool) -> bool:
+    """Whether a block with whole leaves (``split`` False) computes on this
+    rank's rows of the stream as they are, with no ``enter`` or ``leave``:
+    prefill's ``seq_inner`` (``SeqSplit.inner``). Attention then gathers
+    its K and V (``seq_gather``)."""
+    sp = _CTX.seq
+    return sp is not None and sp.inner and not split
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """Under a sequence split, the model ranks' rows of ``x`` joined along
+    dim 1 in rank order (an all-gather; its backward reduce-scatters the
+    ranks' partial gradients into this rank's rows): attention's K and V
+    under ``seq_inner``, which every rank's query rows read whole. ``x``
+    itself without a split."""
+    sp = _CTX.seq
+    return x if sp is None else _SeqEnter.apply(x, sp, True)
 
 
 def once(x: torch.Tensor) -> torch.Tensor:

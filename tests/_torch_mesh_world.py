@@ -20,7 +20,16 @@ residual stream along the sequence over "model" (Megatron-SP): among
 them a llama3.2-3b train cell whose 3 heads do not divide the model
 size (its attention gathers its input and takes its own rows) and a
 llava-next-mistral-7b prefill whose patches and tokens split as one
-sequence; two seamless-m4t-medium prefills (``LENGTHS``, ``_lengths``)
+sequence; two llama3.2-3b prefills keep the sequence on "model" inside
+the blocks too (prefill's ``seq_inner``: 3 heads, where ``rules_for``
+sets it, and GQA under the override ``RULES``): attention over each
+rank's query rows against the all-gathered K/V, the MLP and the head on
+the rows, the logits split along the sequence (``_prefill_misses``); so
+do seamless-m4t-medium, mixtral-8x7b and llava-next-mistral-7b prefills
+under the same override (the encoder's rows and cross-attention's
+gathered memory, a window and MoE's split experts inside the rows'
+region, a VLM's positions at the offset); two
+seamless-m4t-medium prefills (``LENGTHS``, ``_lengths``)
 have frames of another length than the tokens, so that one stream splits
 and the other, of odd length, stays whole. Four more decode cells split the caches
 along their sequence (flash-decode: llama3.2-3b at batch 4 and at batch
@@ -37,8 +46,9 @@ all-gathers and reduce-scatters of the sequence (and their bytes) and
 the block inputs remat holds to the code's count. Then
 ``_gather_cases``: one unit's gather and backward against the whole
 path, and three planted faults that must break it; the model region's
-and the sequence split's (``_plants``, seven) and the serve step's
-(``_decode_plants``) planted faults.
+and the sequence split's (``_plants``, seven), ``seq_inner``'s
+(``_inner_plants``, three) and the serve step's (``_decode_plants``)
+planted faults.
 Then
 ``pipeline_apply`` over a 4-rank "stage" mesh: forward within 1e-5 and
 gradient within 1e-4 of the sequential ones. Any rank's failure raises,
@@ -93,6 +103,20 @@ CELLS = [
     # sequence
     ("llama3.2-3b", ("t", "train", 32, 8), "heads3"),
     ("llava-next-mistral-7b", ("p", "prefill", 32, 4), ""),
+    # prefill's seq_inner: the blocks keep the sequence on "model" inside
+    # too, attention over this rank's query rows against the gathered K/V
+    # (B3 at the rows' offset), the MLP and the head on the rows: where
+    # the rules set it (3 heads that do not divide the model size) and
+    # where an override does (GQA, the genome's route)
+    ("llama3.2-3b", ("p", "prefill", 32, 4), "heads3"),
+    ("llama3.2-3b", ("p", "prefill", 32, 4), "seq_inner"),
+    # and under the same override: enc-dec self-attention over the
+    # encoder's rows and cross-attention against the gathered memory, a
+    # sliding window cut at the rows' offset and MoE's experts split
+    # inside the rows' region, a VLM's positions sliced at the offset
+    ("seamless-m4t-medium", ("p", "prefill", 32, 4), "inner"),
+    ("mixtral-8x7b", ("p", "prefill", 64, 4), "inner"),
+    ("llava-next-mistral-7b", ("p", "prefill", 32, 4), "inner"),
     # flash-decode: the caches split along their sequence over "model"
     # (two shards of 32), at global batch 1 over "data" and "model" (four
     # of 16), a sliding window's ring (two of 16), and enc-dec's self and
@@ -107,7 +131,10 @@ VARIANTS = {"": ({}, False), "adafactor": ({"optimizer": "adafactor"}, False),
             "compress": ({}, True), "remat_none": ({"remat": "none"}, False),
             "remat_dots": ({"remat": "dots"}, False),
             "mqa": ({"num_kv_heads": 1}, False), "batch1": ({}, False),
-            "heads3": ({"num_heads": 3, "num_kv_heads": 3}, False)}
+            "heads3": ({"num_heads": 3, "num_kv_heads": 3}, False),
+            "seq_inner": ({"num_kv_heads": 2}, False), "inner": ({}, False)}
+# a variant's overrides of the rules (``rules_for``'s, the genome's route)
+RULES = {"seq_inner": {"seq_inner": "model"}, "inner": {"seq_inner": "model"}}
 # the decode cells that start from seeded cache rows (every cache leaf,
 # enc-dec's cross_k/cross_v too, ``seeded_state``) at these per-slot
 # positions, which straddle the shards' boundaries over the 3 steps:
@@ -449,6 +476,22 @@ def _check(bad: list[str]) -> None:
         raise AssertionError(f"rank {dist.get_rank()}: " + "; ".join(bad[:8]))
 
 
+def _rules(cfg, shape, mesh, variant: str):
+    """A cell's rules: ``rules_for``'s, with the variant's overrides."""
+    from repro_torch.parallel.layouts import rules_for
+
+    return rules_for(cfg, shape, mesh, RULES.get(variant))
+
+
+def _inner(cfg, shape, rules, mesh) -> bool:
+    """Whether a prefill keeps its stream's inner sequence on "model"
+    (``sharding.seq_inner_for`` of the tokens' global shape)."""
+    from repro_torch.parallel.sharding import seq_inner_for
+
+    return shape.kind == "prefill" and seq_inner_for(
+        (shape.global_batch, shape.seq_len, cfg.d_model), rules, mesh)
+
+
 def _config(arch: str, cell: tuple, variant: str):
     """A cell's reduced f32 config (``accum`` 2 where it trains), its
     shape and whether it compresses its gradients."""
@@ -467,12 +510,11 @@ def _train_once(arch: str, cell: tuple, variant: str, ref, mesh):
     (the program, the state after it, its metrics)."""
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models.weights import train_state_from_reference
-    from repro_torch.parallel.layouts import rules_for
     from repro_torch.parallel.sharding import use_mesh
 
     cfg, shape, compress = _config(arch, cell, variant)
     key = cell_key(arch, cell, variant) + "/"
-    rules = rules_for(cfg, shape, mesh)
+    rules = _rules(cfg, shape, mesh, variant)
     prog = build_train_step(cfg, shape, mesh, rules, compress_grads=compress)
     state = train_state_from_reference(
         cfg, _torch(_tree(ref, key + "in_state")), "cpu",
@@ -549,11 +591,9 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
 
     from repro_torch.launch.steps import build_cell_program
     from repro_torch.models.transformer import model_roles
-    from repro_torch.parallel.layouts import rules_for
-    from repro_torch.parallel.sharding import full, use_mesh
 
     cfg, shape, _ = _config(arch, cell, variant)
-    rules = rules_for(cfg, shape, mesh)
+    rules = _rules(cfg, shape, mesh, variant)
     key = cell_key(arch, cell, variant) + "/"
     what = key[:-1] + " "
     train = shape.kind == "train"
@@ -583,14 +623,19 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
     params = _tree(ref, key + "params")
     if shape.kind == "prefill":
         batch = _tree(ref, key + "batch")
-        with Spy() as spy, use_mesh(mesh, rules), \
-                FlopCounterMode(display=False) as fc:
-            logits = step(params, _torch(batch))
-        _check(mismatches({"": full(logits).numpy()},
-                          {"": ref[key + "logits"]}, what + "logits"))
+        with Spy() as spy, FlopCounterMode(display=False) as fc:
+            _, logits = _prefill_once(arch, cell, variant, ref, mesh, step)
+        inner = _inner(cfg, shape, rules, mesh)
+        _check(_prefill_misses(arch, cell, variant, ref, mesh, logits))
         report = _held_gathers(spy, want, cfg, 1, what)
         report.update(_held_region(cfg, shape, roles, spy, fc,
-                                   _torch(params), _torch(batch), mesh, what))
+                                   _torch(params), _torch(batch), mesh, what,
+                                   inner))
+        report["inner"] = inner
+        # the tensor dim each mesh dim splits the logits along (None:
+        # whole over it)
+        report["logits_split_dims"] = [getattr(p, "dim", None)
+                                       for p in logits.placements]
         return report
     with Spy() as spy:
         prog, logits, state = _decode_once(arch, cell, variant, ref, mesh)
@@ -599,6 +644,46 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
     report.update(_held_decode(cfg, shape, rules, roles, spy, state, mesh,
                                what))
     return report
+
+
+def _prefill_once(arch: str, cell: tuple, variant: str, ref, mesh,
+                  step=None):
+    """A prefill cell's step on the reference's parameters and batch:
+    (the program's function, its logits DTensor)."""
+    from repro_torch.launch.steps import build_cell_program
+    from repro_torch.parallel.sharding import use_mesh
+
+    cfg, shape, _ = _config(arch, cell, variant)
+    rules = _rules(cfg, shape, mesh, variant)
+    key = cell_key(arch, cell, variant) + "/"
+    if step is None:
+        step = build_cell_program(cfg, shape, mesh, rules).jitted()
+    with use_mesh(mesh, rules):
+        logits = step(_tree(ref, key + "params"),
+                      _torch(_tree(ref, key + "batch")))
+    return step, logits
+
+
+def _prefill_misses(arch, cell, variant, ref, mesh, logits) -> list[str]:
+    """A prefill's logits against the reference's (every element within
+    1e-5 of max), and their layout: split along the sequence over "model"
+    where the rules keep the inner sequence there (``seq_inner``, the
+    reference's pruned ``("batch", "seq_inner", "act_vocab")``), not
+    where they do not."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.parallel.sharding import full
+
+    cfg, shape, _ = _config(arch, cell, variant)
+    key = cell_key(arch, cell, variant)
+    bad = mismatches({"": full(logits).numpy()}, {"": ref[key + "/logits"]},
+                     key + " logits")
+    rows = logits.placements[MODEL_DIM] == Shard(1)
+    want = _inner(cfg, shape, _rules(cfg, shape, mesh, variant), mesh)
+    if rows != want:
+        bad.append(f"{key} logits laid out {logits.placements}: the pruned "
+                   f"spec splits their sequence over 'model': {want}")
+    return bad
 
 
 def _decode_once(arch: str, cell: tuple, variant: str, ref, mesh):
@@ -819,7 +904,8 @@ def _attention_flops(cfg, rows: int, s: int) -> tuple[int, int]:
     return fwd.get_total_flops(), bwd.get_total_flops()
 
 
-def replicated_flops(cfg, shape, roles: dict, mesh) -> int:
+def replicated_flops(cfg, shape, roles: dict, mesh, inner: bool = False
+                     ) -> int:
     """The code's count of the flops of the matmuls that every model rank
     computes whole, on this rank's rows: a train step runs each block's
     forward once, and again in remat's recompute, and its backward takes
@@ -831,7 +917,11 @@ def replicated_flops(cfg, shape, roles: dict, mesh) -> int:
     every frame or patch; their inputs take no gradient), and an
     attention whose heads do not split (``_attention_flops``); all else is
     split. A sequence split of the residual stream changes none of it:
-    every block computes on the gathered sequence."""
+    every block computes on the gathered sequence. Under ``inner``
+    (prefill's ``seq_inner``) attention, the MLP and the head compute on
+    this rank's rows: 1/model of the same rows' flops on one device, as a
+    split is; but cross-attention projects its K and V from the whole
+    memory on every rank."""
     from repro_torch._tree import flatten
     from repro_torch.parallel.sharding import KEEP, PARTIAL
 
@@ -860,10 +950,12 @@ def replicated_flops(cfg, shape, roles: dict, mesh) -> int:
     out = accum * passes * n * layer
     if cfg.is_encdec:  # frames as long as the tokens
         out += accum * (2 if train else 1) * mm(tokens, d, d)
+    if cfg.is_encdec and inner:  # cross-attention's K/V of the whole memory
+        out += n * 2 * mm(tokens, d, cfg.num_kv_heads * cfg.resolved_head_dim)
     if cfg.frontend == "vision":  # the patches in front of the tokens
         patches = min(cfg.frontend_tokens, s // 2)
         out += accum * (2 if train else 1) * mm(per * patches, d, d)
-    if cfg.family == "dense" and not cfg.is_encdec and \
+    if cfg.family == "dense" and not cfg.is_encdec and not inner and \
             flat_roles.get(("layers", "attn", "wq")) != KEEP:
         fwd, bwd = _attention_flops(cfg, per, s)
         again = 0 if not train or cfg.remat == "none" else 1
@@ -880,23 +972,33 @@ def _kept(roles: dict, *path) -> bool:
     return node == KEEP
 
 
-def seq_units(cfg, shape, roles: dict) -> list:
+def seq_units(cfg, shape, roles: dict, inner: bool = False) -> list:
     """The units of the layer loops (the blocks remat wraps) as a step
     under a sequence split runs them: each a list of its sublayers in
-    order, a sublayer ``(enters, out, split, sums)``: the lengths of the
-    streams its ``enter`` gathers (cross-attention's memory too), the
-    length of its output's stream, whether it keeps a model chunk (its
-    output partial), and its ``model_sum`` all-reduces (Mamba2's gated
-    norm, where it keeps its heads). The tokens' stream is the shape's
-    length (a VLM's patches and tokens together), an enc-dec encoder's
-    frames as long."""
+    order, a sublayer ``(enters, out, split, sums, kv)``: the lengths of
+    the streams its ``enter`` gathers (cross-attention's memory too), the
+    length of its output's stream (None: no ``leave``), whether it keeps a
+    model chunk (its output partial), its ``model_sum`` all-reduces
+    (Mamba2's gated norm, where it keeps its heads) and its K/V
+    all-gathers of the sequence (attention under ``inner``, prefill's
+    ``seq_inner``: on this rank's rows, with neither ``enter`` nor
+    ``leave``, as the MLP). The tokens' stream is the shape's length (a
+    VLM's patches and tokens together), an enc-dec encoder's frames as
+    long."""
     from repro_torch.models.transformer import hybrid_groups
 
     s = t = shape.seq_len
     n = cfg.num_layers
 
     def sub(split, enters=(s,), out=s, sums=0):
-        return (tuple(enters), out, bool(split), sums)
+        return (tuple(enters), out, bool(split), sums, 0)
+
+    def inside(*path, kv=0, memory=()):
+        """An attention (``kv``: its K/V all-gathers under ``inner``;
+        cross-attention's ``memory``) or an MLP."""
+        if inner:
+            return (memory, None, False, 0, kv)
+        return sub(_kept(roles, *path), (s,) + memory)
 
     if cfg.family == "ssm":
         return [[sub(_kept(roles, "layers", "tm", "w_r")),
@@ -905,25 +1007,26 @@ def seq_units(cfg, shape, roles: dict) -> list:
         ng, tail = hybrid_groups(cfg)
         mk = _kept(roles, "groups", "mamba", "A_log")
         mamba = sub(mk, sums=int(mk))
-        return ([[sub(_kept(roles, "shared_attn", "attn", "wq"))]
+        return ([[inside("shared_attn", "attn", "wq", kv=2)]
                  + [mamba] * cfg.attn_every] * ng + [[mamba]] * tail)
     if cfg.is_encdec:
-        enc = [sub(_kept(roles, "encoder", "attn", "wq"), (t,), t),
-               sub(_kept(roles, "encoder", "mlp", "w_up"), (t,), t)]
-        dec = [sub(_kept(roles, "layers", "attn", "wq")),
-               sub(_kept(roles, "layers", "xattn", "wq"), (s, t)),
-               sub(_kept(roles, "layers", "mlp", "w_up"))]
+        enc = [inside("encoder", "attn", "wq", kv=2),
+               inside("encoder", "mlp", "w_up")]
+        dec = [inside("layers", "attn", "wq", kv=2),
+               inside("layers", "xattn", "wq", memory=(t,)),
+               inside("layers", "mlp", "w_up")]
         return [enc] * cfg.encoder_layers + [dec] * n
-    ffn = ("moe", "w_up") if cfg.num_experts else ("mlp", "w_up")
-    return [[sub(_kept(roles, "layers", "attn", "wq")),
-             sub(_kept(roles, "layers", *ffn))]] * n
+    ffn = (sub(_kept(roles, "layers", "moe", "w_up")) if cfg.num_experts
+           else inside("layers", "mlp", "w_up"))
+    return [[inside("layers", "attn", "wq", kv=2), ffn]] * n
 
 
 SEQ_COUNTS = ("all_gathers", "gathered_bytes", "reduce_scatters",
               "scattered_bytes")
 
 
-def seq_collectives(cfg, shape, roles: dict, mesh) -> dict:
+def seq_collectives(cfg, shape, roles: dict, mesh, inner: bool = False
+                    ) -> dict:
     """The code's count of a train or prefill step's all-gathers and
     reduce-scatters of the sequence over "model" (``MODEL``), with the
     bytes of the whole sequence each one moves, where every stream splits
@@ -936,34 +1039,42 @@ def seq_collectives(cfg, shape, roles: dict, mesh) -> dict:
     only the residual add reads. Outside the units: the lookup's
     reduce-scatter into this rank's rows (its own rows where the table is
     whole) and its gradient's all-gather, the logits' all-gather and its
-    gradient's reduce-scatter (where the vocab splits)."""
+    gradient's reduce-scatter (where the vocab splits). Under ``inner``
+    (prefill's ``seq_inner``) an attention all-gathers its K and V, each
+    of the sequence's length and K·hd wide, and the head computes on the
+    rows."""
     from repro_torch.models.transformer import DTYPES
 
     accum, per, _ = _rows(cfg, shape, mesh)
-    width = cfg.d_model * DTYPES[cfg.dtype].itemsize * per
+    item = DTYPES[cfg.dtype].itemsize
+    width = cfg.d_model * item * per
+    kv_width = cfg.num_kv_heads * cfg.resolved_head_dim * item * per
     train = shape.kind == "train"
     again = train and cfg.remat != "none"
     vocab = _kept(roles, "embedding", "embed")
     s = shape.seq_len
     out = collections.Counter()
 
-    def add(kind, length, times=1):
+    def add(kind, length, times=1, wide=width):
         out[kind + "s"] += times
         out[("gathered" if kind == "all_gather" else "scattered")
-            + "_bytes"] += times * length * width
+            + "_bytes"] += times * length * wide
 
-    for unit in seq_units(cfg, shape, roles):
-        for j, (enters, length, split, _) in enumerate(unit):
+    for unit in seq_units(cfg, shape, roles, inner):
+        for j, (enters, length, split, _, kv) in enumerate(unit):
             for e in enters:
                 add("all_gather", e, 1 + again)
                 if train and split:
                     add("reduce_scatter", e)
+            if kv:
+                add("all_gather", s, kv, kv_width)
             if split:
                 last = j == len(unit) - 1
                 add("reduce_scatter", length, 1 + (again and not last))
             if train:
                 add("all_gather", length)
-    add("all_gather", s)  # the logits' input
+    if not inner:
+        add("all_gather", s)  # the logits' input
     if vocab:
         add("reduce_scatter", s)  # the lookup
     if train:
@@ -973,7 +1084,7 @@ def seq_collectives(cfg, shape, roles: dict, mesh) -> dict:
     return {k: accum * out[k] for k in SEQ_COUNTS}
 
 
-def model_all_reduces(cfg, shape, roles: dict) -> int:
+def model_all_reduces(cfg, shape, roles: dict, inner: bool = False) -> int:
     """The code's count of the model-parallel region's all-reduces in one
     step whose streams split along their sequence: the loss's max and sum
     over the vocab shards in the forward of each microbatch, and Mamba2's
@@ -981,7 +1092,8 @@ def model_all_reduces(cfg, shape, roles: dict) -> int:
     remat's recompute and in its backward. ``enter`` and ``leave``
     all-gather and reduce-scatter instead (``seq_collectives``)."""
     train = shape.kind == "train"
-    sums = sum(u[3] for unit in seq_units(cfg, shape, roles) for u in unit)
+    sums = sum(u[3] for unit in seq_units(cfg, shape, roles, inner)
+               for u in unit)
     if not train:
         return sums
     again = 0 if cfg.remat == "none" else 1
@@ -1007,7 +1119,7 @@ def saved_boundary_bytes(cfg, shape, mesh, split: bool = True) -> int:
 
 
 def _held_region(cfg, shape, roles, spy, fc, params, batch, mesh,
-                 what: str) -> dict:
+                 what: str, inner: bool = False) -> dict:
     """This rank's flops (the step under ``fc``) against the same rows'
     on one device (``one_device_flops``): the ratio must be what the
     code's count gives, 1/model of the split matmuls and the whole of the
@@ -1016,20 +1128,22 @@ def _held_region(cfg, shape, roles, spy, fc, params, batch, mesh,
     reduce-scatters with their bytes (``seq_collectives``) the code's
     count; and a train step's remat-saved block inputs
     (``Spy.saved_peak``, remat full or dots) the code's count, this
-    rank's rows of each stream (``saved_boundary_bytes``)."""
+    rank's rows of each stream (``saved_boundary_bytes``). ``inner``:
+    a prefill under ``seq_inner``."""
     m = mesh.size(MODEL_DIM)
     flops = fc.get_total_flops()
     whole = one_device_flops(cfg, shape, params, batch, mesh)
-    rep = replicated_flops(cfg, shape, roles, mesh)
+    rep = replicated_flops(cfg, shape, roles, mesh, inner)
     out = {"flops": flops, "flops_one_device": whole,
            "flop_ratio": flops / whole,
            "flop_ratio_code": ((whole - rep) / m + rep) / whole,
            "replicated_flops": rep,
            "model_all_reduces": spy.region["all_reduces"],
-           "model_all_reduces_code": model_all_reduces(cfg, shape, roles),
+           "model_all_reduces_code": model_all_reduces(cfg, shape, roles,
+                                                       inner),
            "model_bytes": spy.region["bytes"],
            "seq": {k: spy.region[k] for k in SEQ_COUNTS},
-           "seq_code": seq_collectives(cfg, shape, roles, mesh)}
+           "seq_code": seq_collectives(cfg, shape, roles, mesh, inner)}
     bad = []
     if flops * m != whole - rep + m * rep:
         bad.append(f"{what}flops {flops} of one device's {whole}, the code "
@@ -1275,6 +1389,56 @@ def _plants(ref, mesh) -> dict:
     return out
 
 
+def _inner_plants(ref, mesh) -> dict:
+    """Three faults planted in prefill's ``seq_inner``, each in the heads3
+    prefill cell, whose logits or their layout must then miss
+    (``_prefill_misses``; the number of failed checks, 1 where the step
+    raised): B3's query offset dropped (every rank's queries masked as
+    rows 0 to S/model of the sequence); K and V left ungathered (each
+    rank's own rows in their place in the sequence, the other ranks'
+    zeros); the rows gathered over the sequence before the head, where
+    the pruned spec keeps the logits split. Every rank plants the same
+    fault, so that the collectives still pair."""
+    from repro_torch.models import attention
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as SH
+
+    cell = ("llama3.2-3b", ("p", "prefill", 32, 4), "heads3")
+    real_flash = attention.flash_attention
+
+    def no_offset(q, k, v, *, causal=True, window=0, q_offset=0):
+        return real_flash(q, k, v, causal=causal, window=window)
+
+    def ungathered(x):
+        sp = SH.current_seq_split()
+        n = x.shape[1]
+        whole = x.new_zeros((x.shape[0], n * sp.count) + x.shape[2:])
+        whole[:, sp.index * n:(sp.index + 1) * n] = x
+        return whole
+
+    def gathered_logits(cfg, p, x):
+        w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
+        return SH.enter(x, False) @ w
+
+    faults = {"offset_dropped": (attention, "flash_attention", no_offset),
+              "kv_ungathered": (attention, "seq_gather", ungathered),
+              "logits_gathered": (L, "lm_logits", gathered_logits)}
+    out = {}
+    for name, (owner, attr, fault) in faults.items():
+        real = getattr(owner, attr)
+        setattr(owner, attr, fault)
+        try:
+            _, logits = _prefill_once(*cell, ref, mesh)
+            out[name] = len(_prefill_misses(*cell, ref, mesh, logits))
+        except (RuntimeError, ValueError):
+            out[name] = 1
+        finally:
+            setattr(owner, attr, real)
+    if not all(out.values()):
+        _check([f"a planted seq_inner fault passed: {out}"])
+    return out
+
+
 def _planted_misses(cell: tuple, ref, mesh) -> int:
     """The failed checks of one train step of ``cell`` with a fault
     planted: its mismatches with the reference's, or 1 where the step
@@ -1474,6 +1638,7 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
         gathers = {cell_key(*c): _cell(*c, ref, mesh) for c in CELLS}
         cases = _gather_cases(mesh)
         region_plants = _plants(ref, mesh)
+        inner_plants = _inner_plants(ref, mesh)
         decode_plants = _decode_plants(ref, mesh)
         threads = _card_threads(ref, mesh)
         lengths = _lengths(ref, mesh)
@@ -1490,6 +1655,7 @@ def _rank(rank: int, store_path: str, ref_path: str, out_path: str) -> None:
                 json.dump({"cells": [cell_key(*c) for c in CELLS],
                            "gathers": every, "gather_cases": cases,
                            "region_plants": region_plants,
+                           "inner_plants": inner_plants,
                            "decode_plants": decode_plants,
                            "backward_threads": threads,
                            "pipeline": pipe, "lengths": lengths,

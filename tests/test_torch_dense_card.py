@@ -145,6 +145,60 @@ def test_scalar_flash_kernel_takes_the_rest(dtype, d):
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
+# q rows at an offset into a longer K/V (prefill's seq_inner): (B, H, K,
+# Sq, Sk, D, dtype, causal, window, offsets); tile-multiple offsets (128 for
+# the tensor-core kernel, 64 for the scalar one) and ragged ones
+OFFSET_CASES = [
+    (2, 6, 2, 256, 1024, 128, torch.bfloat16, True, 0, (0, 384, 768)),
+    (1, 8, 2, 200, 700, 64, torch.bfloat16, True, 0, (0, 128, 500)),
+    (1, 4, 4, 128, 1024, 128, torch.bfloat16, True, 256, (0, 512, 896)),
+    (1, 4, 1, 300, 200, 64, torch.bfloat16, False, 0, (0,)),
+    (2, 6, 2, 128, 512, 128, torch.float32, True, 0, (0, 192, 384)),
+    (1, 4, 2, 70, 300, 16, torch.float32, True, 40, (0, 101, 230)),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,dtype,causal,window,offsets",
+                         OFFSET_CASES)
+def test_flash_kernel_at_a_query_offset(b, h, kh, sq, sk, d, dtype, causal,
+                                        window, offsets):
+    """B3 with ``q_offset`` and Sq != Sk against its plain version (bf16
+    also within the bf16 rounding bound), on the kernel ``kernel_for``
+    picks; where the offset is a multiple of that kernel's query tile, the
+    rows equal the whole sequence's launch bit for bit."""
+    from repro_torch.kernels.flash_attention.kernel import kernel_for
+
+    rng = np.random.default_rng(sq + sk + d)
+
+    def draw(heads, rows):
+        return torch.from_numpy(rng.standard_normal(
+            (b, heads, rows, d)).astype(np.float32)).to("cuda", dtype)
+
+    q_all, k, v = draw(h, max(sq, sk)), draw(kh, sk), draw(kh, sk)
+    tc = kernel_for(dtype, d) == "tensor_core"
+    whole = (flash_attention_cuda(q_all[:, :, :sk].contiguous(), k, v,
+                                  causal=causal, window=window)
+             if causal else None)
+    for off in offsets:
+        q = q_all[:, :, off:off + sq].contiguous()
+        n, n_tc = (flash_attention_cuda.launches,
+                   flash_attention_cuda.launches_tc)
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   q_offset=off)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches == n + 1
+        assert flash_attention_cuda.launches_tc == n_tc + tc
+        kw = dict(causal=causal, window=window, q_offset=off)
+        ref = attention_ref(q, k, v, **kw)
+        tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+        assert float((out.float() - ref.float()).abs().max()) <= tol, off
+        if dtype == torch.bfloat16:
+            o32, bound = bf16_error_bound(q, k, v, **kw)
+            assert bool(((out.float() - o32).abs() <= bound).all()), off
+        if causal and off % (128 if tc else 64) == 0:
+            assert torch.equal(out, whole[:, :, off:off + sq]), off
+
+
 def _card_model():
     cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")),
                               dtype="float32")

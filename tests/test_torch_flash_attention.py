@@ -207,3 +207,85 @@ def test_cpu_tensors_count_no_tensor_core_launch():
     before = flash_attention_cuda.launches_tc
     assert torch.equal(flash_attention(q, k, v), attention_ref(q, k, v))
     assert flash_attention_cuda.launches_tc == before
+
+
+# q rows at an offset into a longer K/V (prefill's seq_inner: a model
+# rank's query rows against the whole sequence's K/V): (B, H, K, Sq, Sk,
+# D), the offsets, causal, window
+OFFSET_CASES = [
+    ((1, 6, 2, 16, 64, 16), (0, 16, 48), True, 0),     # GQA 3, causal
+    ((2, 8, 2, 20, 64, 16), (0, 37, 44), True, 24),    # GQA 4, a window
+    ((1, 6, 2, 40, 24, 16), (0,), False, 0),           # unmasked, Sq > Sk
+    ((2, 8, 2, 32, 96, 64), (0, 32, 64), True, 0),     # GQA 4, head dim 64
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,offsets,causal,window", OFFSET_CASES)
+def test_query_offset_matches_the_reference_sdpa(shape, offsets, causal,
+                                                  window, dtype):
+    """B3's plain version, its CPU wrapper and the entry point with
+    ``q_offset`` and Sq != Sk against the JAX package's ``_sdpa`` under
+    ``_causal_window_mask(q_offset + arange(Sq), arange(Sk), window)``
+    (K/V repeated as its ``_repeat_kv`` lays them out): f32 within 1e-5,
+    bf16 within 3e-2. The rows at each offset also equal those rows of
+    the whole sequence's attention, where the queries cover it."""
+    from repro.models.attention import _causal_window_mask, _repeat_kv, _sdpa
+
+    b, h, kh, sq, sk, d = shape
+    rng = np.random.default_rng(sum(shape))
+    q_all = rng.standard_normal((b, h, max(sk, sq), d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, kh, sk, d)).astype(np.float32)
+            for _ in range(2))
+    tdt = getattr(torch, dtype)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    tk, tv = (torch.from_numpy(a).to(tdt) for a in (k, v))
+    jk, jv = (_repeat_kv(jnp.asarray(a).astype(jdt).transpose(0, 2, 1, 3), h)
+              for a in (k, v))
+    for off in offsets:
+        q = q_all[:, :, off:off + sq]
+        tq = torch.from_numpy(np.ascontiguousarray(q)).to(tdt)
+        mask = (_causal_window_mask(off + jnp.arange(sq), jnp.arange(sk),
+                                    window) if causal else None)
+        want = np.asarray(_sdpa(jnp.asarray(q).astype(jdt).transpose(
+            0, 2, 1, 3), jk, jv, mask, d ** -0.5).astype(jnp.float32)
+                          ).transpose(0, 2, 1, 3)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        for got in (attention_ref(tq, tk, tv, **kw),
+                    flash_attention_cuda(tq, tk, tv, **kw),
+                    flash_attention(tq, tk, tv, **kw)):
+            np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                                       rtol=0)
+        if causal:
+            whole = attention_ref(torch.from_numpy(q_all).to(tdt), tk, tv,
+                                  causal=causal, window=window)
+            assert torch.equal(attention_ref(tq, tk, tv, **kw),
+                               whole[:, :, off:off + sq])
+
+
+def test_offsets_the_kernels_do_not_take_raise():
+    """A masked call's queries must lie in the keys' sequence (q_offset +
+    Sq <= Sk, q_offset >= 0); the backward takes one length at offset 0,
+    so a gradient through an offset call raises there."""
+    q = torch.zeros(1, 2, 16, 16)
+    k = v = torch.zeros(1, 2, 32, 16)
+    with pytest.raises(ValueError, match="offset 20 do not lie in k, v"):
+        flash_attention_cuda(q, k, v, q_offset=20)
+    with pytest.raises(ValueError, match="offset -1"):
+        flash_attention_cuda(q, k, v, q_offset=-1)
+    flash_attention_cuda(q, k, v, causal=False, q_offset=20)  # unmasked
+    o, lse = flash_attention_cuda(q, k, v, q_offset=16, return_lse=True)
+    assert lse.shape == (1, 2, 16)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda)
+    with pytest.raises(ValueError, match="one length at offset 0"):
+        flash_attention_backward_cuda(q, k, v, o, lse, o, q_offset=16)
+    with pytest.raises(ValueError, match="one length at offset 0"):
+        flash_attention_backward_cuda(q, q, q, o, lse, o, q_offset=16)
+    with pytest.raises(ValueError, match="one length at offset 0"):
+        flash_attention_backward_cuda(q, k, v, o, lse, o)
+    qg = q.clone().requires_grad_(True)
+    out = flash_attention(qg, k, v, q_offset=16)
+    with pytest.raises(ValueError, match="one length at offset 0"):
+        out.sum().backward()

@@ -91,8 +91,9 @@ def test_mesh_train_step_matches_the_plain_versions(mesh, monkeypatch):
 
     monkeypatch.setattr(ML, "_rms_norm_op", rms_norm_ref)
     monkeypatch.setattr(attn, "flash_attention",
-                        lambda q, k, v, causal, window: attention_ref(
-                            q, k, v, causal=causal, window=window))
+                        lambda q, k, v, causal, window, q_offset=0:
+                        attention_ref(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset))
     want, wm = _step(cfg, mesh)
     assert rms_norm_cuda.launches == after[0]  # the plain versions ran
     assert gm["loss"] == pytest.approx(wm["loss"], rel=1e-5)

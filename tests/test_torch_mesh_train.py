@@ -24,7 +24,14 @@ an MQA llama3.2-3b train cell (reduced configs in f32, ``accum`` 2 where
 a cell trains), a llama3.2-3b train cell with 3 heads (which do not
 divide the model size) and a llava-next-mistral-7b prefill, every train
 and prefill cell splitting its residual stream along the sequence over
-"model" (Megatron-SP), two seamless-m4t-medium prefills whose frames
+"model" (Megatron-SP), two llama3.2-3b prefills that keep the sequence
+on "model" inside the blocks too (prefill's ``seq_inner``: 3 heads,
+where the rules set it, and GQA under the rules' override; attention
+over each rank's query rows against the all-gathered K/V, the MLP and
+the head on the rows, the logits split along the sequence) and
+seamless-m4t-medium, mixtral-8x7b and llava-next-mistral-7b prefills
+under the same override, two
+seamless-m4t-medium prefills whose frames
 and tokens differ in length (one stream split, the other of odd length
 whole), and four decode cells whose caches split along
 their sequence (flash-decode: llama3.2-3b at batch 4 and 1, mixtral-8x7b's
@@ -39,8 +46,8 @@ step's split held (no state leaf gathered but Mamba2's
 conv, a cache's storage 1/4, the model and combine all-reduces the
 code's count, greedy tokens equal), a unit's gather held against the
 whole path with three planted faults that must fail, seven planted
-faults of the model-parallel region and its sequence split and five of
-the serve step's split that must fail, and ``pipeline_apply`` on a 4-rank "stage" mesh against
+faults of the model-parallel region and its sequence split, three of
+``seq_inner`` and five of the serve step's split that must fail, and ``pipeline_apply`` on a 4-rank "stage" mesh against
 the reference's sequential forward and ``jax.grad``. A rank's failure
 fails the test.
 """
@@ -582,7 +589,15 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
     # experts, the vocab and the RWKV and SSM heads, and gathers no state
     # leaf but Mamba2's conv (held on every rank, _held_decode)
     halves = {"llama3.2-3b/train", "llama3.2-3b/train/adafactor",
-              "llama3.2-3b/train/compress"}
+              "llama3.2-3b/train/compress", "llama3.2-3b/prefill/heads3",
+              "llama3.2-3b/prefill/seq_inner"}
+    # prefill's seq_inner: attention, the MLP and the head on this rank's
+    # rows, whole leaves; the rules set it for 3 heads on 2 model ranks,
+    # an override for the others
+    inner = {"llama3.2-3b/prefill/heads3", "llama3.2-3b/prefill/seq_inner",
+             "seamless-m4t-medium/prefill/inner",
+             "mixtral-8x7b/prefill/inner",
+             "llava-next-mistral-7b/prefill/inner"}
     decode = {cell_key(*c) for c in CELLS if c[1][1] == "decode"}
     for rank in res["gathers"]:
         for name, g in rank.items():
@@ -613,7 +628,19 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
             # the sequence (Megatron-SP): the all-gathers and
             # reduce-scatters, and their bytes, the code's count
             assert g["seq"] == g["seq_code"], (name, g)
-            assert min(g["seq"].values()) > 0, (name, g)
+            assert g.get("inner", False) == (name in inner), (name, g)
+            if name in inner:
+                # llama: K's and V's all-gathers a layer and nothing more,
+                # no enter/leave around attention or the MLP (elsewhere
+                # MoE's split experts and a split table's lookup scatter,
+                # as the code counts); none before the head, whose logits
+                # stay the rows' (Shard(1) on "model")
+                if name.startswith("llama3.2-3b"):
+                    assert g["seq"]["all_gathers"] == 2 * 2, (name, g)
+                    assert g["seq"]["reduce_scatters"] == 0, (name, g)
+                assert g["logits_split_dims"] == [0, 1], (name, g)
+            else:
+                assert min(g["seq"].values()) > 0, (name, g)
             if name.startswith("llama3.2-3b/train") and g["remat"] != "none":
                 # remat holds this rank's rows of each block input: 1/2
                 assert g["saved_bytes"] == g["saved_bytes_code"] \
@@ -628,6 +655,10 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
         "next_shard_rows"}
     assert all(n > 0 for n in res["region_plants"].values()), \
         res["region_plants"]
+    assert set(res["inner_plants"]) == {
+        "offset_dropped", "kv_ungathered", "logits_gathered"}
+    assert all(n > 0 for n in res["inner_plants"].values()), \
+        res["inner_plants"]
     assert set(res["decode_plants"]) == {
         "row_written_on_every_shard", "max_not_combined",
         "rows_read_as_local", "batch1_over_model_alone", "mlp_leave_dropped"}

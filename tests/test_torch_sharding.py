@@ -221,18 +221,70 @@ _SPLIT_AXES = {"heads": "act_heads", "kv_heads": "act_kv_heads",
 _NOT_HEADS = ("in_proj", "conv_w", "conv_b")
 
 
-def _expected_roles(cfg, rules, specs, defs, m):
+# the top-level keys whose leaves compute on each residual stream
+_MAIN_KEYS = ("layers", "groups", "tail", "shared_attn", "final_norm",
+              "embedding")
+_ENCODER_KEYS = ("encoder", "enc_norm", "frontend")
+# the blocks whose reference shard_act points name "seq_inner"
+_INNER_BLOCKS = ("attn", "xattn", "mlp", "tm", "mamba")
+_NORM_KEYS = ("ln1", "ln2", "ln_x", "ln", "final_norm", "enc_norm")
+
+
+def _claims(gshape, logical, rules, mesh) -> bool:
+    """Whether the reference's ``_prune_spec_for`` of ``logical`` (batch,
+    sequence, ...) for a stream of global ``gshape`` keeps "model" on the
+    sequence."""
+    if not hasattr(mesh, "axis_names"):  # a DeviceMesh: its stand-in
+        mesh = types.SimpleNamespace(axis_names=tuple(mesh.mesh_dim_names),
+                                     devices=np.empty(tuple(mesh.shape)))
+    entry = RSH._prune_spec_for(tuple(gshape[:len(logical)]),
+                                rules.spec(logical), mesh)[1]
+    return "model" in (entry if isinstance(entry, tuple) else (entry,))
+
+
+def _stream_keys(cfg, shape, rules, mesh, m):
+    """(the top-level keys of a split stream, those of a stream whose
+    blocks keep its sequence inside too): a train or prefill step's
+    streams, each by the reference's pruning of ``("batch", "seq",
+    "embed")`` and, for a prefill, of ``("batch", "seq_inner")``, whose
+    first use of "model" leaves the heads, ffn and vocab whole."""
+    split, inner = set(), set()
+    if m == 1:
+        return split, inner
+    streams = _seq_streams(cfg, shape)
+    main = _MAIN_KEYS + (("frontend",) if cfg.frontend == "vision" else ())
+    for name, gshape in streams.items():
+        keys = main if name == "main" else _ENCODER_KEYS
+        if _claims(gshape, ("batch", "seq", "embed"), rules, mesh):
+            split.update(keys)
+        if shape.kind == "prefill" and _claims(
+                gshape, ("batch", "seq_inner"), rules, mesh):
+            inner.update(keys)
+    return split, inner
+
+
+def _expected_roles(cfg, rules, specs, defs, m, split=(), inner=()):
     """Leaf by leaf, from the pruned specs: a leaf keeps its model chunk
     where its spec puts "model" on a split axis whose activation axis the
     rules put on "model" too, and the chunk is whole heads (RWKV's and
     Mamba2's heads divide by the model size; Mamba2's z|x|B|C|dt leaves
-    never), KV heads only with the query heads. Then a leaf is partial
-    where its block is split and the rank uses it whole: unsplit K/V of
-    split attention, RWKV's mixes and decay, Mamba2's projection and
-    conv."""
+    never), KV heads only with the query heads; in a block under a key of
+    ``inner`` whose activations name ``seq_inner`` (attention, the MLP,
+    RWKV, Mamba2, the head's leaf), "model" went to the sequence first,
+    and none keeps it. Then a leaf is partial where its block is split and
+    the rank uses it whole: unsplit K/V of split attention, RWKV's mixes
+    and decay, Mamba2's projection and conv; and, under a key of
+    ``split`` (a stream split along its sequence), every norm scale, the
+    frontend's projection, and where the block is split MoE's router and
+    RWKV's ``mu_c`` and ``c_r``."""
+    head = "embed" if cfg.tie_embeddings else "unembed"
+
     def keeps(path, d, spec):
         name = path[-1]
         if m == 1 or name in _NOT_HEADS:
+            return False
+        if path[0] in inner and (path[-2] in _INNER_BLOCKS
+                                 or path == ("embedding", head)):
             return False
         for ax, entry in zip(d.axes, spec + (None,) * len(d.axes)):
             act = _SPLIT_AXES.get(ax)
@@ -264,6 +316,12 @@ def _expected_roles(cfg, rules, specs, defs, m):
                     and blk + ("w_r",) in kept)
                 or (name in _NOT_HEADS and blk + ("A_log",) in kept)):
             role = SH.PARTIAL
+        if p[0] in split and (
+                (name == "scale" and blk[-1] in _NORM_KEYS)
+                or (p[0] == "frontend" and name == "proj")
+                or (name == "router" and blk + ("w_up",) in kept)
+                or (name in ("mu_c", "c_r") and blk + ("c_k",) in kept)):
+            role = SH.PARTIAL
         out[p] = role
     return out
 
@@ -292,8 +350,12 @@ def test_model_roles_follow_the_pruned_specs(arch, mesh_name, fake_2x2):
     """Which leaves keep a model chunk (and compute on it), and which
     sum a partial gradient over "model", for every arch and train and
     prefill shape on a (2, 2) DeviceMesh of the fake process group and on
-    the 16×16 stand-in; on the (2, 2) mesh the gather layout of a kept
-    leaf (``keep_chunk``) gives it that chunk's local shape."""
+    the 16×16 stand-in, given the step's shape: a stream split along its
+    sequence, and a prefill's ``seq_inner`` claiming "model" before the
+    heads, ffn and vocab (llama3.2-3b's 24 heads on 16 model ranks at
+    ``prefill_32k``: its attention, MLP and tied head whole); on the
+    (2, 2) mesh the gather layout of a kept leaf (``keep_chunk``) gives
+    it that chunk's local shape."""
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
 
@@ -306,8 +368,9 @@ def test_model_roles_follow_the_pruned_specs(arch, mesh_name, fake_2x2):
             continue
         rules = L.rules_for(cfg, shape, mesh)
         specs = SH.specs_from_defs(defs, rules, mesh)
-        got = dict(_flat(TF.model_roles(cfg, rules, mesh)))
-        want = _expected_roles(cfg, rules, specs, defs, m)
+        got = dict(_flat(TF.model_roles(cfg, rules, mesh, shape)))
+        want = _expected_roles(cfg, rules, specs, defs, m,
+                               *_stream_keys(cfg, shape, rules, mesh, m))
         assert got == want, (arch, shape.name, {
             p: (got[p], want[p]) for p in want if got[p] != want[p]})
         if mesh_name != "2x2":
@@ -403,17 +466,82 @@ def test_the_sequence_split_follows_the_reference_pruning(arch, mesh_name):
 def test_llama_on_16_model_ranks_replicates_attention():
     """24 query heads do not split over 16 model ranks: every attention
     leaf of llama3.2-3b stays whole (the spec pruning drops "model" from
-    the heads), while its ffn and vocab keep their 1/16 chunks."""
+    the heads). In training its ffn and vocab keep their 1/16 chunks; its
+    prefill keeps the blocks' inner sequence on "model" (``seq_inner``,
+    which the rules set there and which claims "model" first), so the MLP
+    and the tied head are whole too, each rank computing its rows."""
     mesh = _stand_in("16x16")
     cfg = get_config("llama3.2-3b")
     for shape in SHAPES.values():
         if shape.kind == "decode":
             continue
-        roles = TF.model_roles(cfg, L.rules_for(cfg, shape, mesh), mesh)
+        rules = L.rules_for(cfg, shape, mesh)
+        roles = TF.model_roles(cfg, rules, mesh, shape)
         layer = roles["layers"]
+        prefill = shape.kind == "prefill"
+        assert SH.seq_inner_for((shape.global_batch, shape.seq_len,
+                                 cfg.d_model), rules, mesh) == prefill
         assert set(layer["attn"].values()) == {None}, shape.name
-        assert set(layer["mlp"].values()) == {SH.KEEP}, shape.name
-        assert roles["embedding"] == {"embed": SH.KEEP}, shape.name
+        assert set(layer["mlp"].values()) == {None if prefill else SH.KEEP}
+        assert roles["embedding"] == {"embed": None if prefill
+                                      else SH.KEEP}, shape.name
+
+
+@pytest.mark.parametrize("mesh_name", sorted(SEQ_MESHES))
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b",
+                                  "seamless-m4t-medium", "llama3.2-3b"])
+def test_seq_inner_follows_the_reference_pruning(arch, mesh_name):
+    """Whether a prefill's blocks keep a stream's sequence on "model"
+    inside (``sharding.seq_inner_for``) is the reference's
+    ``_prune_spec_for`` of ``("batch", "seq_inner")`` for the stream's own
+    global shape, under ``rules_for``'s rules and with the genome's
+    override ``seq_inner="model"``, over every prefill shape and odd
+    lengths (a VLM's patches, an enc-dec encoder's frames); and
+    ``model_roles`` then keeps no chunk of the main stream's attention
+    and MLP. A train step ignores it."""
+    axes, dims = SEQ_MESHES[mesh_name]
+    mesh = types.SimpleNamespace(axis_names=axes, devices=np.empty(dims))
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    seen = set()
+    for shape in SHAPES.values():
+        if shape.kind == "decode":
+            continue
+        for over in ({}, {"seq_inner": "model"}):
+            rules = L.rules_for(cfg, shape, mesh, over)
+            rrules = RL.rules_for(rcfg, RShapeSpec(
+                shape.name, shape.kind, shape.seq_len, shape.global_batch),
+                mesh, over)
+            for odd in (None, 3):
+                streams = _seq_streams(cfg, shape, patches=odd, frames=odd)
+                for stream, gshape in streams.items():
+                    want = _claims(gshape, ("batch", "seq_inner"), rrules,
+                                   mesh) and dict(zip(axes, dims))[
+                                       "model"] > 1
+                    got = SH.seq_inner_for(gshape, rules, mesh)
+                    assert got == want, (shape.name, over, stream, gshape)
+                    seen.add(got)
+            roles = TF.model_roles(cfg, rules, mesh, shape)
+            inner = shape.kind == "prefill" and SH.seq_inner_for(
+                _seq_streams(cfg, shape)["main"], rules, mesh)
+            kept = {v for k in ("attn", "mlp") if k in roles["layers"]
+                    for v in roles["layers"][k].values()}
+            assert (SH.KEEP not in kept) or not inner, (shape.name, over)
+    assert seen == {True, False}, seen
+
+
+def test_seq_inner_without_the_stream_split_raises():
+    """``seq_inner`` on "model" where the residual stream's ``seq`` is not
+    (a layout the reference's ``rules_for`` never makes, only an override)
+    raises, naming it; there is no fallback to the whole sequence."""
+    mesh = _stand_in("16x16")
+    cfg = get_config("llama3.2-3b")
+    shape = SHAPES["prefill_32k"]
+    rules = L.rules_for(cfg, shape, mesh, {"seq": None})
+    with pytest.raises(ValueError, match="seq_inner on 'model'.*rules_for"):
+        TF.model_roles(cfg, rules, mesh, shape)
+    with pytest.raises(ValueError, match="seq_inner on 'model'"):
+        SH.seq_inner_for((shape.global_batch, shape.seq_len, cfg.d_model),
+                         rules, mesh)
 
 
 def test_a_query_head_block_that_reads_no_whole_kv_block_raises():

@@ -352,8 +352,9 @@ def _plain_versions(monkeypatch):
     monkeypatch.setattr(ML, "_rms_norm_op",
                         lambda x, scale, eps: rms_norm_ref(x, scale, eps))
     monkeypatch.setattr(attn, "flash_attention",
-                        lambda q, k, v, causal, window: attention_ref(
-                            q, k, v, causal=causal, window=window))
+                        lambda q, k, v, causal, window, q_offset=0:
+                        attention_ref(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset))
     monkeypatch.setattr(rwkv_mod, "wkv",
                         lambda r, k, v, lw, u, state=None, chunk=64:
                         wkv_ref(r, k, v, lw, u, state))

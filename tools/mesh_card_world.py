@@ -65,6 +65,25 @@ and the all-reduces a step over the model region and the caches' shards
 (``MODEL``). Run with another checkout's ``src`` on ``PYTHONPATH`` (the
 parent commit's, unpacked by ``git archive``), it measures that one's
 serve step on the same cards.
+
+    PYTHONPATH=src python3 tools/mesh_card_world.py --seq-inner [--json PATH]
+
+``--seq-inner`` runs the prefill step alone: llama3.2-3b at full width,
+``--layers`` deep, in f32, over ``SEQ_INNER``'s rows of tokens, from
+seeded parameters (the same on every side), on a 1x1 mesh on one card and,
+for each of ``MESHES``, on four under each of ``LAYOUTS``: the rules'
+override ``seq_inner="model"`` (the blocks keep the sequence on "model"
+inside: attention over each rank's query rows against the all-gathered
+K/V, B3 at the rows' offset; the MLP and the head on the rows, their
+leaves whole; the logits each rank's rows) and ``rules_for``'s own
+layout (Megatron-SP: the heads, ffn and vocab split, each block's input
+all-gathered and its output reduce-scattered). Each rank's logits are
+held to the same part of one card's (kept on the host in a file the ranks
+map) within ``LOGITS_RTOL`` of their largest; each rank reports the
+prefill's ms (``SEQ_INNER["reps"]`` timed after one), its peak GB, the
+layer gather's GB, the model region's all-gathers and reduce-scatters of
+the sequence (K and V under ``seq_inner``) with their GB, and its
+all-reduces.
 """
 from __future__ import annotations
 
@@ -120,6 +139,11 @@ SERVE_BF16_RTOL = 5e-2
 SERVE_RUNS = {"float32": ("float32", torch.float32),
               "float32_bf16_cache": ("float32", None),
               "bfloat16": ("bfloat16", None)}
+# --seq-inner: the prefill's rows and tokens (the CPU's: 2 of 32), and the
+# timed runs after a first one
+SEQ_INNER = dict(rows=2, tokens=8192, reps=3)
+# --seq-inner's layouts: rules_for's own overrides of each
+LAYOUTS = {"seq_inner": {"seq_inner": "model"}, "sp": None}
 
 
 def _setup(args):
@@ -249,6 +273,166 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
         "whole_params_gb": whole_gb,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
         "loss": metrics["loss"], "grad_norm": metrics["grad_norm"]}}
+
+
+def _prefill_setup(args):
+    """(config, shape, tokens) of ``--seq-inner``'s prefill."""
+    from repro_torch.configs import ShapeSpec, get_config, reduced
+    from repro_torch.data import SyntheticLMStream
+
+    cfg = get_config("llama3.2-3b")
+    cpu = args.device == "cpu"
+    cfg = reduced(cfg) if cpu else dataclasses.replace(
+        cfg, num_layers=args.layers)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    shape = ShapeSpec("seq_inner", "prefill",
+                      32 if cpu else SEQ_INNER["tokens"], SEQ_INNER["rows"])
+    return cfg, shape, SyntheticLMStream(cfg, shape).batch_at(0)["tokens"]
+
+
+def _prefill_run(args, device: str, mesh_shape: tuple, layout: str,
+                 want_path: str = None) -> dict:
+    """``build_prefill_step`` on a mesh of ``mesh_shape`` under
+    ``LAYOUTS[layout]``: this rank's readings, and its logits against the
+    same part of one card's (``want_path``, saved whole; None: the logits
+    are returned, whole)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    from repro_torch.data import device_put_batch
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.launch.steps import build_prefill_step, place
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.layouts import rules_for
+    from repro_torch.parallel.sharding import GATHER, MODEL, full, use_mesh
+
+    cfg, shape, tokens = _prefill_setup(args)
+    mesh = make_mesh_compat(mesh_shape, ("data", "model"), device=device)
+    rules = rules_for(cfg, shape, mesh, LAYOUTS[layout])
+    prog = build_prefill_step(cfg, shape, mesh, rules)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = place(T.init_param_tree(cfg, gen, device=device),
+                   prog.in_shardings[0])
+    batch = device_put_batch({"tokens": tokens}, device)
+    run = prog.jitted()
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    ms = []
+    for _ in range(1 + SEQ_INNER["reps"]):
+        GATHER.reset()
+        MODEL.reset()
+        logits = None
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        with use_mesh(mesh, rules):
+            logits = run(params, batch)
+        if cuda:
+            torch.cuda.synchronize(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = {**GATHER.counts(), **{f"model_{k}": v
+                                    for k, v in MODEL.counts().items()}}
+    readings = {
+        "step_ms": ms, "median_ms_after_first": statistics.median(ms[1:]),
+        "tokens_per_s": 1e3 * shape.global_batch * shape.seq_len
+        / statistics.median(ms[1:]),
+        "peak_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                    if cuda else None),
+        "layer_gathered_gb": counts["bytes_copied"] / 1e9,
+        "seq_all_gathers": counts["model_all_gathers"],
+        "seq_all_gather_gb": counts["model_gathered_bytes"] / 1e9,
+        "seq_reduce_scatters": counts["model_reduce_scatters"],
+        "seq_reduce_scatter_gb": counts["model_scattered_bytes"] / 1e9,
+        "model_all_reduces": counts["model_all_reduces"],
+        "counts": counts,
+        "logits_split_dims": [getattr(p, "dim", None)
+                              for p in logits.placements]}
+    if want_path is None:
+        return {"readings": readings,
+                "logits": full(logits).to("cpu", copy=True)}
+    want = torch.load(want_path, mmap=True)
+    part, offset = compute_local_shape_and_global_offset(
+        tuple(logits.shape), mesh, logits.placements)
+    mine = want[tuple(slice(o, o + n) for o, n in zip(offset, part))]
+    readings["max_abs_err"] = float((logits.to_local().double().cpu()
+                                     - mine.double()).abs().max())
+    return {"readings": readings}
+
+
+def _prefill_rank(rank: int, args, port: int, out_path: str,
+                  mesh_shape: tuple, layout: str, want_path: str) -> None:
+    cuda = args.device != "cpu"
+    if cuda:
+        os.environ["LOCAL_RANK"] = str(rank)
+        torch.cuda.set_device(rank)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method=f"tcp://localhost:{port}",
+        rank=rank, world_size=RANKS, timeout=datetime.timedelta(seconds=300))
+    try:
+        res = _prefill_run(args, f"cuda:{rank}" if cuda else "cpu",
+                           mesh_shape, layout, want_path)
+        every = [None] * RANKS
+        dist.all_gather_object(every, res["readings"])
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(every, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def seq_inner_main(args, card) -> int:
+    """``--seq-inner``: one card, then each mesh under each layout."""
+    from repro_torch.launch.mesh import release_process_group
+
+    cuda = args.device != "cpu"
+    one = _prefill_run(args, "cuda:0" if cuda else "cpu", (1, 1),
+                       "seq_inner")
+    release_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+    scale = float(one["logits"].abs().max())
+    meshes, bad = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        want_path = os.path.join(tmp, "one_card_logits.pt")
+        torch.save(one.pop("logits"), want_path)
+        for mesh_shape in MESHES:
+            for layout in LAYOUTS:
+                name = "x".join(map(str, mesh_shape)) + "/" + layout
+                with socket.socket() as s:
+                    s.bind(("localhost", 0))
+                    port = s.getsockname()[1]
+                path = os.path.join(tmp, "ranks.json")
+                mp.spawn(_prefill_rank, args=(args, port, path, mesh_shape,
+                                              layout, want_path),
+                         nprocs=RANKS, join=True)
+                with open(path) as f:
+                    ranks = json.load(f)
+                worst = max(r["max_abs_err"] for r in ranks) / scale
+                fails = ([f"{name}: logits {worst} of their max, over "
+                          f"{LOGITS_RTOL}"] if worst > LOGITS_RTOL else [])
+                bad += fails
+                meshes[name] = {"mesh": {"data": mesh_shape[0],
+                                         "model": mesh_shape[1]},
+                                "layout": layout,
+                                "rules_overrides": LAYOUTS[layout],
+                                "ranks": ranks, "logits_over_max": worst,
+                                "failures": fails}
+    _, shape, _ = _prefill_setup(args)
+    out = {"cards": card, "arch": "llama3.2-3b", "mode": "seq_inner",
+           "dtype": "float32", "layers": args.layers if cuda else "reduced",
+           "tokens": [shape.global_batch, shape.seq_len],
+           "one_card": one["readings"], "meshes": meshes,
+           "limits": {"logits": LOGITS_RTOL}, "failures": bad}
+    print(json.dumps(out), flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    return 1 if bad else 0
 
 
 def _serve_cfg(args, dtype: str):
@@ -541,6 +725,9 @@ def main() -> int:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--serve", action="store_true",
                         help="the serve step in place of train and prefill")
+    parser.add_argument("--seq-inner", action="store_true",
+                        help="the prefill step alone, under seq_inner and "
+                             "under rules_for's layout")
     parser.add_argument("--json", help="also write the result here")
     args = parser.parse_args()
     cuda = args.device != "cpu"
@@ -553,6 +740,8 @@ def main() -> int:
     ).stdout.strip().splitlines() if cuda else ["cpu"])
     if args.serve:
         return serve_main(args, card)
+    if args.seq_inner:
+        return seq_inner_main(args, card)
     from repro_torch.launch.mesh import release_process_group
 
     one = _run(args, "cuda:0" if cuda else "cpu", (1, 1))
