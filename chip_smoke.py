@@ -172,6 +172,7 @@ the repo beside it, the script fails before it prints a result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import shutil
@@ -556,6 +557,46 @@ MESH_SERVE = dict(slots=8, cache=1024, steps=8)
 # mesh_prefill: build_prefill_step on the 1x1 mesh at mesh_train_check's
 # depth in f32, over these rows of MESH["seq_len"] tokens
 MESH_PREFILL_ROWS = 2
+# Slice 7d's dry run (phase dryrun): the mesh_prefill cell on a fake world
+# of one rank, its predicted peak above the arguments held within this
+# share of the card's measured one
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_TIMEOUT_S = 60
+# the child's own seconds, imports included, reported against this limit
+# (it runs beside mesh_train_check, and is stopped while mesh_prefill
+# times its step)
+DRYRUN_CHILD_S = 30
+DRYRUN_CELL = {"arch": ARCH, "layers": CHECK_LAYERS, "dtype": "float32",
+               "rows": MESH_PREFILL_ROWS, "seq_len": MESH["seq_len"]}
+# the child: imports the port only, runs on the host's fake tensors, prints
+# one JSON line
+DRYRUN_CHILD = """
+import dataclasses, json, sys, time, warnings
+warnings.simplefilter("ignore")
+t0 = time.perf_counter()
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch.dryrun import dry_run, run_cell
+c = json.loads(sys.argv[1])
+cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"],
+                          dtype=c["dtype"])
+shape = ShapeSpec("mesh_prefill", "prefill", c["seq_len"], c["rows"])
+t1 = time.perf_counter()
+out = {"mesh_prefill": dry_run(cfg, shape, (1, 1))}
+t2 = time.perf_counter()
+rows = []
+for over in (None, {"seq_inner": None}):
+        r = run_cell(c["arch"], "prefill_32k", multi_pod=False,
+                     skip_probes=True, overrides=over)
+        rows.append({k: r.get(k) for k in (
+            "status", "rank", "overrides", "mesh", "trace_s", "memory",
+            "artifact_cost_analysis", "artifact_collectives", "kernels")})
+out["production"] = rows
+t3 = time.perf_counter()
+out["seconds"] = t3 - t0
+out["seconds_by_part"] = {"imports": t1 - t0, "mesh_prefill": t2 - t1,
+                          "prefill_32k": t3 - t2}
+print(json.dumps(out))
+"""
 
 
 # Slice 7b: single-device training of the other five families, B4's
@@ -741,21 +782,20 @@ def expected_first_loss(cfg) -> float:
     return math.log(cfg.vocab_size) + cfg.d_model * std ** 2 / 2
 
 
-def wkv_backward_bound_ms(b, h, s, d) -> tuple[float, str]:
-    """r, k, v, lw, dout read once, dr, dk, dv, dlw written once, u read and
-    du written once, all f32; the operations the gradient needs: 14 D^2 a
-    token of one head (the state S_{t-1} formed once, 3 D^2: a multiply
-    and a fused multiply-add an element; the reverse step's fused
-    multiply-adds for dr, dk, dlw, dv and G's decay, and r dout^T, 11 D^2)
-    and ~13 D for the bonus terms, v . dout, r . diag(u) k and du. The
-    kernel forms the state twice (once to save a state every 16 tokens,
-    once to replay each segment), 17 D^2 a token: that second pass is its
-    design's cost, not the function's."""
-    nbytes = 4 * (9 * b * h * s * d + 2 * h * d)
-    flops = (14 * d * d + 13 * d) * b * h * s
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+def bound_of(flops: int, nbytes: int, peak: float) -> tuple[float, str]:
+    """(ms, what binds): the larger of ``nbytes`` over the memory rate and
+    ``flops`` over ``peak``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def wkv_backward_bound_ms(b, h, s, d) -> tuple[float, str]:
+    """B4's gradient at its own count (``kernels/wkv/kernel.py``
+    ``backward_cost``), all f32."""
+    from repro_torch.kernels.wkv.kernel import backward_cost
+
+    return bound_of(*backward_cost(b, h, s, d), PEAK_F32_FLOPS)
 
 
 def mesh_gather_calls(cfg) -> int:
@@ -904,67 +944,44 @@ def bound_ms(grid, entry: str) -> float:
 
 
 def rms_bound_ms(shape, dtype_bytes: int) -> tuple[float, str]:
-    """x read once, y written once, scale (f32) read once; 4 f32 operations
-    an element (square, sum, and two products)."""
-    n = 1
-    for side in shape:
-        n *= side
-    nbytes = 2 * n * dtype_bytes + 4 * shape[-1]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, 4 * n / PEAK_F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """B2 at its own count (``kernels/rmsnorm/kernel.py`` ``cost``), f32
+    operations."""
+    from repro_torch.kernels.rmsnorm.kernel import cost
+
+    return bound_of(*cost(shape, dtype_bytes), PEAK_F32_FLOPS)
 
 
 def rms_grad_bound_ms(shape, dtype_bytes: int) -> tuple[float, str]:
-    """B2's gradient: x and the cotangent g read once, dx written once,
-    scale (f32) read and dscale (f32) written once; ~10 f32 operations an
-    element (the row's sum of squares and of g x scale, dx's products, and
-    dscale's sum)."""
-    n = 1
-    for side in shape:
-        n *= side
-    nbytes = 3 * n * dtype_bytes + 8 * shape[-1]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, 10 * n / PEAK_F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """B2's gradient at its own count (``backward_cost``)."""
+    from repro_torch.kernels.rmsnorm.kernel import backward_cost
+
+    return bound_of(*backward_cost(shape, dtype_bytes), PEAK_F32_FLOPS)
 
 
-def attention_pairs(s: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the mask lets through in one head."""
-    if not causal:
-        return s * s
-    if not window:
-        return s * (s + 1) // 2
-    return sum(min(q + 1, window) for q in range(s))
+def flash_peak(dtype_bytes: int) -> float:
+    return PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
 
 
 def flash_bound_ms(b, h, kh, s, d, dtype_bytes, causal, window
                    ) -> tuple[float, str]:
-    """QK^T and PV over the unmasked pairs (4*D operations a pair) at the
-    peak for the inputs' type; q, k, v (K heads) read once, o written once.
-    """
-    flops = 4 * d * attention_pairs(s, causal, window) * b * h
-    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
-    nbytes = dtype_bytes * b * s * d * (2 * h + 2 * kh)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """B3 over S rows against S keys at its own count
+    (``kernels/flash_attention/kernel.py`` ``cost``: the pairs the mask
+    lets through) at the peak for the inputs' type."""
+    from repro_torch.kernels.flash_attention.kernel import cost
+
+    return bound_of(*cost(b, h, kh, s, s, d, dtype_bytes, causal, window),
+                    flash_peak(dtype_bytes))
 
 
 def flash_offset_bound_ms(b, h, kh, sq, sk, d, dtype_bytes, offset
                           ) -> tuple[float, str]:
-    """B3 over q's Sq rows at ``offset`` against Sk keys, causal: QK^T and
-    PV over the pairs the mask lets through (4*D operations a pair; query
-    row i sees offset + i + 1 keys) at the peak for the inputs' type; q
-    and o (H heads of Sq rows) read or written once, and of k and v (K
-    heads) the offset + Sq rows the mask lets any query see."""
-    flops = 4 * d * (sq * offset + sq * (sq + 1) // 2) * b * h
-    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
-    nbytes = dtype_bytes * b * d * (2 * h * sq + 2 * kh * min(sk,
-                                                            offset + sq))
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """B3 over q's Sq rows at ``offset`` against Sk keys, causal, at its
+    own count (``cost``: query row i sees offset + i + 1 keys; of k and v
+    the offset + Sq rows any query sees)."""
+    from repro_torch.kernels.flash_attention.kernel import cost
+
+    return bound_of(*cost(b, h, kh, sq, sk, d, dtype_bytes, True, 0,
+                          offset), flash_peak(dtype_bytes))
 
 
 def sdpa_backend(call, candidates) -> str:
@@ -989,32 +1006,19 @@ def sdpa_backend(call, candidates) -> str:
 
 def flash_backward_bound_ms(b, h, kh, s, d, dtype_bytes, causal, window
                             ) -> tuple[float, str]:
-    """The gradient's four products over the unmasked pairs, dV = P^T dO,
-    dP = dO V^T, dQ = dS K and dK = dS^T Q (8*D operations a pair, twice
-    the forward's); q, o, do, dq (H heads) and k, v, dk, dv (K heads) read
-    or written once, lse read once. The kernels' recompute of S = Q K^T
-    (once in each of their two kernels) and of dP in the dQ kernel is their
-    design's cost, not the function's."""
-    flops = 8 * d * attention_pairs(s, causal, window) * b * h
-    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
-    nbytes = dtype_bytes * b * s * d * (4 * h + 4 * kh) + 4 * b * h * s
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """B3's gradient at its own count (``backward_cost``: four products
+    over the pairs the mask lets through)."""
+    from repro_torch.kernels.flash_attention.kernel import backward_cost
+
+    return bound_of(*backward_cost(b, h, kh, s, d, dtype_bytes, causal,
+                                   window), flash_peak(dtype_bytes))
 
 
 def wkv_bound_ms(b, h, s, d, state: bool) -> tuple[float, str]:
-    """r, k, v, lw read once, out written once, u read once, the initial
-    state (if any) read once and the final one written once, all f32; 5 D^2
-    operations a step of one head (D^2 fused multiply-adds for r_t .
-    S_{t-1}, D^2 multiplies and D^2 fused multiply-adds for exp(lw) S + k v)
-    and 5 D for the bonus term v_t (r_t . diag(u) k_t) and its add."""
-    nbytes = 4 * (5 * b * h * s * d + h * d + (2 if state else 1)
-                  * b * h * d * d)
-    flops = 5 * d * (d + 1) * b * h * s
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """B4 at its own count (``kernels/wkv/kernel.py`` ``cost``), f32."""
+    from repro_torch.kernels.wkv.kernel import cost
+
+    return bound_of(*cost(b, h, s, d, state), PEAK_F32_FLOPS)
 
 
 def shift_rwkv(cfg, model, seed: int = 7) -> None:
@@ -4713,6 +4717,8 @@ class Smoke:
         import dataclasses
         import gc
 
+        self.start_dryrun_child()  # on the host, beside this phase's card
+
         import torch
         from repro_torch._tree import flatten
         from repro_torch.configs import ShapeSpec, get_config
@@ -4867,7 +4873,8 @@ class Smoke:
         from repro_torch.models import synthetic_batch
         from repro_torch.models import transformer as T
         from repro_torch.parallel.layouts import rules_for
-        from repro_torch.parallel.sharding import MODEL, full, use_mesh
+        from repro_torch.parallel.sharding import MODEL, full, local, \
+            use_mesh
 
         mesh = self.mesh()
         cfg = dataclasses.replace(get_config(ARCH), num_layers=CHECK_LAYERS,
@@ -4881,11 +4888,22 @@ class Smoke:
         placed = place(params, prog.in_shardings[0])
         MODEL.reset()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with use_mesh(mesh, rules):
-            logits = full(prog.jitted()(placed, batch))
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
+        # the step's peak above its arguments (parameters and batch) and
+        # its output's bytes, as the dry run predicts them (phase dryrun);
+        # the dry run's child, started by mesh_train_check, is stopped
+        # while the step is timed
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with self.dryrun_child_stopped():
+            t0 = time.perf_counter()
+            with use_mesh(mesh, rules):
+                out = prog.jitted()(placed, batch)
+                logits = full(out)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        self.prefill_peak = torch.cuda.max_memory_allocated() - before
+        self.prefill_out_bytes = local(out).numel() * out.element_size()
+        del out
         region = MODEL.counts()
         want, _ = T.forward(cfg, T.TransformerLM.from_stacked(cfg, params),
                             batch)
@@ -4902,8 +4920,121 @@ class Smoke:
               "tokens": [MESH_PREFILL_ROWS, MESH["seq_len"]],
               "entry": "launch.steps.build_prefill_step",
               "bit_equal_forward": same, "ms": ms,
+              "peak_above_args_bytes": self.prefill_peak,
+              "output_bytes": self.prefill_out_bytes,
               "model_collectives": region, "card": self.card})
         del logits, want, params, placed
+
+    def start_dryrun_child(self):
+        """Start the ``dryrun`` phase's child (DRYRUN_CHILD) on the host,
+        where no phase waits for it: its fake world and fake tensors take
+        no card, and its imports and first run take tens of seconds on the
+        card's host."""
+        import subprocess
+
+        if getattr(self, "_dryrun_child", None) is None:
+            env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+                   "HOME": str(ROOT), "CUDA_VISIBLE_DEVICES": "",
+                   "OMP_NUM_THREADS": "1"}
+            self._dryrun_child = subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_CHILD,
+                 json.dumps(DRYRUN_CELL)], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env)
+        return self._dryrun_child
+
+    @contextlib.contextmanager
+    def dryrun_child_stopped(self):
+        """The dry run's child, if it still runs, stopped (SIGSTOP) within:
+        a timed card step shares the host with nothing of this run."""
+        import signal
+
+        child = getattr(self, "_dryrun_child", None)
+        running = child is not None and child.poll() is None
+        if running:
+            child.send_signal(signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            if running:
+                child.send_signal(signal.SIGCONT)
+
+    def stop_children(self) -> None:
+        child = getattr(self, "_dryrun_child", None)
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+
+    def dryrun(self):
+        """Slice 7d's dry run (``launch/dryrun.py``), in a child process on
+        the host (a fake world is its process's one default group, never
+        beside the mesh phases' NCCL group; it launches no kernel; started
+        by ``mesh_train_check``, ``start_dryrun_child``): the
+        ``mesh_prefill`` cell on a fake world of one rank, its predicted
+        peak above the arguments (temporaries and outputs) held within
+        DRYRUN_PEAK_RTOL of the peak ``mesh_prefill`` measured on the card,
+        its temporaries alone within as much of that peak less the card's
+        output bytes (the logits, most of the peak), its output's bytes
+        equal and its collectives at 0, as the card's; then llama3.2-3b
+        ``prefill_32k`` on the 16x16 world under ``rules_for``'s layout
+        (``seq_inner`` on "model") and under ``sp``, rank 0 (under
+        ``seq_inner`` the least causal work; ``python -m
+        repro_torch.launch.dryrun --rank 15`` gives the most): its flops,
+        bytes, collective wire bytes by kind and peak, counted on the
+        host's fake world, no time."""
+        child = self.start_dryrun_child()  # started by mesh_train_check
+        stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+        self.check(child.returncode == 0,
+                   f"dryrun: the child failed: {stderr[-3000:]}")
+        if child.returncode:
+            return
+        out = json.loads(stdout.strip().splitlines()[-1])
+        cell = out["mesh_prefill"]
+        mem = cell["memory"]
+        predicted = mem["peak"] - mem["argument_size_in_bytes"]
+        measured = getattr(self, "prefill_peak", None)
+        ratio = predicted / measured if measured else None
+        self.check(ratio is not None and abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+                   f"dryrun: predicted peak above the arguments {predicted} "
+                   f"B against mesh_prefill's measured {measured} B on the "
+                   f"card")
+        # the temporaries on their own: the logits, the output, are most of
+        # the peak above the arguments
+        out_bytes = getattr(self, "prefill_out_bytes", None)
+        self.check(out_bytes == mem["output_size_in_bytes"],
+                   f"dryrun: predicted output {mem['output_size_in_bytes']} "
+                   f"B against the card's {out_bytes} B")
+        temp = measured - out_bytes if measured and out_bytes else None
+        temp_ratio = mem["temp_size_in_bytes"] / temp if temp else None
+        self.check(temp_ratio is not None
+                   and abs(temp_ratio - 1) <= DRYRUN_PEAK_RTOL,
+                   f"dryrun: predicted temporaries "
+                   f"{mem['temp_size_in_bytes']} B against the card's "
+                   f"{temp} B (peak above the arguments less the output)")
+        self.check(cell["collectives"]["count"] == 0,
+                   f"dryrun: {cell['collectives']} collectives predicted on "
+                   f"a 1x1 mesh, where the card issued none")
+        self.check(all(r["status"] == "ok" for r in out["production"]),
+                   f"dryrun: a production cell failed: {out['production']}")
+        emit({"phase": "dryrun", "arch": ARCH,
+              "entry": "launch.dryrun.dry_run, run_cell",
+              "mesh_prefill": {
+                  "mesh": cell["mesh"], "layers": CHECK_LAYERS,
+                  "dtype": "float32",
+                  "tokens": [MESH_PREFILL_ROWS, MESH["seq_len"]],
+                  "predicted_peak_above_args_bytes": predicted,
+                  "measured_peak_above_args_bytes": measured,
+                  "ratio": ratio,
+                  "predicted_temp_bytes": mem["temp_size_in_bytes"],
+                  "measured_temp_bytes": temp, "temp_ratio": temp_ratio,
+                  "limit_rtol": DRYRUN_PEAK_RTOL,
+                  "memory": mem, "flops": cell["flops"],
+                  "bytes": cell["bytes"], "kernels": cell["kernels"],
+                  "collectives": cell["collectives"]},
+              "prefill_32k_16x16": out["production"],
+              "child_s": out["seconds"], "child_limit_s": DRYRUN_CHILD_S,
+              "child_s_by_part": out["seconds_by_part"],
+              "counted_on": "host, fake world",
+              "card": self.card})
 
     def mesh_train(self):
         """``launch.train.train`` on llama3.2-3b at full width and depth in
@@ -5239,7 +5370,7 @@ def main() -> int:
                   smoke.train_main_path, smoke.train_bf16_check,
                   smoke.families_train, smoke.train_resume,
                   smoke.mesh_train_check, smoke.mesh_prefill,
-                  smoke.mesh_train, smoke.mesh_serve,
+                  smoke.dryrun, smoke.mesh_train, smoke.mesh_serve,
                   smoke.lm_kernel_launches, smoke.main_path):
         t_phase = time.perf_counter()
         try:
@@ -5251,6 +5382,7 @@ def main() -> int:
         finally:
             emit({"phase": "phase_seconds", "name": phase.__name__,
                   "seconds": time.perf_counter() - t_phase})
+    smoke.stop_children()
     seconds = time.perf_counter() - t_start
     smoke.check(seconds <= BUDGET_S, f"the run took {seconds} s, over its "
                                      f"budget of {BUDGET_S} s")

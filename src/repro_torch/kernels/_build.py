@@ -10,9 +10,20 @@ exports ``<prefix>_error_string(int)``, CUDA's name for an error code. Every
 wrapper launches through ``KernelLibrary.launcher``, on PyTorch's current
 stream of the operands' device, and counts the launch with
 ``count_launch``, which stays exact when engines step on several threads.
+
+Under the dry run (``launch/dryrun.py``) a step runs on fake tensors
+(``torch._subclasses.FakeTensor``: shapes, dtypes and no storage) of a fake
+world. A wrapper given fake tensors, which lie on the CPU, checks them as
+any other, then neither launches nor runs its plain version: it returns
+fake outputs of its kernel's shapes and dtypes and adds the kernel's own
+flops and bytes (each kernel module's ``cost``) and one launch to the dry
+run's count (``count_fake``, inside ``counting_kernels``). Outside a dry
+run a fake tensor that reaches a wrapper raises. Real tensors never take
+that branch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -56,6 +67,50 @@ def reset_counts(fn, *names: str) -> None:
     with _COUNT_LOCK:
         for name in names or ("launches",):
             setattr(fn, name, 0)
+
+
+# The dry run's count of each kernel's work: {wrapper name: {"launches",
+# "flops", "bytes"}} inside ``counting_kernels``, None outside.
+_DRY_RUN: dict = {"counts": None}
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (shapes and dtypes, no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+@contextlib.contextmanager
+def counting_kernels():
+    """Within: the wrappers given fake tensors add their kernels' launches,
+    flops and bytes to the dict this yields (``count_fake``)."""
+    prev = _DRY_RUN["counts"]
+    counts: dict = {}
+    _DRY_RUN["counts"] = counts
+    try:
+        yield counts
+    finally:
+        _DRY_RUN["counts"] = prev
+
+
+def count_fake(name: str, flops: int, nbytes: int) -> None:
+    """One launch of wrapper ``name`` on fake tensors: its kernel's
+    ``flops`` and ``nbytes`` into the dry run's count. Raises outside a dry
+    run: a fake tensor then has no kernel to run on and no count to go
+    to."""
+    counts = _DRY_RUN["counts"]
+    if counts is None:
+        raise RuntimeError(
+            f"a fake tensor reached {name} outside a dry run: the kernel "
+            f"needs real tensors (the dry run counts its work with "
+            f"counting_kernels)")
+    with _COUNT_LOCK:
+        entry = counts.setdefault(name, {"launches": 0, "flops": 0,
+                                         "bytes": 0})
+        entry["launches"] += 1
+        entry["flops"] += int(flops)
+        entry["bytes"] += int(nbytes)
 
 
 def nvcc() -> str:

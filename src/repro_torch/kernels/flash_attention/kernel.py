@@ -45,7 +45,10 @@ f32 backward. Its plain version is ``ops.flash_attention_backward`` given
 ``o`` and ``lse``.
 
 A tensor on the CPU takes the plain PyTorch version. A CUDA tensor
-launches a kernel or raises; nothing falls back. The wrappers count every
+launches a kernel or raises; nothing falls back. A fake tensor (the dry
+run's, ``kernels/_build.py``) gets fake outputs and the kernel's ``cost``
+(or ``backward_cost``) counted, the pairs its mask lets through, with
+neither a launch nor the plain version. The wrappers count every
 launch in ``flash_attention_cuda.launches`` and
 ``flash_attention_backward_cuda.launches``, the tensor-core kernels' in
 ``launches_tc`` of each.
@@ -57,8 +60,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary, count_launch, \
-    reset_counts
+from repro_torch.kernels._build import KernelLibrary, count_fake, \
+    count_launch, is_fake, reset_counts
 from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_ref)
 
@@ -78,6 +81,55 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tensor_core"
     return "scalar"
+
+
+def attention_pairs(sq: int, causal: bool, window: int, q_offset: int = 0,
+                    sk: Optional[int] = None) -> int:
+    """(q, k) pairs the mask lets through in one head: query row i at
+    position ``q_offset + i`` of a sequence of ``sk`` keys (None: ``sq``)
+    sees keys j <= q_offset + i (and j > q_offset + i - window with a
+    window) when causal, all ``sk`` keys when not."""
+    sk = sq if sk is None else sk
+    if not causal:
+        return sq * sk
+
+    def upto(n: int) -> int:  # the pairs of positions 0 .. n-1
+        if not window or n <= window:
+            return n * (n + 1) // 2
+        return window * (window + 1) // 2 + (n - window) * window
+
+    return upto(q_offset + sq) - upto(q_offset)
+
+
+def cost(b: int, h: int, kh: int, sq: int, sk: int, d: int,
+         dtype_bytes: int, causal: bool = True, window: int = 0,
+         q_offset: int = 0, lse: bool = False) -> tuple[int, int]:
+    """(flops, bytes) of the forward over q (B, H, Sq, D) at ``q_offset``
+    against k, v (B, K, Sk, D): QK^T and PV over the pairs the mask lets
+    through (``attention_pairs``, 4*D operations a pair); q read and o
+    written once (H heads of Sq rows), and of k and v (K heads) the rows
+    any query sees, ``q_offset + Sq`` of them when causal, all Sk when
+    not; with ``lse`` each row's f32 log-sum-exp written once."""
+    window = window if causal else 0
+    flops = 4 * d * attention_pairs(sq, causal, window, q_offset, sk) * b * h
+    kv_rows = min(sk, q_offset + sq) if causal else sk
+    nbytes = dtype_bytes * b * d * (2 * h * sq + 2 * kh * kv_rows)
+    return flops, nbytes + (4 * b * h * sq if lse else 0)
+
+
+def backward_cost(b: int, h: int, kh: int, s: int, d: int, dtype_bytes: int,
+                  causal: bool = True, window: int = 0) -> tuple[int, int]:
+    """(flops, bytes) of the gradient: its four products over the pairs
+    the mask lets through, dV = P^T dO, dP = dO V^T, dQ = dS K and dK =
+    dS^T Q (8*D operations a pair, twice the forward's); q, o, do, dq (H
+    heads) and k, v, dk, dv (K heads) read or written once, lse read once.
+    The kernels' recompute of S = Q K^T (once in each of their two
+    kernels) and of dP in the dQ kernel is their design's cost, not the
+    function's."""
+    window = window if causal else 0
+    flops = 8 * d * attention_pairs(s, causal, window) * b * h
+    nbytes = dtype_bytes * b * s * d * (4 * h + 4 * kh) + 4 * b * h * s
+    return flops, nbytes
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -167,6 +219,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_offset = int(q_offset)
     _lengths(q, k, causal, q_offset)
     if not on_card:
+        if is_fake(q):
+            b, h, sq, d = q.shape
+            if q.numel():
+                count_fake("flash_attention", *cost(
+                    b, h, k.shape[1], sq, k.shape[2], d, q.element_size(),
+                    causal, window, q_offset, return_lse))
+            out = torch.empty_like(q)
+            if not return_lse:
+                return out
+            return out, torch.empty((b, h, sq), dtype=torch.float32,
+                                    device=q.device)
         out = attention_ref(q, k, v, causal=causal, window=window,
                             scale=scale, q_offset=q_offset)
         if not return_lse:
@@ -227,6 +290,13 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
     if not causal:
         window = 0
     if not on_card:
+        if is_fake(q):
+            b, h, s, d = q.shape
+            if q.numel():
+                count_fake("flash_attention_backward", *backward_cost(
+                    b, h, k.shape[1], s, d, q.element_size(), causal,
+                    window))
+            return tuple(torch.empty_like(t) for t in (q, k, v))
         from repro_torch.kernels.flash_attention.ops import \
             flash_attention_backward
         return flash_attention_backward(q, k, v, do, o=o, lse=lse,

@@ -11,7 +11,9 @@ held to (2e-5 in f32, one bf16 ulp in bf16).
 
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
 tensor launches the kernel or raises; nothing falls back. The wrapper
-counts its launches in ``rms_norm_cuda.launches``.
+counts its launches in ``rms_norm_cuda.launches``. A fake tensor (the dry
+run's, ``kernels/_build.py``) gets a fake output and the kernel's
+``cost`` counted, with neither a launch nor the plain version.
 
 ``rms_norm_backward_cuda`` launches the gradient (``rmsnorm_backward`` in
 the source, two kernels: dx with each block's partial dscale, then the
@@ -38,8 +40,8 @@ import struct
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary, count_launch, \
-    reset_counts
+from repro_torch.kernels._build import KernelLibrary, count_fake, \
+    count_launch, is_fake, reset_counts
 from repro_torch.kernels.rmsnorm.ref import (rms_norm_backward_ref,
                                              rms_norm_ref)
 
@@ -66,6 +68,27 @@ LIBRARY = KernelLibrary("rmsnorm", "rmsnorm.cu", declare=_declare)
 load_library = LIBRARY.load
 _forward = LIBRARY.launcher("rmsnorm_forward")
 _backward = LIBRARY.launcher("rmsnorm_backward")
+
+
+def cost(shape, dtype_bytes: int) -> tuple[int, int]:
+    """(flops, bytes) of the forward over x of ``shape`` in a dtype of
+    ``dtype_bytes``: x read once, y written once, scale (f32) read once; 4
+    f32 operations an element (square, sum, and two products)."""
+    n = 1
+    for side in shape:
+        n *= side
+    return 4 * n, 2 * n * dtype_bytes + 4 * shape[-1]
+
+
+def backward_cost(shape, dtype_bytes: int) -> tuple[int, int]:
+    """(flops, bytes) of the gradient: x and the cotangent g read once, dx
+    written once, scale (f32) read and dscale (f32) written once; ~10 f32
+    operations an element (the row's sum of squares and of g x scale, dx's
+    products, and dscale's sum)."""
+    n = 1
+    for side in shape:
+        n *= side
+    return 10 * n, 3 * n * dtype_bytes + 8 * shape[-1]
 
 
 def _on_card(x: torch.Tensor, scale: torch.Tensor) -> int:
@@ -110,6 +133,10 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
     cast back to x's dtype."""
     device = _on_card(x, scale)
     if device < 0:
+        if is_fake(x):
+            if x.numel():
+                count_fake("rms_norm", *cost(x.shape, x.element_size()))
+            return torch.empty_like(x)
         return rms_norm_ref(x, scale, eps=eps)
     xp, sp = x.data_ptr(), scale.data_ptr()
     if xp % 16 or sp % 16:
@@ -153,6 +180,13 @@ def rms_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
     if device < 0:
         if g.device != x.device:
             raise ValueError("x and g must lie on one device")
+        if is_fake(x):
+            if x.numel():
+                count_fake("rms_norm_backward",
+                           *backward_cost(x.shape, x.element_size()))
+            return (torch.empty_like(x),
+                    torch.empty((x.shape[-1],), dtype=torch.float32,
+                                device=x.device))
         return rms_norm_backward_ref(x, scale, g, eps)
     if g.get_device() != device:
         raise ValueError("x and g must lie on one device")

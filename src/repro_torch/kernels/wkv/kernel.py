@@ -29,7 +29,9 @@ with any strides whose last is 1 (the model hands over views of its
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
 tensor launches a kernel or raises; nothing falls back. The wrapper counts
 every launch in ``wkv_cuda.launches`` and the tensor-core kernel's in
-``wkv_cuda.launches_tc``.
+``wkv_cuda.launches_tc``. A fake tensor (the dry run's,
+``kernels/_build.py``) gets fake outputs and the kernel's ``cost`` (or
+``backward_cost``) counted, with neither a launch nor the plain version.
 
 ``wkv_backward_cuda`` launches the backward (its plain version is
 ``wkv_backward_ref``): the gradient of out with no initial state and none
@@ -58,8 +60,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary, count_launch, \
-    reset_counts
+from repro_torch.kernels._build import KernelLibrary, count_fake, \
+    count_launch, is_fake, reset_counts
 from repro_torch.kernels.wkv.ref import CHUNK, wkv_backward_ref, wkv_ref
 
 HEAD_DIMS = (16, 64)
@@ -70,6 +72,33 @@ MAX_GRID_Y = 65535  # batch * heads: the grid's second axis
 # B, H, S, D; the strides (b, h, s) of r, k, v, lw, then of out; in native
 # byte order without padding
 _pack = struct.Struct("=8Q4i6q").pack
+
+
+def cost(b: int, h: int, s: int, d: int, state: bool) -> tuple[int, int]:
+    """(flops, bytes) of the forward: r, k, v, lw read once, out written
+    once, u read once, the initial state (if any) read once and the final
+    one written once, all f32; 5 D^2 operations a step of one head (D^2
+    fused multiply-adds for r_t . S_{t-1}, D^2 multiplies and D^2 fused
+    multiply-adds for exp(lw) S + k v) and 5 D for the bonus term v_t (r_t
+    . diag(u) k_t) and its add."""
+    nbytes = 4 * (5 * b * h * s * d + h * d + (2 if state else 1)
+                  * b * h * d * d)
+    return 5 * d * (d + 1) * b * h * s, nbytes
+
+
+def backward_cost(b: int, h: int, s: int, d: int) -> tuple[int, int]:
+    """(flops, bytes) of the gradient: r, k, v, lw, dout read once, dr, dk,
+    dv, dlw written once, u read and du written once, all f32; the
+    operations the gradient needs, 14 D^2 a token of one head (the state
+    S_{t-1} formed once, 3 D^2: a multiply and a fused multiply-add an
+    element; the reverse step's fused multiply-adds for dr, dk, dlw, dv and
+    G's decay, and r dout^T, 11 D^2) and ~13 D for the bonus terms, v .
+    dout, r . diag(u) k and du. The kernels form the state twice (the
+    sequential one saves a state every 16 tokens and replays each segment;
+    the chunked one carries each chunk's state first): that second pass is
+    their design's cost, not the function's."""
+    nbytes = 4 * (9 * b * h * s * d + 2 * h * d)
+    return (14 * d * d + 13 * d) * b * h * s, nbytes
 
 
 def kernel_for(s: int, head_dim: int) -> str:
@@ -177,6 +206,12 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     device = _on_card(r, k, v, lw, u, state)
     if device < 0:
+        if is_fake(r):
+            b, h, s, d = r.shape
+            count_fake("wkv", *cost(b, h, s, d, state is not None))
+            return torch.empty_like(r), (
+                state if state is not None else torch.empty(
+                    (b, h, d, d), dtype=torch.float32, device=r.device))
         out, final = wkv_ref(r, k, v, lw, u, state)
         return out, final if state is None else state.copy_(final)
     b, h, s, d = r.shape
@@ -246,6 +281,12 @@ def wkv_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if device < 0:
         if dout.device != r.device:
             raise ValueError("the WKV operands must lie on one device")
+        if is_fake(r):
+            b, h, s, d = r.shape
+            count_fake("wkv_backward", *backward_cost(b, h, s, d))
+            f32 = dict(dtype=torch.float32, device=r.device)
+            return tuple(torch.empty((b, h, s, d), **f32)
+                         for _ in range(4)) + (torch.empty((h, d), **f32),)
         return wkv_backward_ref(r, k, v, lw, u, dout)
     if dout.get_device() != device:
         raise ValueError("the WKV operands must lie on one device")

@@ -13,8 +13,10 @@ over the default process group:
 
 A shape whose product differs from the world size raises: a mesh is never
 shrunk or padded. The production meshes (16×16 and 2×16×16) need a world
-of 256 or 512 ranks; the dry run that lowers cells onto them without such
-a world is not ported yet (ROADMAP.md, slice 7d).
+of 256 or 512 ranks: a launcher's, or the dry run's fake one
+(``launch/dryrun.py``: a "fake" process group of that many ranks in one
+process, which issues no communication), on which they are built with
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -75,14 +77,18 @@ def make_mesh_compat(shape, axes, *, device=None):
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The 16×16 ("data", "model") mesh, or with ``multi_pod`` the
+    2×16×16 ("pod", "data", "model") one, over the default process group,
+    which must have 256 or 512 ranks (a launcher's, or the dry run's fake
+    group: ``launch/dryrun.py`` ``fake_world``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != math.prod(shape):
         raise RuntimeError(
             f"the production mesh {dict(zip(axes, shape))} needs a world of "
-            f"{math.prod(shape)} ranks, this one has {world}; lowering onto "
-            f"it without them waits for the dry run (ROADMAP.md, slice 7d)")
+            f"{math.prod(shape)} ranks, this one has {world}: a launcher's, "
+            f"or the dry run's fake world (launch/dryrun.py fake_world)")
     return make_mesh_compat(shape, axes, device=device)
 
 

@@ -8,7 +8,9 @@ in and out layouts (trees of ``parallel/sharding.py`` ``NamedSharding``),
 ``donate_argnums`` and a description. ``jitted()`` is a callable that
 places its inputs by the in layouts (a DTensor already so laid out is
 taken as it is, and updated in place where the reference donates it) and
-runs ``fn``; ``lower()`` waits for the dry run (ROADMAP.md, slice 7d).
+runs ``fn``; ``lower()`` is the dry run's reading of the step
+(``launch/dryrun.py``): ``fn`` run once on fake tensors as one rank of a
+fake world, its flops, bytes, collectives and memory read off the run.
 
 How a step computes on a mesh. The state stays laid out by the rules,
 each rank holding its shards as DTensors, and no rank holds the whole
@@ -139,9 +141,18 @@ class CellProgram:
         return run
 
     def lower(self):
-        raise NotImplementedError(
-            f"lowering {self.description!r} onto a mesh without its ranks "
-            f"is the dry run's, not ported yet (ROADMAP.md, slice 7d)")
+        """The dry run's reading of this step (``launch/dryrun.py``
+        ``lower_program``): ``fn`` run once on fake tensors shaped by
+        ``args`` and laid out by ``in_shardings``, as this rank of the fake
+        world that must be running (``dryrun.fake_world``; it refuses any
+        other), with the mesh and rules active (``sharding.use_mesh``).
+        The name is the reference's ``jit(...).lower``: nothing is lowered
+        or compiled here, and the result's ``compile()`` is itself. It has
+        the reference's ``cost_analysis()`` and ``memory_analysis()``, and
+        ``collective_stats()`` in place of the HLO text."""
+        from repro_torch.launch.dryrun import lower_program
+
+        return lower_program(self)
 
 
 def place(tree: Any, shardings: Any) -> Any:
@@ -235,7 +246,9 @@ class _Model:
         self.key = None
 
     def __call__(self, params: dict) -> T.ShardedLM:
-        key = tuple(SH.local(p).data_ptr() for p in leaves(params))
+        # where each local shard's data starts (a fake tensor's storage:
+        # the dry run's have no data, and their pointers would collide)
+        key = tuple(SH.memory_key(SH.local(p)) for p in leaves(params))
         if key != self.key:
             self.grads = (tree_map(lambda p: torch.zeros_like(SH.local(p)),
                                    params) if self.with_grads else None)

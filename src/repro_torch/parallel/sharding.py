@@ -430,6 +430,19 @@ def local_chunk(full: torch.Tensor, placements: tuple, mesh) -> torch.Tensor:
     return out
 
 
+def memory_key(t: torch.Tensor):
+    """Where ``t``'s data starts: its data pointer; for a fake tensor (the
+    dry run's, which has no data) its storage and offset, unique while
+    the storage lives."""
+    if type(t) is torch.Tensor:  # the card's and the CPU's: no import
+        return t.data_ptr()
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if isinstance(t, FakeTensor):
+        return (t.untyped_storage()._cdata, t.storage_offset())
+    return t.data_ptr()
+
+
 def from_local(part: torch.Tensor, mesh, placements: tuple, shape):
     """The DTensor of global ``shape`` (contiguous) laid out by
     ``placements`` whose local part on this rank is ``part``."""
@@ -1320,7 +1333,7 @@ class LayerShards:
         whole = _Gather.apply(self, tuple(dims), *self.parts)
         GATHER.add("bytes_copied", sum(
             w.nbytes for w, s in zip(whole, self.parts)
-            if w.data_ptr() != s.data_ptr()))
+            if memory_key(w) != memory_key(s)))
         if GATHER.watch is not None:
             for w in whole:
                 GATHER.watch(w)

@@ -28,7 +28,10 @@ the rows, the logits split along the sequence (``_prefill_misses``); so
 do seamless-m4t-medium, mixtral-8x7b and llava-next-mistral-7b prefills
 under the same override (the encoder's rows and cross-attention's
 gathered memory, a window and MoE's split experts inside the rows'
-region, a VLM's positions at the offset); two
+region, a VLM's positions at the offset), and rwkv6-1.6b and zamba2-7b
+prefills (RWKV's mixes and Mamba2 whole on every model rank over the
+gathered sequence, each keeping its rows; zamba2's shared attention on
+the rows); two
 seamless-m4t-medium prefills (``LENGTHS``, ``_lengths``)
 have frames of another length than the tokens, so that one stream splits
 and the other, of odd length, stays whole. Four more decode cells split the caches
@@ -43,11 +46,13 @@ collectives; ``_held_decode`` holds a serve step's split: no cache,
 the model and combine all-reduces the code's count; ``_held_region``
 holds a train or prefill step's flops, its model all-reduces, its
 all-gathers and reduce-scatters of the sequence (and their bytes) and
-the block inputs remat holds to the code's count. Then
+the block inputs remat holds to the code's count; the collectives of
+``ISSUED_CELLS`` are recorded as issued (``Issued``), for the dry run's to
+be held to them. Then
 ``_gather_cases``: one unit's gather and backward against the whole
 path, and three planted faults that must break it; the model region's
 and the sequence split's (``_plants``, seven), ``seq_inner``'s
-(``_inner_plants``, three) and the serve step's (``_decode_plants``)
+(``_inner_plants``, five) and the serve step's (``_decode_plants``)
 planted faults.
 Then
 ``pipeline_apply`` over a 4-rank "stage" mesh: forward within 1e-5 and
@@ -117,6 +122,11 @@ CELLS = [
     ("seamless-m4t-medium", ("p", "prefill", 32, 4), "inner"),
     ("mixtral-8x7b", ("p", "prefill", 64, 4), "inner"),
     ("llava-next-mistral-7b", ("p", "prefill", 32, 4), "inner"),
+    # and the blocks that read the whole sequence: RWKV's time and channel
+    # mix and Mamba2 (with zamba2's shared attention on the rows) whole on
+    # every model rank over the gathered sequence, each keeping its rows
+    ("rwkv6-1.6b", ("p", "prefill", 32, 4), "inner"),
+    ("zamba2-7b", ("p", "prefill", 32, 4), "inner"),
     # flash-decode: the caches split along their sequence over "model"
     # (two shards of 32), at global batch 1 over "data" and "model" (four
     # of 16), a sliding window's ring (two of 16), and enc-dec's self and
@@ -282,6 +292,74 @@ UNIT_AXES = {"layers": 1, "encoder": 1, "groups": 2, "tail": 1}
 # (``transformer.model_roles``)
 REGION_AXES = ("act_heads", "act_kv_heads", "act_ffn", "act_vocab",
                "rwkv_heads", "ssm_heads", "ssm_inner")
+
+
+# the cells whose collectives the dry run (``repro_torch.launch.dryrun``)
+# must issue alike, rank by rank (``tests/_torch_dryrun_world.py gloo``)
+ISSUED_CELLS = [("llama3.2-3b", ("t", "train", 32, 8), ""),
+                ("llama3.2-3b", ("p", "prefill", 32, 4), "seq_inner"),
+                ("mixtral-8x7b", ("p", "prefill", 64, 4), ""),
+                ("rwkv6-1.6b", ("d", "decode", 64, 4), "")]
+# c10d's ops and the functional collectives, by kind
+_ISSUED_KINDS = {"allreduce_": "all-reduce", "_allgather_base_": "all-gather",
+                 "_reduce_scatter_base_": "reduce-scatter",
+                 "all_reduce": "all-reduce",
+                 "all_gather_into_tensor": "all-gather",
+                 "reduce_scatter_tensor": "reduce-scatter"}
+
+
+class Issued:
+    """A dispatch mode that records every collective a step issues on the
+    gloo world, as ``(kind, result bytes, group size)``: c10d's result
+    tensors (its first argument) and its process group, a functional
+    collective's returned tensor and its group's name."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = collections.Counter()
+
+        def nbytes(x) -> int:
+            if isinstance(x, torch.Tensor):
+                return x.numel() * x.element_size()
+            if isinstance(x, (list, tuple)):
+                return sum(nbytes(y) for y in x)
+            return 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                op = func._opname
+                if func.namespace == "c10d" and op in _ISSUED_KINDS:
+                    group = next(a for a in args
+                                 if isinstance(a, torch.ScriptObject))
+                    n = dist.ProcessGroup.unbox(group).size()
+                    seen[(_ISSUED_KINDS[op], nbytes(args[0]), n)] += 1
+                elif func.namespace == "_c10d_functional" \
+                        and op in _ISSUED_KINDS:
+                    from torch.distributed.distributed_c10d import \
+                        _resolve_process_group
+
+                    name = [a for a in args if isinstance(a, str)][-1]
+                    n = _resolve_process_group(name).size()
+                    seen[(_ISSUED_KINDS[op], nbytes(out), n)] += 1
+                elif func.namespace in ("c10d", "_c10d_functional") \
+                        and op not in ("wait_tensor", "barrier",
+                                       "_wrap_tensor_autograd"):
+                    raise AssertionError(f"collective {func} not recorded")
+                return out
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    def report(self) -> list:
+        return sorted([*k, n] for k, n in self.seen.items())
 
 
 class Spy:
@@ -598,8 +676,10 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
     what = key[:-1] + " "
     train = shape.kind == "train"
     roles = model_roles(cfg, rules, mesh, shape)
+    issued = (Issued() if (arch, cell, variant) in ISSUED_CELLS
+              else contextlib.nullcontext())
     if train:
-        with Spy() as spy, FlopCounterMode(display=False) as fc:
+        with Spy() as spy, FlopCounterMode(display=False) as fc, issued:
             prog, state, m = _train_once(arch, cell, variant, ref, mesh)
         bad = _train_mismatches(arch, cell, variant, ref, state, m)
         want = expected_gathers(prog.args[0]["params"],
@@ -613,6 +693,8 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
             _check(_unsplit_misses(arch, cell, variant, ref, mesh, state, m,
                                    bad))
             report["misses_as_unsplit"] = bad
+        if isinstance(issued, Issued):
+            report["issued"] = issued.report()
         return report
     prog = build_cell_program(cfg, shape, mesh, rules)
     step = prog.jitted()
@@ -623,7 +705,7 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
     params = _tree(ref, key + "params")
     if shape.kind == "prefill":
         batch = _tree(ref, key + "batch")
-        with Spy() as spy, FlopCounterMode(display=False) as fc:
+        with Spy() as spy, FlopCounterMode(display=False) as fc, issued:
             _, logits = _prefill_once(arch, cell, variant, ref, mesh, step)
         inner = _inner(cfg, shape, rules, mesh)
         _check(_prefill_misses(arch, cell, variant, ref, mesh, logits))
@@ -636,13 +718,17 @@ def _cell(arch: str, cell: tuple, variant: str, ref, mesh) -> dict:
         # whole over it)
         report["logits_split_dims"] = [getattr(p, "dim", None)
                                        for p in logits.placements]
+        if isinstance(issued, Issued):
+            report["issued"] = issued.report()
         return report
-    with Spy() as spy:
+    with Spy() as spy, issued:
         prog, logits, state = _decode_once(arch, cell, variant, ref, mesh)
     _check(_decode_mismatches(arch, cell, variant, ref, logits, state))
     report = _held_gathers(spy, want, cfg, 3, what)
     report.update(_held_decode(cfg, shape, rules, roles, spy, state, mesh,
                                what))
+    if isinstance(issued, Issued):  # of the three steps
+        report["issued"] = issued.report()
     return report
 
 
@@ -904,6 +990,29 @@ def _attention_flops(cfg, rows: int, s: int) -> tuple[int, int]:
     return fwd.get_total_flops(), bwd.get_total_flops()
 
 
+def _layer_flops(cfg, rows: int, s: int) -> int:
+    """Forward flops (``FlopCounterMode``) of one RWKV layer (time and
+    channel mix) or one Mamba2 layer, whole, over ``rows`` rows of ``s``
+    positions on one device: what every model rank computes of such a
+    layer under prefill's ``seq_inner``, on the gathered sequence."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import transformer as T
+
+    model = T.TransformerLM.from_stacked(
+        cfg, T.init_param_tree(cfg, torch.Generator().manual_seed(0),
+                               device="cpu"))
+    x = torch.randn(rows, s, cfg.d_model, dtype=T.DTYPES[cfg.dtype])
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        if cfg.family == "ssm":
+            T._rwkv_block(cfg, model.layers[0], x, mode="exec")
+        else:
+            layer = (model.groups[0][0] if len(model.groups)
+                     else model.tail[0])
+            T._mamba_block(cfg, layer, x, mode="exec")
+    return fc.get_total_flops()
+
+
 def replicated_flops(cfg, shape, roles: dict, mesh, inner: bool = False
                      ) -> int:
     """The code's count of the flops of the matmuls that every model rank
@@ -921,7 +1030,9 @@ def replicated_flops(cfg, shape, roles: dict, mesh, inner: bool = False
     (prefill's ``seq_inner``) attention, the MLP and the head compute on
     this rank's rows: 1/model of the same rows' flops on one device, as a
     split is; but cross-attention projects its K and V from the whole
-    memory on every rank."""
+    memory on every rank, and RWKV's layers and Mamba2's are whole on
+    every model rank over the gathered sequence (``_layer_flops``; zamba2's
+    shared attention on the rows, as llama's)."""
     from repro_torch._tree import flatten
     from repro_torch.parallel.sharding import KEEP, PARTIAL
 
@@ -935,6 +1046,8 @@ def replicated_flops(cfg, shape, roles: dict, mesh, inner: bool = False
 
     train = shape.kind == "train"
     passes = ((1 if cfg.remat == "none" else 2) + 2) if train else 1
+    if inner and cfg.family in ("ssm", "hybrid"):
+        return n * _layer_flops(cfg, per, s)
     if cfg.family == "ssm":
         layer = mm(tokens, d, d) + mm(tokens, d, cfg.rwkv_decay_rank)
     elif cfg.family == "hybrid":
@@ -1390,21 +1503,27 @@ def _plants(ref, mesh) -> dict:
 
 
 def _inner_plants(ref, mesh) -> dict:
-    """Three faults planted in prefill's ``seq_inner``, each in the heads3
-    prefill cell, whose logits or their layout must then miss
-    (``_prefill_misses``; the number of failed checks, 1 where the step
-    raised): B3's query offset dropped (every rank's queries masked as
-    rows 0 to S/model of the sequence); K and V left ungathered (each
-    rank's own rows in their place in the sequence, the other ranks'
-    zeros); the rows gathered over the sequence before the head, where
-    the pruned spec keeps the logits split. Every rank plants the same
-    fault, so that the collectives still pair."""
-    from repro_torch.models import attention
+    """Five faults planted in prefill's ``seq_inner``, each in a prefill
+    cell whose logits or their layout must then miss (``_prefill_misses``;
+    the number of failed checks, 1 where the step raised); in the heads3
+    cell: B3's query offset dropped (every rank's queries masked as rows 0
+    to S/model of the sequence); K and V left ungathered (each rank's own
+    rows in their place in the sequence, the other ranks' zeros); the rows
+    gathered over the sequence before the head, where the pruned spec
+    keeps the logits split; in rwkv6-1.6b's, a whole-sequence block that
+    keeps the next rank's rows of its output (``_own_rows``); in
+    zamba2-7b's, a Mamba2 block that skips the gather of the sequence (its
+    own rows in their place, the other ranks' zeros). Every rank plants
+    the same fault, so that the collectives still pair."""
+    from repro_torch.models import attention, ssm
     from repro_torch.models import layers as L
     from repro_torch.parallel import sharding as SH
 
     cell = ("llama3.2-3b", ("p", "prefill", 32, 4), "heads3")
+    rwkv = ("rwkv6-1.6b", ("p", "prefill", 32, 4), "inner")
+    zamba = ("zamba2-7b", ("p", "prefill", 32, 4), "inner")
     real_flash = attention.flash_attention
+    real_own, real_enter = SH._own_rows, ssm.enter
 
     def no_offset(q, k, v, *, causal=True, window=0, q_offset=0):
         return real_flash(q, k, v, causal=causal, window=window)
@@ -1420,16 +1539,27 @@ def _inner_plants(ref, mesh) -> dict:
         w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
         return SH.enter(x, False) @ w
 
-    faults = {"offset_dropped": (attention, "flash_attention", no_offset),
-              "kv_ungathered": (attention, "seq_gather", ungathered),
-              "logits_gathered": (L, "lm_logits", gathered_logits)}
+    def next_rows(x, sp):
+        return real_own(x, dataclasses.replace(
+            sp, index=(sp.index + 1) % sp.count))
+
+    def mamba_ungathered(x, split=True, rows=None):
+        return ungathered(x) if SH.current_seq_split() else \
+            real_enter(x, split, rows)
+
+    faults = {"offset_dropped": (attention, "flash_attention", no_offset,
+                                 cell),
+              "kv_ungathered": (attention, "seq_gather", ungathered, cell),
+              "logits_gathered": (L, "lm_logits", gathered_logits, cell),
+              "whole_block_next_rows": (SH, "_own_rows", next_rows, rwkv),
+              "mamba_ungathered": (ssm, "enter", mamba_ungathered, zamba)}
     out = {}
-    for name, (owner, attr, fault) in faults.items():
+    for name, (owner, attr, fault, where) in faults.items():
         real = getattr(owner, attr)
         setattr(owner, attr, fault)
         try:
-            _, logits = _prefill_once(*cell, ref, mesh)
-            out[name] = len(_prefill_misses(*cell, ref, mesh, logits))
+            _, logits = _prefill_once(*where, ref, mesh)
+            out[name] = len(_prefill_misses(*where, ref, mesh, logits))
         except (RuntimeError, ValueError):
             out[name] = 1
         finally:

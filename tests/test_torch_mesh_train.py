@@ -29,8 +29,9 @@ on "model" inside the blocks too (prefill's ``seq_inner``: 3 heads,
 where the rules set it, and GQA under the rules' override; attention
 over each rank's query rows against the all-gathered K/V, the MLP and
 the head on the rows, the logits split along the sequence) and
-seamless-m4t-medium, mixtral-8x7b and llava-next-mistral-7b prefills
-under the same override, two
+seamless-m4t-medium, mixtral-8x7b, llava-next-mistral-7b, rwkv6-1.6b and
+zamba2-7b prefills under the same override (RWKV's and Mamba2's layers
+whole on every model rank over the gathered sequence), two
 seamless-m4t-medium prefills whose frames
 and tokens differ in length (one stream split, the other of odd length
 whole), and four decode cells whose caches split along
@@ -46,10 +47,13 @@ step's split held (no state leaf gathered but Mamba2's
 conv, a cache's storage 1/4, the model and combine all-reduces the
 code's count, greedy tokens equal), a unit's gather held against the
 whole path with three planted faults that must fail, seven planted
-faults of the model-parallel region and its sequence split, three of
+faults of the model-parallel region and its sequence split, five of
 ``seq_inner`` and five of the serve step's split that must fail, and ``pipeline_apply`` on a 4-rank "stage" mesh against
 the reference's sequential forward and ``jax.grad``. A rank's failure
-fails the test.
+fails the test. Beside the world, the dry run (``tests/_torch_dryrun_world.py
+gloo``: ``repro_torch.launch.dryrun`` on a fake (2, 2) world, each rank)
+must issue the collectives each gloo rank issued in ``ISSUED_CELLS``:
+kind, result bytes, group size and count.
 """
 import dataclasses
 import json
@@ -86,8 +90,9 @@ from repro_torch.models.weights import state_to_numpy, \
 from repro_torch.parallel.layouts import rules_for
 from repro_torch.parallel.sharding import full, use_mesh
 
-from _torch_mesh_world import CELLS, LENGTHS, POSITIONS, TRAIN_OUTLIERS, \
-    VARIANTS, Spy, cell_key, decode_tokens, flat, mismatches, seeded_state
+from _torch_mesh_world import CELLS, ISSUED_CELLS, LENGTHS, POSITIONS, \
+    TRAIN_OUTLIERS, VARIANTS, Spy, cell_key, decode_tokens, flat, \
+    mismatches, seeded_state
 
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "llama3.2-3b"
@@ -197,7 +202,9 @@ def test_train_state_layouts_follow_the_reference(mesh):
     ref_meta = jax.tree.map(lambda t: (tuple(t.shape), f"torch.{t.dtype}"),
                             rprog.args[0])
     assert meta == ref_meta
-    with pytest.raises(NotImplementedError, match="slice 7d"):
+    # lowering runs on fake tensors in a fake world only (the dry run),
+    # never in this gloo group
+    with pytest.raises(RuntimeError, match="fake world"):
         prog.lower()
 
 
@@ -556,12 +563,36 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
     # name resolves to
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
-    proc = subprocess.run(
-        [sys.executable, str(ROOT / "tests" / "_torch_mesh_world.py"),
-         str(tmp_path / "ref.npz"), str(tmp_path / "out.json")],
-        capture_output=True, text=True, env=env, timeout=WORLD_TIMEOUT_S)
+    # the dry run of ISSUED_CELLS at each rank of a fake (2, 2) world, in a
+    # process of its own beside the world's
+    dry = subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_dryrun_world.py"),
+         "gloo", str(tmp_path / "dry.json")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "tests" / "_torch_mesh_world.py"),
+             str(tmp_path / "ref.npz"), str(tmp_path / "out.json")],
+            capture_output=True, text=True, env=env, timeout=WORLD_TIMEOUT_S)
+        _, dry_err = dry.communicate(timeout=WORLD_TIMEOUT_S)
+    finally:
+        dry.kill()
     assert proc.returncode == 0, proc.stderr[-4000:]
+    assert dry.returncode == 0, dry_err[-4000:]
     res = json.loads((tmp_path / "out.json").read_text())
+    # the dry run issues each rank's collectives as the gloo world did,
+    # (kind, result bytes, group size) and how many: a serve step's three
+    # steps three times one
+    dry_res = json.loads((tmp_path / "dry.json").read_text())
+    assert sorted(dry_res) == sorted(cell_key(*c) for c in ISSUED_CELLS)
+    for name, ranks in dry_res.items():
+        steps = 3 if "/decode" in name else 1
+        for r, got in ranks.items():
+            assert got["status"] == "ok", (name, r, got)
+            want = res["gathers"][int(r)][name]["issued"]
+            assert want and [[k, b, n, steps * c] for k, b, n, c in
+                             got["collectives"]["issued"]] == want, \
+                (name, r, got["collectives"]["issued"], want)
     assert res["cells"] == [cell_key(*c) for c in CELLS]
     assert res["pipeline"]["fwd_err"] < 1e-5
     assert res["pipeline"]["bwd_err"] < 1e-4
@@ -597,7 +628,11 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
     inner = {"llama3.2-3b/prefill/heads3", "llama3.2-3b/prefill/seq_inner",
              "seamless-m4t-medium/prefill/inner",
              "mixtral-8x7b/prefill/inner",
-             "llava-next-mistral-7b/prefill/inner"}
+             "llava-next-mistral-7b/prefill/inner",
+             "rwkv6-1.6b/prefill/inner", "zamba2-7b/prefill/inner"}
+    # of which RWKV's and Mamba2's layers are whole on every model rank,
+    # over the gathered sequence
+    whole_layers = {"rwkv6-1.6b/prefill/inner", "zamba2-7b/prefill/inner"}
     decode = {cell_key(*c) for c in CELLS if c[1][1] == "decode"}
     for rank in res["gathers"]:
         for name, g in rank.items():
@@ -619,6 +654,8 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
             assert g["flop_ratio"] == g["flop_ratio_code"], (name, g)
             if name == "llama3.2-3b/train/heads3":  # attention whole
                 assert 0.5 < g["flop_ratio"] < 0.7, (name, g)
+            elif name in whole_layers:  # the head on the rows alone splits
+                assert 0.5 < g["flop_ratio"] < 1, (name, g)
             else:
                 assert g["flop_ratio"] < 0.55, (name, g)
             if name in halves:
@@ -656,7 +693,8 @@ def test_cells_and_pipeline_on_a_4_rank_world(tmp_path):
     assert all(n > 0 for n in res["region_plants"].values()), \
         res["region_plants"]
     assert set(res["inner_plants"]) == {
-        "offset_dropped", "kv_ungathered", "logits_gathered"}
+        "offset_dropped", "kv_ungathered", "logits_gathered",
+        "whole_block_next_rows", "mamba_ungathered"}
     assert all(n > 0 for n in res["inner_plants"].values()), \
         res["inner_plants"]
     assert set(res["decode_plants"]) == {

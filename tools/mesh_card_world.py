@@ -84,6 +84,19 @@ prefill's ms (``SEQ_INNER["reps"]`` timed after one), its peak GB, the
 layer gather's GB, the model region's all-gathers and reduce-scatters of
 the sequence (K and V under ``seq_inner``) with their GB, and its
 all-reduces.
+
+    PYTHONPATH=src python3 tools/mesh_card_world.py [--serve | --seq-inner]
+        --dryrun [--json PATH]
+
+``--dryrun`` adds the dry run's prediction (``repro_torch.launch.dryrun``
+``dry_run``, each rank of each mesh on a fake world, in a child process on
+the host: ``--predict``) beside each rank's measurement: the collectives
+one step issues (the train step's first, the first prefill, the bf16
+serve run's first step), each ``(kind, result bytes, group size)`` and
+how many, recorded on the cards by the dry run's own billing
+(``dryrun.IssuedCollectives``), which must be equal; and the peak's
+ratio, the prediction's (arguments, temporaries and outputs less
+aliases) over the card's ``max_memory_allocated``, reported.
 """
 from __future__ import annotations
 
@@ -144,6 +157,8 @@ SERVE_RUNS = {"float32": ("float32", torch.float32),
 SEQ_INNER = dict(rows=2, tokens=8192, reps=3)
 # --seq-inner's layouts: rules_for's own overrides of each
 LAYOUTS = {"seq_inner": {"seq_inner": "model"}, "sp": None}
+# --dryrun: the prediction child's limit
+PREDICT_TIMEOUT_S = 600
 
 
 def _setup(args):
@@ -202,6 +217,7 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
     first step's state whole (on every rank) and this rank's readings."""
     from repro_torch._tree import flatten, leaves
     from repro_torch.data import device_put_batch
+    from repro_torch.launch.dryrun import IssuedCollectives
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.launch.steps import (build_prefill_step,
                                           build_train_step,
@@ -239,11 +255,14 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with use_mesh(mesh, rules), _SavedInputs() as saved:
+        with use_mesh(mesh, rules), _SavedInputs() as saved, \
+                IssuedCollectives(args.dryrun and i == 0) as issued:
             state, m = step(state, b)
         if cuda:
             torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            first_issued = issued.report()
         counts.append({**GATHER.counts(), **{
             f"model_{k}": v for k, v in MODEL.counts().items()},
             "remat_saved_bytes": saved.peak})
@@ -272,6 +291,7 @@ def _run(args, device: str, mesh_shape: tuple) -> dict:
             local(p).nbytes for p in params) / 1e9,
         "whole_params_gb": whole_gb,
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+        "issued": first_issued,
         "loss": metrics["loss"], "grad_norm": metrics["grad_norm"]}}
 
 
@@ -300,6 +320,7 @@ def _prefill_run(args, device: str, mesh_shape: tuple, layout: str,
         compute_local_shape_and_global_offset)
 
     from repro_torch.data import device_put_batch
+    from repro_torch.launch.dryrun import IssuedCollectives
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.launch.steps import build_prefill_step, place
     from repro_torch.models import transformer as T
@@ -320,15 +341,18 @@ def _prefill_run(args, device: str, mesh_shape: tuple, layout: str,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     ms = []
-    for _ in range(1 + SEQ_INNER["reps"]):
+    for i in range(1 + SEQ_INNER["reps"]):
         GATHER.reset()
         MODEL.reset()
         logits = None
         if cuda:
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        with use_mesh(mesh, rules):
+        with use_mesh(mesh, rules), \
+                IssuedCollectives(args.dryrun and i == 0) as rec:
             logits = run(params, batch)
+        if i == 0:
+            issued = rec.report()
         if cuda:
             torch.cuda.synchronize(device)
         ms.append(1e3 * (time.perf_counter() - t0))
@@ -346,7 +370,7 @@ def _prefill_run(args, device: str, mesh_shape: tuple, layout: str,
         "seq_reduce_scatters": counts["model_reduce_scatters"],
         "seq_reduce_scatter_gb": counts["model_scattered_bytes"] / 1e9,
         "model_all_reduces": counts["model_all_reduces"],
-        "counts": counts,
+        "counts": counts, "issued": issued,
         "logits_split_dims": [getattr(p, "dim", None)
                               for p in logits.placements]}
     if want_path is None:
@@ -390,6 +414,7 @@ def seq_inner_main(args, card) -> int:
     from repro_torch.launch.mesh import release_process_group
 
     cuda = args.device != "cpu"
+    child = _start_prediction(args) if args.dryrun else None
     one = _prefill_run(args, "cuda:0" if cuda else "cpu", (1, 1),
                        "seq_inner")
     release_process_group()
@@ -422,6 +447,8 @@ def seq_inner_main(args, card) -> int:
                                 "rules_overrides": LAYOUTS[layout],
                                 "ranks": ranks, "logits_over_max": worst,
                                 "failures": fails}
+    if child is not None:
+        bad += _against(child, meshes)
     _, shape, _ = _prefill_setup(args)
     out = {"cards": card, "arch": "llama3.2-3b", "mode": "seq_inner",
            "dtype": "float32", "layers": args.layers if cuda else "reduced",
@@ -473,6 +500,7 @@ def _serve_run(args, device: str, mesh_shape) -> dict:
     None: ``decode_step``) or on a mesh (``build_serve_step``); the
     logits (whole) and tokens of each, and this rank's readings."""
     from repro_torch._tree import flatten, leaves
+    from repro_torch.launch.dryrun import IssuedCollectives
     from repro_torch.models import transformer as T
     from repro_torch.parallel import sharding as SH
 
@@ -506,6 +534,9 @@ def _serve_run(args, device: str, mesh_shape) -> dict:
             gen = torch.Generator(device=device).manual_seed(0)
             params = T.init_param_tree(cfg, gen, device=device)
             state = _serve_state(cfg, shape, device, cache_dtype)
+            record = IssuedCollectives(args.dryrun
+                                       and run_name == "bfloat16"
+                                       and mesh_shape is not None)
             if mesh_shape is None:
                 model = T.TransformerLM.from_stacked(cfg, params)
 
@@ -520,8 +551,9 @@ def _serve_run(args, device: str, mesh_shape) -> dict:
                 run = prog.jitted()
 
                 def step(tokens, state):
-                    with SH.use_mesh(mesh, rules):
+                    with SH.use_mesh(mesh, rules), record:
                         logits, state = run(params, state, tokens)
+                    record.on = False  # the first step's alone
                     return SH.full(logits), state
             check = run_name != "bfloat16"
             n = SERVE["check_steps"] if check else (SERVE["warm"]
@@ -554,7 +586,7 @@ def _serve_run(args, device: str, mesh_shape) -> dict:
             out[run_name] = {
                 "logits": torch.stack(logits_seen),
                 "readings": {
-                    "step_ms": ms,
+                    "step_ms": ms, "issued": record.report(),
                     "median_ms": statistics.median(timed),
                     "cache_gb": sum(SH.local(t).nbytes for t in caches) / 1e9,
                     "whole_cache_gb": sum(t.numel() * t.element_size()
@@ -624,6 +656,7 @@ def _serve_held(got: dict, want: dict) -> tuple[list, dict]:
 def serve_main(args, card) -> int:
     from repro_torch.launch.mesh import release_process_group
 
+    child = _start_prediction(args) if args.dryrun else None
     device = "cuda:0" if args.device != "cpu" else "cpu"
     one = _serve_run(args, device, None)
     release_process_group()
@@ -647,6 +680,8 @@ def serve_main(args, card) -> int:
                                  "model": mesh_shape[1]},
                         "ranks": sharded["ranks"],
                         "worst_over_max": worst, "failures": fails}
+    if child is not None:
+        bad += _against(child, meshes, "bfloat16")
     import repro_torch
     out = {"cards": card, "arch": "llama3.2-3b", "mode": "serve",
            "package": os.path.dirname(repro_torch.__file__),
@@ -718,6 +753,80 @@ def _held(got: dict, want: dict) -> tuple[list, dict]:
     return bad, worst
 
 
+def _mode(args) -> str:
+    return "serve" if args.serve else "seq_inner" if args.seq_inner \
+        else "train"
+
+
+def _predict(args) -> dict:
+    """``--predict``: the dry run of this mode's step at each rank of each
+    of ``MESHES`` (and each of ``LAYOUTS`` under ``--seq-inner``), by the
+    mesh names the measurement uses; each a list of the ranks'
+    ``dryrun.summary``."""
+    from repro_torch.launch.dryrun import dry_run
+
+    mode = _mode(args)
+    if mode == "train":
+        cfg, shape = _setup(args)[:2]
+        cells = {"x".join(map(str, m)): (m, None) for m in MESHES}
+    elif mode == "serve":
+        cfg, shape = _serve_cfg(args, "bfloat16")
+        cells = {"x".join(map(str, m)): (m, None) for m in MESHES}
+    else:
+        cfg, shape = _prefill_setup(args)[:2]
+        cells = {"x".join(map(str, m)) + "/" + layout: (m, over)
+                 for m in MESHES for layout, over in LAYOUTS.items()}
+    return {name: [dry_run(cfg, shape, m, rank=r, overrides=over)
+                   for r in range(RANKS)]
+            for name, (m, over) in cells.items()}
+
+
+def _start_prediction(args):
+    """The ``--predict`` child, on the host (no card), started now."""
+    flags = {"serve": ["--serve"], "seq_inner": ["--seq-inner"],
+             "train": []}[_mode(args)]
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *flags, "--predict",
+         "--layers", str(args.layers), "--device", args.device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def _against(child, meshes: dict, run: str = None) -> list:
+    """Each mesh's ranks' measurements beside the dry run's prediction
+    (into ``meshes[name]["dryrun"]``): the issued collectives must be
+    equal; the peak's ratio is reported. ``run``: the serve run whose
+    readings are compared. Returns what fails."""
+    out, err = child.communicate(timeout=PREDICT_TIMEOUT_S)
+    if child.returncode:
+        return [f"the dry run's child failed: {err[-3000:]}"]
+    predicted = json.loads(out.strip().splitlines()[-1])
+    bad = []
+    for name, entry in meshes.items():
+        rows = []
+        for r, (pred, meas) in enumerate(zip(predicted[name],
+                                             entry["ranks"])):
+            meas = meas[run] if run else meas
+            same = pred["collectives"]["issued"] == meas["issued"]
+            if not same:
+                bad.append(f"{name} rank {r}: the dry run issues "
+                           f"{pred['collectives']['issued']}, the cards "
+                           f"{meas['issued']}")
+            peak = meas.get("peak_gb")
+            rows.append({
+                "issued_equal": same,
+                "collectives": pred["collectives"]["count"],
+                "wire_gb": pred["collectives"]["wire_bytes"] / 1e9,
+                "predicted_peak_gb": pred["memory"]["peak"] / 1e9,
+                "measured_peak_gb": peak,
+                "peak_ratio": (pred["memory"]["peak"] / 1e9 / peak
+                               if peak else None),
+                "predicted_flops": pred["flops"],
+                "trace_s": pred["trace_s"]})
+        entry["dryrun"] = rows
+    return bad
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--layers", type=int, default=4)
@@ -728,8 +837,17 @@ def main() -> int:
     parser.add_argument("--seq-inner", action="store_true",
                         help="the prefill step alone, under seq_inner and "
                              "under rules_for's layout")
+    parser.add_argument("--dryrun", action="store_true",
+                        help="the dry run's prediction beside each rank's "
+                             "measurement")
+    parser.add_argument("--predict", action="store_true",
+                        help="(the child of --dryrun) print the dry run's "
+                             "predictions and exit")
     parser.add_argument("--json", help="also write the result here")
     args = parser.parse_args()
+    if args.predict:
+        print(json.dumps(_predict(args)), flush=True)
+        return 0
     cuda = args.device != "cpu"
     if cuda and torch.cuda.device_count() < RANKS:
         raise SystemExit(f"needs {RANKS} CUDA cards")
@@ -744,6 +862,7 @@ def main() -> int:
         return seq_inner_main(args, card)
     from repro_torch.launch.mesh import release_process_group
 
+    child = _start_prediction(args) if args.dryrun else None
     one = _run(args, "cuda:0" if cuda else "cpu", (1, 1))
     release_process_group()
     if cuda:
@@ -765,6 +884,8 @@ def main() -> int:
                                  "model": mesh_shape[1]},
                         "ranks": sharded["ranks"],
                         "worst_over_leaf_max": worst, "failures": fails}
+    if child is not None:
+        bad += _against(child, meshes)
     out = {"cards": card, "arch": "llama3.2-3b", "dtype": "float32",
            "layers": args.layers if cuda else "reduced", "accum": 4,
            "one_card": one["readings"], "meshes": meshes,
