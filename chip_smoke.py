@@ -5338,6 +5338,116 @@ class Smoke:
                    f"B3: {b3['launches_tc']} of {b3['launches']} main-path "
                    "launches on the tensor-core kernel")
 
+    # -- slice 6b: the trace-based analysis on the card --------------------
+    def analysis_phase(self):
+        """(a) The kernel lint on the card (``kernel_lint.lint_card_cases``)
+        at the shapes the main paths launch each kernel at: every launch
+        captured through its real wrapper on fake CUDA tensors, linted, its
+        library's ``<prefix>_plan`` held equal to the Python plan, and a
+        line a launch with the kernel's registers, local bytes, static and
+        dynamic shared memory and blocks an SM. (b) The three decode
+        families at full width and the ragged runs' depths (llama3.2-3b and
+        rwkv6-1.6b 1 layer, zamba2-7b its first group and a tail layer), 8
+        slots, cache 1024: the walker's graph of ``decode_step`` on fake
+        CUDA tensors of the same config, then one engine ``_step`` on the
+        card under CUDA's sync debug mode: its synchronising calls (the
+        warnings it raises) equal the walker's ``host-sync`` count, its
+        kernel launches the walker's kernel nodes, and every state leaf but
+        the position vector keeps its storage (``data_ptr``). Any error
+        finding fails the run; nothing is caught."""
+        import dataclasses
+        import gc
+        import warnings
+
+        import torch
+        from repro_torch._tree import flatten
+        from repro_torch.analysis import graph_walk
+        from repro_torch.analysis.kernel_lint import lint_card_cases
+        from repro_torch.analysis.offload_lint import (
+            _decode_shapes, fake_model, lint_graph_hazards)
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.runtime.serving import ServingEngine
+
+        t0 = time.perf_counter()
+        findings, rows = lint_card_cases()
+        for row in rows:
+            emit({"phase": "analysis_kernel", **row, "card": self.card})
+        errors = [f.fid for f in findings if f.severity == "error"]
+        self.check(not errors, f"analysis: error findings {errors}")
+        emit({"phase": "analysis_kernels", "launches": len(rows),
+              "findings": [f.fid for f in findings],
+              "seconds": time.perf_counter() - t0, "card": self.card})
+
+        slots, cache = 8, 1024
+        for arch, layers in (("llama3.2-3b", RAGGED_LAYERS["llama3.2-3b"]),
+                             ("rwkv6-1.6b", RAGGED_LAYERS["rwkv6-1.6b"]),
+                             ("zamba2-7b", HYBRID_RAGGED_LAYERS)):
+            t1 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+            mode = graph_walk.fake_mode()
+            fstate, ftokens = _decode_shapes(cfg, slots, cache, mode)
+            fake = fake_model(cfg, mode)
+            report = graph_walk.trace_and_walk(
+                lambda s, t: T.decode_step(cfg, fake, s, t), fstate,
+                ftokens)
+            walked = [f.fid for f in lint_graph_hazards(report, site=arch)
+                      if f.rule == "host-sync"]
+            nodes = {k: n for k, n in report.primitive_counts.items()
+                     if graph_walk.classify_primitive(k) == "kernel"}
+            walk_s = time.perf_counter() - t1
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            model = T.init_params(cfg, gen, device="cuda")
+            engine = ServingEngine(cfg, model, slots=slots, max_len=cache,
+                                   device="cuda")
+            state = T.init_decode_state(cfg, slots, cache, device="cuda")
+            tokens = torch.randint(0, cfg.vocab_size, (slots,),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            engine._step(model, state, tokens)  # warm
+            torch.cuda.synchronize()
+            before = {p: t.data_ptr() for p, t in flatten(state)}
+            reset_all_launches()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    _, state = engine._step(model, state, tokens)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in lm_launches().items()
+                        if n and not k.endswith("_tc")}
+            # the mode's first use also warns that it is a prototype
+            syncs = [str(w.message) for w in caught if "called a "
+                     "synchronizing CUDA operation" in str(w.message)]
+            moved = ["/".join(map(str, p)) for p, t in flatten(state)
+                     if t.data_ptr() != before.get(p)]
+            emit({"phase": "analysis_decode", "arch": arch,
+                  "layers": layers, "slots": slots, "cache": cache,
+                  "card_syncs": len(syncs), "syncs": syncs[:5],
+                  "walker_host_syncs": len(walked),
+                  "walker_flops": report.flops,
+                  "walker_hbm_bytes": report.hbm_bytes,
+                  "walker_nodes": report.eqn_count, "kernel_nodes": nodes,
+                  "launches": launched, "state_leaves": len(before),
+                  "moved": moved, "walk_s": walk_s,
+                  "seconds": time.perf_counter() - t1, "card": self.card})
+            self.check(len(syncs) == len(walked),
+                       f"analysis {arch}: {len(syncs)} synchronising calls "
+                       f"on the card, the walker's host-sync count "
+                       f"{len(walked)}")
+            self.check(launched == nodes,
+                       f"analysis {arch}: launches {launched}, the walker's "
+                       f"kernel nodes {nodes}")
+            self.check(moved == ["pos"],
+                       f"analysis {arch}: state leaves moved {moved}")
+            del model, engine, state, tokens
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -5371,7 +5481,8 @@ def main() -> int:
                   smoke.families_train, smoke.train_resume,
                   smoke.mesh_train_check, smoke.mesh_prefill,
                   smoke.dryrun, smoke.mesh_train, smoke.mesh_serve,
-                  smoke.lm_kernel_launches, smoke.main_path):
+                  smoke.lm_kernel_launches, smoke.analysis_phase,
+                  smoke.main_path):
         t_phase = time.perf_counter()
         try:
             phase()

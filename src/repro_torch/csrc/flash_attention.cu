@@ -180,6 +180,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "launch_plan.h"
+
 namespace {
 
 constexpr int BQ = 64;        // query rows a block
@@ -423,23 +425,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The scalar forward's geometry: a block a 64-row query tile of a head
+template <typename T, int D>
+Plan forward_plan(int B, int H, int Sq) {
+  constexpr int STR = D + 4;
+  return Plan{dim3((Sq + BQ - 1) / BQ, B * H), dim3(THREADS),
+              (unsigned)(sizeof(float) * (2 * 64 * STR + BQ * PSTR)), 0};
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int KH, int Sq, int Sk,
                    int q_offset, float scale, int causal, int window,
                    cudaStream_t stream) {
-  constexpr int STR = D + 4;
-  constexpr size_t SMEM = sizeof(float) * (2 * 64 * STR + BQ * PSTR);
+  const Plan p = forward_plan<T, D>(B, H, Sq);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM);
+        (int)p.smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, THREADS, SMEM, stream>>>(
+  flash_fwd_kernel<T, D><<<p.grid, p.block, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, Sq, Sk,
       q_offset, scale, causal, window);
@@ -760,26 +768,50 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dq + (int64_t)bh * S * D, acc, q0, S, ty, tx);
 }
 
+// The backward's pre-pass (either backward's): a warp a row of the B*H*SP
+// rows of stats
+Plan prep_plan(int B, int H, int SP) {
+  const int64_t rows = (int64_t)B * H * SP;
+  return Plan{dim3((unsigned)((rows * 32 + THREADS - 1) / THREADS)),
+              dim3(THREADS), 0, 0};
+}
+
+// The scalar backward's dK/dV kernel: a block a 64-key tile of a K/V head
+template <typename T, int D>
+Plan dkdv_plan(int B, int KH, int S) {
+  constexpr int STR = D + 4;
+  return Plan{dim3((S + 63) / 64, B * KH), dim3(THREADS),
+              (unsigned)(sizeof(float) *
+                         (4 * 64 * STR + 2 * 64 * PSTR + 2 * BQ)),
+              0};
+}
+
+// ... and its dQ kernel: a block a 64-row query tile of a head
+template <typename T, int D>
+Plan dq_plan(int B, int H, int S) {
+  constexpr int STR = D + 4;
+  return Plan{dim3((S + 63) / 64, B * H), dim3(THREADS),
+              (unsigned)(sizeof(float) * (4 * 64 * STR + BQ * PSTR + 2 * BQ)),
+              0};
+}
+
 template <typename T, int D>
 cudaError_t launch_backward(const void* q, const void* k, const void* v,
                             const void* o, const float* lse, const void* dout,
                             void* dq, void* dk, void* dv, float* stats,
                             int B, int H, int KH, int S, int SP, float scale,
                             int causal, int window, cudaStream_t stream) {
-  constexpr int STR = D + 4;
-  constexpr size_t SMEM_KV =
-      sizeof(float) * (4 * 64 * STR + 2 * 64 * PSTR + 2 * BQ);
-  constexpr size_t SMEM_Q =
-      sizeof(float) * (4 * 64 * STR + BQ * PSTR + 2 * BQ);
+  const Plan pp = prep_plan(B, H, SP), pk = dkdv_plan<T, D>(B, KH, S),
+             pq = dq_plan<T, D>(B, H, S);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dkdv_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_KV);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pk.smem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)SMEM_Q);
+                                 (int)pq.smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -787,17 +819,12 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v,
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
-  const int64_t rows = (int64_t)B * H * SP;
-  flash_bwd_prep<T, D><<<(unsigned)((rows * 32 + THREADS - 1) / THREADS),
-                         THREADS, 0, stream>>>(
+  flash_bwd_prep<T, D><<<pp.grid, pp.block, pp.smem, stream>>>(
       static_cast<const T*>(o), tdo, lse, stats, B * H, S, SP);
-  const int tiles = (S + 63) / 64;
-  flash_bwd_dkdv_kernel<T, D><<<dim3(tiles, B * KH), THREADS, SMEM_KV,
-                                stream>>>(
+  flash_bwd_dkdv_kernel<T, D><<<pk.grid, pk.block, pk.smem, stream>>>(
       tq, tk, tv, tdo, stats, static_cast<T*>(dk), static_cast<T*>(dv), H,
       KH, S, SP, scale, causal, window);
-  flash_bwd_dq_kernel<T, D><<<dim3(tiles, B * H), THREADS, SMEM_Q,
-                              stream>>>(
+  flash_bwd_dq_kernel<T, D><<<pq.grid, pq.block, pq.smem, stream>>>(
       tq, tk, tv, tdo, stats, static_cast<T*>(dq), H, KH, S, SP, scale,
       causal, window);
   return cudaGetLastError();
@@ -1378,14 +1405,23 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The tensor-core forward's geometry: a block a 128-row query tile of a
+// head
+template <int D>
+Plan forward_plan(int B, int H, int Sq) {
+  return Plan{dim3(B * H, (Sq + BQ - 1) / BQ), dim3(THREADS),
+              (unsigned)Smem<padded(D)>::ALLOC, 0};
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int KH, int Sq, int Sk,
                    int q_offset, float scale, int causal, int window,
                    cudaStream_t stream) {
+  const Plan p = forward_plan<D>(B, H, Sq);
   static bool configured = false;
   if (!configured) {
-    constexpr int bytes = Smem<padded(D)>::ALLOC;
+    const int bytes = (int)p.smem;
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_tc<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
@@ -1405,12 +1441,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       !tensor_map(encode, &km, k, B * KH, Sk, D) ||
       !tensor_map(encode, &vm, v, B * KH, Sk, D))
     return cudaErrorInvalidValue;
-  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   // without lse (the serving call) the instance whose epilogue has no
   // write of it: the untaken branch alone slowed every launch measurably
   auto kernel = lse != nullptr ? flash_fwd_tc<D, true>
                                : flash_fwd_tc<D, false>;
-  kernel<<<grid, THREADS, Smem<padded(D)>::ALLOC, stream>>>(
+  kernel<<<p.grid, p.block, p.smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, H, KH, Sq, Sk,
       q_offset, scale * LOG2E, causal, window);
   return cudaGetLastError();
@@ -1830,6 +1865,21 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap qmap,
   store_rows_tc<D>(dq + (int64_t)bh * S * D, smem, wg, t, q0, S);
 }
 
+// The tensor-core backward's dK/dV kernel: a block a 128-key tile of a
+// K/V head
+template <int D>
+Plan dkdv_plan(int B, int KH, int S) {
+  return Plan{dim3(B * KH, (S + BIG_ROWS - 1) / BIG_ROWS), dim3(BWD_THREADS),
+              (unsigned)BwdSmem<padded(D)>::ALLOC, 0};
+}
+
+// ... and its dQ kernel: a block a 128-row query tile of a head
+template <int D>
+Plan dq_plan(int B, int H, int S) {
+  return Plan{dim3(B * H, (S + BIG_ROWS - 1) / BIG_ROWS), dim3(BWD_THREADS),
+              (unsigned)BwdSmem<padded(D)>::ALLOC, 0};
+}
+
 template <int D>
 cudaError_t launch_backward(const void* q, const void* k, const void* v,
                             const void* o, const float* lse, const void* dout,
@@ -1837,6 +1887,8 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v,
                             int B, int H, int KH, int S, int SP, float scale,
                             int causal, int window, cudaStream_t stream) {
   constexpr int ALLOC = BwdSmem<padded(D)>::ALLOC;
+  const Plan pp = prep_plan(B, H, SP), pk = dkdv_plan<D>(B, KH, S),
+             pq = dq_plan<D>(B, H, S);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1862,24 +1914,102 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v,
       !tensor_map(encode, &k64, k, B * KH, S, D, SMALL_ROWS) ||
       !tensor_map(encode, &v64, v, B * KH, S, D, SMALL_ROWS))
     return cudaErrorInvalidValue;
-  const int64_t rows = (int64_t)B * H * SP;
-  flash_bwd_prep<__nv_bfloat16, D>
-      <<<(unsigned)((rows * 32 + ::THREADS - 1) / ::THREADS), ::THREADS, 0,
-         stream>>>(static_cast<const __nv_bfloat16*>(o),
-                   static_cast<const __nv_bfloat16*>(dout), lse, stats,
-                   B * H, S, SP);
-  const int tiles = (S + BIG_ROWS - 1) / BIG_ROWS;
-  flash_bwd_dkdv_tc<D><<<dim3(B * KH, tiles), BWD_THREADS, ALLOC, stream>>>(
+  flash_bwd_prep<__nv_bfloat16, D><<<pp.grid, pp.block, pp.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, stats, B * H, S, SP);
+  flash_bwd_dkdv_tc<D><<<pk.grid, pk.block, pk.smem, stream>>>(
       q64, do64, k128, v128, stats, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), H, KH, S, SP, scale, scale * LOG2E,
       causal, window);
-  flash_bwd_dq_tc<D><<<dim3(B * H, tiles), BWD_THREADS, ALLOC, stream>>>(
+  flash_bwd_dq_tc<D><<<pq.grid, pq.block, pq.smem, stream>>>(
       q128, do128, k64, v64, stats, static_cast<__nv_bfloat16*>(dq), H, KH,
       S, SP, scale, scale * LOG2E, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace tc
+
+// The backward's stats rows a head: S padded to a multiple of 128, as the
+// wrapper pads them (kernels/flash_attention/kernel.py STATS_ROWS)
+int stats_rows(int S) { return (S + 127) / 128 * 128; }
+
+// The plan and the kernel of a scalar launch (`plan_of`'s args)
+template <typename T, int D>
+struct Geometry {
+  static cudaError_t run(const int* a, Plan* p, const void** fn) {
+    const int B = a[1], H = a[2], KH = a[3], S = a[4];
+    switch (a[0]) {
+      case 0:
+        *p = forward_plan<T, D>(B, H, S);
+        *fn = (const void*)flash_fwd_kernel<T, D>;
+        return cudaSuccess;
+      case 2:
+        *p = prep_plan(B, H, stats_rows(S));
+        *fn = (const void*)flash_bwd_prep<T, D>;
+        return cudaSuccess;
+      case 3:
+        *p = dkdv_plan<T, D>(B, KH, S);
+        *fn = (const void*)flash_bwd_dkdv_kernel<T, D>;
+        return cudaSuccess;
+      case 4:
+        *p = dq_plan<T, D>(B, H, S);
+        *fn = (const void*)flash_bwd_dq_kernel<T, D>;
+        return cudaSuccess;
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+};
+
+// ... and of a tensor-core launch
+template <int D>
+cudaError_t tc_geometry(const int* a, Plan* p, const void** fn) {
+  const int B = a[1], H = a[2], KH = a[3], S = a[4];
+  switch (a[0]) {
+    case 1:
+      *p = tc::forward_plan<D>(B, H, S);
+      *fn = a[7] ? (const void*)tc::flash_fwd_tc<D, true>
+                 : (const void*)tc::flash_fwd_tc<D, false>;
+      return cudaSuccess;
+    case 5:
+      *p = prep_plan(B, H, stats_rows(S));
+      *fn = (const void*)flash_bwd_prep<__nv_bfloat16, D>;
+      return cudaSuccess;
+    case 6:
+      *p = tc::dkdv_plan<D>(B, KH, S);
+      *fn = (const void*)tc::flash_bwd_dkdv_tc<D>;
+      return cudaSuccess;
+    case 7:
+      *p = tc::dq_plan<D>(B, H, S);
+      *fn = (const void*)tc::flash_bwd_dq_tc<D>;
+      return cudaSuccess;
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The plan and the kernel of a launch at args = {which, B, H, KH, Sq, Sk,
+// D, flag}: which 0 the scalar forward, 2, 3 and 4 the scalar backward's
+// pre-pass, dK/dV and dQ kernels (flag the dtype: 0 f32, 1 bf16); 1 the
+// tensor-core forward (flag 1 with lse), 5, 6 and 7 the tensor-core
+// backward's three (Sq the backward's S)
+cudaError_t plan_of(const int* a, Plan* p, const void** fn) {
+  if (a[1] <= 0 || a[2] <= 0 || a[3] <= 0 || a[4] <= 0 || a[2] % a[3])
+    return cudaErrorInvalidValue;
+  if (a[0] == 1 || (a[0] >= 5 && a[0] <= 7)) {
+    switch (a[6]) {
+      case 64:
+        return tc_geometry<64>(a, p, fn);
+      case 112:
+        return tc_geometry<112>(a, p, fn);
+      case 128:
+        return tc_geometry<128>(a, p, fn);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  return by_type_and_dim<Geometry>(a[7], a[6], a, p, fn);
+}
 
 }  // namespace
 
@@ -1966,6 +2096,26 @@ int flash_attention_backward(const void* q, const void* k, const void* v,
   return static_cast<int>(by_type_and_dim<Backward>(
       dtype, D, q, k, v, o, static_cast<const float*>(lse), dout, dq, dk, dv,
       static_cast<float*>(stats), B, H, KH, S, SP, scale, causal, window, s));
+}
+
+// The geometry of a launch (`plan_of`'s args), as the launchers above use
+// it: out as launch_plan.h `write_plan`'s.
+int flash_plan(const int* args, int* out) {
+  Plan p;
+  const void* fn;
+  const cudaError_t err = plan_of(args, &p, &fn);
+  if (err == cudaSuccess) write_plan(p, out);
+  return static_cast<int>(err);
+}
+
+// The attributes of that launch's kernel on the current device, and its
+// blocks an SM at that geometry: out as `write_attributes`'.
+int flash_attributes(const int* args, int* out) {
+  Plan p;
+  const void* fn;
+  cudaError_t err = plan_of(args, &p, &fn);
+  if (err == cudaSuccess) err = write_attributes(fn, p, out);
+  return static_cast<int>(err);
 }
 
 int flash_attention_backward_tc(const void* q, const void* k, const void* v,

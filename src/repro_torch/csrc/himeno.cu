@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_plan.h"
+
 namespace {
 
 constexpr int TK = 32;       // threads along k (one warp)
@@ -141,8 +143,10 @@ himeno_kernel(const float* __restrict__ p, const float* __restrict__ a,
   }
 }
 
-dim3 grid_for(int I, int J, int K) {
-  return dim3((K + TK - 1) / TK, (J + TJ - 1) / TJ, (I + ICHUNK - 1) / ICHUNK);
+Plan plan_for(int I, int J, int K) {
+  return Plan{dim3((K + TK - 1) / TK, (J + TJ - 1) / TJ,
+                   (I + ICHUNK - 1) / ICHUNK),
+              dim3(TK, TJ), 0, 0};
 }
 
 }  // namespace
@@ -155,16 +159,34 @@ const char* himeno_error_string(int err) {
 
 // Number of gosa partials (one per block) the launches below write.
 int himeno_num_partials(int I, int J, int K) {
-  const dim3 g = grid_for(I, J, K);
+  const dim3 g = plan_for(I, J, K).grid;
   return (int)(g.x * g.y * g.z);
+}
+
+// The geometry of a launch at args = {which (0 the sweep, 1 the stencil),
+// I, J, K}, as the launchers below use it: out as `write_plan`'s
+// (launch_plan.h).
+int himeno_plan(const int* args, int* out) {
+  if (args[0] != 0 && args[0] != 1) return (int)cudaErrorInvalidValue;
+  write_plan(plan_for(args[1], args[2], args[3]), out);
+  return 0;
+}
+
+// The attributes of that launch's kernel on the current device, and its
+// blocks an SM at that geometry: out as `write_attributes`'.
+int himeno_attributes(const int* args, int* out) {
+  if (args[0] != 0 && args[0] != 1) return (int)cudaErrorInvalidValue;
+  const void* fn = args[0] == 0 ? (const void*)himeno_kernel<true>
+                                : (const void*)himeno_kernel<false>;
+  return (int)write_attributes(fn, plan_for(args[1], args[2], args[3]), out);
 }
 
 int himeno_sweep_f32(const void* p, const void* a, const void* b,
                      const void* c, const void* bnd, const void* wrk1,
                      void* p_new, void* parts, int I, int J, int K,
                      float omega, void* stream) {
-  himeno_kernel<true><<<grid_for(I, J, K), dim3(TK, TJ), 0,
-                        (cudaStream_t)stream>>>(
+  const Plan pl = plan_for(I, J, K);
+  himeno_kernel<true><<<pl.grid, pl.block, pl.smem, (cudaStream_t)stream>>>(
       (const float*)p, (const float*)a, (const float*)b, (const float*)c,
       (const float*)bnd, (const float*)wrk1, (float*)p_new, (float*)parts, I,
       J, K, omega);
@@ -175,8 +197,8 @@ int himeno_stencil_f32(const void* p, const void* a, const void* b,
                        const void* c, const void* bnd, const void* wrk1,
                        void* ss, void* parts, int I, int J, int K,
                        void* stream) {
-  himeno_kernel<false><<<grid_for(I, J, K), dim3(TK, TJ), 0,
-                         (cudaStream_t)stream>>>(
+  const Plan pl = plan_for(I, J, K);
+  himeno_kernel<false><<<pl.grid, pl.block, pl.smem, (cudaStream_t)stream>>>(
       (const float*)p, (const float*)a, (const float*)b, (const float*)c,
       (const float*)bnd, (const float*)wrk1, (float*)ss, (float*)parts, I, J,
       K, 0.0f);

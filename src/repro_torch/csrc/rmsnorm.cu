@@ -51,6 +51,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "launch_plan.h"
+
 // The arguments of the gradient's launches, packed by the wrapper with
 // "=6Qiifiii" (kernels/rmsnorm/kernel.py `_pack_backward`).
 struct RmsBackArgs {
@@ -322,34 +324,98 @@ rmsnorm_dscale_kernel(const float* __restrict__ partial,
   }
 }
 
+// The forward's geometry for rows x d of dtype T: a block a row, of 32
+// threads up to 32 16-byte vectors a row, else BLOCK; `variant` the vectors
+// a thread holds (VPT), 0 where d is too wide
+template <typename T>
+Plan forward_plan(int rows, int d) {
+  const int nvec = d / Pack<T>::N;
+  Plan p{dim3(rows), dim3(BLOCK), 0, 0};
+  if (nvec <= 32)
+    p = Plan{dim3(rows), dim3(32), 0, 1};
+  else if (nvec <= 2 * BLOCK)
+    p.variant = 2;
+  else if (nvec <= 4 * BLOCK)
+    p.variant = 4;
+  else if (nvec <= 8 * BLOCK)
+    p.variant = 8;
+  return p;
+}
+
+template <typename T>
+const void* forward_kernel(int variant) {
+  switch (variant) {
+    case 1:
+      return (const void*)rmsnorm_kernel<T, 1, 32>;
+    case 2:
+      return (const void*)rmsnorm_kernel<T, 2, BLOCK>;
+    case 4:
+      return (const void*)rmsnorm_kernel<T, 4, BLOCK>;
+    case 8:
+      return (const void*)rmsnorm_kernel<T, 8, BLOCK>;
+    default:
+      return nullptr;
+  }
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const float* scale, void* y, int rows,
                    int d, float eps, cudaStream_t stream) {
-  const int nvec = d / Pack<T>::N;
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  const dim3 grid(rows);
-  if (nvec <= 32)
-    rmsnorm_kernel<T, 1, 32><<<grid, 32, 0, stream>>>(xt, scale, yt, d, eps);
-  else if (nvec <= 2 * BLOCK)
-    rmsnorm_kernel<T, 2, BLOCK><<<grid, BLOCK, 0, stream>>>(xt, scale, yt, d,
-                                                           eps);
-  else if (nvec <= 4 * BLOCK)
-    rmsnorm_kernel<T, 4, BLOCK><<<grid, BLOCK, 0, stream>>>(xt, scale, yt, d,
-                                                           eps);
-  else if (nvec <= 8 * BLOCK)
-    rmsnorm_kernel<T, 8, BLOCK><<<grid, BLOCK, 0, stream>>>(xt, scale, yt, d,
-                                                           eps);
-  else
-    return cudaErrorInvalidValue;
+  const Plan p = forward_plan<T>(rows, d);
+  switch (p.variant) {
+    case 1:
+      rmsnorm_kernel<T, 1, 32><<<p.grid, p.block, p.smem, stream>>>(
+          xt, scale, yt, d, eps);
+      break;
+    case 2:
+      rmsnorm_kernel<T, 2, BLOCK><<<p.grid, p.block, p.smem, stream>>>(
+          xt, scale, yt, d, eps);
+      break;
+    case 4:
+      rmsnorm_kernel<T, 4, BLOCK><<<p.grid, p.block, p.smem, stream>>>(
+          xt, scale, yt, d, eps);
+      break;
+    case 8:
+      rmsnorm_kernel<T, 8, BLOCK><<<p.grid, p.block, p.smem, stream>>>(
+          xt, scale, yt, d, eps);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
+// The gradient's first launch for d of dtype T on `blocks` blocks: its
+// tier as `variant` (1: 1 vector a thread, 32 threads; 2: 1, 128; 3: 1,
+// BLOCK; 4: 2, BLOCK; 5: 4, BLOCK; 6: 8, BLOCK; 0: d too wide)
+template <typename T>
+Plan backward_plan(int blocks, int d) {
+  const int nvec = d / Pack<T>::N;
+  const int tier = nvec <= 32          ? 1
+                   : nvec <= 128       ? 2
+                   : nvec <= BLOCK     ? 3
+                   : nvec <= 2 * BLOCK ? 4
+                   : nvec <= 4 * BLOCK ? 5
+                   : nvec <= 8 * BLOCK ? 6
+                                       : 0;
+  const int threads = tier == 1 ? 32 : tier == 2 ? 128 : BLOCK;
+  return Plan{dim3(blocks), dim3(threads), 0, tier};
+}
+
+// The gradient's second launch: DS_COLS columns a block
+Plan dscale_plan(int d) {
+  return Plan{dim3((d + DS_COLS - 1) / DS_COLS), dim3(DS_COLS * DS_GROUPS), 0,
+              0};
+}
+
 // With `blocks` set: the most blocks of this tier that are resident on the
-// current device at once. Otherwise both launches of the gradient.
+// current device at once. Otherwise both launches of the gradient, the
+// first by `p`.
 template <typename T, int VPT, int THREADS>
-cudaError_t backward_tier(const RmsBackArgs& a, cudaStream_t stream,
-                          int* blocks) {
+cudaError_t backward_tier(const RmsBackArgs& a, const Plan& p,
+                          cudaStream_t stream, int* blocks) {
   const auto kernel = rmsnorm_backward_kernel<T, VPT, THREADS>;
   if (blocks != nullptr) {
     int dev = 0, sms = 0, per = 0;
@@ -362,26 +428,56 @@ cudaError_t backward_tier(const RmsBackArgs& a, cudaStream_t stream,
     *blocks = sms * per;
     return err;
   }
-  kernel<<<a.blocks, THREADS, 0, stream>>>(
+  kernel<<<p.grid, p.block, p.smem, stream>>>(
       static_cast<const T*>(a.x), a.scale, static_cast<const T*>(a.g),
       static_cast<T*>(a.dx), a.partial, a.rows, a.d, a.eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rmsnorm_dscale_kernel<<<(a.d + DS_COLS - 1) / DS_COLS, DS_COLS * DS_GROUPS,
-                          0, stream>>>(a.partial, a.dscale, a.blocks, a.d);
+  const Plan q = dscale_plan(a.d);
+  rmsnorm_dscale_kernel<<<q.grid, q.block, q.smem, stream>>>(
+      a.partial, a.dscale, a.blocks, a.d);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t backward(const RmsBackArgs& a, cudaStream_t stream, int* blocks) {
-  const int nvec = a.d / Pack<T>::N;
-  if (nvec <= 32) return backward_tier<T, 1, 32>(a, stream, blocks);
-  if (nvec <= 128) return backward_tier<T, 1, 128>(a, stream, blocks);
-  if (nvec <= BLOCK) return backward_tier<T, 1, BLOCK>(a, stream, blocks);
-  if (nvec <= 2 * BLOCK) return backward_tier<T, 2, BLOCK>(a, stream, blocks);
-  if (nvec <= 4 * BLOCK) return backward_tier<T, 4, BLOCK>(a, stream, blocks);
-  if (nvec <= 8 * BLOCK) return backward_tier<T, 8, BLOCK>(a, stream, blocks);
-  return cudaErrorInvalidValue;
+  const Plan p = backward_plan<T>(a.blocks, a.d);
+  switch (p.variant) {
+    case 1:
+      return backward_tier<T, 1, 32>(a, p, stream, blocks);
+    case 2:
+      return backward_tier<T, 1, 128>(a, p, stream, blocks);
+    case 3:
+      return backward_tier<T, 1, BLOCK>(a, p, stream, blocks);
+    case 4:
+      return backward_tier<T, 2, BLOCK>(a, p, stream, blocks);
+    case 5:
+      return backward_tier<T, 4, BLOCK>(a, p, stream, blocks);
+    case 6:
+      return backward_tier<T, 8, BLOCK>(a, p, stream, blocks);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+const void* backward_kernel(int variant) {
+  switch (variant) {
+    case 1:
+      return (const void*)rmsnorm_backward_kernel<T, 1, 32>;
+    case 2:
+      return (const void*)rmsnorm_backward_kernel<T, 1, 128>;
+    case 3:
+      return (const void*)rmsnorm_backward_kernel<T, 1, BLOCK>;
+    case 4:
+      return (const void*)rmsnorm_backward_kernel<T, 2, BLOCK>;
+    case 5:
+      return (const void*)rmsnorm_backward_kernel<T, 4, BLOCK>;
+    case 6:
+      return (const void*)rmsnorm_backward_kernel<T, 8, BLOCK>;
+    default:
+      return nullptr;
+  }
 }
 
 cudaError_t backward_any(const RmsBackArgs& a, cudaStream_t stream,
@@ -390,6 +486,33 @@ cudaError_t backward_any(const RmsBackArgs& a, cudaStream_t stream,
   if (a.dtype == 0) return backward<float>(a, stream, blocks);
   if (a.dtype == 1) return backward<__nv_bfloat16>(a, stream, blocks);
   return cudaErrorInvalidValue;
+}
+
+// The plan and the kernel of a launch at args = {which (0 the forward, 1
+// the gradient's first kernel, 2 its dscale kernel), rows, d, dtype (0 f32,
+// 1 bf16), blocks (the gradient's grid)}; false for arguments no launcher
+// takes
+bool plan_of(const int* args, Plan* p, const void** fn) {
+  const int which = args[0], rows = args[1], d = args[2], dtype = args[3];
+  if (d <= 0 || (dtype != 0 && dtype != 1)) return false;
+  const bool bf16 = dtype == 1;
+  if (which == 0) {
+    *p = bf16 ? forward_plan<__nv_bfloat16>(rows, d)
+              : forward_plan<float>(rows, d);
+    *fn = bf16 ? forward_kernel<__nv_bfloat16>(p->variant)
+               : forward_kernel<float>(p->variant);
+  } else if (which == 1) {
+    *p = bf16 ? backward_plan<__nv_bfloat16>(args[4], d)
+              : backward_plan<float>(args[4], d);
+    *fn = bf16 ? backward_kernel<__nv_bfloat16>(p->variant)
+               : backward_kernel<float>(p->variant);
+  } else if (which == 2) {
+    *p = dscale_plan(d);
+    *fn = (const void*)rmsnorm_dscale_kernel;
+  } else {
+    return false;
+  }
+  return *fn != nullptr;
 }
 
 }  // namespace
@@ -454,6 +577,25 @@ int rmsnorm_backward(const RmsBackArgs* a, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       backward_any(*a, static_cast<cudaStream_t>(stream), nullptr));
+}
+
+// The geometry of a launch (`plan_of`'s args), as the launchers above use
+// it: out as launch_plan.h `write_plan`'s.
+int rmsnorm_plan(const int* args, int* out) {
+  Plan p;
+  const void* fn;
+  if (!plan_of(args, &p, &fn)) return static_cast<int>(cudaErrorInvalidValue);
+  write_plan(p, out);
+  return 0;
+}
+
+// The attributes of that launch's kernel on the current device, and its
+// blocks an SM at that geometry: out as `write_attributes`'.
+int rmsnorm_attributes(const int* args, int* out) {
+  Plan p;
+  const void* fn;
+  if (!plan_of(args, &p, &fn)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(write_attributes(fn, p, out));
 }
 
 }  // extern "C"

@@ -155,6 +155,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "launch_plan.h"
+
 // The arguments of one launch in one buffer, which the wrapper packs with
 // Python's struct format "=8Q4i6q" (kernels/wkv/kernel.py `_pack`): ctypes
 // converts one pointer argument in a fraction of the time it takes for
@@ -1186,19 +1188,25 @@ wkv_backward_kernel(const WkvBackArgs a) {
   if (tid < R) a.du[(int64_t)bh * D + i0 + tid] = du;
 }
 
+// a block a group of R rows of a head's state
+template <int D, int NR, int WARPS>
+Plan plan(int B, int H) {
+  using L = Layout<D, NR, WARPS>;
+  return Plan{dim3(L::RG, B * H), dim3(L::THREADS), (unsigned)L::SMEM, 0};
+}
+
 template <int D, int NR, int WARPS>
 cudaError_t launch(const WkvBackArgs& a, cudaStream_t stream) {
-  using L = Layout<D, NR, WARPS>;
+  const Plan p = plan<D, NR, WARPS>(a.B, a.H);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         wkv_backward_kernel<D, NR, WARPS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid(L::RG, a.B * a.H);
-  wkv_backward_kernel<D, NR, WARPS><<<grid, L::THREADS, L::SMEM, stream>>>(a);
+  wkv_backward_kernel<D, NR, WARPS><<<p.grid, p.block, p.smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1935,12 +1943,35 @@ wkv_chunk_backward_kernel(const WkvBackArgs a) {
   BACK_END;
 }
 
+// the carry: a block a (b h, direction)
+Plan carry_plan(int B, int H) {
+  return Plan{dim3(B * H, 2), dim3(THREADS), (unsigned)CARRY_SMEM, 0};
+}
+
+// the chunks' gradients: a block a (chunk, b h)
+Plan chunk_plan(int B, int H, int S) {
+  return Plan{dim3((S + C - 1) / C, B * H), dim3(THREADS),
+              (unsigned)BACK_SMEM, 0};
+}
+
 }  // namespace cback
+
+// the chunked forward: a block NJ value columns of a head
+Plan chunk_forward_plan(int B, int H) {
+  return Plan{dim3(chunk::D / chunk::NJ, B * H), dim3(chunk::THREADS),
+              (unsigned)chunk::SMEM, 0};
+}
+
+// the sequential forward: a block COLS value columns of a head
+template <int D, int SPLIT, int COLS, int T>
+Plan forward_plan(int B, int H) {
+  return Plan{dim3(D / COLS, B * H), dim3(COLS * SPLIT), 0, 0};
+}
 
 template <int D, int SPLIT, int COLS, int T>
 cudaError_t launch(const WkvArgs& a, cudaStream_t stream) {
-  const dim3 grid(D / COLS, a.B * a.H);
-  wkv_kernel<D, SPLIT, COLS, T><<<grid, COLS * SPLIT, 0, stream>>>(
+  const Plan p = forward_plan<D, SPLIT, COLS, T>(a.B, a.H);
+  wkv_kernel<D, SPLIT, COLS, T><<<p.grid, p.block, p.smem, stream>>>(
       a.r, a.k, a.v, a.lw, a.u, a.state_in, a.state_out, a.out, a.H, a.S,
       a.in_sb, a.in_sh, a.in_ss, a.out_sb, a.out_sh, a.out_ss);
   return cudaGetLastError();
@@ -1989,6 +2020,57 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const float* ptr,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The plan and the kernel of a launch at args = {which, B, H, S, D}: which
+// 0 the sequential forward, 1 the chunked forward, 2 the sequential
+// backward, 3 the chunked backward's carry, 4 its chunks' kernel; the
+// instances `wkv_forward` and `wkv_backward` below launch at each D
+cudaError_t plan_of(const int* a, Plan* p, const void** fn) {
+  const int B = a[1], H = a[2], S = a[3], D = a[4];
+  if (B <= 0 || H <= 0 || S <= 0 || (int64_t)B * H > 65535)
+    return cudaErrorInvalidValue;
+  switch (a[0]) {
+    case 0:
+      if (D == 16) {
+        *p = forward_plan<16, 4, 16, 64>(B, H);
+        *fn = (const void*)wkv_kernel<16, 4, 16, 64>;
+      } else if (D == 64) {
+        *p = forward_plan<64, 8, 16, 32>(B, H);
+        *fn = (const void*)wkv_kernel<64, 8, 16, 32>;
+      } else {
+        return cudaErrorInvalidValue;
+      }
+      return cudaSuccess;
+    case 2:
+      if (D == 16) {
+        *p = back::plan<16, 2, 4>(B, H);
+        *fn = (const void*)back::wkv_backward_kernel<16, 2, 4>;
+      } else if (D == 64) {
+        *p = back::plan<64, 4, 8>(B, H);
+        *fn = (const void*)back::wkv_backward_kernel<64, 4, 8>;
+      } else {
+        return cudaErrorInvalidValue;
+      }
+      return cudaSuccess;
+  }
+  if (D != chunk::D) return cudaErrorInvalidValue;
+  switch (a[0]) {
+    case 1:
+      *p = chunk_forward_plan(B, H);
+      *fn = (const void*)chunk::wkv_chunk_kernel;
+      return cudaSuccess;
+    case 3:
+      *p = cback::carry_plan(B, H);
+      *fn = (const void*)cback::wkv_carry_kernel;
+      return cudaSuccess;
+    case 4:
+      *p = cback::chunk_plan(B, H, S);
+      *fn = (const void*)cback::wkv_chunk_backward_kernel;
+      return cudaSuccess;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -2041,8 +2123,8 @@ int wkv_forward_tc(const WkvArgs* a, void* stream) {
       !tensor_map(encode, &lm, a->lw, *a, chunk::LDR) ||
       !tensor_map(encode, &vm, a->v, *a, chunk::NJ))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(chunk::D / chunk::NJ, a->B * a->H);
-  chunk::wkv_chunk_kernel<<<grid, chunk::THREADS, chunk::SMEM,
+  const Plan p = chunk_forward_plan(a->B, a->H);
+  chunk::wkv_chunk_kernel<<<p.grid, p.block, p.smem,
                             static_cast<cudaStream_t>(stream)>>>(rm, km, lm,
                                                                  vm, *a);
   return static_cast<int>(cudaGetLastError());
@@ -2087,14 +2169,33 @@ int wkv_backward_tc(const WkvBackArgs* a, void* stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int nc = (a->S + chunk::C - 1) / chunk::C;
-  cback::wkv_carry_kernel<<<dim3(a->B * a->H, 2), cback::THREADS,
-                            cback::CARRY_SMEM, s>>>(*a);
+  const Plan pc = cback::carry_plan(a->B, a->H),
+             pb = cback::chunk_plan(a->B, a->H, a->S);
+  cback::wkv_carry_kernel<<<pc.grid, pc.block, pc.smem, s>>>(*a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  cback::wkv_chunk_backward_kernel<<<dim3(nc, a->B * a->H), cback::THREADS,
-                                     cback::BACK_SMEM, s>>>(*a);
+  cback::wkv_chunk_backward_kernel<<<pb.grid, pb.block, pb.smem, s>>>(*a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The geometry of a launch (`plan_of`'s args), as the launchers above use
+// it: out as launch_plan.h `write_plan`'s.
+int wkv_plan(const int* args, int* out) {
+  Plan p;
+  const void* fn;
+  const cudaError_t err = plan_of(args, &p, &fn);
+  if (err == cudaSuccess) write_plan(p, out);
+  return static_cast<int>(err);
+}
+
+// The attributes of that launch's kernel on the current device, and its
+// blocks an SM at that geometry: out as `write_attributes`'.
+int wkv_attributes(const int* args, int* out) {
+  Plan p;
+  const void* fn;
+  cudaError_t err = plan_of(args, &p, &fn);
+  if (err == cudaSuccess) err = write_attributes(fn, p, out);
+  return static_cast<int>(err);
 }
 
 // The backward's layout at head dim D: out[0] the blocks of rows a head

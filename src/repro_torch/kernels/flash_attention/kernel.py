@@ -45,11 +45,12 @@ f32 backward. Its plain version is ``ops.flash_attention_backward`` given
 ``o`` and ``lse``.
 
 A tensor on the CPU takes the plain PyTorch version. A CUDA tensor
-launches a kernel or raises; nothing falls back. A fake tensor (the dry
-run's, ``kernels/_build.py``) gets fake outputs and the kernel's ``cost``
-(or ``backward_cost``) counted, the pairs its mask lets through, with
-neither a launch nor the plain version. The wrappers count every
-launch in ``flash_attention_cuda.launches`` and
+launches a kernel or raises; nothing falls back. A fake tensor, on the CPU
+or the card (``kernels/_build.py``), gets fake outputs and its launches
+recorded (``record_fake``: the kernel's ``cost`` or ``backward_cost``, the
+pairs its mask lets through, and ``launch_plan``'s geometry, which mirrors
+the source's plan functions), with neither a launch nor the plain version.
+The wrappers count every launch in ``flash_attention_cuda.launches`` and
 ``flash_attention_backward_cuda.launches``, the tensor-core kernels' in
 ``launches_tc`` of each.
 """
@@ -60,8 +61,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary, count_fake, \
-    count_launch, is_fake, reset_counts
+from repro_torch.kernels._build import CapturedLaunch, KernelLibrary, \
+    Tile, count_launch, is_fake, record_fake, reset_counts
 from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
                                                      attention_ref)
 
@@ -72,6 +73,13 @@ MAX_GRID_Y = 65535  # batch * heads: the scalar kernel's second grid axis
 # the backward's per-row stats scratch holds S rows a head padded to a
 # multiple of this, the tensor-core dQ kernel's tile
 STATS_ROWS = 128
+# the source's tiles: the scalar kernels' 64 rows (of 256 threads, a P
+# tile of 64 + 4 floats a row), the tensor-core forward's 128 (of three
+# warpgroups, a ring of 3 stages of K and V in TMA boxes of 128 rows x 128
+# bytes), its backward's 128 rows kept and 64 streamed (two warpgroups)
+SCALAR_ROWS, SCALAR_THREADS, PSTR = 64, 256, 64 + 4
+TC_ROWS, TC_THREADS, TC_STAGES, BOX = 128, 384, 3, 128 * 128
+BWD_SMALL_ROWS, BWD_THREADS = 64, 256
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
@@ -132,6 +140,120 @@ def backward_cost(b: int, h: int, kh: int, s: int, d: int, dtype_bytes: int,
     return flops, nbytes
 
 
+def _tc_smem(d: int, backward: bool) -> int:
+    """Dynamic shared memory of a tensor-core kernel at head dim ``d``
+    (``Smem``/``BwdSmem`` in the source): tiles of D padded to whole 64
+    columns, and 1024 bytes of slack to align them."""
+    boxes = -(-d // 64)
+    if not backward:
+        return boxes * BOX * (1 + 2 * TC_STAGES) + 1024
+    big, small = boxes * BOX, boxes * BWD_SMALL_ROWS * 128
+    return 2 * big + TC_STAGES * 2 * small + TC_STAGES * 64 * 8 + 1024
+
+
+def launch_plan(b: int, h: int, kh: int, sq: int, sk: int, d: int,
+                dtype: torch.dtype, *, lse: bool = False,
+                backward: bool = False) -> list[CapturedLaunch]:
+    """The launches ``flash_attention_cuda`` (or, with ``backward``,
+    ``flash_attention_backward_cuda``, where sq = sk = S) makes over q
+    (b, h, sq, d) and k, v (b, kh, sk, d) of ``dtype``, as the source's
+    ``forward_plan``, ``prep_plan``, ``dkdv_plan`` and ``dq_plan`` (and
+    their ``tc::`` counterparts) make them, on ``kernel_for``'s kernel.
+    Query tiles run heavy (late) first, as the kernels order them."""
+    tc = kernel_for(dtype, d) == "tensor_core"
+    g = h // kh
+    code = DTYPES[dtype]
+    f32 = torch.float32
+
+    def whole(name, shape, dt):
+        return Tile(name, shape, dt, shape, lambda x, y, z: (0,) * len(shape))
+
+    def rows(name, heads, n, tile, at, dt=dtype, written=False, cols=d):
+        """A (b, heads, n, cols) operand in tiles of ``tile`` rows, block
+        (x, y) at (head, tile) = at(x, y, grid)."""
+        shape = (b, heads, n, cols) if cols else (b, heads, n)
+        block = (1, 1, tile, cols) if cols else (1, 1, tile)
+
+        def index(x, y, z):
+            hh, t = at(x, y)
+            return (hh // heads, hh % heads, t) + ((0,) if cols else ())
+        return Tile(name, shape, dt, block, index, written=written)
+
+    if not backward:
+        if tc:
+            gy = -(-sq // TC_ROWS)
+            at = (lambda x, y: (x, gy - 1 - y))
+            grid, threads, smem, tile = ((b * h, gy, 1), TC_THREADS,
+                                         _tc_smem(d, False), TC_ROWS)
+            name, which, flag = "flash_fwd_tc", 1, int(lse)
+        else:
+            gx = -(-sq // SCALAR_ROWS)
+            at = (lambda x, y: (y, gx - 1 - x))
+            grid, threads, tile = ((gx, b * h, 1), SCALAR_THREADS,
+                                   SCALAR_ROWS)
+            smem = 4 * (2 * 64 * (d + 4) + SCALAR_ROWS * PSTR)
+            name, which, flag = "flash_fwd_kernel", 0, code
+
+        def kv_head(x, y, z):
+            hh = at(x, y)[0]
+            return (hh // h, hh % h // g, 0, 0)
+
+        ops = [rows("q", h, sq, tile, at),
+               Tile("k", (b, kh, sk, d), dtype, (1, 1, sk, d), kv_head),
+               Tile("v", (b, kh, sk, d), dtype, (1, 1, sk, d), kv_head),
+               rows("o", h, sq, tile, at, written=True)]
+        if lse:
+            ops.append(rows("lse", h, sq, tile, at, f32, True, cols=0))
+        return [CapturedLaunch(name, grid, (threads, 1, 1), smem, True,
+                               threads, ops, LIBRARY,
+                               (which, b, h, kh, sq, sk, d, flag))]
+    s = sq
+    sp = -(-s // STATS_ROWS) * STATS_ROWS
+    stat_rows = b * h * sp
+    prep_blocks = -(-stat_rows * 32 // SCALAR_THREADS)
+    warps = SCALAR_THREADS // 32
+    prep = CapturedLaunch(
+        "flash_bwd_prep", (prep_blocks, 1, 1), (SCALAR_THREADS, 1, 1), 0,
+        False, SCALAR_THREADS,
+        [whole("o", (b, h, s, d), dtype), whole("do", (b, h, s, d), dtype),
+         whole("lse", (b, h, s), f32),
+         Tile("stats", (stat_rows * 2,), f32, (2 * warps,),
+              lambda x, y, z: (x,), written=True)],
+        LIBRARY, (5 if tc else 2, b, h, kh, s, s, d, code))
+    stats = whole("stats", (stat_rows * 2,), f32)
+    if tc:
+        tiles = -(-s // TC_ROWS)
+        grid_kv, grid_q = (b * kh, tiles, 1), (b * h, tiles, 1)
+        at_kv, at_q = (lambda x, y: (x, y)), (lambda x, y: (x, tiles - 1 - y))
+        tile, threads, smem = TC_ROWS, BWD_THREADS, _tc_smem(d, True)
+        smem_kv = smem_q = smem
+        names, which = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc"), (6, 7)
+    else:
+        tiles = -(-s // SCALAR_ROWS)
+        grid_kv, grid_q = (tiles, b * kh, 1), (tiles, b * h, 1)
+        at_kv, at_q = (lambda x, y: (y, x)), (lambda x, y: (y, tiles - 1 - x))
+        tile, threads = SCALAR_ROWS, SCALAR_THREADS
+        smem_kv = 4 * (4 * 64 * (d + 4) + 2 * 64 * PSTR + 2 * SCALAR_ROWS)
+        smem_q = 4 * (4 * 64 * (d + 4) + SCALAR_ROWS * PSTR
+                      + 2 * SCALAR_ROWS)
+        names, which = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"), (3, 4)
+    args = (b, h, kh, s, s, d, code)
+    dkdv = CapturedLaunch(
+        names[0], grid_kv, (threads, 1, 1), smem_kv, True, threads,
+        [whole("q", (b, h, s, d), dtype), whole("do", (b, h, s, d), dtype),
+         stats, rows("k", kh, s, tile, at_kv), rows("v", kh, s, tile, at_kv),
+         rows("dk", kh, s, tile, at_kv, written=True),
+         rows("dv", kh, s, tile, at_kv, written=True)],
+        LIBRARY, (which[0],) + args)
+    dq = CapturedLaunch(
+        names[1], grid_q, (threads, 1, 1), smem_q, True, threads,
+        [rows("q", h, s, tile, at_q), rows("do", h, s, tile, at_q), stats,
+         whole("k", (b, kh, s, d), dtype), whole("v", (b, kh, s, d), dtype),
+         rows("dq", h, s, tile, at_q, written=True)],
+        LIBRARY, (which[1],) + args)
+    return [prep, dkdv, dq]
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_forward.argtypes = [ptr] * 5 + [i32] * 7 + [
@@ -157,7 +279,7 @@ _tensor_core_backward = LIBRARY.launcher("flash_attention_backward_tc")
 
 def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Check the operands (their lengths apart: ``_lengths``); True for
-    CUDA tensors, False for CPU tensors."""
+    CUDA tensors, False for CPU tensors and fake ones."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B,H,Sq,D) and k, v (B,K,Sk,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -182,8 +304,7 @@ def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     if b * h > MAX_GRID_Y:
         raise ValueError(f"the flash kernel takes B*H <= {MAX_GRID_Y}, got "
                          f"{b * h}")
-    _laid_out(q, k, v)
-    return True
+    return _laid_out(q, k, v)
 
 
 def _lengths(q: torch.Tensor, k: torch.Tensor, causal: bool,
@@ -198,11 +319,18 @@ def _lengths(q: torch.Tensor, k: torch.Tensor, causal: bool,
                          f"Sq <= Sk")
 
 
-def _laid_out(*ops: torch.Tensor) -> None:
+def _laid_out(*ops: torch.Tensor) -> bool:
+    """Check that the operands are contiguous and 16-byte aligned; False
+    where they are fake (their pointers read 0: nothing to align)."""
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("the flash kernel takes contiguous operands")
-    if any(t.data_ptr() % 16 for t in ops):
+    try:
+        ptrs = [t.data_ptr() for t in ops]
+    except RuntimeError:  # a fake tensor's, where reading it raises
+        ptrs = [0]
+    if any(p % 16 for p in ptrs):
         raise ValueError("the flash kernel takes 16-byte aligned operands")
+    return all(ptrs) or not is_fake(ops[0])
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -221,10 +349,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_card:
         if is_fake(q):
             b, h, sq, d = q.shape
+            kh, sk = k.shape[1], k.shape[2]
             if q.numel():
-                count_fake("flash_attention", *cost(
-                    b, h, k.shape[1], sq, k.shape[2], d, q.element_size(),
-                    causal, window, q_offset, return_lse))
+                record_fake("flash_attention", *cost(
+                    b, h, kh, sq, sk, d, q.element_size(), causal, window,
+                    q_offset, return_lse), (q, k, v),
+                    lambda: launch_plan(b, h, kh, sq, sk, d, q.dtype,
+                                        lse=return_lse))
             out = torch.empty_like(q)
             if not return_lse:
                 return out
@@ -292,10 +423,13 @@ def flash_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
     if not on_card:
         if is_fake(q):
             b, h, s, d = q.shape
+            kh = k.shape[1]
             if q.numel():
-                count_fake("flash_attention_backward", *backward_cost(
-                    b, h, k.shape[1], s, d, q.element_size(), causal,
-                    window))
+                record_fake("flash_attention_backward", *backward_cost(
+                    b, h, kh, s, d, q.element_size(), causal, window),
+                    (q, k, v, o, lse, do),
+                    lambda: launch_plan(b, h, kh, s, s, d, q.dtype,
+                                        backward=True))
             return tuple(torch.empty_like(t) for t in (q, k, v))
         from repro_torch.kernels.flash_attention.ops import \
             flash_attention_backward

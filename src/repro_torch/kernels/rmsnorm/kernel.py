@@ -11,9 +11,12 @@ held to (2e-5 in f32, one bf16 ulp in bf16).
 
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
 tensor launches the kernel or raises; nothing falls back. The wrapper
-counts its launches in ``rms_norm_cuda.launches``. A fake tensor (the dry
-run's, ``kernels/_build.py``) gets a fake output and the kernel's
-``cost`` counted, with neither a launch nor the plain version.
+counts its launches in ``rms_norm_cuda.launches``. A fake tensor, on the
+CPU or the card (``kernels/_build.py``), gets a fake output and its launch
+recorded (``record_fake``: the kernel's ``cost``, and ``launch_plan``'s
+geometry, which mirrors ``forward_plan``, ``backward_plan`` and
+``dscale_plan`` in the source), with neither a launch nor the plain
+version.
 
 ``rms_norm_backward_cuda`` launches the gradient (``rmsnorm_backward`` in
 the source, two kernels: dx with each block's partial dscale, then the
@@ -30,22 +33,30 @@ library's launcher, bound once, reads the raw stream handle and switches
 device only when x is not on the current one; the seven arguments go to
 the kernel packed into one buffer by ``struct`` (``RmsArgs`` in the
 source), which ctypes passes as one pointer instead of converting each;
-the error check is one comparison when the launch succeeds.
+the error check is one comparison when the launch succeeds. A fake tensor
+leaves it where its pointer reads 0, inside the alignment test.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import struct
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary, count_fake, \
-    count_launch, is_fake, reset_counts
+from repro_torch.kernels._build import CapturedLaunch, KernelLibrary, \
+    Tile, count_launch, fake_on_card, is_fake, record_fake, reset_counts
 from repro_torch.kernels.rmsnorm.ref import (rms_norm_backward_ref,
                                              rms_norm_ref)
 
-MAX_VECTORS = 8 * 256  # 16-byte vectors a row may hold (8 a thread, 256)
+BLOCK = 256  # threads of a block but for the narrowest rows' 32
+MAX_VECTORS = 8 * BLOCK  # 16-byte vectors a row may hold (8 a thread)
+DS_COLS, DS_GROUPS = 32, 8  # the gradient's dscale kernel: columns, warps
+# SMs of an H100 and its most resident threads an SM: where no card can be
+# asked, the gradient's grid of a plan (``backward_blocks``) is taken as
+# the blocks of its size these admit
+H100_SMS, SM_THREADS = 132, 2048
 # RmsArgs in rmsnorm.cu: x, scale, y, rows, d, eps (f32), dtype (0 = f32,
 # 1 = bf16), in native byte order without padding
 _pack = struct.Struct("=QQQiifi").pack
@@ -91,6 +102,76 @@ def backward_cost(shape, dtype_bytes: int) -> tuple[int, int]:
     return 10 * n, 3 * n * dtype_bytes + 8 * shape[-1]
 
 
+def _vectors(d: int, dtype: torch.dtype) -> int:
+    """16-byte vectors a row of ``d`` elements of ``dtype`` holds."""
+    return d // (8 if dtype is torch.bfloat16 else 4)
+
+
+def launch_plan(shape, dtype: torch.dtype, *, backward: bool = False,
+                blocks: Optional[int] = None) -> list[CapturedLaunch]:
+    """The launches ``rms_norm_cuda`` (or, with ``backward``,
+    ``rms_norm_backward_cuda``) makes over x of ``shape`` and ``dtype``, as
+    the source's ``forward_plan`` (and ``backward_plan``, ``dscale_plan``)
+    makes them: a block a row, of 32 threads up to 32 vectors a row, else
+    256; the gradient on ``blocks`` blocks (None: the wrapper's
+    ``backward_blocks`` on the card, else ``H100_SMS`` times the blocks of
+    its size an SM holds), each taking every ``blocks``-th row, then one
+    block each 32 columns of dscale."""
+    d = shape[-1]
+    rows = 1
+    for side in shape[:-1]:
+        rows *= side
+    nvec = _vectors(d, dtype)
+    code = int(dtype is torch.bfloat16)
+    rows_of = (lambda x, y, z: (x, 0))
+    if not backward:
+        threads = 32 if nvec <= 32 else BLOCK
+        return [CapturedLaunch(
+            "rmsnorm_forward", (rows, 1, 1), (threads, 1, 1), 0, False,
+            threads,
+            [Tile("x", (rows, d), dtype, (1, d), rows_of),
+             Tile("scale", (d,), torch.float32, (d,), lambda x, y, z: (0,)),
+             Tile("y", (rows, d), dtype, (1, d), rows_of, written=True)],
+            LIBRARY, (0, rows, d, code, 0, 0, 0, 0))]
+    threads = 32 if nvec <= 32 else 128 if nvec <= 128 else BLOCK
+    if blocks is None:
+        blocks = (backward_blocks(0, d, bool(code))
+                  if torch.cuda.is_available()
+                  else H100_SMS * min(SM_THREADS // threads, 32))
+    blocks = min(rows, blocks)
+
+    def strided(x, y, z):  # the rows a block of the persistent grid takes
+        return [(r, 0) for r in range(x, rows, blocks)]
+
+    scale = Tile("scale", (d,), torch.float32, (d,), lambda x, y, z: (0,))
+    return [
+        CapturedLaunch(
+            "rmsnorm_backward", (blocks, 1, 1), (threads, 1, 1), 0, False,
+            threads,
+            [Tile("x", (rows, d), dtype, (1, d), strided), scale,
+             Tile("g", (rows, d), dtype, (1, d), strided),
+             Tile("dx", (rows, d), dtype, (1, d), strided, written=True),
+             Tile("partial", (blocks, d), torch.float32, (1, d), rows_of,
+                  written=True)],
+            LIBRARY, (1, rows, d, code, blocks, 0, 0, 0)),
+        CapturedLaunch(
+            "rmsnorm_dscale", (-(-d // DS_COLS), 1, 1),
+            (DS_COLS * DS_GROUPS, 1, 1), 0, False, DS_COLS * DS_GROUPS,
+            [Tile("partial", (blocks, d), torch.float32, (blocks, DS_COLS),
+                  lambda x, y, z: (0, x)),
+             Tile("dscale", (d,), torch.float32, (DS_COLS,),
+                  lambda x, y, z: (x,), written=True)],
+            LIBRARY, (2, rows, d, code, blocks, 0, 0, 0))]
+
+
+def _fake(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The forward on fake tensors: its launch recorded, a fake y."""
+    if x.numel():
+        record_fake("rms_norm", *cost(x.shape, x.element_size()), (x, scale),
+                    lambda: launch_plan(tuple(x.shape), x.dtype))
+    return torch.empty_like(x)
+
+
 def _on_card(x: torch.Tensor, scale: torch.Tensor) -> int:
     """Check the operands (all but their alignment, which the wrapper checks
     on the pointers it passes); return the CUDA device index for tensors on
@@ -134,13 +215,18 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, *,
     device = _on_card(x, scale)
     if device < 0:
         if is_fake(x):
-            if x.numel():
-                count_fake("rms_norm", *cost(x.shape, x.element_size()))
-            return torch.empty_like(x)
+            return _fake(x, scale)
         return rms_norm_ref(x, scale, eps=eps)
-    xp, sp = x.data_ptr(), scale.data_ptr()
-    if xp % 16 or sp % 16:
-        raise ValueError("the RMSNorm kernel takes 16-byte aligned operands")
+    try:
+        xp, sp = x.data_ptr(), scale.data_ptr()
+    except RuntimeError:  # a fake tensor's, where reading it raises
+        xp = sp = 0
+    if xp % 16 or sp % 16 or not xp:
+        if is_fake(x):
+            return _fake(x, scale)
+        if xp % 16 or sp % 16:
+            raise ValueError("the RMSNorm kernel takes 16-byte aligned "
+                             "operands")
     y = torch.empty_like(x)
     d = x.shape[-1]
     rows = x.numel() // d
@@ -181,17 +267,14 @@ def rms_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
         if g.device != x.device:
             raise ValueError("x and g must lie on one device")
         if is_fake(x):
-            if x.numel():
-                count_fake("rms_norm_backward",
-                           *backward_cost(x.shape, x.element_size()))
-            return (torch.empty_like(x),
-                    torch.empty((x.shape[-1],), dtype=torch.float32,
-                                device=x.device))
+            return _fake_backward(x, scale, g)
         return rms_norm_backward_ref(x, scale, g, eps)
     if g.get_device() != device:
         raise ValueError("x and g must lie on one device")
     if not g.is_contiguous():
         raise ValueError("the RMSNorm gradient kernel takes a contiguous g")
+    if fake_on_card(x):
+        return _fake_backward(x, scale, g)
     d = x.shape[-1]
     rows = x.numel() // d
     dx = torch.empty_like(x)
@@ -212,6 +295,19 @@ def rms_norm_backward_cuda(x: torch.Tensor, scale: torch.Tensor,
 
 
 rms_norm_backward_cuda.launches = 0
+
+
+def _fake_backward(x, scale, g):
+    """The gradient on fake tensors: its launches recorded, fake dx and
+    dscale."""
+    if x.numel():
+        record_fake("rms_norm_backward",
+                    *backward_cost(x.shape, x.element_size()), (x, scale, g),
+                    lambda: launch_plan(tuple(x.shape), x.dtype,
+                                        backward=True))
+    return (torch.empty_like(x),
+            torch.empty((x.shape[-1],), dtype=torch.float32,
+                        device=x.device))
 
 
 def reset_launches() -> None:

@@ -29,9 +29,11 @@ with any strides whose last is 1 (the model hands over views of its
 A tensor on the CPU takes the plain PyTorch version in ``ref.py``. A CUDA
 tensor launches a kernel or raises; nothing falls back. The wrapper counts
 every launch in ``wkv_cuda.launches`` and the tensor-core kernel's in
-``wkv_cuda.launches_tc``. A fake tensor (the dry run's,
-``kernels/_build.py``) gets fake outputs and the kernel's ``cost`` (or
-``backward_cost``) counted, with neither a launch nor the plain version.
+``wkv_cuda.launches_tc``. A fake tensor, on the CPU or the card
+(``kernels/_build.py``), gets fake outputs and its launches recorded
+(``record_fake``: the kernel's ``cost`` or ``backward_cost``, and
+``launch_plan``'s geometry, which mirrors the source's plan functions),
+with neither a launch nor the plain version.
 
 ``wkv_backward_cuda`` launches the backward (its plain version is
 ``wkv_backward_ref``): the gradient of out with no initial state and none
@@ -50,7 +52,8 @@ The launch path is short, since a decode step calls it 24 times
 card): the checks read ``is_cuda`` and ``get_device()`` rather than
 ``torch.device`` objects, and the fifteen arguments go to the kernel packed
 into one buffer by ``struct`` (``WkvArgs`` in the source), which ctypes
-passes as one pointer.
+passes as one pointer. A fake tensor leaves it where its pointers read 0,
+inside the alignment test.
 """
 from __future__ import annotations
 
@@ -60,8 +63,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import KernelLibrary, count_fake, \
-    count_launch, is_fake, reset_counts
+from repro_torch.kernels._build import CapturedLaunch, KernelLibrary, \
+    Tile, count_launch, fake_on_card, is_fake, record_fake, reset_counts
 from repro_torch.kernels.wkv.ref import CHUNK, wkv_backward_ref, wkv_ref
 
 HEAD_DIMS = (16, 64)
@@ -72,6 +75,15 @@ MAX_GRID_Y = 65535  # batch * heads: the grid's second axis
 # B, H, S, D; the strides (b, h, s) of r, k, v, lw, then of out; in native
 # byte order without padding
 _pack = struct.Struct("=8Q4i6q").pack
+# the source's launch shapes: the sequential forward's (SPLIT, COLS) a
+# head dim (wkv_forward's instances: COLS value columns a block, COLS *
+# SPLIT threads), the sequential backward's (NR, WARPS) (wkv_backward's),
+# and the chunked kernels' value columns a block (NJ), threads, and row
+# stride of their shared tiles (LDR, floats)
+SEQ = {16: (4, 16), 64: (8, 16)}
+BACK = {16: (2, 4), 64: (4, 8)}
+NJ, TC_THREADS, LDR = 32, 256, TC_HEAD_DIM + 4
+SEGMENT = 16  # tokens a segment of the sequential backward
 
 
 def cost(b: int, h: int, s: int, d: int, state: bool) -> tuple[int, int]:
@@ -99,6 +111,126 @@ def backward_cost(b: int, h: int, s: int, d: int) -> tuple[int, int]:
     their design's cost, not the function's."""
     nbytes = 4 * (9 * b * h * s * d + 2 * h * d)
     return (14 * d * d + 13 * d) * b * h * s, nbytes
+
+
+def _back_layout(d: int) -> tuple[int, int, int, int]:
+    """(rows a block R, blocks a head, threads, shared bytes) of the
+    sequential backward at head dim ``d`` (``back::Layout``)."""
+    nr, warps = BACK[d]
+    lanes = min(d, 32)
+    rows = warps * (32 // lanes) * nr
+    threads = 32 * warps
+    hist = SEGMENT * nr * (d // lanes) * threads
+    floats = (hist + 6 * SEGMENT * rows + 2 * SEGMENT * d + 2 * SEGMENT
+              + SEGMENT * warps * d)
+    return rows, d // rows, threads, 4 * floats
+
+
+def _tc_smem(which: str) -> int:
+    """Dynamic shared memory of a chunked kernel (``chunk::Smem``,
+    ``cback::CarrySmem``, ``cback::BackSmem`` in the source), and the 128
+    bytes of slack to align it."""
+    c, d = CHUNK, TC_HEAD_DIM
+    nq, nkf, ldq = c // 8, 12, NJ + 2
+    if which == "forward":
+        floats = (4 * c * LDR + 2 * c * NJ + 2 * c * LDR + 4 * 8 * 32
+                  + 3 * nq * d + nkf * d + d)
+        return 4 * floats + 16 * (c // 8 + d // 8) * 4 * ldq + 16 + 128
+    if which == "carry":
+        return 4 * (9 * c * LDR + 5 * d) + 128
+    return 4 * (11 * c * LDR + 3 * nq * d + 2 * nkf * d + 2 * d + c
+                + 12 * d) + 128
+
+
+def launch_plan(b: int, h: int, s: int, d: int, *, kernel: str,
+                state: bool = False, backward: bool = False
+                ) -> list[CapturedLaunch]:
+    """The launches ``wkv_cuda`` (``state``: given one, which it updates in
+    place) or, with ``backward``, ``wkv_backward_cuda`` makes over (b, h,
+    s, d) on ``kernel``, as the source's ``forward_plan``,
+    ``chunk_forward_plan``, ``back::plan``, ``cback::carry_plan`` and
+    ``cback::chunk_plan`` make them."""
+    f32 = torch.float32
+    bhsd = (b, h, s, d)
+
+    def per_head(name, block, at, written=False, shape=bhsd, alias=None):
+        """An operand of ``shape`` whose tile ``block`` the block at (x, y)
+        takes at (b, h) = divmod(y, h) and the rest ``at(x)``."""
+        return Tile(name, shape, f32, block,
+                    lambda x, y, z: divmod(y, h) + at(x), written, alias)
+
+    def head(name):
+        return per_head(name, (1, 1, s, d), lambda x: (0, 0))
+
+    u = Tile("u", (h, d), f32, (1, d), lambda x, y, z: (y % h, 0))
+    if not backward:
+        cols, threads = (NJ, TC_THREADS) if kernel == "tensor_core" else (
+            SEQ[d][1], SEQ[d][0] * SEQ[d][1])
+        ops = [head("r"), head("k"), head("lw"), u,
+               per_head("v", (1, 1, s, cols), lambda x: (0, x)),
+               per_head("out", (1, 1, s, cols), lambda x: (0, x), True)]
+        square = (b, h, d, d)
+        if state:
+            ops.append(per_head("state", (1, 1, d, cols), lambda x: (0, x),
+                                shape=square))
+        ops.append(per_head("final", (1, 1, d, cols), lambda x: (0, x), True,
+                            square, "state" if state else None))
+        grid = (d // cols, b * h, 1)
+        if kernel == "tensor_core":
+            return [CapturedLaunch("wkv_chunk_kernel", grid, (threads, 1, 1),
+                                   _tc_smem("forward"), True, threads, ops,
+                                   LIBRARY, (1, b, h, s, d, 0, 0, 0))]
+        return [CapturedLaunch("wkv_kernel", grid, (threads, 1, 1), 0, False,
+                               threads, ops, LIBRARY,
+                               (0, b, h, s, d, 0, 0, 0))]
+    if kernel == "tensor_core":
+        nc = -(-s // CHUNK)
+        states = (2, b * h, nc, d * d)
+        carry = CapturedLaunch(
+            "wkv_carry_kernel", (b * h, 2, 1), (TC_THREADS, 1, 1),
+            _tc_smem("carry"), True, TC_THREADS,
+            [head("r"), head("k"), head("v"), head("lw"), head("dout"),
+             Tile("states", states, f32, (1, 1, nc, d * d),
+                  lambda x, y, z: (y, x, 0, 0), written=True)],
+            LIBRARY, (3, b, h, s, d, 0, 0, 0))
+
+        def chunk(name, written=False, shape=bhsd, block=(1, 1, CHUNK, d)):
+            return Tile(name, shape, f32, block,
+                        lambda x, y, z: divmod(y, h) + (x, 0), written)
+
+        chunks = CapturedLaunch(
+            "wkv_chunk_backward_kernel", (nc, b * h, 1), (TC_THREADS, 1, 1),
+            _tc_smem("backward"), True, TC_THREADS,
+            [Tile("states", states, f32, states,
+                  lambda x, y, z: (0, 0, 0, 0)), u]
+            + [chunk(n) for n in ("r", "k", "v", "lw", "dout")]
+            + [chunk(n, True) for n in ("dr", "dk", "dv", "dlw")]
+            + [chunk("du", True, (b, h, nc, d), (1, 1, 1, d))],
+            LIBRARY, (4, b, h, s, d, 0, 0, 0))
+        return [carry, chunks]
+    rows, groups, threads, smem = _back_layout(d)
+    mine = (lambda x: (0, x))  # the block's rows of a head
+    return [CapturedLaunch(
+        "wkv_backward_kernel", (groups, b * h, 1), (threads, 1, 1), smem,
+        True, threads,
+        [per_head(n, (1, 1, s, rows), mine) for n in ("r", "k", "lw")]
+        + [head("v"), head("dout"), u]
+        + [per_head(n, (1, 1, s, rows), mine, True)
+           for n in ("dr", "dk", "dlw")]
+        + [Tile("dv", (groups, b, h, s, d), f32, (1, 1, 1, s, d),
+                lambda x, y, z: (x,) + divmod(y, h) + (0, 0), True),
+           per_head("du", (1, 1, rows), lambda x: (x,), True, (b, h, d))],
+        LIBRARY, (2, b, h, s, d, 0, 0, 0))]
+
+
+def _record(r, k, v, lw, u, state, kernel) -> None:
+    """The forward's launch on fake tensors, recorded."""
+    b, h, s, d = r.shape
+    kernel = kernel or kernel_for(s, d)
+    ops = (r, k, v, lw, u) + (() if state is None else (state,))
+    record_fake("wkv", *cost(b, h, s, d, state is not None), ops,
+                lambda: launch_plan(b, h, s, d, kernel=kernel,
+                                    state=state is not None))
 
 
 def kernel_for(s: int, head_dim: int) -> str:
@@ -208,7 +340,7 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if device < 0:
         if is_fake(r):
             b, h, s, d = r.shape
-            count_fake("wkv", *cost(b, h, s, d, state is not None))
+            _record(r, k, v, lw, u, state, kernel)
             return torch.empty_like(r), (
                 state if state is not None else torch.empty(
                     (b, h, d, d), dtype=torch.float32, device=r.device))
@@ -230,11 +362,18 @@ def wkv_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(r)
     final = (torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
              if state is None else state)
-    pr, pk, pv, pl, pu = (r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          lw.data_ptr(), u.data_ptr())
-    pf, po = final.data_ptr(), out.data_ptr()
-    if (pr | pk | pv | pl | pu | pf | po) % 16:
-        raise ValueError("the WKV kernel takes 16-byte aligned operands")
+    try:
+        pr, pk, pv, pl, pu = (r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              lw.data_ptr(), u.data_ptr())
+        pf, po = final.data_ptr(), out.data_ptr()
+    except RuntimeError:  # a fake tensor's, where reading it raises
+        pr = pk = pv = pl = pu = pf = po = 0
+    if (pr | pk | pv | pl | pu | pf | po) % 16 or not pr:
+        if is_fake(r):
+            _record(r, k, v, lw, u, state, kernel)
+            return out, final
+        if (pr | pk | pv | pl | pu | pf | po) % 16:
+            raise ValueError("the WKV kernel takes 16-byte aligned operands")
     _LAUNCH[kernel](device, _pack(pr, pk, pv, pl, pu,
                                   0 if state is None else pf, pf, po, b, h,
                                   s, d, *strides[:3], *out.stride()[:3]))
@@ -282,11 +421,7 @@ def wkv_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if dout.device != r.device:
             raise ValueError("the WKV operands must lie on one device")
         if is_fake(r):
-            b, h, s, d = r.shape
-            count_fake("wkv_backward", *backward_cost(b, h, s, d))
-            f32 = dict(dtype=torch.float32, device=r.device)
-            return tuple(torch.empty((b, h, s, d), **f32)
-                         for _ in range(4)) + (torch.empty((h, d), **f32),)
+            return _fake_backward(r, k, v, lw, u, dout, kernel)
         return wkv_backward_ref(r, k, v, lw, u, dout)
     if dout.get_device() != device:
         raise ValueError("the WKV operands must lie on one device")
@@ -296,6 +431,8 @@ def wkv_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif kernel == "tensor_core" and d != TC_HEAD_DIM:
         raise ValueError(f"the tensor-core WKV backward takes head dim "
                          f"{TC_HEAD_DIM}, got {d}")
+    if fake_on_card(r):
+        return _fake_backward(r, k, v, lw, u, dout, kernel)
     strides = r.stride()
     if k.stride() != strides or v.stride() != strides \
             or lw.stride() != strides or not _readable(strides):
@@ -330,6 +467,19 @@ def wkv_backward_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 wkv_backward_cuda.launches = 0
 wkv_backward_cuda.launches_tc = 0
+
+
+def _fake_backward(r, k, v, lw, u, dout, kernel):
+    """The backward on fake tensors: its launches recorded, fake
+    gradients."""
+    b, h, s, d = r.shape
+    kernel = kernel or kernel_for(s, d)
+    record_fake("wkv_backward", *backward_cost(b, h, s, d),
+                (r, k, v, lw, u, dout),
+                lambda: launch_plan(b, h, s, d, kernel=kernel, backward=True))
+    f32 = dict(dtype=torch.float32, device=r.device)
+    return tuple(torch.empty((b, h, s, d), **f32)
+                 for _ in range(4)) + (torch.empty((h, d), **f32),)
 
 
 def reset_launches() -> None:
